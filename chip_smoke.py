@@ -44,9 +44,17 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
-FLASH_TOL = {"bf16": 2e-2, "f32": 1e-5}     # O, abs; bf16: output rounding
+# Kernel vs plain. f32 outputs (f32 pages, int8 pages under an f32 query)
+# differ by accumulation order only: max |out - plain| <= ABS_TOL. A bf16
+# output, and the flash kernel's bf16 probabilities, round to 8 significant
+# bits, an error that scales with the output row; with N(0, 1) inputs a row
+# attending over thousands of keys is ~0.02 in size, so an absolute bound
+# would pass errors of tens of percent there. bf16 outputs are held per
+# output row (the d_head values of one token and head) instead:
+# ||out - plain||_2 / ||plain||_2 <= ROW_REL_TOL, about 5x the rounding.
+ABS_TOL = 1e-5
+ROW_REL_TOL = 1e-2
 LSE_TOL = 5e-5                              # f32 LSE ~10 in magnitude
-PAGED_TOL = {"bf16": 2e-2, "f32": 1e-5, "int8": 1e-5, "int8/bf16q": 2e-2}
 MODEL_TOL = 1e-3
 
 
@@ -79,6 +87,20 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def errors(out, ref):
+    """(max |out - ref|, max over output rows of ||out - ref|| / ||ref||),
+    rows along the last axis."""
+    diff = out.float() - ref
+    row_rel = diff.norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)
+    return diff.abs().max().item(), row_rel.max().item()
+
+
+def within_tolerance(abs_err: float, row_rel_err: float, bf16_out: bool):
+    if bf16_out:
+        return math.isfinite(row_rel_err) and row_rel_err <= ROW_REL_TOL
+    return math.isfinite(abs_err) and abs_err <= ABS_TOL
 
 
 def bound_ms(flops: float, nbytes: float, variant: str):
@@ -143,11 +165,12 @@ def flash_case(seq, heads, kv_heads, variant, generator):
     torch.cuda.synchronize()
     require(out.shape == q.shape and lse.shape == (heads, 1, seq),
             "flash output shapes")
-    err = (out.float() - ref_out).abs().max().item()
+    err, rel = errors(out, ref_out)
     lse_err = (lse - ref_lse).abs().max().item()
-    require(math.isfinite(err) and err <= FLASH_TOL[variant],
-            f"flash {variant} S={seq}: max |O - plain| {err} > "
-            f"{FLASH_TOL[variant]}")
+    require(within_tolerance(err, rel, variant == "bf16"),
+            f"flash {variant} S={seq}: max |O - plain| {err}, max row "
+            f"||O - plain|| / ||plain|| {rel}; tolerance "
+            f"{ROW_REL_TOL if variant == 'bf16' else ABS_TOL}")
     require(math.isfinite(lse_err) and lse_err <= LSE_TOL,
             f"flash {variant} S={seq}: max |LSE - plain| {lse_err} > {LSE_TOL}")
     del ref_out, ref_lse
@@ -165,11 +188,12 @@ def flash_case(seq, heads, kv_heads, variant, generator):
               + 4 * seq * heads)                   # q,k,v,o + lse
     bound, bound_by = bound_ms(flops, nbytes, variant)
     row = {"seq": seq, "heads": heads, "kv_heads": kv_heads, "d": d,
-           "max_abs_err": err, "lse_err": lse_err, "ms": kernel_ms,
+           "max_abs_err": err, "max_row_rel_err": rel, "lse_err": lse_err,
+           "ms": kernel_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound, "bound_by": bound_by}
     log(f"flash_fwd {variant} S={seq} H={heads} Hkv={kv_heads}: err {err:.3e} "
-        f"lse_err {lse_err:.3e} kernel {kernel_ms:.4f} ms plain "
+        f"row_rel {rel:.3e} lse_err {lse_err:.3e} kernel {kernel_ms:.4f} ms plain "
         f"{plain_ms:.4f} ms sdpa {library_ms:.4f} ms bound {bound:.4f} ms "
         f"({bound_by})")
     return row
@@ -233,9 +257,12 @@ def paged_case(variant, generator):
             "paged output shape/dtype")
     require(bool(torch.isfinite(out).all()), "paged output not finite")
     live_slots = [s for s in range(len(positions)) if s != parked]
-    err = (out.float() - ref)[live_slots].abs().max().item()
-    require(err <= PAGED_TOL[variant],
-            f"paged {variant}: max |out - plain| {err} > {PAGED_TOL[variant]}")
+    err, rel = errors(out[live_slots], ref[live_slots])
+    bf16_out = q_dtype == torch.bfloat16
+    require(within_tolerance(err, rel, bf16_out),
+            f"paged {variant}: max |out - plain| {err}, max row "
+            f"||out - plain|| / ||plain|| {rel}; tolerance "
+            f"{ROW_REL_TOL if bf16_out else ABS_TOL}")
     kernel_ms = cuda_ms(lambda: pa.paged_attention(
         q, k_pages, v_pages, page_table, pos, k_scales=k_scales,
         v_scales=v_scales), 50)
@@ -252,10 +279,11 @@ def paged_case(variant, generator):
     flops = 4.0 * heads * d * rows
     bound, bound_by = bound_ms(flops, nbytes,
                                "f32" if q_dtype == torch.float32 else "bf16")
-    row = {"slots": len(positions), "max_abs_err": err, "ms": kernel_ms,
+    row = {"slots": len(positions), "max_abs_err": err,
+           "max_row_rel_err": rel, "ms": kernel_ms,
            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound,
            "bound_by": bound_by}
-    log(f"paged_decode {variant}: err {err:.3e} kernel {kernel_ms:.4f} ms "
+    log(f"paged_decode {variant}: err {err:.3e} row_rel {rel:.3e} kernel {kernel_ms:.4f} ms "
         f"plain {plain_ms:.4f} ms bound {bound:.4f} ms ({bound_by})")
     return row
 
@@ -523,10 +551,11 @@ def kernel_report(kernels, runs):
         if name.startswith("flash"):
             row = next(r for r in rows if r["seq"] == 4095)
             err = max(r["max_abs_err"] for r in rows)
+            rel = max(r["max_row_rel_err"] for r in rows)
             source, replaces = flash_src, flash_tpu
         else:
             row = rows[0]
-            err = row["max_abs_err"]
+            err, rel = row["max_abs_err"], row["max_row_rel_err"]
             source = paged_src
             replaces = paged_tpu + (
                 "(quant=True)" if name.endswith("int8") else "(quant=False)")
@@ -534,10 +563,12 @@ def kernel_report(kernels, runs):
                 # the serving case: int8 pages under a bf16 query
                 row = kernels["paged_decode_int8/bf16q"][0]
                 err = max(err, row["max_abs_err"])
+                rel = max(rel, row["max_row_rel_err"])
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches.get(name, 0),
-            "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "max_abs_err": err, "max_row_rel_err": rel, "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
     return entries

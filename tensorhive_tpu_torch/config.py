@@ -26,7 +26,7 @@ class GenerationConfig:
     kv_pages: int = 0                # 0 = slots * ceil(max_len / page_size)
                                      # bytes' worth of pages
     paged_kernel: str = "auto"       # auto|on = the CUDA paged-attention
-                                     # kernel; off = the plain page gather
+                                     # kernel; off is refused
     kv_quant: str = "auto"           # int8 pages with per-(page, kv_head)
                                      # scales; auto = on for the paged layout
     prefix_cache: str = "auto"
@@ -37,5 +37,3 @@ class GenerationConfig:
     top_k: int = 0                   # 0 = no top-k sampling filter
     eos_token: int = -1              # -1 = no EOS, run to max_new_tokens
     max_concurrent_per_user: int = 4  # 0 = unlimited
-    use_flash: bool = True           # False: plain reference attention in
-                                     # prefill

@@ -36,8 +36,7 @@ def build_engine(generation: GenerationConfig, device: DeviceLike = None,
     model_config = PRESETS[generation.preset]
     max_len = generation.max_len or model_config.max_seq_len
     model_config = dataclasses.replace(
-        model_config, max_seq_len=max(max_len, model_config.max_seq_len),
-        use_flash=generation.use_flash)
+        model_config, max_seq_len=max(max_len, model_config.max_seq_len))
     if params is None:
         params = TransformerLM.init(model_config, device=device)
     engine = SlotEngine(

@@ -18,9 +18,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..ops import kv_quant as kvq
 from ..ops.flash_attention import flash_attention
-from ..ops.paged_attention import paged_attention
+from ..ops.paged_attention import decode_attention as _decode_attend
 from .transformer import (
     Params,
     TransformerConfig,
@@ -28,9 +27,6 @@ from .transformer import (
     _lm_head,
     _rmsnorm,
 )
-
-NEG_INF = -1e30
-
 
 class KVCache(NamedTuple):
     k: torch.Tensor          # [layers, B, max_len, Hkv, Dh] (or paged)
@@ -56,60 +52,6 @@ def init_cache(config: TransformerConfig, batch: int,
     shape = (config.n_layers, batch, max_len, config.kv_heads, config.d_head)
     return KVCache(k=torch.zeros(shape, dtype=config.dtype, device=device),
                    v=torch.zeros(shape, dtype=config.dtype, device=device))
-
-
-def _decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
-                   v_cache: torch.Tensor, position) -> torch.Tensor:
-    """q [B, 1, H, Dh]; caches [B, S, Hkv, Dh]; attend to key positions
-    <= ``position`` (an int, or a tensor broadcastable to [B,1,1,1,1]).
-    GQA attends against the unexpanded cache (head i uses kv head i //
-    group). Products accumulate in f32 from the cache's dtype; the
-    probabilities are rounded to the cache dtype before the value product,
-    as in the JAX function."""
-    batch, _, heads, d_head = q.shape
-    kv_heads = k_cache.shape[2]
-    group = heads // kv_heads
-    scale = d_head ** -0.5
-    q_grouped = q.reshape(batch, 1, kv_heads, group, d_head)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", q_grouped.to(torch.float32),
-                          k_cache.to(torch.float32)) * scale
-    key_positions = torch.arange(k_cache.shape[1], device=q.device)
-    mask = key_positions <= position
-    scores = torch.where(mask, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd",
-                       probs.to(v_cache.dtype).to(torch.float32),
-                       v_cache.to(torch.float32))
-    return out.reshape(batch, 1, heads, d_head).to(q.dtype)
-
-
-def _paged_attend(q, k_pages, v_pages, page_table, positions,
-                  use_kernel: bool = False, k_scales=None, v_scales=None):
-    """Paged decode attention, two dispatches behind one signature:
-
-    * ``use_kernel=False``, the gather path: gather each slot's pages into
-      logical order (dequantizing int8 pages to q's dtype), then the masked
-      grouped math of :func:`_decode_attend`. Entries past a slot's
-      position (trash or unassigned pages) are masked to probability 0.
-    * ``use_kernel=True``: :func:`~tensorhive_tpu_torch.ops.paged_attention.
-      paged_attention`, the CUDA kernel for CUDA tensors (its plain version,
-      this gather, for CPU tensors).
-
-    q [S, 1, H, Dh]; pages [num_pages, page_size, Hkv, Dh] (one layer);
-    page_table [S, max_pages] int32; positions [S] int32."""
-    if use_kernel:
-        return paged_attention(q, k_pages, v_pages, page_table, positions,
-                               k_scales=k_scales, v_scales=v_scales)
-    num_slots, max_pages = page_table.shape
-    window = max_pages * k_pages.shape[1]
-    if k_scales is not None:
-        k = kvq.dequant_gather(k_pages, k_scales, page_table, q.dtype)
-        v = kvq.dequant_gather(v_pages, v_scales, page_table, q.dtype)
-    else:
-        table = page_table.long()
-        k = k_pages[table].reshape(num_slots, window, *k_pages.shape[2:])
-        v = v_pages[table].reshape(num_slots, window, *v_pages.shape[2:])
-    return _decode_attend(q, k, v, positions[:, None, None, None, None])
 
 
 def apply_step(params: Params, token: torch.Tensor, cache: KVCache,

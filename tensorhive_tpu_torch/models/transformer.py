@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from ..ops.flash_attention import flash_attention, reference_attention
+from ..ops.flash_attention import flash_attention
 
 Params = Dict[str, Any]
 
@@ -48,8 +48,6 @@ class TransformerConfig:
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16   # activation/matmul dtype
     rope_theta: float = 10_000.0
-    #: flash kernel for prompt attention (False: the plain reference)
-    use_flash: bool = True
     #: grouped-query attention: number of K/V heads (None = n_heads)
     n_kv_heads: Optional[int] = None
     causal: bool = True
@@ -258,10 +256,8 @@ class TransformerLM(nn.Module):
 
         def attend(q, k, v):
             # GQA is native in the kernel (KV head h // group, no expanded
-            # copy); the plain reference expands internally
-            if config.use_flash:
-                return flash_attention(q, k, v, causal=config.causal)
-            return reference_attention(q, k, v, causal=config.causal)
+            # copy); the plain version on CPU tensors expands internally
+            return flash_attention(q, k, v, causal=config.causal)
 
         for block in params["blocks"]:
             x = TransformerLM.block_forward(x, block, config, positions,

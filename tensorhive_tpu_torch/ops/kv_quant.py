@@ -14,8 +14,11 @@ Two differences in form, none in values:
   ``pages_i8``/``scales`` IN PLACE (and return them), so the engine writes
   one layer's pages of its cache without copying the layer.
 * JAX drops out-of-range scatter indices (``mode="drop"``); torch has no
-  such mode, so the indices are masked before ``index_put_`` and a dropped
-  write touches no physical page. Duplicate page ids only ever name the
+  such mode. ``row_merge`` masks its indices before ``index_put_``, so a
+  dropped write touches no physical page. ``step_write`` takes only page
+  ids in range — the serving step's, read from page-table rows — so it
+  needs no data-dependent mask, whose ``nonzero`` would make the device
+  report back to the host mid-step. Duplicate page ids only ever name the
   trash page (parked slots), where any winner is fine.
 """
 from __future__ import annotations
@@ -67,23 +70,9 @@ def step_write(pages_i8: torch.Tensor, scales: torch.Tensor,
     place. ``pages_i8`` [P, ps, Hkv, Dh] int8 and ``scales`` [P, Hkv] f32
     are one layer; ``page_ids``/``offsets`` [S]; ``values`` [S, Hkv, Dh].
     Each touched page is dequantized, the position inserted, the running-
-    max scale updated and the whole page requantized; out-of-range
-    ``page_ids`` drop."""
-    page_ids = page_ids.long()
-    kept = ((page_ids >= 0) & (page_ids < pages_i8.shape[0])
-            ).nonzero().squeeze(1)
-    return step_write_in_range(pages_i8, scales, page_ids[kept],
-                               offsets[kept], values[kept])
-
-
-def step_write_in_range(pages_i8: torch.Tensor, scales: torch.Tensor,
-                        page_ids: torch.Tensor, offsets: torch.Tensor,
-                        values: torch.Tensor
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`step_write` for page ids that all lie in ``[0, P)`` — the
-    serving step's, read from page-table rows. Nothing to drop means no
-    data-dependent mask, so the device never has to report back to the
-    host mid-step."""
+    max scale updated and the whole page requantized. Every page id must
+    lie in ``[0, P)``: the JAX function's dropped writes are the caller's
+    to leave out."""
     page_ids = page_ids.long()
     offsets = offsets.long()
     slot = torch.arange(page_ids.shape[0], device=page_ids.device)

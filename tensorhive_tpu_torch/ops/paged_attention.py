@@ -5,9 +5,10 @@
 ``csrc/paged_decode.cu`` for CUDA tensors: one query token per slot
 against that slot's KV pages, read through its page-table row with an
 online softmax, for bf16/f32 pages and for int8 pages with per-(page,
-kv_head) f32 scales. For CPU tensors it runs its plain version, the page
-gather of ``models/decode._paged_attend`` (gather, dequantize, masked
-grouped softmax) — there is no fallback for CUDA tensors.
+kv_head) f32 scales. For CPU tensors it runs its plain version,
+``paged_attention_reference`` (the JAX package's page gather: gather,
+dequantize, masked grouped softmax) — there is no fallback for CUDA
+tensors.
 
 ``launches`` counts kernel launches per page type; the kernel-vs-plain
 checks call ``paged_attention_reference`` directly and do not count.
@@ -20,6 +21,9 @@ from typing import Dict, Optional
 import torch
 
 from . import cuda_build
+from . import kv_quant as kvq
+
+NEG_INF = -1e30
 
 #: kernel launches per page element type (the main-path counters)
 launches: Dict[str, int] = {"bf16": 0, "f32": 0, "int8": 0}
@@ -32,25 +36,64 @@ _GROUPS = (1, 2, 4, 8)
 
 
 def resolve_paged_kernel(mode: str) -> str:
-    """Resolve the ``paged_kernel`` knob to the decode dispatch: ``on`` and
-    ``auto`` -> ``"cuda"`` (the kernel, for bf16/f32 and int8 pages alike;
-    on CPU tensors its plain version runs), ``off`` -> ``"gather"`` (the
-    plain page gather, an explicit operator choice). The JAX package's
-    ``auto`` keeps the gather under int8 on the strength of a TPU
-    measurement, which does not carry over to this card."""
+    """Resolve the ``paged_kernel`` knob: ``on`` and ``auto`` -> ``"cuda"``,
+    the kernel for bf16/f32 and int8 pages alike (CPU tensors run its plain
+    version). The JAX package's ``auto`` keeps its XLA gather under int8 on
+    the strength of a TPU measurement, which does not carry over to this
+    card; ``off`` (that gather as an operator choice) would run the plain
+    version on the card and is refused."""
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"paged_kernel must be auto|on|off, got {mode!r}")
-    return "gather" if mode == "off" else "cuda"
+    if mode == "off":
+        raise ValueError(
+            "paged_kernel='off' (the plain page gather) is not offered by "
+            "tensorhive_tpu_torch: decode always runs the CUDA "
+            "paged-attention kernel; use auto or on")
+    return "cuda"
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, position) -> torch.Tensor:
+    """Masked grouped decode attention over a contiguous cache — the JAX
+    package's ``models/decode._decode_attend``. q [B, 1, H, Dh]; caches
+    [B, S, Hkv, Dh]; attend to key positions <= ``position`` (an int, or a
+    tensor broadcastable to [B,1,1,1,1]). GQA attends against the
+    unexpanded cache (head i uses kv head i // group). Products accumulate
+    in f32 from the cache's dtype; the probabilities are rounded to the
+    cache dtype before the value product, as in the JAX function."""
+    batch, _, heads, d_head = q.shape
+    kv_heads = k_cache.shape[2]
+    group = heads // kv_heads
+    scale = d_head ** -0.5
+    q_grouped = q.reshape(batch, 1, kv_heads, group, d_head)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q_grouped.to(torch.float32),
+                          k_cache.to(torch.float32)) * scale
+    key_positions = torch.arange(k_cache.shape[1], device=q.device)
+    mask = key_positions <= position
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd",
+                       probs.to(v_cache.dtype).to(torch.float32),
+                       v_cache.to(torch.float32))
+    return out.reshape(batch, 1, heads, d_head).to(q.dtype)
 
 
 def paged_attention_reference(q, k_pages, v_pages, page_table, positions,
                               k_scales=None, v_scales=None) -> torch.Tensor:
-    """The plain version: ``models/decode._paged_attend``'s gather path."""
-    from ..models.decode import _paged_attend
-
-    return _paged_attend(q, k_pages, v_pages, page_table, positions,
-                         use_kernel=False, k_scales=k_scales,
-                         v_scales=v_scales)
+    """The plain version, the JAX package's page-gather path: gather each
+    slot's pages into logical order (dequantizing int8 pages to q's dtype),
+    then :func:`decode_attention`. Entries past a slot's position (trash or
+    unassigned pages) are masked to probability 0."""
+    num_slots, max_pages = page_table.shape
+    window = max_pages * k_pages.shape[1]
+    if k_scales is not None:
+        k = kvq.dequant_gather(k_pages, k_scales, page_table, q.dtype)
+        v = kvq.dequant_gather(v_pages, v_scales, page_table, q.dtype)
+    else:
+        table = page_table.long()
+        k = k_pages[table].reshape(num_slots, window, *k_pages.shape[2:])
+        v = v_pages[table].reshape(num_slots, window, *v_pages.shape[2:])
+    return decode_attention(q, k, v, positions[:, None, None, None, None])
 
 
 def _library() -> ctypes.CDLL:

@@ -16,9 +16,8 @@ method for method; the device side is eager PyTorch:
   the same end.
 * Prefill runs the trunk over the bucketed prompt head with the CUDA
   flash-forward kernel; the decode step attends through the page table
-  with the CUDA paged-attention kernel (``paged_kernel`` on/auto), or the
-  plain page gather (``off``). CPU tensors run each kernel's plain
-  version.
+  with the CUDA paged-attention kernel. CPU tensors run each kernel's
+  plain version.
 * Parked slots keep stepping, masked: their position is 0 and their
   page-table row points at the trash page, so their garbage writes land
   where no live sequence reads.
@@ -48,7 +47,6 @@ from ..models.decode import (
     KVCache,
     QuantKVCache,
     _gumbel,
-    _paged_attend,
     _prefill_bucket,
 )
 from ..models.transformer import (
@@ -59,8 +57,8 @@ from ..models.transformer import (
     _rmsnorm,
 )
 from ..ops import kv_quant as kvq
-from ..ops.flash_attention import flash_attention, reference_attention
-from ..ops.paged_attention import resolve_paged_kernel
+from ..ops.flash_attention import flash_attention
+from ..ops.paged_attention import paged_attention, resolve_paged_kernel
 from . import EngineDrainingError, QueueFullError, RateLimitError
 from .paging import PagePool
 
@@ -97,8 +95,8 @@ def _paged_step_body(params: Params, tokens: torch.Tensor,
                      positions: torch.Tensor, active: torch.Tensor,
                      temps: torch.Tensor, page_tables: torch.Tensor,
                      cache, generator: torch.Generator,
-                     config: TransformerConfig, top_k: Optional[int],
-                     use_kernel: bool) -> torch.Tensor:
+                     config: TransformerConfig,
+                     top_k: Optional[int]) -> torch.Tensor:
     """One decode step over the paged cache for the whole slot batch:
     each slot consumes the token AT its position, writes that position's
     K/V to ``(page_tables[s, pos // page_size], pos % page_size)`` in place
@@ -116,17 +114,17 @@ def _paged_step_body(params: Params, tokens: torch.Tensor,
         if quant:
             # page-table entries are always physical pages (trash
             # included): nothing can drop
-            kvq.step_write_in_range(cache.k[layer], cache.k_scale[layer],
-                                    pages, offsets, k[:, 0])
-            kvq.step_write_in_range(cache.v[layer], cache.v_scale[layer],
-                                    pages, offsets, v[:, 0])
+            kvq.step_write(cache.k[layer], cache.k_scale[layer], pages,
+                           offsets, k[:, 0])
+            kvq.step_write(cache.v[layer], cache.v_scale[layer], pages,
+                           offsets, v[:, 0])
         else:
             cache.k[layer][pages, offsets] = k[:, 0].to(cache.k.dtype)
             cache.v[layer][pages, offsets] = v[:, 0].to(cache.v.dtype)
-        return _paged_attend(q, cache.k[layer], cache.v[layer], page_tables,
-                             positions, use_kernel=use_kernel,
-                             k_scales=cache.k_scale[layer] if quant else None,
-                             v_scales=cache.v_scale[layer] if quant else None)
+        return paged_attention(
+            q, cache.k[layer], cache.v[layer], page_tables, positions,
+            k_scales=cache.k_scale[layer] if quant else None,
+            v_scales=cache.v_scale[layer] if quant else None)
 
     for layer_index, block in enumerate(params["blocks"]):
         x = TransformerLM.block_forward(x, block, config, rope_positions,
@@ -168,9 +166,7 @@ def _paged_prefill_body(params: Params, head: torch.Tensor, cache,
         else:
             cache.k[layer][pages, offsets] = k[0, :real_len].to(cache.k.dtype)
             cache.v[layer][pages, offsets] = v[0, :real_len].to(cache.v.dtype)
-        if config.use_flash:
-            return flash_attention(q, k, v, causal=True)
-        return reference_attention(q, k, v, causal=True)
+        return flash_attention(q, k, v, causal=True)
 
     for layer_index, block in enumerate(params["blocks"]):
         x = TransformerLM.block_forward(x, block, config, positions, attend,
@@ -332,7 +328,6 @@ class SlotEngine:
         self.kv_quant = kvq.resolve_kv_quant(kv_quant, self.paged)
         self._quant = self.kv_quant == "on"
         self.paged_kernel = resolve_paged_kernel(paged_kernel)
-        self._use_kernel = self.paged_kernel == "cuda"
         self._draining = False
 
         self._lock = threading.Lock()
@@ -535,8 +530,7 @@ class SlotEngine:
             self.params, self._operand(self._tokens),
             self._operand(self._positions), self._operand(self._active),
             self._operand(self._temps), self._operand(self._pool.page_table),
-            self._cache, self._generator, self.config, self.top_k,
-            self._use_kernel)
+            self._cache, self._generator, self.config, self.top_k)
 
     def _admit(self) -> int:
         """Move pending requests into free slots (head of line first; a

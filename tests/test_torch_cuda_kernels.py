@@ -8,9 +8,11 @@ where JAX is not installed, run them without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 (``chip_smoke.py`` covers the main path's shapes, the 7b heads.) Tolerances:
-f32 1e-5 abs (accumulation order only); bf16 2e-2 abs against the f32
-plain version on the same bf16 values (the kernel rounds its output, and
-the flash kernel its probabilities, to bf16).
+f32 outputs 1e-5 abs (accumulation order only). bf16 outputs against the
+f32 plain version on the same bf16 values: the kernel rounds its output,
+and the flash kernel its probabilities, to bf16, an error that scales with
+the output row, so each row (the d_head values of one token and head) is
+held to ||out - plain||_2 / ||plain||_2 <= 1e-2.
 """
 import dataclasses
 
@@ -23,7 +25,8 @@ from tensorhive_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
 
-TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+ABS_TOL = 1e-5
+ROW_REL_TOL = 1e-2
 LSE_TOL = 5e-5
 
 
@@ -33,6 +36,15 @@ def device():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def assert_close_to_plain(out, ref):
+    diff = out.float() - ref
+    if out.dtype == torch.bfloat16:
+        row_rel = diff.norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)
+        assert row_rel.max().item() <= ROW_REL_TOL
+    else:
+        assert diff.abs().max().item() <= ABS_TOL
 
 
 def normal(generator, shape, dtype):
@@ -59,7 +71,7 @@ def test_flash_kernel_matches_plain(device, dtype, d, heads, kv_heads,
     torch.cuda.synchronize()
     assert fa.launches[variant] == before + 1
     assert out.shape == q.shape and out.dtype == dtype
-    assert (out.float() - ref).abs().max().item() <= TOL[dtype]
+    assert_close_to_plain(out, ref)
     assert (lse - ref_lse).abs().max().item() <= LSE_TOL
 
 
@@ -119,7 +131,7 @@ def test_paged_kernel_matches_plain(device, variant, d, heads, kv_heads,
     assert out.shape == q.shape and out.dtype == q_dtype
     assert bool(torch.isfinite(out).all())
     # slot 0 is parked: its output is finite garbage by contract
-    assert (out.float() - ref)[1:].abs().max().item() <= TOL[q_dtype]
+    assert_close_to_plain(out[1:], ref[1:])
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(device):

@@ -8,8 +8,8 @@ is held to. Tables hold trash entries past each slot's window, positions
 sit at 0 (a parked slot on the trash page), at page boundaries and at the
 last position; pages are f32 or int8 with per-(page, kv_head) scales. The
 outputs agree within 1e-6 abs (accumulation order only; the JAX tests
-accept ~1e-7 between its kernel and its gather). The port's gather path
-(``_paged_attend(use_kernel=False)``) is held to the JAX gather too.
+accept ~1e-7 between its kernel and its gather). The port's plain version
+(``paged_attention_reference``) is held to the JAX gather too.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,10 +20,10 @@ from tensorhive_tpu.models import decode as jax_decode
 from tensorhive_tpu.ops.paged_attention import (
     paged_attention as jax_paged_attention,
 )
-from tensorhive_tpu_torch.models import decode
 from tensorhive_tpu_torch.ops import paged_attention as paged_module
 from tensorhive_tpu_torch.ops.paged_attention import (
     paged_attention,
+    paged_attention_reference,
     resolve_paged_kernel,
 )
 
@@ -81,9 +81,9 @@ def test_plain_version_matches_jax_kernel(quant, kv_heads, heads, page_size):
     assert out.shape == tq.shape and out.dtype == torch.float32
     assert np.isfinite(out.numpy()).all()
     np.testing.assert_allclose(out.numpy(), expected, atol=TOL, rtol=0)
-    # the gather dispatch against the JAX gather dispatch
-    gather = decode._paged_attend(tq, tk, tv, ttable, tpos, use_kernel=False,
-                                  k_scales=tks, v_scales=tvs)
+    # the plain version against the JAX gather dispatch
+    gather = paged_attention_reference(tq, tk, tv, ttable, tpos,
+                                       k_scales=tks, v_scales=tvs)
     jax_gather = jax_decode._paged_attend(q, k, v, table, positions,
                                           use_kernel=False, k_scales=k_scales,
                                           v_scales=v_scales)
@@ -94,6 +94,8 @@ def test_plain_version_matches_jax_kernel(quant, kv_heads, heads, page_size):
 def test_resolve_paged_kernel_knob():
     assert resolve_paged_kernel("on") == "cuda"
     assert resolve_paged_kernel("auto") == "cuda"
-    assert resolve_paged_kernel("off") == "gather"
+    # the plain gather as an operator choice would run it on the card
+    with pytest.raises(ValueError, match="paged_kernel='off'"):
+        resolve_paged_kernel("off")
     with pytest.raises(ValueError, match="paged_kernel"):
         resolve_paged_kernel("pallas")

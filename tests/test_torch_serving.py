@@ -99,14 +99,19 @@ def test_port_engine_matches_jax_engine(kv_quant, kv_heads):
 
 @pytest.mark.parametrize("paged_kernel", ["on", "off"])
 def test_build_engine_serves_on_cpu(paged_kernel):
+    generation = GenerationConfig(preset="tiny", max_len=64, slots=2,
+                                  paged_kernel=paged_kernel)
+    if paged_kernel == "off":
+        # the plain page gather is no operator choice: decode runs the
+        # kernel (its plain version only for CPU tensors)
+        with pytest.raises(ValueError, match="paged_kernel='off'"):
+            build_engine(generation, device="cpu")
+        return
     before = dict(flash_module.launches)
-    engine = build_engine(GenerationConfig(preset="tiny", max_len=64, slots=2,
-                                           paged_kernel=paged_kernel),
-                          device="cpu")
+    engine = build_engine(generation, device="cpu")
     # CPU tensors take the plain versions: no kernel launch is counted
     assert flash_module.launches == before
-    assert engine.stats()["pagedKernel"] == (
-        "cuda" if paged_kernel == "on" else "gather")
+    assert engine.stats()["pagedKernel"] == "cuda"
     assert engine.stats()["kvQuant"] == "on"
     # warmup: the buckets of (16, max_len // 2) and one step
     assert engine.prefills == 2 and engine.step_dispatches == 1
