@@ -7,14 +7,27 @@ CUDA card of compute capability 9.0 and builds the kernels itself (nvcc,
 into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
 
 1. device   — CUDA sm_90 present; prints the card's name and power limit.
-2. build    — both kernels compiled from csrc/, one nvcc each, in parallel.
+2. build    — the three kernel libraries compiled from csrc/, one nvcc
+              each, in parallel.
 3. kernels  — every kernel variant against its plain PyTorch version at
-              the serving path's shapes (7b heads: H 32, Hkv 8, d 128),
-              timed beside its bound and, for flash, PyTorch's
-              scaled_dot_product_attention (timed here only).
+              the main paths' shapes (serving: 7b heads, H 32, Hkv 8,
+              d 128; training: the t2t-base and t2t-big attention, the 7b
+              heads and a ragged S 4095 for the flash backward), timed
+              beside its bound and, for flash, PyTorch's
+              scaled_dot_product_attention and its backward (timed here
+              only).
 4. model    — a 2-layer model at 7b widths in f32: logits on the card
               (flash kernel) against the CPU (plain reference).
-5. serving  — the main path: the full 7b preset served through
+5. training — the training path, train_loop / make_train_step with the
+              flash forward and backward kernels: a 2-layer t2t-base-width
+              f32 model, 3 steps on the card against the same steps on the
+              CPU; t2t-base at b64 x s1024 (remat off) and t2t-big at
+              b8 x s4096 (remat "mlp"), bf16 compute on f32 masters, on a
+              fixed batch whose loss must fall; launch counters exact
+              (flash forward = layers x steps, twice under "block" remat;
+              backward = layers x steps); a torch.profiler window over two
+              t2t-base steps (device time by kind of kernel, busy share).
+6. serving  — the main path: the full 7b preset served through
               build_engine -> SlotEngine.submit -> pump -> result, paged
               with int8 pages (the default), then with bf16 pages, then
               the f32 model with f32 pages; launch counters must equal
@@ -56,6 +69,21 @@ ABS_TOL = 1e-5
 ROW_REL_TOL = 1e-2
 LSE_TOL = 5e-5                              # f32 LSE ~10 in magnitude
 MODEL_TOL = 1e-3
+# Flash backward vs plain, per gradient row (the d_head values of one token
+# and head): ||grad - plain||_2 / ||plain||_2 <= GRAD_ROW_TOL. The plain
+# version rounds P and dS to bf16 where the kernel does; bf16 rows differ
+# by the output rounding and rare rounding flips, f32 rows by the summation
+# order. The one row that is zero in exact arithmetic — dq of the first
+# query under the causal mask, whose softmax sees one key — is noise on
+# both sides and is held to GRAD_ROW_TOL x the largest dq row norm instead.
+GRAD_ROW_TOL = {"bf16": 1e-2, "f32": 2e-5}
+# Training on the card vs the CPU (f32 both): loss and pre-clip grad norm
+# within TRAIN_REL_TOL (measured 1.2e-6); params on average per leaf within
+# 1e-3 of the summed learning rates. No bound on the largest element: Adam
+# moves an element whose gradient is rounding noise by up to a full
+# learning rate either way, so two correct runs can differ there by twice
+# the summed rates.
+TRAIN_REL_TOL = 1e-5
 
 
 def log(message: str) -> None:
@@ -103,6 +131,22 @@ def within_tolerance(abs_err: float, row_rel_err: float, bf16_out: bool):
     return math.isfinite(abs_err) and abs_err <= ABS_TOL
 
 
+def grad_errors(grad, ref, first_row_zero):
+    """(max |grad - ref|, max row-relative error, rows under 1% of the
+    largest row norm) of one [B, S, H, D] gradient. With
+    ``first_row_zero`` the rows of token 0 are held against the largest
+    row norm (they are zero in exact arithmetic)."""
+    diff = grad.float() - ref.float()
+    norms = ref.float().norm(dim=-1)
+    largest = norms.max()
+    require(largest.item() > 0, "the plain gradient is all zeros")
+    rel = diff.norm(dim=-1) / norms.clamp_min(1e-30)
+    if first_row_zero:
+        rel[:, 0] = diff[:, 0].norm(dim=-1) / largest
+    small = int((norms < 1e-2 * largest).sum().item())
+    return diff.abs().max().item(), rel.max().item(), small
+
+
 def bound_ms(flops: float, nbytes: float, variant: str):
     op_ms = flops / PEAK_FLOPS[variant] * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -144,6 +188,11 @@ def phase_build():
 
 
 # -- phase 3 ------------------------------------------------------------------
+
+#: (batch, seq, heads, kv_heads, d) of the flash backward checks: the
+#: t2t-base and t2t-big training attention, the 7b heads (GQA), ragged S
+BACKWARD_SHAPES = ((64, 1024, 8, 8, 64), (8, 4096, 16, 16, 64),
+                   (1, 4096, 32, 8, 128), (1, 4095, 32, 8, 128))
 
 def flash_case(seq, heads, kv_heads, variant, generator):
     import torch
@@ -196,6 +245,99 @@ def flash_case(seq, heads, kv_heads, variant, generator):
         f"row_rel {rel:.3e} lse_err {lse_err:.3e} kernel {kernel_ms:.4f} ms plain "
         f"{plain_ms:.4f} ms sdpa {library_ms:.4f} ms bound {bound:.4f} ms "
         f"({bound_by})")
+    return row
+
+
+def plain_backward(q, k, v, out, lse, do, delta):
+    """The plain backward over batch chunks whose score matrices stay near
+    2 GB (the function is independent per batch element)."""
+    import torch
+
+    from tensorhive_tpu_torch.ops import flash_attention as fa
+
+    batch, seq, heads, _ = q.shape
+    chunk = max(1, (2 << 30) // (heads * seq * seq * 4))
+    lse = lse.reshape(batch, heads, 1, seq)
+    delta = delta.reshape(batch, heads, 1, seq)
+    parts = []
+    for start in range(0, batch, chunk):
+        rows = slice(start, start + chunk)
+        n = q[rows].shape[0]
+        parts.append(fa.flash_attention_backward_reference(
+            q[rows], k[rows], v[rows], out[rows],
+            lse[rows].reshape(n * heads, 1, seq), do[rows], causal=True,
+            delta=delta[rows].reshape(n * heads, 1, seq)))
+    return [torch.cat(grads) for grads in zip(*parts)]
+
+
+def flash_backward_case(batch, seq, heads, kv_heads, d, variant, generator):
+    """Both backward kernels (dQ, dK/dV) against the plain backward on the
+    same inputs, per gradient; timed beside the bound, the plain version
+    and the backward of PyTorch's scaled_dot_product_attention (its
+    forward excluded)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tensorhive_tpu_torch.ops import flash_attention as fa
+
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[variant]
+
+    def draw(h):
+        return torch.randn((batch, seq, h, d), generator=generator,
+                           device="cuda", dtype=torch.float32).to(dtype)
+
+    q, k, v, do = draw(heads), draw(kv_heads), draw(kv_heads), draw(heads)
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    delta = fa.flash_bwd_delta(do, out)
+    grads = fa.flash_attention_backward(q, k, v, out, lse, do, causal=True,
+                                        delta=delta)
+    refs = plain_backward(q, k, v, out, lse, do, delta)
+    torch.cuda.synchronize()
+    label = (f"flash_bwd {variant} B={batch} S={seq} H={heads} "
+             f"Hkv={kv_heads} d={d}")
+    worst = [0.0, 0.0]
+    per_grad = []
+    for grad, ref, like, name in zip(grads, refs, (q, k, v), "qkv"):
+        require(grad.shape == like.shape and grad.dtype == dtype,
+                f"{label}: d{name} shape/dtype")
+        require(bool(torch.isfinite(grad).all()), f"{label}: d{name} not "
+                f"finite")
+        err, rel, small = grad_errors(grad, ref, first_row_zero=name == "q")
+        require(math.isfinite(rel) and rel <= GRAD_ROW_TOL[variant],
+                f"{label}: d{name} max row ||g - plain|| / ||plain|| "
+                f"{rel} > {GRAD_ROW_TOL[variant]}")
+        worst = [max(worst[0], err), max(worst[1], rel)]
+        per_grad.append(f"d{name} {rel:.2e} ({small} rows < 1% of the "
+                        f"largest)")
+    del grads, refs
+    big = batch * heads * seq * seq * d > 2 ** 34
+    reps = 3 if variant == "f32" or big else 10
+    kernel_ms = cuda_ms(lambda: fa.flash_attention_backward(
+        q, k, v, out, lse, do, causal=True, delta=delta), reps)
+    plain_ms = cuda_ms(lambda: plain_backward(q, k, v, out, lse, do, delta),
+                       1, warmup=1)
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(
+        *leaves, is_causal=True, enable_gqa=kv_heads != heads)
+    grad_out = do.transpose(1, 2)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        sdpa_out, leaves, grad_out, retain_graph=True), reps)
+    del sdpa_out, leaves
+    itemsize = q.element_size()
+    flops = 5.0 * seq * seq * heads * d * batch    # causal: 5 products / 2
+    nbytes = (4 * batch * seq * (heads + kv_heads) * d * itemsize
+              + 2 * 4 * batch * heads * seq)          # + lse, delta
+    bound, bound_by = bound_ms(flops, nbytes, variant)
+    row = {"batch": batch, "seq": seq, "heads": heads, "kv_heads": kv_heads,
+           "d": d, "max_abs_err": worst[0], "max_row_rel_err": worst[1],
+           "ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound, "bound_by": bound_by}
+    log(f"{label}: err {worst[0]:.3e} row_rel {worst[1]:.3e} kernel "
+        f"{kernel_ms:.4f} ms plain {plain_ms:.4f} ms "
+        f"sdpa bwd {library_ms:.4f} ms bound {bound:.4f} ms ({bound_by})")
+    log(f"  row_rel by gradient: {'; '.join(per_grad)}")
+    torch.cuda.empty_cache()
     return row
 
 
@@ -301,6 +443,10 @@ def phase_kernels():
         torch.cuda.empty_cache()
     for variant in ("bf16", "f32", "int8", "int8/bf16q"):
         results[f"paged_decode_{variant}"] = [paged_case(variant, generator)]
+    for variant in ("bf16", "f32"):
+        results[f"flash_bwd_{variant}"] = [
+            flash_backward_case(*shape, variant, generator)
+            for shape in BACKWARD_SHAPES]
     return results
 
 
@@ -335,6 +481,226 @@ def phase_model():
 
 # -- phase 5 ------------------------------------------------------------------
 
+def reset_flash_counters():
+    from tensorhive_tpu_torch.ops import flash_attention as fa
+
+    for key in fa.launches:
+        fa.launches[key] = 0
+
+
+def check_training_launches(label, config, steps, variant):
+    """Flash forward = layers x steps (twice under "block" remat: the
+    backward re-runs the block), backward = layers x steps; nothing else."""
+    from tensorhive_tpu_torch.ops import flash_attention as fa
+
+    counts = dict(fa.launches)
+    reruns = 2 if config.remat and config.remat_policy == "block" else 1
+    expected = {key: 0 for key in counts}
+    expected[variant] = config.n_layers * steps * reruns
+    expected[f"bwd_{variant}"] = config.n_layers * steps
+    require(counts == expected, f"{label}: flash launches {counts}, "
+            f"expected {expected}")
+    log(f"  launches: {counts} = {config.n_layers} layers x {steps} steps"
+        + (" x 2 (block remat)" if reruns == 2 else ""))
+    return counts
+
+
+def training_parity():
+    """A 2-layer model at t2t-base widths in f32 under "block" remat: 3
+    steps of make_train_step on the card against the same steps on the CPU
+    from the same params and tokens."""
+    import dataclasses
+
+    import torch
+
+    from tensorhive_tpu_torch import train
+    from tensorhive_tpu_torch.models.transformer import PRESETS
+
+    config = dataclasses.replace(PRESETS["t2t-base"], n_layers=2,
+                                 dtype=torch.float32, remat=True,
+                                 remat_policy="block")
+    tc = train.TrainConfig(batch_size=4, seq_len=256, warmup_steps=1,
+                           total_steps=10, learning_rate=1e-3)
+    optimizer = train.make_optimizer(tc)
+    cpu_params, cpu_opt = train.init_train_state(
+        config, tc, torch.Generator().manual_seed(11), device="cpu")
+    card_params = train.tree_map(lambda t: t.to("cuda", copy=True),
+                                 cpu_params)
+    card_opt = optimizer.init(card_params)
+    start = train.tree_map(lambda t: t.clone(), cpu_params)
+    tokens = train.synthetic_batch(torch.Generator().manual_seed(12), tc,
+                                   config.vocab_size, device="cpu")
+    cpu_step = train.make_train_step(config, tc)
+    card_step = train.make_train_step(config, tc)
+    reset_flash_counters()
+    lr_sum, worst = 0.0, 0.0
+    for index in range(3):
+        card_params, card_opt, card = card_step(card_params, card_opt,
+                                                tokens.to("cuda"))
+        cpu_params, cpu_opt, cpu = cpu_step(cpu_params, cpu_opt, tokens)
+        for key in ("loss", "grad_norm"):
+            a, b = float(card[key]), float(cpu[key])
+            rel = abs(a - b) / abs(b)
+            worst = max(worst, rel)
+            require(math.isfinite(a) and rel <= TRAIN_REL_TOL,
+                    f"training parity step {index + 1}: {key} card {a} vs "
+                    f"cpu {b} (rel {rel:.2e} > {TRAIN_REL_TOL})")
+        if index == 0:               # learning rate 0: nothing may move
+            for leaf, first in zip(train.tree_leaves(card_params),
+                                   train.tree_leaves(start)):
+                require(torch.equal(leaf.cpu(), first),
+                        "training parity: step 1 (lr 0) moved a param")
+        lr_sum += optimizer.learning_rate(index)
+    mean_diff = 0.0
+    for card_leaf, cpu_leaf in zip(train.tree_leaves(card_params),
+                                   train.tree_leaves(cpu_params)):
+        diff = (card_leaf.cpu() - cpu_leaf).abs()
+        mean_diff = max(mean_diff, diff.mean().item())
+    log(f"training parity: 2-layer t2t-base widths f32, block remat, b4 x "
+        f"s256, 3 steps card vs cpu: loss {float(card['loss']):.6f} vs "
+        f"{float(cpu['loss']):.6f}; max rel err of loss/grad_norm "
+        f"{worst:.2e} (tolerance {TRAIN_REL_TOL}); params: worst leaf mean "
+        f"|diff| {mean_diff:.2e} (summed lr {lr_sum:.1e})")
+    require(mean_diff <= 1e-3 * lr_sum,
+            f"training parity: params differ (worst leaf mean {mean_diff}, "
+            f"summed lr {lr_sum})")
+    counts = check_training_launches("training parity", config, 3, "f32")
+    return {"launches": counts, "max_rel_err": worst}
+
+
+def training_run(preset, batch, seq, remat, policy, steps, sync_every):
+    """train_loop on a fixed batch (bf16 compute, f32 masters): the loss
+    must fall."""
+    import dataclasses
+    import itertools
+
+    import torch
+
+    from tensorhive_tpu_torch import train
+    from tensorhive_tpu_torch.models.transformer import (
+        PRESETS,
+        TransformerLM,
+        train_flops_per_token,
+    )
+
+    config = dataclasses.replace(PRESETS[preset], remat=remat,
+                                 remat_policy=policy)
+    tc = train.TrainConfig(batch_size=batch, seq_len=seq, warmup_steps=2,
+                           total_steps=100)
+    losses = []
+
+    def recording_loss(params, tokens, model_config):
+        loss = TransformerLM.loss(params, tokens, model_config)
+        losses.append(loss.detach())
+        return loss
+
+    tokens = train.synthetic_batch(
+        torch.Generator(device="cuda").manual_seed(21), tc,
+        config.vocab_size, device="cuda")
+    reset_flash_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = train.train_loop(
+        config, tc, num_steps=steps, seed=0, log_every=0,
+        sync_every=sync_every, batches=itertools.repeat(tokens),
+        loss_fn=recording_loss, device="cuda")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    loss_values = [loss.item() for loss in losses]
+    label = (f"training {preset} b{batch} x s{seq}, remat "
+             f"{policy if remat else 'off'}")
+    require(all(math.isfinite(x) for x in loss_values),
+            f"{label}: loss not finite: {loss_values}")
+    require(loss_values[-1] < loss_values[0],
+            f"{label}: loss did not fall: {loss_values}")
+    step_ms = metrics["step_time_s"] * 1e3
+    tokens_per_s = batch * seq / metrics["step_time_s"]
+    mfu = tokens_per_s * train_flops_per_token(config, seq) / PEAK_FLOPS["bf16"]
+    log(f"{label}: {steps} steps, loss {loss_values[0]:.4f} -> "
+        f"{loss_values[-1]:.4f}; step {step_ms:.1f} ms (median of the steady "
+        f"{sync_every}-step windows, {int(metrics['rejected_windows'])} "
+        f"rejected); {tokens_per_s:.0f} tokens/s; MFU {mfu:.4f} of "
+        f"{PEAK_FLOPS['bf16'] / 1e12:.0f} TFLOP/s; peak memory {peak_gb:.2f} GB")
+    counts = check_training_launches(label, config, steps, "bf16")
+    return {"config": config, "batch": batch, "seq": seq, "step_ms": step_ms,
+            "tokens_per_s": tokens_per_s, "mfu": mfu, "peak_gb": peak_gb,
+            "losses": loss_values, "launches": counts}
+
+
+def training_profile(run, steps=2):
+    """torch.profiler over ``steps`` make_train_step calls at ``run``'s
+    configuration: device time by kind of kernel and the busy share of the
+    untraced step time."""
+    import torch
+
+    from tensorhive_tpu_torch import train
+
+    config, batch, seq = run["config"], run["batch"], run["seq"]
+    tc = train.TrainConfig(batch_size=batch, seq_len=seq, warmup_steps=2,
+                           total_steps=100)
+    params, opt_state = train.init_train_state(
+        config, tc, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    tokens = train.synthetic_batch(
+        torch.Generator(device="cuda").manual_seed(21), tc,
+        config.vocab_size, device="cuda")
+    step = train.make_train_step(config, tc)
+    state = [params, opt_state]
+
+    def one_step():
+        state[0], state[1], _ = step(state[0], state[1], tokens)
+
+    one_step()
+    kinds, launched = profile_window(one_step, steps)
+    total = sum(kinds.values())
+    require(total > 0, "training profile: the trace shows no device time")
+    require(kinds["flash_bwd"] > 0 and kinds["flash_fwd"] > 0,
+            f"training profile: no flash kernel time in the trace {kinds}")
+    busy = total / run["step_ms"]
+    log(f"  profile ({steps} steps, b{batch} x s{seq}): {total:.1f} ms of "
+        f"kernels per step (" + ", ".join(
+            f"{kind} {ms:.1f}" for kind, ms in kinds.items())
+        + f"); {launched:.0f} kernel launches per step; device busy "
+        f"{100 * busy:.1f}% of the untraced {run['step_ms']:.1f} ms step")
+
+    # the LM head's three f32 products (forward, d_x, d_w) on their own
+    tokens_n, d, vocab = batch * seq, config.d_model, config.vocab_size
+    x = torch.randn((tokens_n, d), device="cuda")
+    w = torch.randn((d, vocab), device="cuda")
+    g = torch.randn((tokens_n, vocab), device="cuda")
+    head_ms = (cuda_ms(lambda: x @ w, 3) + cuda_ms(lambda: g @ w.T, 3)
+               + cuda_ms(lambda: x.T @ g, 3))
+    head_tflop = 3 * 2 * tokens_n * d * vocab / 1e12
+    log(f"  LM head in f32: 3 GEMMs of {tokens_n} x {d} x {vocab} = "
+        f"{head_tflop:.2f} TFLOP in {head_ms:.1f} ms "
+        f"({head_tflop / head_ms * 1e3:.1f} TFLOP/s), "
+        f"{100 * head_ms / run['step_ms']:.1f}% of the step")
+    del x, w, g
+    torch.cuda.empty_cache()
+    return {"kinds": kinds, "busy": busy, "head_ms": head_ms}
+
+
+def phase_training():
+    import torch
+
+    results = {"parity": training_parity()}
+    results["t2t-base"] = training_run("t2t-base", 64, 1024, remat=False,
+                                       policy="block", steps=20, sync_every=5)
+    torch.cuda.empty_cache()
+    results["t2t-big"] = training_run("t2t-big", 8, 4096, remat=True,
+                                      policy="mlp", steps=8, sync_every=2)
+    torch.cuda.empty_cache()
+    results["profile"] = training_profile(results["t2t-base"])
+    launches = {}
+    for run in ("parity", "t2t-base", "t2t-big"):
+        for key, count in results[run]["launches"].items():
+            name = ("flash_bwd_" + key[4:] if key.startswith("bwd_")
+                    else "flash_fwd_" + key)
+            launches[name] = launches.get(name, 0) + count
+    results["launches"] = launches
+    return results
+
+
+# -- phase 6 ------------------------------------------------------------------
+
 def serve(engine_factory, label, prompts, new_tokens, expected_buckets):
     """Reset the launch counters, build the engine (warmup included), serve
     the prompts with staggered joins, and check the counters exactly."""
@@ -342,6 +708,7 @@ def serve(engine_factory, label, prompts, new_tokens, expected_buckets):
 
     from tensorhive_tpu_torch.ops import flash_attention as fa
     from tensorhive_tpu_torch.ops import paged_attention as pa
+    from tensorhive_tpu_torch.train import tree_leaves
 
     for counter in (fa.launches, pa.launches):
         for key in counter:
@@ -392,7 +759,7 @@ def serve(engine_factory, label, prompts, new_tokens, expected_buckets):
             f"{label}: paged launches {paged_launches} != {layers} x "
             f"{engine.step_dispatches} step dispatches")
     param_bytes = sum(t.numel() * t.element_size()
-                      for t in _tensors(engine.params))
+                      for t in tree_leaves(engine.params))
     tokens = sum(len(s["tokens"]) for s in summaries)
     steady = decode_ms[len(decode_ms) // 4:] or decode_ms
     log(f"serving {label}: build+warmup {build_s:.2f} s; "
@@ -415,10 +782,16 @@ def serve(engine_factory, label, prompts, new_tokens, expected_buckets):
     return result
 
 
-def profile_steps(engine, label, steps=3):
-    """Trace ``steps`` decode steps with torch.profiler; print the device
-    time per step by kind of kernel and the kernels launched per step, and
-    return the device (kernel) ms per step."""
+KERNEL_KINDS = (("paged_decode", ("paged_decode",)),
+                ("flash_fwd", ("flash_fwd",)),
+                ("flash_bwd", ("flash_dq", "flash_dkv")),
+                ("matmul", ("gemm", "nvjet", "cutlass", "xmma")))
+
+
+def profile_window(run, steps):
+    """Trace ``steps`` calls of ``run`` with torch.profiler; returns the
+    device ms per call by kind of kernel and the kernel launches per
+    call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -427,40 +800,33 @@ def profile_steps(engine, label, steps=3):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            engine.step()
+            run()
         torch.cuda.synchronize()
-    kinds = {"paged_decode": 0.0, "flash_fwd": 0.0, "matmul": 0.0,
-             "other": 0.0}
+    kinds = {kind: 0.0 for kind, _ in KERNEL_KINDS}
+    kinds["other"] = 0.0
     launched = 0
     for event in prof.key_averages():
         if event.device_type != DeviceType.CUDA:
             continue
-        name = event.key
-        kind = ("paged_decode" if "paged_decode" in name
-                else "flash_fwd" if "flash_fwd" in name
-                else "matmul" if any(tag in name for tag in
-                                     ("gemm", "nvjet", "cutlass", "xmma"))
-                else "other")
+        kind = next((kind for kind, tags in KERNEL_KINDS
+                     if any(tag in event.key for tag in tags)), "other")
         kinds[kind] += event.self_device_time_total / 1e3 / steps
         launched += event.count
+    return kinds, launched / steps
+
+
+def profile_steps(engine, label, steps=3):
+    """Trace ``steps`` decode steps; print the device time per step by kind
+    of kernel and the kernels launched per step, and return the device
+    (kernel) ms per step."""
+    kinds, launched = profile_window(engine.step, steps)
     total = sum(kinds.values())
     require(total > 0, f"{label}: the trace shows no device time")
     log(f"  profile ({steps} decode steps, 8 slots): {total:.2f} ms of "
         f"kernels per step (" + ", ".join(
             f"{kind} {ms:.2f}" for kind, ms in kinds.items())
-        + f"); {launched / steps:.0f} kernel launches per step")
+        + f"); {launched:.0f} kernel launches per step")
     return total
-
-
-def _tensors(tree):
-    if isinstance(tree, dict):
-        for value in tree.values():
-            yield from _tensors(value)
-    elif isinstance(tree, list):
-        for value in tree:
-            yield from _tensors(value)
-    else:
-        yield tree
 
 
 def phase_serving():
@@ -532,13 +898,17 @@ def phase_serving():
 
 # -- report -------------------------------------------------------------------
 
-def kernel_report(kernels, runs):
+def kernel_report(kernels, runs, training_launches):
     flash_src = "tensorhive_tpu_torch/csrc/flash_fwd.cu"
     paged_src = "tensorhive_tpu_torch/csrc/paged_decode.cu"
+    bwd_src = "tensorhive_tpu_torch/csrc/flash_bwd.cu"
     flash_tpu = ("tensorhive_tpu/ops/flash_attention.py:191 "
                  "_fwd_kernel_resident + :228 _fwd_kernel")
+    bwd_tpu = ("tensorhive_tpu/ops/flash_attention.py:440 _dq_kernel_resident"
+               " + :521 _dq_kernel + :473 _dkv_kernel_resident + :549 "
+               "_dkv_kernel")
     paged_tpu = "tensorhive_tpu/ops/paged_attention.py:128 _decode_kernel"
-    launches = {}
+    launches = dict(training_launches)
     for run in runs.values():
         for kind in ("flash", "paged"):
             key, count = run[kind]
@@ -549,10 +919,15 @@ def kernel_report(kernels, runs):
         if name == "paged_decode_int8/bf16q":
             continue
         if name.startswith("flash"):
-            row = next(r for r in rows if r["seq"] == 4095)
+            # the serving prefill bucket for the forward, the t2t-base
+            # training attention for the backward
+            row = (next(r for r in rows if r["seq"] == 4095)
+                   if name.startswith("flash_fwd") else rows[0])
             err = max(r["max_abs_err"] for r in rows)
             rel = max(r["max_row_rel_err"] for r in rows)
-            source, replaces = flash_src, flash_tpu
+            source, replaces = ((flash_src, flash_tpu)
+                                if name.startswith("flash_fwd")
+                                else (bwd_src, bwd_tpu))
         else:
             row = rows[0]
             err, rel = row["max_abs_err"], row["max_row_rel_err"]
@@ -601,6 +976,9 @@ def main() -> int:
         phase = "model"
         log("== model")
         phase_model()
+        phase = "training"
+        log("== training")
+        training = phase_training()
         phase = "serving"
         log("== serving")
         runs = phase_serving()
@@ -609,7 +987,8 @@ def main() -> int:
         print(f"chip_smoke: phase {phase} FAILED", file=sys.stderr)
         return 1
     log(f"total {time.perf_counter() - started:.1f} s")
-    print(json.dumps({"kernels": kernel_report(kernels, runs)}))
+    print(json.dumps({"kernels": kernel_report(kernels, runs,
+                                               training["launches"])}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

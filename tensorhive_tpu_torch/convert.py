@@ -3,13 +3,15 @@
 ``params_from_jax`` takes the JAX param pytree (``TransformerLM.init``
 output) with every leaf already converted to numpy (for example with
 ``jax.tree_util.tree_map(np.asarray, params)``) and returns the port's
-param dict on a device: matmul weights and the embedding cast to
-``config.dtype`` once, norm scales kept f32 — see ``models/transformer``.
+param dict on a device: matmul weights and the embedding in
+``param_dtype`` — ``config.dtype`` by default (serving), ``torch.float32``
+to carry JAX's f32 masters across unrounded (training) — and norm scales
+kept f32; see ``models/transformer``.
 Nothing here imports JAX; the caller does the JAX-side conversion.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -22,16 +24,18 @@ _BLOCK_NORMS = ("attn_norm", "mlp_norm")
 
 
 def params_from_jax(tree: Dict[str, Any], config: TransformerConfig,
-                    device: DeviceLike = None) -> Params:
+                    device: DeviceLike = None,
+                    param_dtype: Optional[torch.dtype] = None) -> Params:
     """JAX pytree of numpy arrays -> port params on ``device``."""
     device = resolve_device(device)
+    dtype = config.dtype if param_dtype is None else param_dtype
     if len(tree["blocks"]) != config.n_layers:
         raise ValueError(f"tree has {len(tree['blocks'])} blocks, config "
                          f"{config.n_layers} layers")
 
     def weight(array) -> torch.Tensor:
         return torch.tensor(np.asarray(array, np.float32)).to(
-            device=device, dtype=config.dtype)
+            device=device, dtype=dtype)
 
     def norm(node) -> Dict[str, torch.Tensor]:
         return {"scale": torch.tensor(

@@ -72,7 +72,7 @@ def apply_step(params: Params, token: torch.Tensor, cache: KVCache,
         x = TransformerLM.block_forward(x, block, config, positions, attend,
                                         layer_index=layer_index)
     x = _rmsnorm(x, params["final_norm"]["scale"])
-    return _lm_head(x[:, 0], params["w_lm_head"]), cache
+    return _lm_head(x[:, 0], params["w_lm_head"], config.dtype), cache
 
 
 def _prefill_body(params: Params, prompt_head: torch.Tensor, cache: KVCache,

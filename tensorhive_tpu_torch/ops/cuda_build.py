@@ -21,7 +21,7 @@ from typing import Dict, Iterable, List, Tuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parent.parent.parent / "build"
              / "tensorhive_tpu_torch")
-KERNELS = ("flash_fwd", "paged_decode")
+KERNELS = ("flash_fwd", "flash_bwd", "paged_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

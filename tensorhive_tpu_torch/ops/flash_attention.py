@@ -1,5 +1,5 @@
-"""Flash attention forward — the PyTorch + CUDA counterpart of
-``tensorhive_tpu/ops/flash_attention.py`` (forward half).
+"""Flash attention, forward and backward — the PyTorch + CUDA counterpart
+of ``tensorhive_tpu/ops/flash_attention.py``.
 
 ``flash_attention`` launches the hand-written kernel ``csrc/flash_fwd.cu``
 for CUDA tensors and runs its plain PyTorch version,
@@ -8,14 +8,20 @@ JAX dispatch falls back to the reference when S does not divide the block
 (a 3000-token prompt pads to the 4095 bucket), the kernel here masks the
 ragged tile itself, so a CUDA tensor never reaches the plain version.
 
-``launches`` counts kernel launches per input type; the kernel-vs-plain
-checks call ``reference_attention`` directly and do not count. The
-backward kernels (training) are not ported yet; ``return_lse`` and
-``scale`` are kept for them and for ring attention.
+It is differentiable through ``_FlashAttention`` (the JAX ``custom_vjp``):
+the forward saves q, k, v, O and LSE, and the backward runs
+``flash_attention_backward`` — the two kernels of ``csrc/flash_bwd.cu``
+(dQ, then dK/dV) for CUDA tensors, the plain
+``flash_attention_backward_reference`` for CPU tensors.
+
+``launches`` counts wrapper launches per direction and input type (one
+backward launch runs both backward kernels); the kernel-vs-plain checks
+call the plain versions directly and do not count.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -24,8 +30,9 @@ from . import cuda_build
 
 NEG_INF = -1e30
 
-#: kernel launches per input type (the main-path counters)
-launches: Dict[str, int] = {"bf16": 0, "f32": 0}
+#: kernel launches per direction and input type (the main-path counters):
+#: "bf16"/"f32" the forward, "bwd_bf16"/"bwd_f32" the backward
+launches: Dict[str, int] = {"bf16": 0, "f32": 0, "bwd_bf16": 0, "bwd_f32": 0}
 
 _DTYPES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16")}
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -76,6 +83,17 @@ def _library() -> ctypes.CDLL:
     return library
 
 
+def _bwd_library() -> ctypes.CDLL:
+    library = cuda_build.load("flash_bwd")
+    function = library.thp_flash_bwd
+    if function.argtypes is None:
+        function.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                             + [ctypes.c_int] * 6 + [ctypes.c_float,
+                                                     ctypes.c_void_p])
+        function.restype = ctypes.c_int
+    return library
+
+
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention takes q [B,S,H,D] and k/v "
@@ -104,19 +122,13 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("batch * heads must be <= 65535")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, scale: Optional[float] = None,
-                    return_lse: bool = False
-                    ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Fused attention forward. q [B, S, H, D]; k, v [B, S, Hkv, D] with
-    H % Hkv == 0 (GQA native: no expanded K/V copy). Returns O [B, S, H, D]
-    in q's dtype and, with ``return_lse``, LSE [B*H, 1, S] f32.
-
-    CPU tensors run ``reference_attention``; CUDA tensors launch the kernel
-    or raise — there is no fallback."""
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, scale: Optional[float]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(O, LSE): the plain version for CPU tensors, the kernel for CUDA."""
     if q.device.type == "cpu":
         return reference_attention(q, k, v, causal=causal, scale=scale,
-                                   return_lse=return_lse)
+                                   return_lse=True)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
@@ -135,4 +147,185 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         float(scale), stream)
     cuda_build.check(status, "flash_fwd")
     launches[variant] += 1
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The JAX ``_flash_vjp``: the forward keeps ``(q, k, v, O, LSE)`` as
+    ``_flash_vjp_fwd`` does (O in the caller's layout, which lives on as an
+    activation anyway), the backward recomputes P from LSE. LSE is an
+    output without a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: Optional[float]):
+        out, lse = _forward(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, grad_out, grad_lse):
+        del grad_lse                    # LSE is not differentiated
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, grad_out.contiguous(), causal=ctx.causal,
+            scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale: Optional[float] = None,
+                    return_lse: bool = False
+                    ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Fused attention. q [B, S, H, D]; k, v [B, S, Hkv, D] with
+    H % Hkv == 0 (GQA native: no expanded K/V copy). Returns O [B, S, H, D]
+    in q's dtype and, with ``return_lse``, LSE [B*H, 1, S] f32.
+    Differentiable in q, k and v through the flash backward.
+
+    CPU tensors run the plain versions; CUDA tensors launch the kernels or
+    raise — there is no fallback."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out, lse = _FlashAttention.apply(q, k, v, causal, scale)
+    else:
+        out, lse = _forward(q, k, v, causal, scale)
     return (out, lse) if return_lse else out
+
+
+# -- backward -----------------------------------------------------------------
+
+def _fold_scale_into_q(q: torch.Tensor, scale: float
+                       ) -> Tuple[torch.Tensor, float]:
+    """The JAX rule (``_fold_scale_into_q``): fold the scale into q only
+    when that is exact in q's dtype — a power of two — and return the
+    residual left to multiply the f32 scores by."""
+    if scale == 1.0:
+        return q, 1.0
+    if math.frexp(abs(scale))[0] == 0.5:    # mantissa 1/2 <=> power of two
+        return q * scale, 1.0
+    return q, scale
+
+
+def flash_bwd_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) as [B*H, 1, S] f32, from dO and O in
+    [B, S, H, D] — the JAX ``flash_bwd_delta``, which XLA computes outside
+    the kernels; ring attention computes it once per backward."""
+    batch, seq, heads, _ = do.shape
+    delta = (do.to(torch.float32) * out.to(torch.float32)).sum(-1)
+    return delta.permute(0, 2, 1).reshape(batch * heads, 1, seq).contiguous()
+
+
+def flash_attention_backward_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+        lse: torch.Tensor, do: torch.Tensor, causal: bool = True,
+        scale: Optional[float] = None, delta: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain FA-2 backward, term for term the JAX ``_bwd_probs_ds`` and the
+    dq/dkv kernels over the whole score matrix: P = exp(S - LSE) with
+    masked scores at NEG_INF, dS = P * (dO V^T - delta), dV = P^T dO,
+    dK = scale * dS^T Q, dQ = scale * dS K. Products take the input type's
+    values with f32 accumulation; P and dS are rounded to the input type
+    before their products, as the JAX kernels' ``.astype`` do. GQA: dK/dV
+    sum over the ``group`` query heads of each KV head. Returns (dq, dk,
+    dv) in the layouts and types of q, k and v."""
+    batch, seq, heads, d = q.shape
+    kv_heads = k.shape[2]
+    group = heads // kv_heads
+    if scale is None:
+        scale = d ** -0.5
+    if delta is None:
+        delta = flash_bwd_delta(do, out)
+    f32 = torch.float32
+    if group > 1:
+        k_heads = k.repeat_interleave(group, dim=2)
+        v_heads = v.repeat_interleave(group, dim=2)
+    else:
+        k_heads, v_heads = k, v
+    q_folded, residual = _fold_scale_into_q(q, scale)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q_folded.to(f32),
+                          k_heads.to(f32))
+    if residual != 1.0:
+        scores.mul_(residual)
+    if causal:
+        mask = torch.ones(seq, seq, dtype=torch.bool, device=q.device).tril()
+        scores.masked_fill_(~mask, NEG_INF)
+    probs = scores.sub_(lse.reshape(batch, heads, seq, 1)).exp_()
+    del scores
+    ds = torch.einsum("bqhd,bkhd->bhqk", do.to(f32), v_heads.to(f32))
+    ds.sub_(delta.reshape(batch, heads, seq, 1)).mul_(probs)
+    dv = torch.einsum("bhqk,bqhd->bkhd", probs.to(do.dtype).to(f32),
+                      do.to(f32))
+    del probs
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).to(f32),
+                      q.to(f32)) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).to(f32),
+                      k_heads.to(f32)) * scale
+    del ds
+    if group > 1:
+        dk = dk.reshape(batch, seq, kv_heads, group, d).sum(3)
+        dv = dv.reshape(batch, seq, kv_heads, group, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_backward_inputs(q, out, lse, do, delta) -> None:
+    batch, seq, heads, _ = q.shape
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"out and dO must have q's shape {tuple(q.shape)}, "
+                         f"got {tuple(out.shape)}, {tuple(do.shape)}")
+    if do.dtype != q.dtype:
+        raise ValueError(f"the CUDA kernel takes dO in q's dtype {q.dtype}, "
+                         f"got {do.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != (batch * heads, 1, seq) or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous f32 "
+                             f"[{batch * heads}, 1, {seq}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    for name, t in (("dO", do), ("out", out), ("lse", lse),
+                    ("delta", delta)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if not do.is_contiguous() or do.data_ptr() % 16:
+        raise ValueError("the CUDA kernel takes a contiguous, 16-byte "
+                         "aligned dO")
+
+
+def flash_attention_backward(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+        lse: torch.Tensor, do: torch.Tensor, causal: bool = True,
+        scale: Optional[float] = None, delta: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of flash attention, the JAX ``_flash_bwd_bhsd`` in the
+    [B, S, H, D] layout: q/out/dO [B, S, H, D], k/v [B, S, Hkv, D], lse and
+    (optional, precomputed by ring attention) delta [B*H, 1, S] f32.
+
+    CPU tensors run ``flash_attention_backward_reference``; CUDA tensors
+    launch the two kernels of ``csrc/flash_bwd.cu`` or raise."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(
+            q, k, v, out, lse, do, causal=causal, scale=scale, delta=delta)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_backward runs on cuda or cpu, "
+                         f"not {q.device}")
+    _check_inputs(q, k, v)
+    if delta is None:
+        delta = flash_bwd_delta(do, out)
+    _check_backward_inputs(q, out, lse, do, delta)
+    batch, seq, heads, d = q.shape
+    code, variant = _DTYPES[q.dtype]
+    if scale is None:
+        scale = d ** -0.5
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    status = _bwd_library().thp_flash_bwd(
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), batch, seq, heads, k.shape[2], d, int(causal),
+        float(scale), stream)
+    cuda_build.check(status, "flash_bwd")
+    launches[f"bwd_{variant}"] += 1
+    return dq, dk, dv

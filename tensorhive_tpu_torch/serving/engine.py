@@ -78,7 +78,7 @@ def _choose_next(params: Params, x: torch.Tensor, tokens: torch.Tensor,
     sampled choice (Gumbel-max from the engine's generator). Parked slots
     keep their token."""
     x = _rmsnorm(x, params["final_norm"]["scale"])
-    logits = _lm_head(x[:, 0], params["w_lm_head"])               # [S, V]
+    logits = _lm_head(x[:, 0], params["w_lm_head"], config.dtype)  # [S, V]
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     safe_temps = torch.where(temps > 0.0, temps, 1.0)
     scaled = logits / safe_temps[:, None]

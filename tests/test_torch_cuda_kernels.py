@@ -7,12 +7,22 @@ where JAX is not installed, run them without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-(``chip_smoke.py`` covers the main path's shapes, the 7b heads.) Tolerances:
-f32 outputs 1e-5 abs (accumulation order only). bf16 outputs against the
-f32 plain version on the same bf16 values: the kernel rounds its output,
-and the flash kernel its probabilities, to bf16, an error that scales with
-the output row, so each row (the d_head values of one token and head) is
-held to ||out - plain||_2 / ||plain||_2 <= 1e-2.
+(``chip_smoke.py`` covers the main path's shapes.) Tolerances: f32 outputs
+1e-5 abs (accumulation order only). bf16 outputs against the f32 plain
+version on the same bf16 values: the kernel rounds its output, and the
+flash kernel its probabilities, to bf16, an error that scales with the
+output row, so each row (the d_head values of one token and head) is held
+to ||out - plain||_2 / ||plain||_2 <= 1e-2.
+
+Backward gradients (dq, dk, dv) are held per row against the plain
+backward on the same inputs, ||grad - plain||_2 / ||plain||_2: <= 1e-2 for
+bf16 (P and dS rounded to bf16 at the same places on both sides, the
+gradients rounded once), <= 2e-5 for f32 (accumulation order only). Rows
+that are zero in exact arithmetic are rounding noise in both versions, and
+no relative bound can hold noise to noise: dq of the first query under the
+causal mask (its softmax sees one key) is held to the same bound times the
+largest dq row norm, and at S = 1, where every dq and dk row is zero, those
+rows are held to 2e-5 abs.
 """
 import dataclasses
 
@@ -28,6 +38,11 @@ pytestmark = pytest.mark.cuda
 ABS_TOL = 1e-5
 ROW_REL_TOL = 1e-2
 LSE_TOL = 5e-5
+GRAD_ROW_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
+ZERO_GRAD_ABS = 2e-5
+# card (kernels) vs CPU (plain versions through MKL), f32: the CPU sums and
+# exponentiates in its own order, ~1e-4 of a row where dS cancels
+CARD_VS_CPU_TOL = 1e-4
 
 
 @pytest.fixture
@@ -45,6 +60,19 @@ def assert_close_to_plain(out, ref):
         assert row_rel.max().item() <= ROW_REL_TOL
     else:
         assert diff.abs().max().item() <= ABS_TOL
+
+
+def grad_row_error(grad, ref, first_row_zero=False):
+    """max over the rows of a [B, S, H, D] gradient of ||grad - ref|| /
+    ||ref||; with ``first_row_zero`` the rows of token 0 (zero in exact
+    arithmetic) over the largest ||ref|| row instead."""
+    norms = ref.float().norm(dim=-1)
+    assert norms.max().item() > 0, "the plain gradient is all zeros"
+    diff = (grad.float() - ref.float()).norm(dim=-1)
+    rel = diff / norms.clamp_min(1e-30)
+    if first_row_zero:
+        rel[:, 0] = diff[:, 0] / norms.max()
+    return rel.max().item()
 
 
 def normal(generator, shape, dtype):
@@ -73,6 +101,81 @@ def test_flash_kernel_matches_plain(device, dtype, d, heads, kv_heads,
     assert out.shape == q.shape and out.dtype == dtype
     assert_close_to_plain(out, ref)
     assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("heads,kv_heads", [(4, 4), (4, 2), (8, 2), (8, 1)])
+@pytest.mark.parametrize("causal,seq", [(True, 1), (True, 70), (True, 128),
+                                        (False, 100), (True, 200)])
+def test_flash_backward_kernel_matches_plain(device, dtype, d, heads,
+                                             kv_heads, causal, seq):
+    """dq/dk/dv of both backward kernels (dQ, dK/dV) at every head dim and
+    GQA group 1-8, causal or not, S ragged against the 64-row tiles."""
+    generator = torch.Generator(device=device).manual_seed(d * 100 + seq)
+    q = normal(generator, (2, seq, heads, d), dtype)
+    k = normal(generator, (2, seq, kv_heads, d), dtype)
+    v = normal(generator, (2, seq, kv_heads, d), dtype)
+    do = normal(generator, (2, seq, heads, d), dtype)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    variant = "bwd_bf16" if dtype == torch.bfloat16 else "bwd_f32"
+    before = fa.launches[variant]
+    grads = fa.flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+    refs = fa.flash_attention_backward_reference(q, k, v, out, lse, do,
+                                                 causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches[variant] == before + 1
+    for grad, ref, like, name in zip(grads, refs, (q, k, v), "qkv"):
+        assert grad.shape == like.shape and grad.dtype == dtype, name
+        assert bool(torch.isfinite(grad).all()), name
+        if seq == 1 and name != "v":      # zero in exact arithmetic
+            assert (grad.float() - ref.float()).abs().max().item() \
+                <= ZERO_GRAD_ABS, name
+            continue
+        error = grad_row_error(grad, ref,
+                               first_row_zero=causal and name == "q")
+        assert error <= GRAD_ROW_TOL[dtype], (name, error)
+
+
+@pytest.mark.parametrize("scale", [0.25, 0.3])
+def test_flash_backward_kernel_explicit_scale_and_delta(device, scale):
+    """Ring attention's call: non-causal, its own scale (a power of two is
+    folded into q by the JAX rule, 0.3 stays on the scores) and a delta
+    computed beforehand."""
+    generator = torch.Generator(device=device).manual_seed(5)
+    q, do = (normal(generator, (1, 96, 4, 64), torch.float32)
+             for _ in range(2))
+    k, v = (normal(generator, (1, 96, 2, 64), torch.float32)
+            for _ in range(2))
+    out, lse = fa.flash_attention(q, k, v, causal=False, scale=scale,
+                                  return_lse=True)
+    delta = fa.flash_bwd_delta(do, out)
+    grads = fa.flash_attention_backward(q, k, v, out, lse, do, causal=False,
+                                        scale=scale, delta=delta)
+    refs = fa.flash_attention_backward_reference(
+        q, k, v, out, lse, do, causal=False, scale=scale, delta=delta)
+    torch.cuda.synchronize()
+    for grad, ref in zip(grads, refs):
+        assert grad_row_error(grad, ref) <= GRAD_ROW_TOL[torch.float32]
+
+
+def test_flash_autograd_on_the_card_matches_the_cpu(device):
+    """torch.autograd through flash_attention: the forward and backward
+    kernels on the card against the plain versions on the CPU, f32."""
+    generator = torch.Generator().manual_seed(2)
+    q = torch.randn((2, 80, 8, 32), generator=generator)
+    k = torch.randn((2, 80, 2, 32), generator=generator)
+    v = torch.randn((2, 80, 2, 32), generator=generator)
+    weight = torch.randn((2, 80, 8, 32), generator=generator)
+    grads = []
+    for where in ("cpu", device):
+        leaves = [t.to(where).requires_grad_() for t in (q, k, v)]
+        loss = (fa.flash_attention(*leaves, causal=True)
+                * weight.to(where)).sum()
+        grads.append([g.cpu() for g in torch.autograd.grad(loss, leaves)])
+    for card, cpu, name in zip(grads[1], grads[0], "qkv"):
+        assert grad_row_error(card, cpu, first_row_zero=name == "q") \
+            <= CARD_VS_CPU_TOL
 
 
 @pytest.mark.parametrize("variant", ["bf16", "f32", "int8", "int8/bf16q"])

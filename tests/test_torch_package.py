@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from tensorhive_tpu_torch import resolve_device
+from tensorhive_tpu_torch import resolve_device, train
 from tensorhive_tpu_torch.config import GenerationConfig
 from tensorhive_tpu_torch.core.services.generation import build_engine
 from tensorhive_tpu_torch.models import decode
@@ -49,6 +49,7 @@ def test_imports_with_jax_blocked():
             "import tensorhive_tpu_torch\n"
             "import tensorhive_tpu_torch.core.services.generation\n"
             "import tensorhive_tpu_torch.convert\n"
+            "import tensorhive_tpu_torch.train\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -72,6 +73,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         SlotEngine(params, TINY)
     with pytest.raises(RuntimeError, match="CUDA"):
         decode.generate(params, TINY, [[1, 2]], 2)
+    train_config = train.TrainConfig(batch_size=2, seq_len=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.init_train_state(TINY, train_config)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.train_loop(TINY, train_config, num_steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.synthetic_batch(torch.Generator(), train_config, 512)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
