@@ -12,7 +12,10 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
 3. kernels  — every kernel variant against its plain PyTorch version at
               the main paths' shapes (serving: 7b heads, H 32, Hkv 8,
               d 128; training: the t2t-base and t2t-big attention, the 7b
-              heads and a ragged S 4095 for the flash backward), timed
+              heads and a ragged S 4095 for the flash backward; the
+              head-blocked forward at the encoder's t2t-base attention, G
+              2/4/8, causal or not, t2t-big's at G 4 and a ragged S 1000,
+              also against the per-head kernel on the same input), timed
               beside its bound and, for flash, PyTorch's
               scaled_dot_product_attention and its backward (timed here
               only).
@@ -27,7 +30,18 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
               (flash forward = layers x steps, twice under "block" remat;
               backward = layers x steps); a torch.profiler window over two
               t2t-base steps (device time by kind of kernel, busy share).
-6. serving  — the main path: the full 7b preset served through
+6. families — the MLM encoder and LoRA: the t2t-base encoder at b64 x
+              s1024 (remat off, head-blocked flash forward at G 4) fed by
+              fake token shards -> TokenDataset -> prefetch_to_device,
+              masked anew each step, 20 steps whose masked loss must fall,
+              then mlm_evaluate over two prefetched batches and a profiler
+              window; the encoder in f32, 2 layers, card vs CPU; LoRA
+              rank 8 on wq/wv over the full 7b preset (frozen bf16 base)
+              at b4 x s2048, 8 steps whose loss must fall, the base
+              bitwise unchanged, then merge and 8 greedy tokens from the
+              merged tree. Launch counters exact as in training (the
+              encoder's forward is the head-blocked kernel, "bh_bf16").
+7. serving  — the main path: the full 7b preset served through
               build_engine -> SlotEngine.submit -> pump -> result, paged
               with int8 pages (the default), then with bf16 pages, then
               the f32 model with f32 pages; launch counters must equal
@@ -153,6 +167,50 @@ def bound_ms(flops: float, nbytes: float, variant: str):
     return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms else "bytes")
 
 
+def timed_steps(run_step, steps, sync_every):
+    """Run ``run_step(index)`` ``steps`` times, waiting for the card every
+    ``sync_every`` steps as train_loop does; returns (steady step ms,
+    rejected windows) by train_loop's rule."""
+    import torch
+
+    from tensorhive_tpu_torch import train
+
+    windows = []
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for index in range(steps):
+        run_step(index)
+        if (index + 1) % sync_every == 0:
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            windows.append(((now - start) / sync_every, True))
+            start = now
+    step_s, rejected = train._steady_step_time(windows)
+    return step_s * 1e3, rejected
+
+
+def profile_train_steps(label, run, step_ms, steps=2):
+    """torch.profiler over ``steps`` more calls of ``run`` (one train
+    step); logs the device ms per step by kind of kernel and the busy share
+    of the untraced ``step_ms``; returns the kinds."""
+    kinds, launched = profile_window(run, steps)
+    total = sum(kinds.values())
+    require(total > 0, f"{label}: the trace shows no device time")
+    log(f"  profile ({steps} steps): {total:.1f} ms of kernels per step (" +
+        ", ".join(f"{kind} {ms:.1f}" for kind, ms in kinds.items())
+        + f"); {launched:.0f} kernel launches per step; device busy "
+        f"{100 * total / step_ms:.1f}% of the untraced {step_ms:.1f} ms step")
+    return kinds
+
+
+def falling(label, losses):
+    values = [loss.item() for loss in losses]
+    require(all(math.isfinite(x) for x in values),
+            f"{label}: loss not finite: {values}")
+    require(values[-1] < values[0], f"{label}: loss did not fall: {values}")
+    return values
+
+
 # -- phase 1 + 2 --------------------------------------------------------------
 
 def phase_device():
@@ -246,6 +304,91 @@ def flash_case(seq, heads, kv_heads, variant, generator):
         f"{plain_ms:.4f} ms sdpa {library_ms:.4f} ms bound {bound:.4f} ms "
         f"({bound_by})")
     return row
+
+
+#: (batch, seq, heads, d, causal, requested G) of the head-blocked forward
+#: (K3) checks: the t2t-base encoder's attention at every G, t2t-big's at
+#: the G a request of 4 gets, and a ragged S
+BH_SHAPES = ((64, 1024, 8, 64, False, (2, 4, 8)),
+             (64, 1024, 8, 64, True, (2, 4, 8)),
+             (8, 4096, 16, 64, False, (4,)),
+             (8, 1000, 8, 64, False, (4,)))
+
+
+def flash_bh_cases(batch, seq, heads, d, causal, requests, variant,
+                   generator):
+    """The head-blocked forward at each requested G against the plain
+    version (K1's function) on one input, timed beside its bound, the
+    per-head kernel on the same input, the plain version and SDPA. The
+    per-head kernel's output is compared too: the head-blocked kernel runs
+    its per-tile code, so 0 difference is expected."""
+    import torch
+    import torch.nn.functional as F
+
+    from tensorhive_tpu_torch.ops import flash_attention as fa
+
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[variant]
+    q, k, v = (torch.randn((batch, seq, heads, d), generator=generator,
+                           device="cuda", dtype=torch.float32).to(dtype)
+               for _ in range(3))
+    ref_out, ref_lse = fa.reference_attention(
+        q.float(), k.float(), v.float(), causal=causal, return_lse=True)
+    per_head, per_head_lse = fa.flash_attention(q, k, v, causal=causal,
+                                                return_lse=True)
+    reps = 10 if variant == "bf16" else 3
+    per_head_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                          reps)
+    plain_ms = cuda_ms(lambda: fa.reference_attention(q, k, v, causal=causal),
+                       1, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal), reps)
+    itemsize = q.element_size()
+    flops = (2.0 if causal else 4.0) * seq * seq * heads * d * batch
+    nbytes = 4 * batch * seq * heads * d * itemsize + 4 * batch * heads * seq
+    bound, bound_by = bound_ms(flops, nbytes, variant)
+    rows = []
+    for requested in requests:
+        g = fa.fwd_bh_block(batch * heads, 1, seq, d, dtype, requested)
+        require(g > 1, f"flash_bh: G {g} for a request of {requested}")
+        before = fa.launches[f"bh_{variant}"]
+        out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True,
+                                      bh_block=requested)
+        torch.cuda.synchronize()
+        require(fa.launches[f"bh_{variant}"] == before + 1,
+                "flash_bh: the head-blocked kernel did not launch")
+        label = (f"flash_fwd_bh {variant} B={batch} S={seq} H={heads} d={d} "
+                 f"{'causal' if causal else 'non-causal'} G={g}")
+        require(out.shape == q.shape and lse.shape == (batch * heads, 1, seq),
+                f"{label}: output shapes")
+        err, rel = errors(out, ref_out)
+        lse_err = (lse - ref_lse).abs().max().item()
+        require(within_tolerance(err, rel, variant == "bf16"),
+                f"{label}: max |O - plain| {err}, max row ||O - plain|| / "
+                f"||plain|| {rel}; tolerance "
+                f"{ROW_REL_TOL if variant == 'bf16' else ABS_TOL}")
+        require(math.isfinite(lse_err) and lse_err <= LSE_TOL,
+                f"{label}: max |LSE - plain| {lse_err} > {LSE_TOL}")
+        vs_per_head = max((out.float() - per_head.float()).abs().max().item(),
+                          (lse - per_head_lse).abs().max().item())
+        del out, lse
+        kernel_ms = cuda_ms(lambda: fa.flash_attention(
+            q, k, v, causal=causal, bh_block=requested), reps)
+        rows.append({"batch": batch, "seq": seq, "heads": heads, "d": d,
+                     "causal": causal, "g": g, "max_abs_err": err,
+                     "max_row_rel_err": rel, "lse_err": lse_err,
+                     "vs_per_head": vs_per_head, "ms": kernel_ms,
+                     "per_head_ms": per_head_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound,
+                     "bound_by": bound_by})
+        log(f"{label}: err {err:.3e} row_rel {rel:.3e} lse_err "
+            f"{lse_err:.3e} |K3 - K1| {vs_per_head:.1e}; kernel "
+            f"{kernel_ms:.4f} ms, per-head kernel {per_head_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound:.4f} "
+            f"ms ({bound_by})")
+    del ref_out, ref_lse, per_head, per_head_lse
+    torch.cuda.empty_cache()
+    return rows
 
 
 def plain_backward(q, k, v, out, lse, do, delta):
@@ -447,6 +590,10 @@ def phase_kernels():
         results[f"flash_bwd_{variant}"] = [
             flash_backward_case(*shape, variant, generator)
             for shape in BACKWARD_SHAPES]
+    for variant in ("bf16", "f32"):
+        results[f"flash_fwd_bh_{variant}"] = [
+            row for shape in BH_SHAPES
+            for row in flash_bh_cases(*shape, variant, generator)]
     return results
 
 
@@ -490,13 +637,17 @@ def reset_flash_counters():
 
 def check_training_launches(label, config, steps, variant):
     """Flash forward = layers x steps (twice under "block" remat: the
-    backward re-runs the block), backward = layers x steps; nothing else."""
+    backward re-runs the block), backward = layers x steps; nothing else.
+    The forward is the head-blocked kernel ("bh_" counters) when the
+    config asks for a head block (flash_bh_block > 1; the encoders checked
+    here are MHA, where the request holds), else the per-head one."""
     from tensorhive_tpu_torch.ops import flash_attention as fa
 
     counts = dict(fa.launches)
     reruns = 2 if config.remat and config.remat_policy == "block" else 1
+    forward = f"bh_{variant}" if config.flash_bh_block > 1 else variant
     expected = {key: 0 for key in counts}
-    expected[variant] = config.n_layers * steps * reruns
+    expected[forward] = config.n_layers * steps * reruns
     expected[f"bwd_{variant}"] = config.n_layers * steps
     require(counts == expected, f"{label}: flash launches {counts}, "
             f"expected {expected}")
@@ -505,20 +656,25 @@ def check_training_launches(label, config, steps, variant):
     return counts
 
 
-def training_parity():
+def training_parity(label="training parity", loss_fn=None, make_batch=None,
+                    **config_fields):
     """A 2-layer model at t2t-base widths in f32 under "block" remat: 3
     steps of make_train_step on the card against the same steps on the CPU
-    from the same params and tokens."""
+    from the same params and batch. The LM objective on a synthetic batch
+    by default; another objective passes ``loss_fn`` and ``make_batch``
+    (config, train config, CPU generator -> batch), and ``config_fields``
+    change the config (the encoder's ``causal``, ``flash_bh_block``)."""
     import dataclasses
 
     import torch
 
     from tensorhive_tpu_torch import train
-    from tensorhive_tpu_torch.models.transformer import PRESETS
+    from tensorhive_tpu_torch.models.transformer import PRESETS, TransformerLM
 
+    loss_fn = loss_fn or TransformerLM.loss
     config = dataclasses.replace(PRESETS["t2t-base"], n_layers=2,
                                  dtype=torch.float32, remat=True,
-                                 remat_policy="block")
+                                 remat_policy="block", **config_fields)
     tc = train.TrainConfig(batch_size=4, seq_len=256, warmup_steps=1,
                            total_steps=10, learning_rate=1e-3)
     optimizer = train.make_optimizer(tc)
@@ -528,10 +684,13 @@ def training_parity():
                                  cpu_params)
     card_opt = optimizer.init(card_params)
     start = train.tree_map(lambda t: t.clone(), cpu_params)
-    tokens = train.synthetic_batch(torch.Generator().manual_seed(12), tc,
-                                   config.vocab_size, device="cpu")
-    cpu_step = train.make_train_step(config, tc)
-    card_step = train.make_train_step(config, tc)
+    if make_batch is None:
+        tokens = train.synthetic_batch(torch.Generator().manual_seed(12), tc,
+                                       config.vocab_size, device="cpu")
+    else:
+        tokens = make_batch(config, tc, torch.Generator().manual_seed(12))
+    cpu_step = train.make_train_step(config, tc, loss_fn=loss_fn)
+    card_step = train.make_train_step(config, tc, loss_fn=loss_fn)
     reset_flash_counters()
     lr_sum, worst = 0.0, 0.0
     for index in range(3):
@@ -543,28 +702,28 @@ def training_parity():
             rel = abs(a - b) / abs(b)
             worst = max(worst, rel)
             require(math.isfinite(a) and rel <= TRAIN_REL_TOL,
-                    f"training parity step {index + 1}: {key} card {a} vs "
+                    f"{label} step {index + 1}: {key} card {a} vs "
                     f"cpu {b} (rel {rel:.2e} > {TRAIN_REL_TOL})")
         if index == 0:               # learning rate 0: nothing may move
             for leaf, first in zip(train.tree_leaves(card_params),
                                    train.tree_leaves(start)):
                 require(torch.equal(leaf.cpu(), first),
-                        "training parity: step 1 (lr 0) moved a param")
+                        f"{label}: step 1 (lr 0) moved a param")
         lr_sum += optimizer.learning_rate(index)
     mean_diff = 0.0
     for card_leaf, cpu_leaf in zip(train.tree_leaves(card_params),
                                    train.tree_leaves(cpu_params)):
         diff = (card_leaf.cpu() - cpu_leaf).abs()
         mean_diff = max(mean_diff, diff.mean().item())
-    log(f"training parity: 2-layer t2t-base widths f32, block remat, b4 x "
+    log(f"{label}: 2-layer t2t-base widths f32, block remat, b4 x "
         f"s256, 3 steps card vs cpu: loss {float(card['loss']):.6f} vs "
         f"{float(cpu['loss']):.6f}; max rel err of loss/grad_norm "
         f"{worst:.2e} (tolerance {TRAIN_REL_TOL}); params: worst leaf mean "
         f"|diff| {mean_diff:.2e} (summed lr {lr_sum:.1e})")
     require(mean_diff <= 1e-3 * lr_sum,
-            f"training parity: params differ (worst leaf mean {mean_diff}, "
+            f"{label}: params differ (worst leaf mean {mean_diff}, "
             f"summed lr {lr_sum})")
-    counts = check_training_launches("training parity", config, 3, "f32")
+    counts = check_training_launches(label, config, 3, "f32")
     return {"launches": counts, "max_rel_err": worst}
 
 
@@ -605,13 +764,9 @@ def training_run(preset, batch, seq, remat, policy, steps, sync_every):
         sync_every=sync_every, batches=itertools.repeat(tokens),
         loss_fn=recording_loss, device="cuda")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    loss_values = [loss.item() for loss in losses]
     label = (f"training {preset} b{batch} x s{seq}, remat "
              f"{policy if remat else 'off'}")
-    require(all(math.isfinite(x) for x in loss_values),
-            f"{label}: loss not finite: {loss_values}")
-    require(loss_values[-1] < loss_values[0],
-            f"{label}: loss did not fall: {loss_values}")
+    loss_values = falling(label, losses)
     step_ms = metrics["step_time_s"] * 1e3
     tokens_per_s = batch * seq / metrics["step_time_s"]
     mfu = tokens_per_s * train_flops_per_token(config, seq) / PEAK_FLOPS["bf16"]
@@ -649,17 +804,11 @@ def training_profile(run, steps=2):
         state[0], state[1], _ = step(state[0], state[1], tokens)
 
     one_step()
-    kinds, launched = profile_window(one_step, steps)
-    total = sum(kinds.values())
-    require(total > 0, "training profile: the trace shows no device time")
+    kinds = profile_train_steps(f"training profile b{batch} x s{seq}",
+                                one_step, run["step_ms"], steps)
     require(kinds["flash_bwd"] > 0 and kinds["flash_fwd"] > 0,
             f"training profile: no flash kernel time in the trace {kinds}")
-    busy = total / run["step_ms"]
-    log(f"  profile ({steps} steps, b{batch} x s{seq}): {total:.1f} ms of "
-        f"kernels per step (" + ", ".join(
-            f"{kind} {ms:.1f}" for kind, ms in kinds.items())
-        + f"); {launched:.0f} kernel launches per step; device busy "
-        f"{100 * busy:.1f}% of the untraced {run['step_ms']:.1f} ms step")
+    busy = sum(kinds.values()) / run["step_ms"]
 
     # the LM head's three f32 products (forward, d_x, d_w) on their own
     tokens_n, d, vocab = batch * seq, config.d_model, config.vocab_size
@@ -700,6 +849,227 @@ def phase_training():
 
 
 # -- phase 6 ------------------------------------------------------------------
+
+def encoder_run():
+    """The MLM encoder's main path at t2t-base, b64 x s1024, remat off,
+    bf16 compute on f32 masters, head-blocked flash forward at G 4: token
+    shards -> TokenDataset -> prefetch_to_device (one fixed batch), masked
+    anew every step, pack_mlm_batch -> make_train_step(mlm_loss_packed);
+    then mlm_evaluate over two more prefetched batches."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from tensorhive_tpu_torch import data, train
+    from tensorhive_tpu_torch.models import encoder
+    from tensorhive_tpu_torch.models.transformer import train_flops_per_token
+    from tensorhive_tpu_torch.ops import flash_attention as fa
+
+    config = dataclasses.replace(encoder.ENCODER_PRESETS["t2t-base"],
+                                 remat=False, flash_bh_block=4)
+    batch, seq, steps, sync_every = 64, 1024, 20, 5
+    tc = train.TrainConfig(batch_size=batch, seq_len=seq, warmup_steps=2,
+                           total_steps=100)
+    label = f"encoder t2t-base b{batch} x s{seq}, G 4"
+    with tempfile.TemporaryDirectory() as shards:
+        # [MASK] (the top id) is never text
+        pattern = data.fake_shards(shards, tokens_per_shard=1 << 20,
+                                   vocab_size=config.vocab_size - 1)
+        dataset = data.TokenDataset(data.DataConfig(
+            pattern=pattern, seq_len=seq - 1, batch_size=batch,
+            vocab_size=config.vocab_size))
+        tokens = next(data.prefetch_to_device(dataset, 0, 1, device="cuda"))
+        held_out = list(data.prefetch_to_device(dataset, 1, 2, device="cuda"))
+    require(tokens.shape == (batch, seq) and tokens.device.type == "cuda"
+            and torch.equal(tokens.cpu(),
+                            torch.from_numpy(dataset.batch_at(0))),
+            f"{label}: the prefetched batch is not batch_at(0)")
+    losses = []
+
+    def recording_loss(params, packed, model_config):
+        loss = encoder.mlm_loss_packed(params, packed, model_config)
+        losses.append(loss.detach())
+        return loss
+
+    params, opt_state = train.init_train_state(
+        config, tc, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    step = train.make_train_step(config, tc, loss_fn=recording_loss)
+    masks = torch.Generator(device="cuda").manual_seed(31)
+    state = [params, opt_state]
+
+    def one_step(_):
+        packed = encoder.pack_mlm_batch(masks, tokens, config)
+        state[0], state[1], _ = step(state[0], state[1], packed)
+
+    reset_flash_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, rejected = timed_steps(one_step, steps, sync_every)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    values = falling(label, losses)
+    tokens_per_s = batch * seq / step_ms * 1e3
+    mfu = tokens_per_s * train_flops_per_token(config, seq) / PEAK_FLOPS["bf16"]
+    log(f"{label}: {steps} steps, masked loss {values[0]:.4f} -> "
+        f"{values[-1]:.4f}; step {step_ms:.1f} ms (median of the steady "
+        f"{sync_every}-step windows, {rejected} rejected); {tokens_per_s:.0f} "
+        f"tokens/s; MFU {mfu:.4f} of {PEAK_FLOPS['bf16'] / 1e12:.0f} "
+        f"TFLOP/s; peak memory {peak_gb:.2f} GB")
+    counts = check_training_launches(label, config, steps, "bf16")
+    evaluation = encoder.mlm_evaluate(state[0], config, iter(held_out), 2)
+    eval_launches = fa.launches["bh_bf16"] - counts["bh_bf16"]
+    require(math.isfinite(evaluation["loss"])
+            and eval_launches == config.n_layers * 2
+            and fa.launches["bf16"] == 0,
+            f"{label}: mlm_evaluate {evaluation}, head-blocked launches "
+            f"{eval_launches} (expected {config.n_layers * 2})")
+    log(f"  mlm_evaluate over 2 prefetched batches: masked loss "
+        f"{evaluation['loss']:.4f}, pseudo-perplexity "
+        f"{evaluation['pseudo_perplexity']:.1f}; {eval_launches} head-blocked "
+        f"launches")
+    counts = dict(counts, bh_bf16=counts["bh_bf16"] + eval_launches)
+
+    one_step(0)
+    kinds = profile_train_steps(label, lambda: one_step(0), step_ms)
+    require(kinds["flash_fwd_bh"] > 0 and kinds["flash_fwd"] == 0,
+            f"{label}: the profile does not show the head-blocked kernel "
+            f"alone: {kinds}")
+    del state, params, opt_state
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "tokens_per_s": tokens_per_s, "mfu": mfu,
+            "peak_gb": peak_gb, "losses": values, "launches": counts,
+            "eval": evaluation, "kinds": kinds}
+
+
+def encoder_parity():
+    """The encoder through the head-blocked kernel in f32 (G 4 over
+    B 4 x H 8), 3 packed MLM steps card vs CPU."""
+    import torch
+
+    from tensorhive_tpu_torch.models import encoder
+
+    def packed_batch(config, tc, generator):
+        tokens = torch.randint(0, config.vocab_size - 1,
+                               (tc.batch_size, tc.seq_len),
+                               generator=generator, dtype=torch.int32)
+        return encoder.pack_mlm_batch(generator, tokens, config)
+
+    return training_parity("encoder parity", encoder.mlm_loss_packed,
+                           packed_batch, causal=False, flash_bh_block=4)
+
+
+def leaf_checksums(tree):
+    """Two integer sums over the raw bits of every leaf (plain and
+    position-weighted), on the card: a change to any element, or two
+    elements trading places, changes them."""
+    import torch
+
+    from tensorhive_tpu_torch.train import tree_leaves
+
+    sums = []
+    for leaf in tree_leaves(tree):
+        width = {2: torch.int16, 4: torch.int32}[leaf.element_size()]
+        bits = leaf.contiguous().view(width).flatten().to(torch.int64)
+        weights = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        sums.append(torch.stack([bits.sum(), (bits * weights).sum()]))
+        del bits, weights
+    return torch.stack(sums).cpu()
+
+
+def lora_run():
+    """LoRA on the full 7b preset: a frozen bf16 base from a seed, rank-8
+    f32 adapters on wq/wv, remat "mlp" (the preset's own), b4 x s2048, 8
+    steps on one fixed batch; the loss must fall and the base stay bitwise
+    as it was. Then merge and decode.generate 8 greedy tokens from the
+    merged tree, whose logits must differ from the base's."""
+    import torch
+
+    from tensorhive_tpu_torch import train
+    from tensorhive_tpu_torch.models import decode, lora
+    from tensorhive_tpu_torch.models.transformer import PRESETS, TransformerLM
+
+    config = PRESETS["7b"]
+    # b4 x s2048 fits: 33.3 GB at peak on an 80 GB H100
+    batch, seq, steps, sync_every = 4, 2048, 8, 2
+    label = f"lora 7b rank 8 on wq/wv, b{batch} x s{seq}, remat mlp"
+    generator = torch.Generator(device="cuda").manual_seed(41)
+    base = TransformerLM.init(config, generator, "cuda")
+    lora_config = lora.LoraConfig(rank=8, alpha=16.0)
+    adapters = lora.init_lora(base, lora_config, generator)
+    before = leaf_checksums(base)
+    tc = train.TrainConfig(batch_size=batch, seq_len=seq, warmup_steps=2,
+                           total_steps=100, learning_rate=1e-3)
+    tokens = train.synthetic_batch(generator, tc, config.vocab_size, "cuda")
+    losses = []
+
+    def recording_loss(trained, batch_tokens, model_config):
+        loss = lora.lora_loss(trained, batch_tokens, model_config,
+                              base_params=base, lora_config=lora_config)
+        losses.append(loss.detach())
+        return loss
+
+    step = train.make_train_step(config, tc, loss_fn=recording_loss)
+    state = [adapters, train.make_optimizer(tc).init(adapters)]
+
+    def one_step(_):
+        state[0], state[1], _ = step(state[0], state[1], tokens)
+
+    reset_flash_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, rejected = timed_steps(one_step, steps, sync_every)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    values = falling(label, losses)
+    tokens_per_s = batch * seq / step_ms * 1e3
+    adapter_count = sum(t.numel() for t in train.tree_leaves(state[0]))
+    log(f"{label}: {adapter_count} adapter params, {steps} steps, loss "
+        f"{values[0]:.4f} -> {values[-1]:.4f}; step {step_ms:.1f} ms (median "
+        f"of the steady {sync_every}-step windows, {rejected} rejected); "
+        f"{tokens_per_s:.0f} tokens/s; peak memory {peak_gb:.2f} GB")
+    counts = check_training_launches(label, config, steps, "bf16")
+    require(torch.equal(leaf_checksums(base), before),
+            f"{label}: the frozen base changed")
+    log(f"  base unchanged: checksums of all "
+        f"{len(train.tree_leaves(base))} leaves equal before and after")
+    kinds = profile_train_steps(label, lambda: one_step(0), step_ms)
+
+    with torch.no_grad():
+        merged = lora.merge(base, state[0], lora_config)
+        prompt = tokens[:1, :16]
+        moved = (TransformerLM.apply(merged, prompt, config)
+                 - TransformerLM.apply(base, prompt, config)).abs().max()
+        out = decode.generate(merged, config, prompt, max_new_tokens=8,
+                              device="cuda")
+    torch.cuda.synchronize()
+    require(moved.item() > 0, f"{label}: merged logits equal the base's")
+    require(out.shape == (1, 24) and torch.equal(out[:, :16], prompt.int())
+            and bool(((out >= 0) & (out < config.vocab_size)).all()),
+            f"{label}: generate from the merged tree gave {out.tolist()}")
+    require(torch.equal(leaf_checksums(base), before),
+            f"{label}: merge or generate changed the base")
+    log(f"  merged: max |logits(merged) - logits(base)| {moved.item():.3e}; "
+        f"8 greedy tokens {out[0, 16:].tolist()}")
+    del merged, base, state, adapters
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "tokens_per_s": tokens_per_s,
+            "peak_gb": peak_gb, "losses": values, "launches": counts,
+            "kinds": kinds}
+
+
+def phase_families():
+    results = {"encoder": encoder_run(), "parity": encoder_parity(),
+               "lora": lora_run()}
+    launches = {}
+    for run in results.values():
+        for key, count in run["launches"].items():
+            name = ("flash_bwd_" + key[4:] if key.startswith("bwd_")
+                    else "flash_fwd_" + key)
+            launches[name] = launches.get(name, 0) + count
+    results["launches"] = launches
+    return results
+
+
+# -- phase 7 ------------------------------------------------------------------
 
 def serve(engine_factory, label, prompts, new_tokens, expected_buckets):
     """Reset the launch counters, build the engine (warmup included), serve
@@ -783,6 +1153,7 @@ def serve(engine_factory, label, prompts, new_tokens, expected_buckets):
 
 
 KERNEL_KINDS = (("paged_decode", ("paged_decode",)),
+                ("flash_fwd_bh", ("flash_fwd_bh",)),
                 ("flash_fwd", ("flash_fwd",)),
                 ("flash_bwd", ("flash_dq", "flash_dkv")),
                 ("matmul", ("gemm", "nvjet", "cutlass", "xmma")))
@@ -898,17 +1269,18 @@ def phase_serving():
 
 # -- report -------------------------------------------------------------------
 
-def kernel_report(kernels, runs, training_launches):
+def kernel_report(kernels, runs, path_launches):
     flash_src = "tensorhive_tpu_torch/csrc/flash_fwd.cu"
     paged_src = "tensorhive_tpu_torch/csrc/paged_decode.cu"
     bwd_src = "tensorhive_tpu_torch/csrc/flash_bwd.cu"
     flash_tpu = ("tensorhive_tpu/ops/flash_attention.py:191 "
                  "_fwd_kernel_resident + :228 _fwd_kernel")
+    bh_tpu = "tensorhive_tpu/ops/flash_attention.py:265 _fwd_kernel_resident_bh"
     bwd_tpu = ("tensorhive_tpu/ops/flash_attention.py:440 _dq_kernel_resident"
                " + :521 _dq_kernel + :473 _dkv_kernel_resident + :549 "
                "_dkv_kernel")
     paged_tpu = "tensorhive_tpu/ops/paged_attention.py:128 _decode_kernel"
-    launches = dict(training_launches)
+    launches = dict(path_launches)
     for run in runs.values():
         for kind in ("flash", "paged"):
             key, count = run[kind]
@@ -918,7 +1290,14 @@ def kernel_report(kernels, runs, training_launches):
     for name, rows in kernels.items():
         if name == "paged_decode_int8/bf16q":
             continue
-        if name.startswith("flash"):
+        if name.startswith("flash_fwd_bh"):
+            # the encoder's training attention, G 4, non-causal
+            row = next(r for r in rows if r["seq"] == 1024
+                       and not r["causal"] and r["g"] == 4)
+            err = max(r["max_abs_err"] for r in rows)
+            rel = max(r["max_row_rel_err"] for r in rows)
+            source, replaces = flash_src, bh_tpu
+        elif name.startswith("flash"):
             # the serving prefill bucket for the forward, the t2t-base
             # training attention for the backward
             row = (next(r for r in rows if r["seq"] == 4095)
@@ -979,6 +1358,9 @@ def main() -> int:
         phase = "training"
         log("== training")
         training = phase_training()
+        phase = "families"
+        log("== families")
+        families = phase_families()
         phase = "serving"
         log("== serving")
         runs = phase_serving()
@@ -987,8 +1369,10 @@ def main() -> int:
         print(f"chip_smoke: phase {phase} FAILED", file=sys.stderr)
         return 1
     log(f"total {time.perf_counter() - started:.1f} s")
-    print(json.dumps({"kernels": kernel_report(kernels, runs,
-                                               training["launches"])}))
+    launches = dict(training["launches"])
+    for name, count in families["launches"].items():
+        launches[name] = launches.get(name, 0) + count
+    print(json.dumps({"kernels": kernel_report(kernels, runs, launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,7 +14,11 @@ What runs so far:
   hand-written paged-attention kernel (``csrc/paged_decode.cu``);
 * training on one device: ``TransformerLM.loss`` -> ``train.make_train_step``
   -> ``train.train_loop``, attention differentiated through the
-  hand-written flash-backward kernels (``csrc/flash_bwd.cu``).
+  hand-written flash-backward kernels (``csrc/flash_bwd.cu``);
+* the MLM encoder (``models/encoder``, attention through the head-blocked
+  flash forward of ``csrc/flash_fwd.cu`` when ``flash_bh_block`` > 1) and
+  LoRA fine-tuning (``models/lora``) through the same train step, fed by
+  the token data pipeline (``data``).
 
 The kernels are built with ``nvcc`` at first use; on CPU tensors every
 kernel wrapper runs its plain PyTorch version instead.

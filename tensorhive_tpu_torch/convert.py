@@ -7,6 +7,8 @@ param dict on a device: matmul weights and the embedding in
 ``param_dtype`` — ``config.dtype`` by default (serving), ``torch.float32``
 to carry JAX's f32 masters across unrounded (training) — and norm scales
 kept f32; see ``models/transformer``.
+``lora_from_jax`` / ``lora_to_numpy`` do the same for LoRA adapter trees
+(``models/lora``), which stay f32.
 Nothing here imports JAX; the caller does the JAX-side conversion.
 """
 from __future__ import annotations
@@ -75,3 +77,30 @@ def params_to_numpy(params: Params) -> Dict[str, Any]:
                 for name in _BLOCK_NORMS}}
             for block in params["blocks"]],
     }
+
+
+def lora_from_jax(tree: Dict[str, Any],
+                  device: DeviceLike = None) -> Dict[str, Any]:
+    """JAX adapter tree ``{"blocks": [{name: {"A", "B"}}]}`` of numpy
+    arrays -> the port's adapter tree on ``device``, f32 as ``init_lora``
+    makes it."""
+    device = resolve_device(device)
+
+    def leaf(array) -> torch.Tensor:
+        return torch.tensor(np.asarray(array, np.float32)).to(device)
+
+    return {"blocks": [
+        {name: {"A": leaf(ab["A"]), "B": leaf(ab["B"])}
+         for name, ab in block.items()}
+        for block in tree["blocks"]]}
+
+
+def lora_to_numpy(lora_params: Dict[str, Any]) -> Dict[str, Any]:
+    """Port adapter tree -> the JAX layout with f32 numpy leaves."""
+    def array(tensor: torch.Tensor) -> np.ndarray:
+        return tensor.detach().to(device="cpu", dtype=torch.float32).numpy()
+
+    return {"blocks": [
+        {name: {"A": array(ab["A"]), "B": array(ab["B"])}
+         for name, ab in block.items()}
+        for block in lora_params["blocks"]]}

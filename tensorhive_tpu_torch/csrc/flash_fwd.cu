@@ -3,7 +3,16 @@
 // Replaces: tensorhive_tpu/ops/flash_attention.py, _fwd_kernel_resident
 // (K/V of one head resident in VMEM) and _fwd_kernel (the streaming grid),
 // both reached from _flash_fwd_bhsd. Their split was a 4 MiB VMEM budget;
-// here one kernel serves every sequence length.
+// here one kernel serves every sequence length (thp_flash_fwd). Also
+// _fwd_kernel_resident_bh, the resident forward over a block of G heads per
+// grid program (MHA only), as the head-blocked kernels (thp_flash_fwd_bh):
+// one CTA per (q tile, G consecutive b*h rows) writes all G heads' O and
+// LSE. On the TPU the block amortized per-program sequencing and DMA set-up
+// and fed the MXU a batched contraction; a CTA has no such fixed cost to
+// amortize and its tensor cores take one head's tile at a time, so the CTA
+// runs its G heads' tiles in turn through the same shared memory and the
+// same per-tile code as the per-head kernel. A head's O and LSE are then
+// bitwise those of the per-head kernel; the grid is G times smaller.
 //
 // Computes, per (batch, head), O = softmax(scale * Q K^T [+ causal mask]) V
 // and the row log-sum-exp LSE = m + log(l), for q [B, S, H, D] and k/v
@@ -36,7 +45,10 @@
 //   = 1), keys past S are masked, q rows past S are neither read nor
 //   written: a ragged last tile (S = 4095) needs no fallback.
 // * The scale multiplies the f32 scores (d_head 128 gives 128^-0.5, not a
-//   power of two). A zero row sum divides by 1.
+//   power of two). That is the JAX _fold_scale_into_q rule either way: a
+//   power-of-two scale folded into q scales every product and every partial
+//   sum exactly, so it gives these scores bit for bit, and any other scale
+//   is the rule's residual on the f32 scores. A zero row sum divides by 1.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,26 +69,27 @@ constexpr size_t smem_bytes() {
 }
 
 // -- f32: exact f32 products on the CUDA cores --------------------------------
+// One (b*h row, 64-row q tile) of the f32 forward, run by the whole CTA in
+// shared memory ``smem``. Both the per-head kernel (K1/K2) and the
+// head-blocked kernel (K3) run their tiles through this one body, so a head
+// gets the same arithmetic, in the same order, from either.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int S, int H, int Hkv,
-                     int causal, float scale) {
+__device__ __forceinline__ void fwd_f32_tile(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int S, int H, int Hkv, int causal, float scale,
+    int bh, int q0, float* smem) {
   constexpr int DP = D + 1;           // padded rows: no bank conflicts
   constexpr int PP = BLOCK_K + 1;
   constexpr int OUT = D / 16;         // output columns per thread
-  extern __shared__ float smem[];
   float* q_s = smem;                  // [BLOCK_Q][DP]
   float* k_s = q_s + BLOCK_Q * DP;    // [BLOCK_K][DP]
   float* v_s = k_s + BLOCK_K * DP;    // [BLOCK_K][D]
   float* p_s = v_s + BLOCK_K * D;     // [BLOCK_Q][PP]
 
-  const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
   const int kvh = h / (H / Hkv);
-  const int q0 = blockIdx.x * BLOCK_Q;
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
@@ -197,6 +210,37 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// K1/K2: one CTA per (q tile, b*h row).
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int S, int H, int Hkv,
+                     int causal, float scale) {
+  extern __shared__ float smem[];
+  fwd_f32_tile<D>(q, k, v, o, lse, S, H, Hkv, causal, scale, blockIdx.y,
+                  blockIdx.x * BLOCK_Q, smem);
+}
+
+// K3: one CTA per (q tile, block of G consecutive b*h rows); the CTA runs
+// the G heads' tiles one after the other in the same shared memory. Row i
+// of the block is b*h row blockIdx.y * G + i, i.e. batch (row / H) and head
+// (row % H): a block may straddle two batch elements when H % G != 0.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_bh_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int S, int H, int causal,
+                        float scale, int G) {
+  extern __shared__ float smem[];
+  for (int i = 0; i < G; ++i) {
+    __syncthreads();  // the previous head is done with every tile
+    fwd_f32_tile<D>(q, k, v, o, lse, S, H, H, causal, scale,
+                    blockIdx.y * G + i, blockIdx.x * BLOCK_Q, smem);
+  }
+}
+
 // -- bf16: QK^T and PV on the tensor cores (mma.sync m16n8k16, f32 acc) ----
 //
 // Four warps per CTA, each owning 16 of the 64 query rows (FlashAttention-2
@@ -234,29 +278,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&pair);
 }
 
+// One (b*h row, 64-row q tile) of the bf16 forward (see fwd_f32_tile).
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                      int S, int H, int Hkv, int causal, float scale) {
+__device__ __forceinline__ void fwd_bf16_tile(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int S, int H, int Hkv, int causal, float scale,
+    int bh, int q0, unsigned char* smem_raw) {
   constexpr int LD = D + 8;           // bf16 tile rows: 16-byte multiple,
                                       // conflict-free fragment reads
   constexpr int CHUNKS = D / 8;       // 16-byte chunks per row
   constexpr int KSTEPS = D / 16;      // QK^T k-steps over d
   constexpr int NT_S = BLOCK_K / 8;   // S n-tiles (8 keys each)
   constexpr int NT_O = D / 8;         // O n-tiles (8 columns each)
-  extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* k_s = q_s + BLOCK_Q * LD;
   __nv_bfloat16* v_s = k_s + BLOCK_K * LD;
 
-  const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
   const int kvh = h / (H / Hkv);
-  const int q0 = blockIdx.x * BLOCK_Q;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -406,68 +447,151 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// K1/K2: one CTA per (q tile, b*h row).
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                      int S, int H, int Hkv, int causal, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  fwd_bf16_tile<D>(q, k, v, o, lse, S, H, Hkv, causal, scale, blockIdx.y,
+                   blockIdx.x * BLOCK_Q, smem_raw);
+}
+
+// K3: one CTA per (q tile, block of G consecutive b*h rows), as
+// flash_fwd_bh_f32_kernel.
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_fwd_bh_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         __nv_bfloat16* __restrict__ o,
+                         float* __restrict__ lse, int S, int H, int causal,
+                         float scale, int G) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  for (int i = 0; i < G; ++i) {
+    __syncthreads();  // the previous head is done with every tile
+    fwd_bf16_tile<D>(q, k, v, o, lse, S, H, H, causal, scale,
+                     blockIdx.y * G + i, blockIdx.x * BLOCK_Q, smem_raw);
+  }
+}
+
+// G == 0 launches the per-head kernel (K1/K2) over B*H rows; G >= 1 the
+// head-blocked kernel (K3, MHA: Hkv == H) over B*H / G blocks.
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 void* lse, int B, int S, int H, int Hkv, int causal,
-                float scale, cudaStream_t stream) {
+                float scale, int G, cudaStream_t stream) {
   const size_t smem = bf16_smem_bytes<D>();
-  cudaError_t status = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (status != cudaSuccess) return (int)status;
-  const dim3 grid((S + BLOCK_Q - 1) / BLOCK_Q, B * H);
-  flash_fwd_bf16_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), S, H, Hkv, causal, scale);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const __nv_bfloat16*>(k);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  auto* op = static_cast<__nv_bfloat16*>(o);
+  auto* lp = static_cast<float*>(lse);
+  const int tiles = (S + BLOCK_Q - 1) / BLOCK_Q;
+  cudaError_t status;
+  if (G == 0) {
+    status = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem);
+    if (status != cudaSuccess) return (int)status;
+    flash_fwd_bf16_kernel<D><<<dim3(tiles, B * H), MMA_THREADS, smem,
+                               stream>>>(qp, kp, vp, op, lp, S, H, Hkv,
+                                         causal, scale);
+  } else {
+    status = cudaFuncSetAttribute(flash_fwd_bh_bf16_kernel<D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem);
+    if (status != cudaSuccess) return (int)status;
+    flash_fwd_bh_bf16_kernel<D><<<dim3(tiles, B * H / G), MMA_THREADS, smem,
+                                  stream>>>(qp, kp, vp, op, lp, S, H, causal,
+                                            scale, G);
+  }
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                void* lse, int B, int S, int H, int Hkv, int causal,
-               float scale, cudaStream_t stream) {
+               float scale, int G, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
-  cudaError_t status = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (status != cudaSuccess) return (int)status;
-  const dim3 grid((S + BLOCK_Q - 1) / BLOCK_Q, B * H);
-  flash_fwd_f32_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), S, H, Hkv, causal, scale);
+  const auto* qp = static_cast<const float*>(q);
+  const auto* kp = static_cast<const float*>(k);
+  const auto* vp = static_cast<const float*>(v);
+  auto* op = static_cast<float*>(o);
+  auto* lp = static_cast<float*>(lse);
+  const int tiles = (S + BLOCK_Q - 1) / BLOCK_Q;
+  cudaError_t status;
+  if (G == 0) {
+    status = cudaFuncSetAttribute(flash_fwd_f32_kernel<D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem);
+    if (status != cudaSuccess) return (int)status;
+    flash_fwd_f32_kernel<D><<<dim3(tiles, B * H), THREADS, smem, stream>>>(
+        qp, kp, vp, op, lp, S, H, Hkv, causal, scale);
+  } else {
+    status = cudaFuncSetAttribute(flash_fwd_bh_f32_kernel<D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem);
+    if (status != cudaSuccess) return (int)status;
+    flash_fwd_bh_f32_kernel<D><<<dim3(tiles, B * H / G), THREADS, smem,
+                                 stream>>>(qp, kp, vp, op, lp, S, H, causal,
+                                           scale, G);
+  }
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
            void* lse, int B, int S, int H, int Hkv, int causal, float scale,
-           cudaStream_t stream) {
+           int G, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_f32<D>(q, k, v, o, lse, B, S, H, Hkv, causal, scale, stream);
+    return launch_f32<D>(q, k, v, o, lse, B, S, H, Hkv, causal, scale, G,
+                         stream);
   if (dtype == 1)
-    return launch_bf16<D>(q, k, v, o, lse, B, S, H, Hkv, causal, scale,
+    return launch_bf16<D>(q, k, v, o, lse, B, S, H, Hkv, causal, scale, G,
                           stream);
   return (int)cudaErrorInvalidValue;
 }
 
+int dispatch(int dtype, const void* q, const void* k, const void* v, void* o,
+             void* lse, int B, int S, int H, int Hkv, int D, int causal,
+             float scale, int G, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch<16>(dtype, q, k, v, o, lse, B, S, H, Hkv, causal, scale, G, s);
+    case 32: return launch<32>(dtype, q, k, v, o, lse, B, S, H, Hkv, causal, scale, G, s);
+    case 64: return launch<64>(dtype, q, k, v, o, lse, B, S, H, Hkv, causal, scale, G, s);
+    case 128: return launch<128>(dtype, q, k, v, o, lse, B, S, H, Hkv, causal, scale, G, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 = launched).
+// K1/K2. dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after
+// the launch (0 = launched).
 extern "C" int thp_flash_fwd(int dtype, const void* q, const void* k,
                              const void* v, void* o, void* lse, int B, int S,
                              int H, int Hkv, int D, int causal, float scale,
                              void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(dtype, q, k, v, o, lse, B, S, H, Hkv, causal, scale, s);
-    case 32: return launch<32>(dtype, q, k, v, o, lse, B, S, H, Hkv, causal, scale, s);
-    case 64: return launch<64>(dtype, q, k, v, o, lse, B, S, H, Hkv, causal, scale, s);
-    case 128: return launch<128>(dtype, q, k, v, o, lse, B, S, H, Hkv, causal, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch(dtype, q, k, v, o, lse, B, S, H, Hkv, D, causal, scale, 0,
+                  stream);
+}
+
+// K3: MHA (k/v carry H heads), G consecutive b*h rows per CTA; G must
+// divide B*H. Same dtype codes and return value as thp_flash_fwd.
+extern "C" int thp_flash_fwd_bh(int dtype, const void* q, const void* k,
+                                const void* v, void* o, void* lse, int B,
+                                int S, int H, int D, int causal, float scale,
+                                int G, void* stream) {
+  if (B < 1 || S < 1 || H < 1 || G < 1 || (B * H) % G != 0 ||
+      B * H / G > 65535)
+    return (int)cudaErrorInvalidValue;
+  return dispatch(dtype, q, k, v, o, lse, B, S, H, H, D, causal, scale, G,
+                  stream);
 }

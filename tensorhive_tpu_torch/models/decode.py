@@ -10,10 +10,23 @@ prompt), the same masked grouped decode attention, the same greedy
 argmax (first index among ties). Sampling draws Gumbel noise from a
 ``torch.Generator``, so sampled tokens agree with JAX in distribution, not
 draw by draw.
+
+``evaluate`` scores held-out next-token loss and perplexity over an
+iterator of [B, L+1] batches (``data.prefetch_to_device``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple, Union
+import math
+from typing import (
+    Any,
+    Dict,
+    Iterator,
+    NamedTuple,
+    Optional,
+    Sequence,
+    Tuple,
+    Union,
+)
 
 import torch
 
@@ -189,3 +202,38 @@ def generate(params: Params, config: TransformerConfig,
             chosen = torch.argmax(logits, dim=-1)
         tokens[:, position + 1] = chosen.to(torch.int32)
     return tokens[:, :total]
+
+
+@torch.no_grad()
+def evaluate(params: Params, config: TransformerConfig,
+             batches: Iterator[torch.Tensor], num_batches: int,
+             mesh: Any = None) -> Dict[str, float]:
+    """Mean held-out loss and perplexity over ``num_batches`` [B, L+1]
+    token batches from ``batches`` — the JAX ``decode.evaluate``. The
+    losses add up on the device and are read once after the loop (a read
+    per batch would wait for the device every batch). An exhausted iterator
+    raises."""
+    if not config.causal:
+        # next-token CE through bidirectional attention would see each
+        # target in its own input: perplexity collapses toward 1
+        raise ValueError("evaluate() scores next-token perplexity, which "
+                         "needs an autoregressive model; this config is a "
+                         "bidirectional encoder (causal=False)")
+    if num_batches < 1:
+        raise ValueError(f"num_batches must be >= 1, got {num_batches}")
+    total = None
+    for index in range(num_batches):
+        try:
+            tokens = next(batches)
+        except StopIteration:
+            raise ValueError(
+                f"batches iterator exhausted at batch {index} of "
+                f"{num_batches}") from None
+        loss = TransformerLM.loss(params, tokens, config, mesh=mesh)
+        total = loss if total is None else total + loss
+    mean = float(total) / num_batches
+    try:
+        perplexity = math.exp(mean)
+    except OverflowError:           # a diverged model
+        perplexity = float("inf")
+    return {"loss": mean, "perplexity": perplexity, "batches": num_batches}

@@ -20,7 +20,9 @@ training keeps f32 masters (``param_dtype=torch.float32``) and gets f32
 gradients through the cast. Norm scales stay f32, as ``_rmsnorm`` uses
 them.
 
-Training: ``loss`` (full or chunked cross entropy), the ``remat`` policies
+Training: ``loss`` (full or chunked cross entropy; ``_chunked_ce`` takes
+per-token weights, which the MLM loss of ``models/encoder`` passes), the
+``remat`` policies
 ("block" checkpoints whole blocks, "mlp" only the MLP half) through
 ``torch.utils.checkpoint``, and ``train_flops_per_token``. The mesh and
 pipeline paths are not ported yet.
@@ -66,6 +68,10 @@ class TransformerConfig:
     #: grouped-query attention: number of K/V heads (None = n_heads)
     n_kv_heads: Optional[int] = None
     causal: bool = True
+    #: b·h rows per program of the head-blocked flash forward (the JAX
+    #: ``TPUHIVE_FLASH_BH_BLOCK``; 1 = off, the JAX default). Clamped by
+    #: ``ops.flash_attention.fwd_bh_block``, so GQA configs stay at 1
+    flash_bh_block: int = 1
 
     @property
     def d_head(self) -> int:
@@ -174,18 +180,26 @@ def _lm_head(x: torch.Tensor, w_head: torch.Tensor,
 
 def _chunked_ce(x_flat: torch.Tensor, targets_flat: torch.Tensor,
                 w_head: torch.Tensor, dtype: torch.dtype,
-                chunk_tokens: int) -> torch.Tensor:
-    """Sum of (logsumexp - target logit) over all tokens, one token chunk
-    at a time. Each chunk runs under ``torch.utils.checkpoint``, so the
-    backward recomputes its logits instead of keeping them: peak memory is
-    one [chunk, vocab] f32 buffer either way."""
-    def one_chunk(x_blk, t_blk):
-        logits = _lm_head(x_blk, w_head, dtype)
-        return torch.sum(_lse_minus_target(logits, t_blk))
+                chunk_tokens: int,
+                weights_flat: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sum of weight * (logsumexp - target logit) over all tokens, one
+    token chunk at a time (``weights_flat`` None = unweighted; the MLM loss
+    passes its mask). Each chunk runs under ``torch.utils.checkpoint``, so
+    the backward recomputes its logits instead of keeping them: peak memory
+    is one [chunk, vocab] f32 buffer either way."""
+    if weights_flat is None:
+        weights_flat = torch.ones(x_flat.shape[0], dtype=torch.float32,
+                                  device=x_flat.device)
+    weights_flat = weights_flat.to(torch.float32)
 
-    sums = [checkpoint(one_chunk, x_blk, t_blk, use_reentrant=False)
-            for x_blk, t_blk in zip(x_flat.split(chunk_tokens),
-                                    targets_flat.split(chunk_tokens))]
+    def one_chunk(x_blk, t_blk, w_blk):
+        logits = _lm_head(x_blk, w_head, dtype)
+        return torch.sum(_lse_minus_target(logits, t_blk) * w_blk)
+
+    sums = [checkpoint(one_chunk, x_blk, t_blk, w_blk, use_reentrant=False)
+            for x_blk, t_blk, w_blk in zip(x_flat.split(chunk_tokens),
+                                           targets_flat.split(chunk_tokens),
+                                           weights_flat.split(chunk_tokens))]
     return torch.stack(sums).sum()
 
 
@@ -340,7 +354,8 @@ class TransformerLM(nn.Module):
         def attend(q, k, v):
             # GQA is native in the kernel (KV head h // group, no expanded
             # copy); the plain version on CPU tensors expands internally
-            return flash_attention(q, k, v, causal=config.causal)
+            return flash_attention(q, k, v, causal=config.causal,
+                                   bh_block=config.flash_bh_block)
 
         def plain_block(x, block):
             return TransformerLM.block_forward(x, block, config, positions,

@@ -14,6 +14,16 @@ the forward saves q, k, v, O and LSE, and the backward runs
 (dQ, then dK/dV) for CUDA tensors, the plain
 ``flash_attention_backward_reference`` for CPU tensors.
 
+``bh_block`` is the JAX package's ``TPUHIVE_FLASH_BH_BLOCK`` as an
+argument: the number G of consecutive b·h rows one program covers in the
+head-blocked forward (``_fwd_kernel_resident_bh``). ``fwd_bh_block``, a copy
+of the JAX ``_fwd_bh_block``, clamps the request as JAX does (to divide
+B·H, to fit ``RESIDENT_KV_MAX_BYTES``, and to 1 for GQA); a CUDA call whose
+G stays above 1 launches the head-blocked kernel of ``csrc/flash_fwd.cu``,
+any other the per-head one. Both compute K1's function, so on CPU tensors
+every G runs ``reference_attention``, and the backward reads either one's
+LSE.
+
 ``launches`` counts wrapper launches per direction and input type (one
 backward launch runs both backward kernels); the kernel-vs-plain checks
 call the plain versions directly and do not count.
@@ -31,8 +41,14 @@ from . import cuda_build
 NEG_INF = -1e30
 
 #: kernel launches per direction and input type (the main-path counters):
-#: "bf16"/"f32" the forward, "bwd_bf16"/"bwd_f32" the backward
-launches: Dict[str, int] = {"bf16": 0, "f32": 0, "bwd_bf16": 0, "bwd_f32": 0}
+#: "bf16"/"f32" the per-head forward, "bh_bf16"/"bh_f32" the head-blocked
+#: forward, "bwd_bf16"/"bwd_f32" the backward
+launches: Dict[str, int] = {"bf16": 0, "f32": 0, "bh_bf16": 0, "bh_f32": 0,
+                            "bwd_bf16": 0, "bwd_f32": 0}
+
+#: the JAX package's per-operand VMEM budget of its resident kernels, kept
+#: here only so that ``fwd_bh_block`` picks the G that JAX picks
+RESIDENT_KV_MAX_BYTES = 4 * 1024 * 1024
 
 _DTYPES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16")}
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -80,6 +96,12 @@ def _library() -> ctypes.CDLL:
                              + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                      ctypes.c_void_p])
         function.restype = ctypes.c_int
+        blocked = library.thp_flash_fwd_bh
+        blocked.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                            + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                                    ctypes.c_int,
+                                                    ctypes.c_void_p])
+        blocked.restype = ctypes.c_int
     return library
 
 
@@ -92,6 +114,30 @@ def _bwd_library() -> ctypes.CDLL:
                                                      ctypes.c_void_p])
         function.restype = ctypes.c_int
     return library
+
+
+def _kv_resident(seq_len: int, d: int, dtype: torch.dtype,
+                 factor: int = 1) -> bool:
+    """The JAX ``_kv_resident``: one b·h row's K+V (times ``factor``) fit
+    ``RESIDENT_KV_MAX_BYTES``."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return 2 * factor * seq_len * d * itemsize <= RESIDENT_KV_MAX_BYTES
+
+
+def fwd_bh_block(bh: int, group: int, seq_len: int, d: int,
+                 dtype: torch.dtype, requested: int) -> int:
+    """G, the b·h rows per program of the head-blocked forward, for a
+    request of ``requested`` — the JAX ``_fwd_bh_block`` with the request
+    as an argument instead of ``TPUHIVE_FLASH_BH_BLOCK``: 1 when the
+    request is at most 1 or the attention is GQA (``group`` > 1), else the
+    largest G <= the request that divides ``bh`` and whose G rows of K+V fit
+    the resident budget."""
+    if requested <= 1 or group != 1:
+        return 1
+    g = requested
+    while g > 1 and (bh % g or not _kv_resident(seq_len, d, dtype, factor=g)):
+        g -= 1
+    return g
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -123,9 +169,11 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             causal: bool, scale: Optional[float]
+             causal: bool, scale: Optional[float], bh_block: int = 1
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(O, LSE): the plain version for CPU tensors, the kernel for CUDA."""
+    """(O, LSE): the plain version for CPU tensors, for CUDA the
+    head-blocked kernel when ``fwd_bh_block`` gives G > 1, else the
+    per-head kernel."""
     if q.device.type == "cpu":
         return reference_attention(q, k, v, causal=causal, scale=scale,
                                    return_lse=True)
@@ -134,6 +182,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.device}")
     _check_inputs(q, k, v)
     batch, seq, heads, d = q.shape
+    kv_heads = k.shape[2]
     code, variant = _DTYPES[q.dtype]
     out = torch.empty_like(q)
     lse = torch.empty((batch * heads, 1, seq), dtype=torch.float32,
@@ -141,9 +190,19 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = d ** -0.5
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    g = fwd_bh_block(batch * heads, heads // kv_heads, seq, d, q.dtype,
+                     bh_block)
+    if g > 1:
+        status = _library().thp_flash_fwd_bh(
+            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), batch, seq, heads, d, int(causal), float(scale),
+            g, stream)
+        cuda_build.check(status, "flash_fwd_bh")
+        launches[f"bh_{variant}"] += 1
+        return out, lse
     status = _library().thp_flash_fwd(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), batch, seq, heads, k.shape[2], d, int(causal),
+        lse.data_ptr(), batch, seq, heads, kv_heads, d, int(causal),
         float(scale), stream)
     cuda_build.check(status, "flash_fwd")
     launches[variant] += 1
@@ -157,8 +216,9 @@ class _FlashAttention(torch.autograd.Function):
     output without a gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: Optional[float]):
-        out, lse = _forward(q, k, v, causal, scale)
+    def forward(ctx, q, k, v, causal: bool, scale: Optional[float],
+                bh_block: int = 1):
+        out, lse = _forward(q, k, v, causal, scale, bh_block)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         ctx.scale = scale
@@ -172,25 +232,27 @@ class _FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_backward(
             q, k, v, out, lse, grad_out.contiguous(), causal=ctx.causal,
             scale=ctx.scale)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: Optional[float] = None,
-                    return_lse: bool = False
+                    return_lse: bool = False, bh_block: int = 1
                     ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Fused attention. q [B, S, H, D]; k, v [B, S, Hkv, D] with
     H % Hkv == 0 (GQA native: no expanded K/V copy). Returns O [B, S, H, D]
     in q's dtype and, with ``return_lse``, LSE [B*H, 1, S] f32.
-    Differentiable in q, k and v through the flash backward.
+    Differentiable in q, k and v through the flash backward. ``bh_block``
+    requests the head-blocked forward over that many b·h rows per program
+    (``fwd_bh_block`` clamps it; 1 = the per-head forward).
 
     CPU tensors run the plain versions; CUDA tensors launch the kernels or
     raise — there is no fallback."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        out, lse = _FlashAttention.apply(q, k, v, causal, scale)
+        out, lse = _FlashAttention.apply(q, k, v, causal, scale, bh_block)
     else:
-        out, lse = _forward(q, k, v, causal, scale)
+        out, lse = _forward(q, k, v, causal, scale, bh_block)
     return (out, lse) if return_lse else out
 
 

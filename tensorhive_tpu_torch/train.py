@@ -53,8 +53,9 @@ class TrainConfig:
     max_grad_norm: float = 1.0
     batch_size: int = 8          # tokens-batch per optimizer step
     seq_len: int = 512
-    #: microbatches per optimizer step (1 = none): the [batch_size, L+1]
-    #: input is split into grad_accum_steps microbatches run one after the
+    #: microbatches per optimizer step (1 = none): the [batch_size, ...]
+    #: input (LM [B, L+1], packed MLM [B, 3, L]) is split along its batch
+    #: axis into grad_accum_steps microbatches run one after the
     #: other with f32 gradient accumulation
     grad_accum_steps: int = 1
 
@@ -192,8 +193,11 @@ def make_train_step(model_config: TransformerConfig,
                     loss_fn: Callable = TransformerLM.loss) -> Callable:
     """``step(params, opt_state, tokens) -> (params, opt_state, metrics)``
     on the device the params live on. ``loss_fn(params, tokens,
-    model_config)`` defaults to the causal LM loss. ``metrics`` holds 0-d
-    device tensors ``loss`` and ``grad_norm`` (reading them syncs)."""
+    model_config)`` defaults to the causal LM loss; the MLM encoder passes
+    ``models.encoder.mlm_loss_packed`` with [B, 3, L] batches, LoRA
+    ``models.lora.lora_loss`` with the adapter tree as ``params``.
+    ``metrics`` holds 0-d device tensors ``loss`` and ``grad_norm`` (reading
+    them syncs)."""
     _refuse_mesh(mesh)
     optimizer = make_optimizer(train_config)
     accum = train_config.grad_accum_steps
@@ -218,8 +222,10 @@ def make_train_step(model_config: TransformerConfig,
         loss_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
         sums = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                 for p in tree_leaves(params)]
-        for micro in tokens.reshape(accum, -1, tokens.shape[-1]):
-            loss, grads = value_and_grad(params, micro)
+        # split the leading (batch) axis only: an MLM batch is [B, 3, L]
+        micro = train_config.batch_size // accum
+        for micro_batch in tokens.reshape(accum, micro, *tokens.shape[1:]):
+            loss, grads = value_and_grad(params, micro_batch)
             loss_sum += loss
             for total, grad in zip(sums, grads):
                 total += grad.to(torch.float32)

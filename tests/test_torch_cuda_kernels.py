@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions at every head dim, GQA
-group and page type they accept, and the tiny engine on the card against
-the same engine on the CPU.
+group, head block and page type they accept, and the tiny engine on the
+card against the same engine on the CPU. The head-blocked flash forward
+is also held bitwise to the per-head kernel, whose per-tile code it runs.
 
 These tests need the card and skip without a CUDA device. On the card,
 where JAX is not installed, run them without the suite's conftest:
@@ -101,6 +102,69 @@ def test_flash_kernel_matches_plain(device, dtype, d, heads, kv_heads,
     assert out.shape == q.shape and out.dtype == dtype
     assert_close_to_plain(out, ref)
     assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("batch,heads,g", [(2, 4, 2), (2, 4, 4), (2, 6, 4),
+                                           (3, 8, 8), (1, 3, 3)])
+@pytest.mark.parametrize("causal,seq", [(True, 1), (True, 70), (True, 128),
+                                        (False, 100)])
+def test_head_blocked_kernel_matches_plain_and_per_head(
+        device, dtype, d, batch, heads, g, causal, seq):
+    """The head-blocked forward (G b*h rows per CTA; at B 2, H 6, G 4 a
+    block straddles two batch elements) against the plain version, and
+    bitwise against the per-head kernel, whose per-tile code it runs."""
+    generator = torch.Generator(device=device).manual_seed(d * 10 + g + seq)
+    q, k, v = (normal(generator, (batch, seq, heads, d), dtype)
+               for _ in range(3))
+    assert fa.fwd_bh_block(batch * heads, 1, seq, d, dtype, g) == g
+    variant = "bf16" if dtype == torch.bfloat16 else "f32"
+    before = dict(fa.launches)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True,
+                                  bh_block=g)
+    per_head, per_head_lse = fa.flash_attention(q, k, v, causal=causal,
+                                                return_lse=True)
+    ref, ref_lse = fa.reference_attention(q.float(), k.float(), v.float(),
+                                          causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.launches[f"bh_{variant}"] == before[f"bh_{variant}"] + 1
+    assert fa.launches[variant] == before[variant] + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    assert_close_to_plain(out, ref)
+    assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+    assert torch.equal(out, per_head) and torch.equal(lse, per_head_lse)
+
+
+@pytest.mark.parametrize("scale", [0.25, 0.3])
+def test_head_blocked_kernel_explicit_scale(device, scale):
+    generator = torch.Generator(device=device).manual_seed(9)
+    q, k, v = (normal(generator, (2, 96, 4, 64), torch.float32)
+               for _ in range(3))
+    out, lse = fa.flash_attention(q, k, v, causal=False, scale=scale,
+                                  return_lse=True, bh_block=4)
+    ref, ref_lse = fa.reference_attention(q, k, v, causal=False, scale=scale,
+                                          return_lse=True)
+    torch.cuda.synchronize()
+    assert_close_to_plain(out, ref)
+    assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+
+
+def test_head_blocked_autograd_on_the_card_matches_the_cpu(device):
+    """The backward kernels read the head-blocked forward's LSE."""
+    generator = torch.Generator().manual_seed(4)
+    q, k, v, weight = (torch.randn((2, 80, 4, 32), generator=generator)
+                       for _ in range(4))
+    grads = []
+    for where in ("cpu", device):
+        leaves = [t.to(where).requires_grad_() for t in (q, k, v)]
+        before = fa.launches["bh_f32"]
+        loss = (fa.flash_attention(*leaves, causal=False, bh_block=4)
+                * weight.to(where)).sum()
+        grads.append([g.cpu() for g in torch.autograd.grad(loss, leaves)])
+        assert fa.launches["bh_f32"] == before + (where != "cpu")
+    for card, cpu in zip(grads[1], grads[0]):
+        assert grad_row_error(card, cpu) <= CARD_VS_CPU_TOL
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -260,6 +324,22 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError, match="scales"):
         pa.paged_attention(q, pages.to(torch.int8), pages.to(torch.int8),
                            table, pos)
+
+
+def test_prefetch_to_the_card(device, tmp_path):
+    """Batches copied on the side stream arrive whole: each equals
+    batch_at(step) when the consumer's stream reads it."""
+    from tensorhive_tpu_torch import data
+
+    pattern = data.fake_shards(tmp_path, tokens_per_shard=1 << 16)
+    dataset = data.TokenDataset(data.DataConfig(pattern=pattern,
+                                                seq_len=1023, batch_size=16))
+    batches = list(data.prefetch_to_device(dataset, 3, 6, device=device))
+    assert len(batches) == 6
+    for step, batch in zip(range(3, 9), batches):
+        assert batch.device.type == "cuda" and batch.shape == (16, 1024)
+        assert torch.equal(batch.cpu(), torch.from_numpy(
+            dataset.batch_at(step)))
 
 
 @pytest.mark.parametrize("kv_quant", ["off", "on"])

@@ -14,7 +14,7 @@ import torch
 from tensorhive_tpu_torch import resolve_device, train
 from tensorhive_tpu_torch.config import GenerationConfig
 from tensorhive_tpu_torch.core.services.generation import build_engine
-from tensorhive_tpu_torch.models import decode
+from tensorhive_tpu_torch.models import decode, encoder
 from tensorhive_tpu_torch.models.transformer import PRESETS, TransformerLM
 from tensorhive_tpu_torch.serving.engine import SlotEngine
 
@@ -50,6 +50,9 @@ def test_imports_with_jax_blocked():
             "import tensorhive_tpu_torch.core.services.generation\n"
             "import tensorhive_tpu_torch.convert\n"
             "import tensorhive_tpu_torch.train\n"
+            "import tensorhive_tpu_torch.data\n"
+            "import tensorhive_tpu_torch.models.encoder\n"
+            "import tensorhive_tpu_torch.models.lora\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -80,6 +83,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         train.train_loop(TINY, train_config, num_steps=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         train.synthetic_batch(torch.Generator(), train_config, 512)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        encoder.init_encoder(preset="tiny")
     assert resolve_device("cpu") == torch.device("cpu")
 
 
