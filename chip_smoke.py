@@ -8,17 +8,22 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
 
 1. device   — CUDA sm_90 present; prints the card's name and power limit.
 2. build    — the three kernel libraries compiled from csrc/, one nvcc
-              each, in parallel.
+              each, in parallel; ptxas registers/spills per kernel, and
+              the SASS of the bf16 flash forward at d_head 64/128 must
+              hold wgmma (HGMMA) and TMA loads (UTMALDG).
 3. kernels  — every kernel variant against its plain PyTorch version at
               the main paths' shapes (serving: 7b heads, H 32, Hkv 8,
-              d 128; training: the t2t-base and t2t-big attention, the 7b
-              heads and a ragged S 4095 for the flash backward; the
+              d 128, and a long S 16384; training: the t2t-base forward
+              (B 64, S 1024, H 8, d 64), the t2t-base and t2t-big
+              attention, the 7b heads and a ragged S 4095 for the flash
+              backward; the
               head-blocked forward at the encoder's t2t-base attention, G
               2/4/8, causal or not, t2t-big's at G 4 and a ragged S 1000,
-              also against the per-head kernel on the same input), timed
-              beside its bound and, for flash, PyTorch's
-              scaled_dot_product_attention and its backward (timed here
-              only).
+              also against the per-head kernel on the same input, which it
+              must equal bitwise), timed beside its bound and, for flash,
+              PyTorch's scaled_dot_product_attention and its backward
+              (timed here only); forward lines add TFLOP/s, the share of
+              the bound and the time over SDPA's.
 4. model    — a 2-layer model at 7b widths in f32: logits on the card
               (flash kernel) against the CPU (plain reference).
 5. training — the training path, train_loop / make_train_step with the
@@ -57,6 +62,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -233,6 +239,23 @@ def phase_device():
     return card
 
 
+def kernel_label(mangled):
+    """``name<template ints>`` of a mangled kernel symbol (the identifier
+    whose length prefix ends in ``kernel``)."""
+    for match in re.finditer(r"(\d+)([A-Za-z_])", mangled):
+        start = match.start(2)
+        name = mangled[start:start + int(match.group(1))]
+        if name.endswith("kernel"):
+            dims = re.findall(r"Li(\d+)E", mangled[start + len(name):])
+            return f"{name}<{', '.join(dims)}>"
+    return mangled
+
+
+#: SASS of the bf16 flash forward at d_head 64/128: wgmma (HGMMA), TMA
+#: loads (UTMALDG) and mbarrier operations (SYNCS)
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
+
+
 def phase_build():
     from tensorhive_tpu_torch.ops import cuda_build
 
@@ -240,46 +263,89 @@ def phase_build():
     reports = cuda_build.build()
     log(f"build: {sorted(reports)} in {time.perf_counter() - started:.1f} s")
     for name, report in sorted(reports.items()):
+        kernel = "?"
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                kernel = kernel_label(entry.group(1))
+            elif ("registers" in line or "spill" in line or "smem" in line
+                  or "setmaxnreg" in line or "warning" in line):
+                log(f"  ptxas {name} {kernel}: {line.strip()}")
+    sass = subprocess.run(
+        [cuda_build.toolkit_tool("cuobjdump"), "-sass",
+         str(cuda_build.library_path("flash_fwd"))],
+        capture_output=True, text=True, timeout=300)
+    require(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-2000:]}")
+    counts, kernel = {}, None
+    for line in sass.stdout.splitlines():
+        function = re.search(r"Function : (\w+)", line)
+        if function:
+            kernel = kernel_label(function.group(1))
+            counts[kernel] = dict.fromkeys(SASS_OPS, 0)
+        elif kernel is not None:
+            for op in SASS_OPS:
+                counts[kernel][op] += op in line
+    for d in (64, 128):
+        for name in ("flash_fwd_bf16_kernel", "flash_fwd_bh_bf16_kernel"):
+            found = counts.get(f"{name}<{d}>", {})
+            log(f"  sass {name}<{d}>: " + ", ".join(
+                f"{op} {found.get(op, 0)}" for op in SASS_OPS))
+            require(found.get("HGMMA", 0) > 0 and found.get("UTMALDG", 0) > 0,
+                    f"{name}<{d}> issues no wgmma or no TMA load")
 
 
 # -- phase 3 ------------------------------------------------------------------
+
+#: (batch, seq, heads, kv_heads, d) of the per-head flash forward checks,
+#: bf16 and f32: the 7b serving prefill (H 32, Hkv 8, d 128) at 512, the
+#: 4095 bucket and 4096, and a long S 16384 over one KV head; bf16 adds the
+#: t2t-base training attention (B 64, S 1024, H 8, d 64)
+FORWARD_SHAPES = ((1, 512, 32, 8, 128), (1, 4095, 32, 8, 128),
+                  (1, 4096, 32, 8, 128), (1, 16384, 4, 1, 128))
 
 #: (batch, seq, heads, kv_heads, d) of the flash backward checks: the
 #: t2t-base and t2t-big training attention, the 7b heads (GQA), ragged S
 BACKWARD_SHAPES = ((64, 1024, 8, 8, 64), (8, 4096, 16, 16, 64),
                    (1, 4096, 32, 8, 128), (1, 4095, 32, 8, 128))
 
-def flash_case(seq, heads, kv_heads, variant, generator):
+def rate_report(flops, kernel_ms, bound, library_ms):
+    """Achieved TFLOP/s, share of the bound and the time over SDPA's, for
+    a forward row and its log line."""
+    rates = {"tflops": flops / kernel_ms / 1e9, "bound_share": bound / kernel_ms,
+             "vs_sdpa": kernel_ms / library_ms}
+    text = (f"{rates['tflops']:.0f} TFLOP/s, {100 * rates['bound_share']:.1f}% "
+            f"of the bound, {rates['vs_sdpa']:.2f}x SDPA")
+    return rates, text
+
+
+def flash_case(batch, seq, heads, kv_heads, d, variant, generator):
     import torch
     import torch.nn.functional as F
 
     from tensorhive_tpu_torch.ops import flash_attention as fa
 
     dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[variant]
-    d = 128
 
     def draw(h):
-        return torch.randn((1, seq, h, d), generator=generator, device="cuda",
-                           dtype=torch.float32).to(dtype)
+        return torch.randn((batch, seq, h, d), generator=generator,
+                           device="cuda", dtype=torch.float32).to(dtype)
 
     q, k, v = draw(heads), draw(kv_heads), draw(kv_heads)
     out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
     ref_out, ref_lse = fa.reference_attention(
         q.float(), k.float(), v.float(), causal=True, return_lse=True)
     torch.cuda.synchronize()
-    require(out.shape == q.shape and lse.shape == (heads, 1, seq),
-            "flash output shapes")
+    label = f"flash_fwd {variant} B={batch} S={seq} H={heads} Hkv={kv_heads} d={d}"
+    require(out.shape == q.shape and lse.shape == (batch * heads, 1, seq),
+            f"{label}: output shapes")
     err, rel = errors(out, ref_out)
     lse_err = (lse - ref_lse).abs().max().item()
     require(within_tolerance(err, rel, variant == "bf16"),
-            f"flash {variant} S={seq}: max |O - plain| {err}, max row "
+            f"{label}: max |O - plain| {err}, max row "
             f"||O - plain|| / ||plain|| {rel}; tolerance "
             f"{ROW_REL_TOL if variant == 'bf16' else ABS_TOL}")
     require(math.isfinite(lse_err) and lse_err <= LSE_TOL,
-            f"flash {variant} S={seq}: max |LSE - plain| {lse_err} > {LSE_TOL}")
+            f"{label}: max |LSE - plain| {lse_err} > {LSE_TOL}")
     del ref_out, ref_lse
     reps = 20 if seq <= 4096 else 5
     kernel_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True),
@@ -290,19 +356,20 @@ def flash_case(seq, heads, kv_heads, variant, generator):
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), reps)
     itemsize = q.element_size()
-    flops = 2.0 * seq * seq * heads * d            # causal QK^T + PV
-    nbytes = (2 * seq * (heads + kv_heads) * d * itemsize
-              + 4 * seq * heads)                   # q,k,v,o + lse
+    flops = 2.0 * seq * seq * heads * d * batch    # causal QK^T + PV
+    nbytes = batch * (2 * seq * (heads + kv_heads) * d * itemsize
+                      + 4 * seq * heads)           # q,k,v,o + lse
     bound, bound_by = bound_ms(flops, nbytes, variant)
-    row = {"seq": seq, "heads": heads, "kv_heads": kv_heads, "d": d,
-           "max_abs_err": err, "max_row_rel_err": rel, "lse_err": lse_err,
-           "ms": kernel_ms,
+    rates, rate_text = rate_report(flops, kernel_ms, bound, library_ms)
+    row = {"batch": batch, "seq": seq, "heads": heads, "kv_heads": kv_heads,
+           "d": d, "max_abs_err": err, "max_row_rel_err": rel,
+           "lse_err": lse_err, "ms": kernel_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound, "bound_by": bound_by}
-    log(f"flash_fwd {variant} S={seq} H={heads} Hkv={kv_heads}: err {err:.3e} "
-        f"row_rel {rel:.3e} lse_err {lse_err:.3e} kernel {kernel_ms:.4f} ms plain "
-        f"{plain_ms:.4f} ms sdpa {library_ms:.4f} ms bound {bound:.4f} ms "
-        f"({bound_by})")
+           "bound_ms": bound, "bound_by": bound_by, **rates}
+    log(f"{label} causal: err {err:.3e} row_rel {rel:.3e} lse_err "
+        f"{lse_err:.3e} kernel {kernel_ms:.4f} ms plain {plain_ms:.4f} ms "
+        f"sdpa {library_ms:.4f} ms bound {bound:.4f} ms ({bound_by}); "
+        f"{rate_text}")
     return row
 
 
@@ -372,20 +439,25 @@ def flash_bh_cases(batch, seq, heads, d, causal, requests, variant,
         vs_per_head = max((out.float() - per_head.float()).abs().max().item(),
                           (lse - per_head_lse).abs().max().item())
         del out, lse
+        require(vs_per_head == 0,
+                f"{label}: O/LSE differ from the per-head kernel's by "
+                f"{vs_per_head}; the two run one tile body and must agree "
+                f"bitwise")
         kernel_ms = cuda_ms(lambda: fa.flash_attention(
             q, k, v, causal=causal, bh_block=requested), reps)
+        rates, rate_text = rate_report(flops, kernel_ms, bound, library_ms)
         rows.append({"batch": batch, "seq": seq, "heads": heads, "d": d,
                      "causal": causal, "g": g, "max_abs_err": err,
                      "max_row_rel_err": rel, "lse_err": lse_err,
                      "vs_per_head": vs_per_head, "ms": kernel_ms,
                      "per_head_ms": per_head_ms, "plain_ms": plain_ms,
                      "library_ms": library_ms, "bound_ms": bound,
-                     "bound_by": bound_by})
+                     "bound_by": bound_by, **rates})
         log(f"{label}: err {err:.3e} row_rel {rel:.3e} lse_err "
             f"{lse_err:.3e} |K3 - K1| {vs_per_head:.1e}; kernel "
             f"{kernel_ms:.4f} ms, per-head kernel {per_head_ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound:.4f} "
-            f"ms ({bound_by})")
+            f"ms ({bound_by}); {rate_text}")
     del ref_out, ref_lse, per_head, per_head_lse
     torch.cuda.empty_cache()
     return rows
@@ -579,9 +651,10 @@ def phase_kernels():
     generator = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for variant in ("bf16", "f32"):
-        rows = [flash_case(seq, 32, 8, variant, generator)
-                for seq in (512, 4095, 4096)]
-        rows.append(flash_case(16384, 4, 1, variant, generator))
+        rows = [flash_case(*shape, variant, generator)
+                for shape in FORWARD_SHAPES]
+        if variant == "bf16":
+            rows.append(flash_case(64, 1024, 8, 8, 64, variant, generator))
         results[f"flash_fwd_{variant}"] = rows
         torch.cuda.empty_cache()
     for variant in ("bf16", "f32", "int8", "int8/bf16q"):

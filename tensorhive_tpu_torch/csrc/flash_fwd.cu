@@ -8,11 +8,12 @@
 // grid program (MHA only), as the head-blocked kernels (thp_flash_fwd_bh):
 // one CTA per (q tile, G consecutive b*h rows) writes all G heads' O and
 // LSE. On the TPU the block amortized per-program sequencing and DMA set-up
-// and fed the MXU a batched contraction; a CTA has no such fixed cost to
-// amortize and its tensor cores take one head's tile at a time, so the CTA
-// runs its G heads' tiles in turn through the same shared memory and the
-// same per-tile code as the per-head kernel. A head's O and LSE are then
-// bitwise those of the per-head kernel; the grid is G times smaller.
+// and fed the MXU a batched contraction; a CTA's tensor cores take one
+// head's tile at a time, so the CTA runs its G heads' tiles in turn through
+// the same shared memory and the same per-tile code as the per-head kernel
+// (what it amortizes is its own set-up: the bf16 TMA body keeps its load
+// ring running across the heads). A head's O and LSE are then bitwise those
+// of the per-head kernel; the grid is G times smaller.
 //
 // Computes, per (batch, head), O = softmax(scale * Q K^T [+ causal mask]) V
 // and the row log-sum-exp LSE = m + log(l), for q [B, S, H, D] and k/v
@@ -20,35 +21,77 @@
 // expanded copy). O is [B, S, H, D] in the input type, LSE [B*H, 1, S] f32.
 //
 // Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): one causal
-// layer does 2*S^2*H*D FLOPs on 2*S*(H+Hkv)*D*itemsize bytes — at S=4096,
-// H=32, Hkv=8, D=128 that is 137 GFLOP against 84 MB, so operations bound
-// it: ~0.14 ms at the bf16 tensor-core rate, ~2.0 ms for f32 inputs at the
-// 67 TFLOP/s of exact f32 outside the tensor cores.
+// layer does 2*S^2*H*D FLOPs on 2*S*(H+Hkv)*D*itemsize bytes — at S=4095,
+// H=32, Hkv=8, D=128 (K1, the 7b prefill) that is 137 GFLOP against 84 MB,
+// so operations bound it: ~0.14 ms at the bf16 tensor-core rate, ~2.0 ms
+// for f32 inputs at the 67 TFLOP/s of exact f32 outside the tensor cores.
+// K3 at the encoder shape (B 64, S 1024, H 8, D 64, non-causal) is 137
+// GFLOP on 67 MB, operations again (0.139 ms); at d_head 64 the softmax
+// weighs as much as the products: one exponential per score at the 16 per
+// clock of an SM's special-function units also takes ~0.14 ms.
 //
-// Design (simple and right first; wgmma/TMA are later work):
-// * One CTA per (batch*head, 64-row q tile) loops over 64-row K/V tiles
-//   staged in shared memory.
-// * bf16: QK^T and PV on the tensor cores (mma.sync m16n8k16, bf16
-//   operands, f32 accumulation), Q, S/P and O in registers, softmax
-//   statistics in f32, probabilities rounded to bf16 for PV as the TPU
-//   kernel rounds them (flash_fwd_bf16_kernel).
-// * f32: CUDA-core FMAs in exact f32 (no TF32), 256 threads; thread (ty,
-//   tx) of a 16x16 grid owns score rows 4*ty..4*ty+3 and columns tx+16*c,
-//   and the same rows of the O accumulator in registers for columns
-//   tx+16*j. Row max/sum reduce over the 16 lanes of a half-warp.
-// * Online softmax over K tiles in order. Causal: the loop stops at the
-//   tile holding the last visible key of the q tile, so tiles above the
-//   diagonal are never loaded. The mask is bottom-right aligned with
-//   seq_q == seq_k (key j visible to query i iff j <= i), the convention
-//   of reference_attention's tril(.., seq_k - seq_q).
-// * Masked scores give probability exactly 0 (never exp(NEG_INF-NEG_INF)
-//   = 1), keys past S are masked, q rows past S are neither read nor
-//   written: a ragged last tile (S = 4095) needs no fallback.
-// * The scale multiplies the f32 scores (d_head 128 gives 128^-0.5, not a
-//   power of two). That is the JAX _fold_scale_into_q rule either way: a
-//   power-of-two scale folded into q scales every product and every partial
-//   sum exactly, so it gives these scores bit for bit, and any other scale
-//   is the rule's residual on the f32 scores. A zero row sum divides by 1.
+// bf16, d_head 64 and 128 (every main path: t2t-base/big and the encoder
+// at 64, the 1b/7b presets at 128) — the Hopper design. The mma.sync body
+// (kept below for d 16/32) runs Ampere tiles of 64x64 on 4 warps that copy
+// every K/V tile through registers between two __syncthreads, with no load
+// in flight while the tensor cores work: 12% of the bf16 peak at the K1
+// shape on an H100.
+// Here (flash_fwd_bf16_kernel, flash_fwd_bh_bf16_kernel, fwd_bf16_cta):
+// * A CTA of three warpgroups owns a 128-row q tile. Warpgroup 2 is the
+//   producer: one thread issues TMA loads (cp.async.bulk.tensor) of Q once
+//   per head and of K and V, tile by tile, into a ring of shared-memory
+//   stages (2 at d 128, 3 at d 64; 128 keys each), so loads run ahead of
+//   the math. K and V of a stage each have a full and an empty mbarrier: a
+//   consumer releases K as soon as S is in and V only after P V, so the
+//   next K load does not wait for the last product (with one empty barrier
+//   per stage, 2 stages at d 128 starved the pipeline below). Warpgroups 0
+//   and 1 consume, 64 q rows each; setmaxnreg moves registers from the
+//   producer to them. The tensor maps are the port's layouts as they are, q/o
+//   [B, S, H, D] and k/v [B, S, Hkv, D], boxes of (64 columns, 1 head, 128
+//   rows, 1 batch) with the 128-byte swizzle wgmma reads; GQA loads KV head
+//   h / (H / Hkv) with no expanded copy, and TMA fills rows past S with
+//   zeros, so a ragged last tile needs no masked loads.
+// * S = Q K^T is wgmma m64n128k16 with both operands from shared memory,
+//   f32 accumulators. The online softmax stays in registers in f32, row
+//   max/sum over the 4 lanes that share a row, exponentials as exp2 with
+//   log2(e) folded into the score scale. P is rounded to bf16 in registers
+//   (the JAX kernel's probs.astype(v.dtype)) and is the register A operand
+//   of O += P V (wgmma m64nDk16, V the MN-major B operand from shared
+//   memory): the accumulator layout of the first product is the operand
+//   layout of the second, so P never touches shared memory.
+// * Each consumer pipelines its own tiles: it issues S of tile t and P V
+//   of tile t - 1 together, runs the softmax of tile t while P V is on the
+//   tensor cores, and rescales O once P V is done.
+// * Causal: a CTA loads key tiles up to the diagonal of its last row and
+//   never above it; a warpgroup whose rows end earlier releases the last
+//   tile unread. The q-tile order is reversed so the longest CTAs of each
+//   b*h row start first.
+// * K3 runs the same body over its G heads in turn: the producer carries
+//   the ring across the head boundary (the next head's K/V stream in while
+//   this head finishes), and a head's O and LSE are bitwise K1's.
+// d_head 16 and 32 (the tiny preset, and the card tests' grid) keep the
+// mma.sync body (fwd_bf16_tile): wgmma's 128-byte swizzle spans 64 bf16
+// columns, and a narrower head would need its own swizzle modes for work
+// no main path does.
+//
+// f32: CUDA-core FMAs in exact f32 (no TF32), 256 threads, one CTA per
+// (batch*head, 64-row q tile); thread (ty, tx) of a 16x16 grid owns score
+// rows 4*ty..4*ty+3 and columns tx+16*c, and the same rows of the O
+// accumulator in registers for columns tx+16*j. Row max/sum reduce over the
+// 16 lanes of a half-warp.
+//
+// Every body: online softmax over K tiles in order; the causal mask is
+// bottom-right aligned with seq_q == seq_k (key j visible to query i iff
+// j <= i), the convention of reference_attention's tril(.., seq_k - seq_q).
+// Masked scores give probability exactly 0 (never exp(NEG_INF-NEG_INF) =
+// 1), keys past S are masked, q rows past S are not written. The row sums
+// use the f32 probabilities. The scale multiplies the f32 scores (d_head
+// 128 gives 128^-0.5, not a power of two). That is the JAX
+// _fold_scale_into_q rule either way: a power-of-two scale folded into q
+// scales every product and every partial sum exactly, so it gives these
+// scores bit for bit, and any other scale is the rule's residual on the f32
+// scores. A zero row sum divides by 1.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -241,7 +284,7 @@ flash_fwd_bh_f32_kernel(const float* __restrict__ q,
   }
 }
 
-// -- bf16: QK^T and PV on the tensor cores (mma.sync m16n8k16, f32 acc) ----
+// -- bf16, d_head 16 and 32: mma.sync m16n8k16, f32 acc ----------------------
 //
 // Four warps per CTA, each owning 16 of the 64 query rows (FlashAttention-2
 // style). The warp's Q fragments stay in registers for the whole sweep; K
@@ -285,6 +328,7 @@ __device__ __forceinline__ void fwd_bf16_tile(
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int S, int H, int Hkv, int causal, float scale,
     int bh, int q0, unsigned char* smem_raw) {
+  static_assert(D == 16 || D == 32, "d_head 64 and 128 run fwd_bf16_cta");
   constexpr int LD = D + 8;           // bf16 tile rows: 16-byte multiple,
                                       // conflict-free fragment reads
   constexpr int CHUNKS = D / 8;       // 16-byte chunks per row
@@ -447,29 +491,30 @@ __device__ __forceinline__ void fwd_bf16_tile(
   }
 }
 
-// K1/K2: one CTA per (q tile, b*h row).
+// d 16/32, K1/K2: one CTA per (q tile, b*h row).
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                      int S, int H, int Hkv, int causal, float scale) {
+flash_fwd_mma_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int S, int H, int Hkv,
+                          int causal, float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   fwd_bf16_tile<D>(q, k, v, o, lse, S, H, Hkv, causal, scale, blockIdx.y,
                    blockIdx.x * BLOCK_Q, smem_raw);
 }
 
-// K3: one CTA per (q tile, block of G consecutive b*h rows), as
+// d 16/32, K3: one CTA per (q tile, block of G consecutive b*h rows), as
 // flash_fwd_bh_f32_kernel.
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
-flash_fwd_bh_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         __nv_bfloat16* __restrict__ o,
-                         float* __restrict__ lse, int S, int H, int causal,
-                         float scale, int G) {
+flash_fwd_bh_mma_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             __nv_bfloat16* __restrict__ o,
+                             float* __restrict__ lse, int S, int H,
+                             int causal, float scale, int G) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   for (int i = 0; i < G; ++i) {
     __syncthreads();  // the previous head is done with every tile
@@ -478,12 +523,10 @@ flash_fwd_bh_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// G == 0 launches the per-head kernel (K1/K2) over B*H rows; G >= 1 the
-// head-blocked kernel (K3, MHA: Hkv == H) over B*H / G blocks.
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                void* lse, int B, int S, int H, int Hkv, int causal,
-                float scale, int G, cudaStream_t stream) {
+int launch_bf16_mma(const void* q, const void* k, const void* v, void* o,
+                    void* lse, int B, int S, int H, int Hkv, int causal,
+                    float scale, int G, cudaStream_t stream) {
   const size_t smem = bf16_smem_bytes<D>();
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
@@ -493,23 +536,625 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   const int tiles = (S + BLOCK_Q - 1) / BLOCK_Q;
   cudaError_t status;
   if (G == 0) {
-    status = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
+    status = cudaFuncSetAttribute(flash_fwd_mma_bf16_kernel<D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem);
     if (status != cudaSuccess) return (int)status;
-    flash_fwd_bf16_kernel<D><<<dim3(tiles, B * H), MMA_THREADS, smem,
-                               stream>>>(qp, kp, vp, op, lp, S, H, Hkv,
-                                         causal, scale);
+    flash_fwd_mma_bf16_kernel<D><<<dim3(tiles, B * H), MMA_THREADS, smem,
+                                   stream>>>(qp, kp, vp, op, lp, S, H, Hkv,
+                                             causal, scale);
+  } else {
+    status = cudaFuncSetAttribute(flash_fwd_bh_mma_bf16_kernel<D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem);
+    if (status != cudaSuccess) return (int)status;
+    flash_fwd_bh_mma_bf16_kernel<D><<<dim3(tiles, B * H / G), MMA_THREADS,
+                                      smem, stream>>>(qp, kp, vp, op, lp, S,
+                                                      H, causal, scale, G);
+  }
+  return (int)cudaGetLastError();
+}
+
+// -- bf16, d_head 64 and 128: TMA, an mbarrier ring and wgmma ---------------
+//
+// Shared memory (1024-byte aligned for the 128-byte swizzle): the Q tile,
+// then STAGES K tiles, then STAGES V tiles, each stored as D/64 blocks of
+// (rows x 64 columns), 128 bytes a row, as TMA writes them; then the
+// mbarriers. A consumer warpgroup's fragment layout is mma.sync's per warp:
+// warp w of the group holds rows 16w + g and 16w + g + 8 (g = lane / 4) of
+// its 64, and the accumulator register 4j + 2r + e is column 8j + 2t + e
+// (t = lane % 4) of row g + 8r.
+constexpr int WG_THREADS = 128;
+constexpr int TMA_Q = 128;                  // q rows per CTA, 64 a consumer
+constexpr int TMA_K = 128;                  // keys per K/V stage
+constexpr int TMA_THREADS = 3 * WG_THREADS; // consumers 0, 1; producer 2
+constexpr int PRODUCER_REGS = 56;
+constexpr int CONSUMER_REGS = 224;          // 2 * 224 + 56 = 3 * 168
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int D>
+struct TmaTile {
+  static_assert(D == 64 || D == 128, "the TMA body serves d_head 64 and 128");
+  static constexpr int BLOCKS = D / 64;     // 64-column swizzle blocks
+  static constexpr int STAGES = D == 128 ? 2 : 3;
+  static constexpr uint32_t Q_BYTES = TMA_Q * D * 2;
+  static constexpr uint32_t KV_BYTES = TMA_K * D * 2;
+  static constexpr uint32_t BARRIERS = Q_BYTES + 2 * STAGES * KV_BYTES;
+  // q_full, q_empty, then k_full, v_full, k_empty and v_empty per stage;
+  // 1024 bytes of slack to align the base
+  static constexpr int SMEM = 1024 + BARRIERS + 8 * (2 + 4 * STAGES);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Returns once the phase of parity ``parity`` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One box of a 4-d tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on ``bar``.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Returns once at most ``pending`` committed wgmma groups of this thread
+// are still running (groups complete in the order they were committed).
+template <int pending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(pending)
+               : "memory");
+}
+
+// Keeps the compiler from touching accumulator registers across a pending
+// wgmma: each register is read and written here, in order with the asm.
+template <int N>
+__device__ __forceinline__ void fence_registers(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_registers(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) asm volatile("" : "+r"(r[i][x]) :: "memory");
+}
+
+#define THP_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define THP_F16(i) THP_F4(i), THP_F4(i + 4), THP_F4(i + 8), THP_F4(i + 12)
+#define THP_R32                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31"
+#define THP_R64                                                              \
+  THP_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63"
+
+// S (64 x 128) (+)= Q (64 x 16) K^T: both operands K-major in shared memory.
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " THP_R64
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : THP_F16(0), THP_F16(16), THP_F16(32), THP_F16(48)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// O (64 x D) += P (64 x 16, registers) V (16 x D, MN-major in shared
+// memory), D = 128 and 64.
+__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " THP_R64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : THP_F16(0), THP_F16(16), THP_F16(32), THP_F16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " THP_R32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : THP_F16(0), THP_F16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef THP_R64
+#undef THP_R32
+#undef THP_F16
+#undef THP_F4
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Descriptor offset (16-byte units) of the 16 columns kk*16.. of a K-major
+// tile of ``rows`` rows stored as 64-column swizzle blocks.
+template <int rows>
+__device__ __forceinline__ uint64_t k_major_step(int kk) {
+  return static_cast<uint64_t>(((kk / 4) * rows * 128 + (kk % 4) * 32) >> 4);
+}
+
+// S = Q K^T for one key tile into ``s`` (issued, committed, not waited).
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t q_desc,
+                                         uint32_t k_tile) {
+  const uint64_t k_desc = sw128_desc(k_tile, 16, 1024);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_qk(s, q_desc + k_major_step<TMA_Q>(kk),
+             k_desc + k_major_step<TMA_K>(kk), kk > 0);
+  wgmma_commit();
+}
+
+// O += P V for one key tile (issued, committed, not waited). V is the
+// MN-major B operand: 8-row groups 1024 bytes apart, the second 64-column
+// block TMA_K rows after the first.
+template <int N>
+__device__ __forceinline__ void issue_pv(float (&acc)[N],
+                                         uint32_t (&p)[TMA_K / 16][4],
+                                         uint32_t v_tile) {
+  const uint64_t v_desc = sw128_desc(v_tile, TMA_K * 128, 1024);
+  fence_registers(acc);
+  fence_registers(p);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < TMA_K / 16; ++kk)
+    wgmma_pv(acc, p[kk], v_desc + ((kk * 16 * 128) >> 4));
+  wgmma_commit();
+}
+
+// One online-softmax step over a key tile from k0, in f32: the scores in
+// ``s`` become probabilities (masked ones exactly 0), the row maxima ``m``
+// (in scaled log2 units) and this lane's row sums ``l`` move on, and
+// ``correction`` is the factor the O rows must be rescaled by. ``edge``:
+// the tile holds masked keys (past S, or above the diagonal of a row).
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[64], int k0, const int (&qpos)[2], int S, int causal,
+    bool edge, int t4, float scale_log2, float (&m)[2], float (&l)[2],
+    float (&correction)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float block_max = NEG_INF;
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = k0 + 8 * j + 2 * t4 + e;
+          float& x = s[4 * j + 2 * r + e];
+          x = kpos < S && (!causal || kpos <= qpos[r]) ? x * scale_log2
+                                                       : NEG_INF;
+          block_max = fmaxf(block_max, x);
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * r + e];
+          x *= scale_log2;
+          block_max = fmaxf(block_max, x);
+        }
+    }
+    block_max = fmaxf(block_max, __shfl_xor_sync(0xffffffffu, block_max, 1));
+    block_max = fmaxf(block_max, __shfl_xor_sync(0xffffffffu, block_max, 2));
+    const float m_new = fmaxf(m[r], block_max);
+    correction[r] = exp2_approx(m[r] - m_new);
+    float row_sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * r + e];
+        x = edge && x <= 0.5f * NEG_INF ? 0.f : exp2_approx(x - m_new);
+        row_sum += x;
+      }
+    l[r] = l[r] * correction[r] + row_sum;
+    m[r] = m_new;
+  }
+}
+
+// P in bf16 (the JAX kernel's probs.astype(v.dtype)): the S accumulator
+// layout is the A operand layout of the PV product, register for register.
+__device__ __forceinline__ void pack_probabilities(
+    uint32_t (&p)[TMA_K / 16][4], const float (&s)[64]) {
+#pragma unroll
+  for (int kk = 0; kk < TMA_K / 16; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      p[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void rescale_rows(float (&acc)[N],
+                                             const float (&correction)[2]) {
+#pragma unroll
+  for (int n = 0; n < N / 4; ++n) {
+    acc[4 * n] *= correction[0];
+    acc[4 * n + 1] *= correction[0];
+    acc[4 * n + 2] *= correction[1];
+    acc[4 * n + 3] *= correction[1];
+  }
+}
+
+// One CTA of the bf16 forward: the 128-row q tile of this block's grid
+// column for ``items`` consecutive b*h rows from ``bh0`` (K1/K2: one;
+// K3: G), in turn. ``scale_log2`` is the score scale times log2(e).
+template <int D>
+__device__ __forceinline__ void fwd_bf16_cta(
+    const CUtensorMap& q_map, const CUtensorMap& k_map,
+    const CUtensorMap& v_map, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int S, int H, int Hkv, int causal,
+    float scale_log2, int bh0, int items) {
+  using T = TmaTile<D>;
+  constexpr int STAGES = T::STAGES;
+  extern __shared__ __align__(1024) unsigned char tma_smem[];
+  const uint32_t base = (smem_u32(tma_smem) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + T::Q_BYTES;
+  const uint32_t v_s = k_s + STAGES * T::KV_BYTES;
+  const uint32_t q_full = base + T::BARRIERS;
+  const uint32_t q_empty = q_full + 8;
+  const uint32_t k_full = q_full + 16;           // + 8 * stage
+  const uint32_t v_full = k_full + 8 * STAGES;
+  const uint32_t k_empty = v_full + 8 * STAGES;
+  const uint32_t v_empty = k_empty + 8 * STAGES;
+
+  // heaviest causal q tiles first
+  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = tile * TMA_Q;
+  const int cta_last = min(q0 + TMA_Q, S) - 1;
+  const int kv_tiles = ((causal ? cta_last + 1 : S) + TMA_K - 1) / TMA_K;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 2);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 2);
+      mbar_init(v_empty + 8 * s, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 2) {
+    // -- producer: one thread keeps the ring full -----------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == 2 * WG_THREADS) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = 0; i < items; ++i) {
+        const int bh = bh0 + i;
+        const int b = bh / H;
+        const int h = bh % H;
+        const int kvh = h / (H / Hkv);
+        mbar_wait(q_empty, (i & 1) ^ 1);  // both consumers are past Q
+        mbar_expect_tx(q_full, T::Q_BYTES);
+        for (int blk = 0; blk < T::BLOCKS; ++blk)
+          tma_load(q_s + blk * TMA_Q * 128, q_map, q_full, blk * 64, h, q0, b);
+        for (int t = 0; t < kv_tiles; ++t) {
+          // K and V stages are released apart: a consumer is done with K
+          // once S is in, with V only after P V, a tile later
+          const uint32_t kf = k_full + 8 * stage;
+          const uint32_t vf = v_full + 8 * stage;
+          const uint32_t kd = k_s + stage * T::KV_BYTES;
+          const uint32_t vd = v_s + stage * T::KV_BYTES;
+          mbar_wait(k_empty + 8 * stage, phase ^ 1);  // both released it
+          mbar_expect_tx(kf, T::KV_BYTES);
+          for (int blk = 0; blk < T::BLOCKS; ++blk)
+            tma_load(kd + blk * TMA_K * 128, k_map, kf, blk * 64, kvh,
+                     t * TMA_K, b);
+          mbar_wait(v_empty + 8 * stage, phase ^ 1);
+          mbar_expect_tx(vf, T::KV_BYTES);
+          for (int blk = 0; blk < T::BLOCKS; ++blk)
+            tma_load(vd + blk * TMA_K * 128, v_map, vf, blk * 64, kvh,
+                     t * TMA_K, b);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // -- consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63 ----------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+    const int tid = threadIdx.x % WG_THREADS;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int t4 = lane % 4;
+    const int row0 = q0 + wg * 64;
+    const int qpos[2] = {row0 + warp * 16 + lane / 4,
+                         row0 + warp * 16 + lane / 4 + 8};
+    // key tiles this warpgroup reads: causal rows stop at their diagonal
+    const int my_tiles =
+        row0 >= S ? 1
+                  : (causal ? (min(row0 + 64, S) - 1) / TMA_K + 1 : kv_tiles);
+    const uint64_t q_desc = sw128_desc(q_s + wg * 64 * 128, 16, 1024);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int i = 0; i < items; ++i) {
+      const int bh = bh0 + i;
+      float acc[D / 2];
+#pragma unroll
+      for (int n = 0; n < D / 2; ++n) acc[n] = 0.f;
+      float m[2] = {NEG_INF, NEG_INF};  // in scaled log2 units
+      float l[2] = {0.f, 0.f};          // this lane's share of the row sums
+      float s[64];
+      float correction[2];
+      uint32_t p[TMA_K / 16][4];
+      const auto edge = [&](int k0) {
+        return k0 + TMA_K > S || (causal && k0 + TMA_K - 1 > row0);
+      };
+
+      // Software pipeline over the key tiles: S of tile t is computed
+      // while P V of tile t - 1 runs, and its softmax overlaps that
+      // product; O is rescaled once P V is done.
+      mbar_wait(q_full, i & 1);
+      mbar_wait(k_full + 8 * stage, phase);
+      issue_qk<D>(s, q_desc, k_s + stage * T::KV_BYTES);
+      wgmma_wait<0>();
+      fence_registers(s);
+      if (tid == 0) {
+        mbar_arrive(k_empty + 8 * stage);
+        if (my_tiles == 1) mbar_arrive(q_empty);
+      }
+      softmax_tile(s, 0, qpos, S, causal, edge(0), t4, scale_log2, m, l,
+                   correction);
+      pack_probabilities(p, s);
+      int prev_stage = stage;
+      uint32_t prev_phase = phase;
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+      for (int t = 1; t < my_tiles; ++t) {
+        mbar_wait(k_full + 8 * stage, phase);
+        issue_qk<D>(s, q_desc, k_s + stage * T::KV_BYTES);
+        mbar_wait(v_full + 8 * prev_stage, prev_phase);
+        issue_pv(acc, p, v_s + prev_stage * T::KV_BYTES);
+        wgmma_wait<1>();                // S is in, P V still running
+        fence_registers(s);
+        if (tid == 0) {
+          mbar_arrive(k_empty + 8 * stage);
+          if (t == my_tiles - 1) mbar_arrive(q_empty);
+        }
+        softmax_tile(s, t * TMA_K, qpos, S, causal, edge(t * TMA_K), t4,
+                     scale_log2, m, l, correction);
+        wgmma_wait<0>();
+        fence_registers(acc);
+        if (tid == 0) mbar_arrive(v_empty + 8 * prev_stage);
+        rescale_rows(acc, correction);
+        pack_probabilities(p, s);
+        prev_stage = stage;
+        prev_phase = phase;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      mbar_wait(v_full + 8 * prev_stage, prev_phase);
+      issue_pv(acc, p, v_s + prev_stage * T::KV_BYTES);
+      wgmma_wait<0>();
+      fence_registers(acc);
+      if (tid == 0) mbar_arrive(v_empty + 8 * prev_stage);
+      // tiles above every row of this warpgroup: released once landed
+      for (int t = my_tiles; t < kv_tiles; ++t) {
+        mbar_wait(k_full + 8 * stage, phase);
+        mbar_wait(v_full + 8 * stage, phase);
+        if (tid == 0) {
+          mbar_arrive(k_empty + 8 * stage);
+          mbar_arrive(v_empty + 8 * stage);
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+
+      const int b = bh / H;
+      const int h = bh % H;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float total = l[r];
+        total += __shfl_xor_sync(0xffffffffu, total, 1);
+        total += __shfl_xor_sync(0xffffffffu, total, 2);
+        const float denom = total == 0.f ? 1.f : total;
+        if (qpos[r] >= S) continue;
+        __nv_bfloat16* out =
+            o + (((long)b * S + qpos[r]) * H + h) * D + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
+              __floats2bfloat162_rn(acc[4 * n + 2 * r] / denom,
+                                    acc[4 * n + 2 * r + 1] / denom);
+        if (t4 == 0) lse[(long)bh * S + qpos[r]] = m[r] * LN2 + logf(denom);
+      }
+    }
+  }
+}
+
+// K1/K2: one CTA per (q tile, b*h row).
+template <int D>
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                      int S, int H, int Hkv, int causal, float scale_log2) {
+  fwd_bf16_cta<D>(q_map, k_map, v_map, o, lse, S, H, Hkv, causal, scale_log2,
+                  blockIdx.y, 1);
+}
+
+// K3: one CTA per (q tile, block of G consecutive b*h rows), MHA.
+template <int D>
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+flash_fwd_bh_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         __nv_bfloat16* __restrict__ o,
+                         float* __restrict__ lse, int S, int H, int causal,
+                         float scale_log2, int G) {
+  fwd_bf16_cta<D>(q_map, k_map, v_map, o, lse, S, H, H, causal, scale_log2,
+                  blockIdx.y * G, G);
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* entry = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t status = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &entry, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t status = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &entry, cudaEnableDefault, &found);
+#endif
+    if (status == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      encode = reinterpret_cast<EncodeTiled>(entry);
+  }
+  return encode;
+}
+
+// The tensor map of a bf16 [B, S, heads, D] tensor: boxes of 64 columns x
+// 1 head x ``rows`` positions x 1 batch, 128-byte swizzle, zeros past S.
+bool bshd_map(CUtensorMap* map, const void* data, int B, int S, int heads,
+              int D, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(data), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_bf16_tma(const void* q, const void* k, const void* v, void* o,
+                    void* lse, int B, int S, int H, int Hkv, int causal,
+                    float scale, int G, cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map;
+  if (!bshd_map(&q_map, q, B, S, H, D, TMA_Q) ||
+      !bshd_map(&k_map, k, B, S, Hkv, D, TMA_K) ||
+      !bshd_map(&v_map, v, B, S, Hkv, D, TMA_K))
+    return (int)cudaErrorInvalidValue;
+  const int smem = TmaTile<D>::SMEM;
+  auto* op = static_cast<__nv_bfloat16*>(o);
+  auto* lp = static_cast<float*>(lse);
+  const int tiles = (S + TMA_Q - 1) / TMA_Q;
+  const float scale_log2 = scale * LOG2E;
+  cudaError_t status;
+  if (G == 0) {
+    status = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem);
+    if (status != cudaSuccess) return (int)status;
+    flash_fwd_bf16_kernel<D><<<dim3(tiles, B * H), TMA_THREADS, smem,
+                               stream>>>(q_map, k_map, v_map, op, lp, S, H,
+                                         Hkv, causal, scale_log2);
   } else {
     status = cudaFuncSetAttribute(flash_fwd_bh_bf16_kernel<D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem);
+                                  smem);
     if (status != cudaSuccess) return (int)status;
-    flash_fwd_bh_bf16_kernel<D><<<dim3(tiles, B * H / G), MMA_THREADS, smem,
-                                  stream>>>(qp, kp, vp, op, lp, S, H, causal,
-                                            scale, G);
+    flash_fwd_bh_bf16_kernel<D><<<dim3(tiles, B * H / G), TMA_THREADS, smem,
+                                  stream>>>(q_map, k_map, v_map, op, lp, S, H,
+                                            causal, scale_log2, G);
   }
   return (int)cudaGetLastError();
+}
+
+// G == 0 launches the per-head kernel (K1/K2) over B*H rows; G >= 1 the
+// head-blocked kernel (K3, MHA: Hkv == H) over B*H / G blocks.
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                void* lse, int B, int S, int H, int Hkv, int causal,
+                float scale, int G, cudaStream_t stream) {
+  if constexpr (D >= 64)
+    return launch_bf16_tma<D>(q, k, v, o, lse, B, S, H, Hkv, causal, scale, G,
+                              stream);
+  else
+    return launch_bf16_mma<D>(q, k, v, o, lse, B, S, H, Hkv, causal, scale, G,
+                              stream);
 }
 
 template <int D>

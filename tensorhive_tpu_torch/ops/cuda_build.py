@@ -39,6 +39,11 @@ def _nvcc() -> str:
                        "built from csrc/ at first use")
 
 
+def toolkit_tool(name: str) -> str:
+    """A binary of the CUDA toolkit that holds ``nvcc`` (e.g. ``cuobjdump``)."""
+    return str(Path(_nvcc()).parent / name)
+
+
 def library_path(name: str) -> Path:
     if name not in KERNELS:
         raise ValueError(f"unknown kernel library {name!r}")

@@ -81,13 +81,33 @@ def normal(generator, shape, dtype):
                        ).to(dtype)
 
 
+# S 129 and 255 cross the 128-row q and key tiles of the bf16 TMA body (d
+# 64/128), 1000 and 4095 wrap its ring of 2 (d 128) or 3 (d 64) stages
+FLASH_SEQS = [(True, 1), (True, 70), (True, 128), (False, 100), (True, 129),
+              (False, 255), (True, 1000), (True, 4095)]
+# the head-blocked grid stops at S 500 (4 key tiles, past either ring):
+# every G of it must fit the 4 MiB budget fwd_bh_block keeps, S <= 512 at
+# d_head 128, f32, G 8
+BH_SEQS = FLASH_SEQS[:6] + [(True, 500)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("heads,kv_heads", [(4, 4), (4, 1), (8, 2)])
-@pytest.mark.parametrize("causal,seq", [(True, 1), (True, 70), (True, 128),
-                                        (False, 100)])
+@pytest.mark.parametrize("causal,seq", FLASH_SEQS)
 def test_flash_kernel_matches_plain(device, dtype, d, heads, kv_heads,
                                     causal, seq):
+    check_flash_kernel(device, dtype, d, heads, kv_heads, causal, seq)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,seq", FLASH_SEQS)
+def test_flash_kernel_gqa_group_4_matches_plain(device, dtype, causal, seq):
+    """The 7b heads: H 32 over Hkv 8 at d_head 128."""
+    check_flash_kernel(device, dtype, 128, 32, 8, causal, seq)
+
+
+def check_flash_kernel(device, dtype, d, heads, kv_heads, causal, seq):
     generator = torch.Generator(device=device).manual_seed(d * 1000 + seq)
     q = normal(generator, (2, seq, heads, d), dtype)
     k = normal(generator, (2, seq, kv_heads, d), dtype)
@@ -108,8 +128,7 @@ def test_flash_kernel_matches_plain(device, dtype, d, heads, kv_heads,
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("batch,heads,g", [(2, 4, 2), (2, 4, 4), (2, 6, 4),
                                            (3, 8, 8), (1, 3, 3)])
-@pytest.mark.parametrize("causal,seq", [(True, 1), (True, 70), (True, 128),
-                                        (False, 100)])
+@pytest.mark.parametrize("causal,seq", BH_SEQS)
 def test_head_blocked_kernel_matches_plain_and_per_head(
         device, dtype, d, batch, heads, g, causal, seq):
     """The head-blocked forward (G b*h rows per CTA; at B 2, H 6, G 4 a
@@ -134,6 +153,37 @@ def test_head_blocked_kernel_matches_plain_and_per_head(
     assert_close_to_plain(out, ref)
     assert (lse - ref_lse).abs().max().item() <= LSE_TOL
     assert torch.equal(out, per_head) and torch.equal(lse, per_head_lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("batch,seq,heads,kv_heads,d", [
+    (16, 1024, 32, 8, 128), (64, 1024, 8, 8, 64)])
+def test_flash_kernel_causal_grid_fills_the_card(device, dtype, batch, seq,
+                                                 heads, kv_heads, d):
+    """Causal over B*H 512 rows of S 1024: 4096 CTAs of 128 q rows in bf16
+    (the TMA body's heaviest-first order over many waves). Per-head against
+    the plain version and, under MHA, the head-blocked kernel at G 4
+    bitwise against the per-head one."""
+    generator = torch.Generator(device=device).manual_seed(seq + d)
+    variant = "bf16" if dtype == torch.bfloat16 else "f32"
+    q = normal(generator, (batch, seq, heads, d), dtype)
+    k = normal(generator, (batch, seq, kv_heads, d), dtype)
+    v = normal(generator, (batch, seq, kv_heads, d), dtype)
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    for b in range(0, batch, 8):                # plain version in chunks
+        ref, ref_lse = fa.reference_attention(
+            q[b:b + 8].float(), k[b:b + 8].float(), v[b:b + 8].float(),
+            causal=True, return_lse=True)
+        assert_close_to_plain(out[b:b + 8], ref)
+        rows = slice(b * heads, (b + 8) * heads)
+        assert (lse[rows] - ref_lse).abs().max().item() <= LSE_TOL
+    if kv_heads == heads:
+        before = fa.launches[f"bh_{variant}"]
+        blocked, blocked_lse = fa.flash_attention(
+            q, k, v, causal=True, return_lse=True, bh_block=4)
+        torch.cuda.synchronize()
+        assert fa.launches[f"bh_{variant}"] == before + 1
+        assert torch.equal(blocked, out) and torch.equal(blocked_lse, lse)
 
 
 @pytest.mark.parametrize("scale", [0.25, 0.3])
