@@ -8,22 +8,24 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
 
 1. device   — CUDA sm_90 present; prints the card's name and power limit.
 2. build    — the three kernel libraries compiled from csrc/, one nvcc
-              each, in parallel; ptxas registers/spills per kernel, and
-              the SASS of the bf16 flash forward at d_head 64/128 must
-              hold wgmma (HGMMA) and TMA loads (UTMALDG).
+              each, in parallel; ptxas registers/spills per kernel; the
+              SASS of the bf16 flash forward and of both bf16 backward
+              kernels (dQ, dK/dV) at d_head 64/128 must hold wgmma (HGMMA)
+              and TMA loads (UTMALDG), and ptxas must report neither
+              spills nor serialized wgmma for them.
 3. kernels  — every kernel variant against its plain PyTorch version at
               the main paths' shapes (serving: 7b heads, H 32, Hkv 8,
               d 128, and a long S 16384; training: the t2t-base forward
               (B 64, S 1024, H 8, d 64), the t2t-base and t2t-big
               attention, the 7b heads and a ragged S 4095 for the flash
-              backward; the
+              backward, and the encoder's non-causal backward; the
               head-blocked forward at the encoder's t2t-base attention, G
               2/4/8, causal or not, t2t-big's at G 4 and a ragged S 1000,
               also against the per-head kernel on the same input, which it
               must equal bitwise), timed beside its bound and, for flash,
               PyTorch's scaled_dot_product_attention and its backward
-              (timed here only); forward lines add TFLOP/s, the share of
-              the bound and the time over SDPA's.
+              (timed here only); forward and backward lines add TFLOP/s,
+              the share of the bound and the time over SDPA's.
 4. model    — a 2-layer model at 7b widths in f32: logits on the card
               (flash kernel) against the CPU (plain reference).
 5. training — the training path, train_loop / make_train_step with the
@@ -241,8 +243,9 @@ def phase_device():
 
 def kernel_label(mangled):
     """``name<template ints>`` of a mangled kernel symbol (the identifier
-    whose length prefix ends in ``kernel``)."""
-    for match in re.finditer(r"(\d+)([A-Za-z_])", mangled):
+    whose length prefix ends in ``kernel``). Matches overlap: a length may
+    follow a digit of the anonymous namespace's hash."""
+    for match in re.finditer(r"(?=(\d+)([A-Za-z_]))", mangled):
         start = match.start(2)
         name = mangled[start:start + int(match.group(1))]
         if name.endswith("kernel"):
@@ -251,9 +254,12 @@ def kernel_label(mangled):
     return mangled
 
 
-#: SASS of the bf16 flash forward at d_head 64/128: wgmma (HGMMA), TMA
+#: SASS of the bf16 flash kernels at d_head 64/128: wgmma (HGMMA), TMA
 #: loads (UTMALDG) and mbarrier operations (SYNCS)
 SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
+#: the bf16 TMA + wgmma kernels, by library
+TMA_KERNELS = {"flash_fwd": ("flash_fwd_bf16_kernel", "flash_fwd_bh_bf16_kernel"),
+               "flash_bwd": ("flash_dq_bf16_kernel", "flash_dkv_bf16_kernel")}
 
 
 def phase_build():
@@ -262,36 +268,57 @@ def phase_build():
     started = time.perf_counter()
     reports = cuda_build.build()
     log(f"build: {sorted(reports)} in {time.perf_counter() - started:.1f} s")
+    spills, serialized = {}, set()
     for name, report in sorted(reports.items()):
         kernel = "?"
         for line in report.splitlines():
             entry = re.search(r"Compiling entry function '(\w+)'", line)
+            loss = re.search(r"Performance Loss: .* function '(\w+)'", line)
             if entry:
                 kernel = kernel_label(entry.group(1))
+            elif loss:
+                # ptxas made every wgmma of the kernel wait for the last
+                serialized.add(kernel_label(loss.group(1)))
+                log(f"  ptxas {name}: {line.strip()}")
             elif ("registers" in line or "spill" in line or "smem" in line
                   or "setmaxnreg" in line or "warning" in line):
                 log(f"  ptxas {name} {kernel}: {line.strip()}")
-    sass = subprocess.run(
-        [cuda_build.toolkit_tool("cuobjdump"), "-sass",
-         str(cuda_build.library_path("flash_fwd"))],
-        capture_output=True, text=True, timeout=300)
-    require(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-2000:]}")
-    counts, kernel = {}, None
-    for line in sass.stdout.splitlines():
-        function = re.search(r"Function : (\w+)", line)
-        if function:
-            kernel = kernel_label(function.group(1))
-            counts[kernel] = dict.fromkeys(SASS_OPS, 0)
-        elif kernel is not None:
-            for op in SASS_OPS:
-                counts[kernel][op] += op in line
-    for d in (64, 128):
-        for name in ("flash_fwd_bf16_kernel", "flash_fwd_bh_bf16_kernel"):
-            found = counts.get(f"{name}<{d}>", {})
-            log(f"  sass {name}<{d}>: " + ", ".join(
-                f"{op} {found.get(op, 0)}" for op in SASS_OPS))
-            require(found.get("HGMMA", 0) > 0 and found.get("UTMALDG", 0) > 0,
-                    f"{name}<{d}> issues no wgmma or no TMA load")
+                spilled = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                    r"spill loads", line)
+                if spilled:
+                    spills[kernel] = (spills.get(kernel, 0)
+                                      + sum(map(int, spilled.groups())))
+    for library, names in TMA_KERNELS.items():
+        sass = subprocess.run(
+            [cuda_build.toolkit_tool("cuobjdump"), "-sass",
+             str(cuda_build.library_path(library))],
+            capture_output=True, text=True, timeout=300)
+        require(sass.returncode == 0,
+                f"cuobjdump failed: {sass.stderr[-2000:]}")
+        counts, kernel = {}, None
+        for line in sass.stdout.splitlines():
+            function = re.search(r"Function : (\w+)", line)
+            if function:
+                kernel = kernel_label(function.group(1))
+                counts[kernel] = dict.fromkeys(SASS_OPS, 0)
+            elif kernel is not None:
+                for op in SASS_OPS:
+                    counts[kernel][op] += op in line
+        for d in (64, 128):
+            for name in names:
+                label = f"{name}<{d}>"
+                found = counts.get(label, {})
+                log(f"  sass {label}: " + ", ".join(
+                    f"{op} {found.get(op, 0)}" for op in SASS_OPS)
+                    + f"; ptxas spill bytes {spills.get(label, 'not reported')}")
+                require(found.get("HGMMA", 0) > 0
+                        and found.get("UTMALDG", 0) > 0,
+                        f"{label} issues no wgmma or no TMA load")
+                require(spills.get(label) == 0,
+                        f"{label}: ptxas reports spills "
+                        f"({spills.get(label, 'no report')})")
+                require(label not in serialized,
+                        f"{label}: ptxas serialized its wgmma instructions")
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -303,14 +330,16 @@ def phase_build():
 FORWARD_SHAPES = ((1, 512, 32, 8, 128), (1, 4095, 32, 8, 128),
                   (1, 4096, 32, 8, 128), (1, 16384, 4, 1, 128))
 
-#: (batch, seq, heads, kv_heads, d) of the flash backward checks: the
-#: t2t-base and t2t-big training attention, the 7b heads (GQA), ragged S
-BACKWARD_SHAPES = ((64, 1024, 8, 8, 64), (8, 4096, 16, 16, 64),
-                   (1, 4096, 32, 8, 128), (1, 4095, 32, 8, 128))
+#: (batch, seq, heads, kv_heads, d, causal) of the flash backward checks:
+#: the t2t-base and t2t-big training attention, the 7b heads (GQA), ragged
+#: S; bf16 adds the encoder's non-causal t2t-base attention
+BACKWARD_SHAPES = ((64, 1024, 8, 8, 64, True), (8, 4096, 16, 16, 64, True),
+                   (1, 4096, 32, 8, 128, True), (1, 4095, 32, 8, 128, True))
+ENCODER_BACKWARD = (64, 1024, 8, 8, 64, False)
 
 def rate_report(flops, kernel_ms, bound, library_ms):
     """Achieved TFLOP/s, share of the bound and the time over SDPA's, for
-    a forward row and its log line."""
+    a forward or backward row and its log line."""
     rates = {"tflops": flops / kernel_ms / 1e9, "bound_share": bound / kernel_ms,
              "vs_sdpa": kernel_ms / library_ms}
     text = (f"{rates['tflops']:.0f} TFLOP/s, {100 * rates['bound_share']:.1f}% "
@@ -463,7 +492,7 @@ def flash_bh_cases(batch, seq, heads, d, causal, requests, variant,
     return rows
 
 
-def plain_backward(q, k, v, out, lse, do, delta):
+def plain_backward(q, k, v, out, lse, do, delta, causal):
     """The plain backward over batch chunks whose score matrices stay near
     2 GB (the function is independent per batch element)."""
     import torch
@@ -480,12 +509,13 @@ def plain_backward(q, k, v, out, lse, do, delta):
         n = q[rows].shape[0]
         parts.append(fa.flash_attention_backward_reference(
             q[rows], k[rows], v[rows], out[rows],
-            lse[rows].reshape(n * heads, 1, seq), do[rows], causal=True,
+            lse[rows].reshape(n * heads, 1, seq), do[rows], causal=causal,
             delta=delta[rows].reshape(n * heads, 1, seq)))
     return [torch.cat(grads) for grads in zip(*parts)]
 
 
-def flash_backward_case(batch, seq, heads, kv_heads, d, variant, generator):
+def flash_backward_case(batch, seq, heads, kv_heads, d, causal, variant,
+                        generator):
     """Both backward kernels (dQ, dK/dV) against the plain backward on the
     same inputs, per gradient; timed beside the bound, the plain version
     and the backward of PyTorch's scaled_dot_product_attention (its
@@ -502,14 +532,14 @@ def flash_backward_case(batch, seq, heads, kv_heads, d, variant, generator):
                            device="cuda", dtype=torch.float32).to(dtype)
 
     q, k, v, do = draw(heads), draw(kv_heads), draw(kv_heads), draw(heads)
-    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
     delta = fa.flash_bwd_delta(do, out)
-    grads = fa.flash_attention_backward(q, k, v, out, lse, do, causal=True,
+    grads = fa.flash_attention_backward(q, k, v, out, lse, do, causal=causal,
                                         delta=delta)
-    refs = plain_backward(q, k, v, out, lse, do, delta)
+    refs = plain_backward(q, k, v, out, lse, do, delta, causal)
     torch.cuda.synchronize()
     label = (f"flash_bwd {variant} B={batch} S={seq} H={heads} "
-             f"Hkv={kv_heads} d={d}")
+             f"Hkv={kv_heads} d={d} {'causal' if causal else 'non-causal'}")
     worst = [0.0, 0.0]
     per_grad = []
     for grad, ref, like, name in zip(grads, refs, (q, k, v), "qkv"):
@@ -517,7 +547,8 @@ def flash_backward_case(batch, seq, heads, kv_heads, d, variant, generator):
                 f"{label}: d{name} shape/dtype")
         require(bool(torch.isfinite(grad).all()), f"{label}: d{name} not "
                 f"finite")
-        err, rel, small = grad_errors(grad, ref, first_row_zero=name == "q")
+        err, rel, small = grad_errors(grad, ref,
+                                      first_row_zero=causal and name == "q")
         require(math.isfinite(rel) and rel <= GRAD_ROW_TOL[variant],
                 f"{label}: d{name} max row ||g - plain|| / ||plain|| "
                 f"{rel} > {GRAD_ROW_TOL[variant]}")
@@ -528,29 +559,32 @@ def flash_backward_case(batch, seq, heads, kv_heads, d, variant, generator):
     big = batch * heads * seq * seq * d > 2 ** 34
     reps = 3 if variant == "f32" or big else 10
     kernel_ms = cuda_ms(lambda: fa.flash_attention_backward(
-        q, k, v, out, lse, do, causal=True, delta=delta), reps)
-    plain_ms = cuda_ms(lambda: plain_backward(q, k, v, out, lse, do, delta),
-                       1, warmup=1)
+        q, k, v, out, lse, do, causal=causal, delta=delta), reps)
+    plain_ms = cuda_ms(lambda: plain_backward(q, k, v, out, lse, do, delta,
+                                              causal), 1, warmup=1)
     leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(
-        *leaves, is_causal=True, enable_gqa=kv_heads != heads)
+        *leaves, is_causal=causal, enable_gqa=kv_heads != heads)
     grad_out = do.transpose(1, 2)
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         sdpa_out, leaves, grad_out, retain_graph=True), reps)
     del sdpa_out, leaves
     itemsize = q.element_size()
-    flops = 5.0 * seq * seq * heads * d * batch    # causal: 5 products / 2
+    # 5 products of 2 S^2 D per head (halved by the causal mask)
+    flops = (5.0 if causal else 10.0) * seq * seq * heads * d * batch
     nbytes = (4 * batch * seq * (heads + kv_heads) * d * itemsize
               + 2 * 4 * batch * heads * seq)          # + lse, delta
     bound, bound_by = bound_ms(flops, nbytes, variant)
+    rates, rate_text = rate_report(flops, kernel_ms, bound, library_ms)
     row = {"batch": batch, "seq": seq, "heads": heads, "kv_heads": kv_heads,
-           "d": d, "max_abs_err": worst[0], "max_row_rel_err": worst[1],
-           "ms": kernel_ms,
+           "d": d, "causal": causal, "max_abs_err": worst[0],
+           "max_row_rel_err": worst[1], "ms": kernel_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound, "bound_by": bound_by}
+           "bound_ms": bound, "bound_by": bound_by, **rates}
     log(f"{label}: err {worst[0]:.3e} row_rel {worst[1]:.3e} kernel "
         f"{kernel_ms:.4f} ms plain {plain_ms:.4f} ms "
-        f"sdpa bwd {library_ms:.4f} ms bound {bound:.4f} ms ({bound_by})")
+        f"sdpa bwd {library_ms:.4f} ms bound {bound:.4f} ms ({bound_by}); "
+        f"{rate_text}")
     log(f"  row_rel by gradient: {'; '.join(per_grad)}")
     torch.cuda.empty_cache()
     return row
@@ -660,9 +694,11 @@ def phase_kernels():
     for variant in ("bf16", "f32", "int8", "int8/bf16q"):
         results[f"paged_decode_{variant}"] = [paged_case(variant, generator)]
     for variant in ("bf16", "f32"):
+        shapes = BACKWARD_SHAPES + ((ENCODER_BACKWARD,) if variant == "bf16"
+                                    else ())
         results[f"flash_bwd_{variant}"] = [
             flash_backward_case(*shape, variant, generator)
-            for shape in BACKWARD_SHAPES]
+            for shape in shapes]
     for variant in ("bf16", "f32"):
         results[f"flash_fwd_bh_{variant}"] = [
             row for shape in BH_SHAPES

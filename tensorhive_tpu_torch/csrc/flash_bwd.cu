@@ -15,16 +15,63 @@
 //   dV = P^T dO         (summed over the GQA group)
 // dq comes out in q's layout and type, dk/dv in k's.
 //
-// Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): the two
-// passes do 5 products of 2*S^2*D per head (QK^T and dO V^T twice, dS K,
-// dS^T Q, P^T dO), halved by causality: 5*S^2*H*D FLOPs against about
+// Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): the function
+// needs 5 products of 2*S^2*D per head (Q K^T, dO V^T, dS K, dS^T Q,
+// P^T dO), halved by causality: 5*S^2*H*D FLOPs against about
 // 4*S*(H+Hkv)*D*itemsize bytes. At S=4096, H=32, Hkv=8, D=128 that is
 // 344 GFLOP against 168 MB, so operations bound it: ~0.35 ms at the bf16
-// tensor-core rate, ~5.1 ms for f32 at the 67 TFLOP/s of exact f32.
+// tensor-core rate, ~5.1 ms for f32 at the 67 TFLOP/s of exact f32. The two
+// passes below do 7 products, not 5: each computes Q K^T and dO V^T itself.
 //
-// Design (simple and right first; wgmma/TMA and a fused single pass are
-// later work). The TPU kernels' two-pass split is kept: it needs no atomics
-// and sums every gradient in a fixed order, so results are deterministic.
+// Two passes, as the TPU kernels split it: the dQ kernel sums over keys,
+// the dK/dV kernel over q rows and the GQA group, each CTA owning its
+// output rows. No atomics, every sum in a fixed order: two launches on one
+// input give the same bits. (A fused single pass does the 5 products but
+// sums dQ across CTAs with atomics.)
+//
+// bf16, d_head 64 and 128 (every main path) — the Hopper design, the
+// forward's machinery (hopper.cuh): a CTA of three warpgroups. Warpgroup 2
+// is the producer: one thread loads the CTA's 128 resident rows once and
+// streams the other operands, tile by tile, into a ring of 4 shared-memory
+// stages by TMA (cp.async.bulk.tensor; the port's layouts as they are, boxes
+// of 64 columns with the 128-byte swizzle wgmma reads, zeros past S), with
+// full and empty mbarriers per stage. Warpgroups 0 and 1 consume, 64
+// resident rows each; setmaxnreg moves registers from the producer to them.
+// A streamed tile is 128 rows at d 64 and 64 at d 128, so that a consumer's
+// accumulators stay in registers (no spills).
+// * dQ kernel (flash_dq_bf16_kernel): one CTA per (b*h, 128-row q tile),
+//   reversed tile order so the longest causal CTAs start first. Q and dO
+//   load once; K and V stream up to the diagonal of the CTA's last row.
+//   S = Q K^T and dP = dO V^T are wgmma with both operands in shared
+//   memory; P and dS are formed in f32 registers (the rows' LSE and delta
+//   loaded once, by plain loads: a ragged S gives their rows no 16-byte
+//   stride for a tensor map); dS, rounded to bf16, is the register A
+//   operand of dQ += dS K, whose B operand is the K stage read MN-major —
+//   the tile the first product read K-major. A consumer computes P while
+//   dP runs; V's stage is released once dP is in, K's once dS K is done.
+// * dK/dV kernel (flash_dkv_bf16_kernel): one CTA per (b*hkv, 128-key
+//   tile). K and V load once; Q and dO stream, q tile by q tile from the
+//   key tile's diagonal (causal), for each of the `group` query heads in
+//   turn, the ring running across the head boundary. The producer warp
+//   also writes each tile's LSE (in log2 units) and delta into the stage.
+//   The scores are computed transposed, S^T = K Q^T and dP^T = V dO^T, so
+//   the accumulator rows are keys: P^T and dS^T, rounded to bf16, are the
+//   register A operands of dV += P^T dO and dK += dS^T Q, with dO and Q the
+//   MN-major B operands straight from their stages. LSE and delta are per
+//   column. dK and dV sum over the group in registers. A consumer computes
+//   P^T while dP^T runs, then issues dV and dK together.
+// * Inside a consumer, each tile's products finish before the next tile's
+//   start; the two consumer warpgroups keep the tensor cores fed. Measured
+//   on the H100: overlapping tile t's dQ product with tile t + 1's S and dP
+//   gained at most 2% (and ptxas serializes every wgmma when such a
+//   product is issued in a conditional path); issuing dV before dS^T is
+//   formed was slower (serialized: the registers of both do not fit).
+// * P = 2^(s * scale * log2(e) - lse * log2(e)) (ex2.approx); a masked score
+//   gives P = 0 exactly, and so does a q row past S (its LSE is +inf).
+//   Keys past S (dQ) are masked; rows of the resident tile past S are never
+//   stored and feed no other row.
+// d_head 16 and 32 (the tiny preset, and the card tests' grid) keep the
+// mma.sync body: wgmma's 128-byte swizzle spans 64 bf16 columns.
 // * dQ kernel: one CTA per (batch*head, 64-row q tile). Q, dO and the rows'
 //   lse/delta load once; the CTA loops over 64-row K/V tiles up to the
 //   causal diagonal, recomputes P from lse, and accumulates dQ in f32
@@ -34,35 +81,35 @@
 //   head and, for each, over the q tiles from the diagonal down, reading
 //   that query head's own lse/delta rows. dK and dV accumulate in f32
 //   registers; nothing is shared between CTAs.
-// * bf16: every product on the tensor cores (mma.sync m16n8k16, bf16
-//   operands, f32 accumulation), as flash_fwd.cu does. P is rounded to bf16
-//   before P^T dO and dS before dS K and dS^T Q — the JAX kernels'
-//   .astype(do.dtype) / .astype(q.dtype) / .astype(k.dtype). Score
+// * Every product on the tensor cores (mma.sync m16n8k16, bf16 operands,
+//   f32 accumulation), 4 warps copying tiles through registers. Score
 //   fragments that a product consumes as its A operand are repacked from
 //   the accumulator registers; B operands that need the transpose come
 //   through ldmatrix.trans.
-// * f32: CUDA-core FMAs in exact f32 (no TF32), 256 threads as a 16x16
-//   grid; each thread owns 4 rows x 4 columns of a 64x64 score tile and 4
-//   rows of the gradient accumulators; P and dS pass through shared memory
-//   to the second product.
-// * The scale always multiplies the f32 scores. _fold_scale_into_q folds a
-//   power-of-two scale into q instead; scaling by a power of two commutes
-//   with every rounding of the sum, so both give the same bits.
-// * Masks: key j is visible to query i iff j <= i (causal, seq_q == seq_k)
-//   and both are < S. A masked score gives P = 0 exactly, never
-//   exp(NEG_INF - lse) computed. Rows past S are loaded as zeros, never
-//   written, and contribute nothing: a ragged S (4095) needs no fallback.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Both bf16 bodies round P to bf16 before P^T dO and dS before dS K and
+// dS^T Q — the JAX kernels' .astype(do.dtype) / .astype(q.dtype) /
+// .astype(k.dtype).
+// f32: CUDA-core FMAs in exact f32 (no TF32), 256 threads as a 16x16 grid;
+// each thread owns 4 rows x 4 columns of a 64x64 score tile and 4 rows of
+// the gradient accumulators; P and dS pass through shared memory to the
+// second product; the same CTA grids as the mma.sync body.
+// The scale always multiplies the f32 scores. _fold_scale_into_q folds a
+// power-of-two scale into q instead; scaling by a power of two commutes
+// with every rounding of the sum (and with the log2(e) factor), so both give
+// the same bits.
+// Masks: key j is visible to query i iff j <= i (causal, seq_q == seq_k)
+// and both are < S. A masked score gives P = 0 exactly, never
+// exp(NEG_INF - lse) computed. Rows past S are loaded as zeros, never
+// written, and contribute nothing: a ragged S (4095) needs no fallback.
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int BLOCK_Q = 64;      // dQ: q rows per CTA
 constexpr int BLOCK_K = 64;      // dQ: keys per tile; dK/dV: keys per CTA
-constexpr int BLOCK_QB = 32;     // bf16 dK/dV: q rows per inner tile
+constexpr int BLOCK_QB = 32;     // mma.sync dK/dV: q rows per inner tile
 constexpr int THREADS = 256;     // f32 kernels
-constexpr int MMA_THREADS = 128; // bf16 kernels: 4 warps x 16 rows
+constexpr int MMA_THREADS = 128; // mma.sync kernels: 4 warps x 16 rows
 constexpr int ROWS = 4;          // f32: rows per thread
 constexpr int COLS = 4;          // f32: score columns per thread
 
@@ -362,7 +409,7 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// -- bf16: every product on the tensor cores (mma.sync m16n8k16, f32 acc) ---
+// -- bf16, d_head 16 and 32: mma.sync m16n8k16, f32 acc ---------------------
 //
 // Four warps per CTA, each owning 16 rows of the CTA's tile (q rows in the
 // dQ kernel, keys in the dK/dV kernel). Fragment layout of m16n8k16 (g =
@@ -392,11 +439,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
 
 __device__ __forceinline__ uint32_t load32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&pair);
 }
 
 // A fragment (rows row0+g, row0+g+8; k columns col0 + 2t.., + 8) of a
@@ -441,11 +483,15 @@ __device__ __forceinline__ void load_tile(bf16* tile, int ld,
 
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
-flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dq,
-                     int S, int H, int Hkv, int causal, float scale) {
+flash_dq_mma_bf16_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int S, int H, int Hkv,
+                         int causal, float scale) {
+  static_assert(D == 16 || D == 32, "d_head 64 and 128 run the TMA body");
   constexpr int LD = D + 8;           // 16-byte rows, conflict-free fragments
   constexpr int KSTEPS = D / 16;      // k-steps over d
   constexpr int NT_S = BLOCK_K / 8;   // score n-tiles (8 keys each)
@@ -568,13 +614,15 @@ flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
-flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int S, int H, int Hkv,
-                      int causal, float scale) {
+flash_dkv_mma_bf16_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          int S, int H, int Hkv, int causal, float scale) {
+  static_assert(D == 16 || D == 32, "d_head 64 and 128 run the TMA body");
   constexpr int LD = D + 8;
   constexpr int KSTEPS = D / 16;
   constexpr int NT_S = BLOCK_QB / 8;  // score n-tiles (8 q rows each)
@@ -717,6 +765,438 @@ flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// -- bf16, d_head 64 and 128: TMA, an mbarrier ring and wgmma ---------------
+//
+// Shared memory (1024-byte aligned for the 128-byte swizzle): the two
+// resident tiles (128 rows each), then STAGES tiles of each streamed
+// operand, each stored as D/64 blocks of (rows x 64 columns), 128 bytes a
+// row, as TMA writes them; the dK/dV kernel adds each stage's LSE and delta
+// (STREAM floats each); then the mbarriers. An empty barrier counts one
+// arrival per consumer warp: a warp arrives once the products that read the
+// stage, and its own reads of it, are done.
+constexpr int RESIDENT = 128;                // resident rows, 64 a consumer
+constexpr int BWD_THREADS = 3 * WG_THREADS;  // consumers 0, 1; producer 2
+constexpr int CONSUMER_WARPS = 8;
+constexpr int BWD_PRODUCER_REGS = 40;
+constexpr int BWD_CONSUMER_REGS = 232;       // 2 * 232 + 40 = 3 * 168
+
+template <int D>
+struct BwdTile {
+  static_assert(D == 64 || D == 128, "the TMA body serves d_head 64 and 128");
+  static constexpr int BLOCKS = D / 64;      // 64-column swizzle blocks
+  static constexpr int STREAM = D == 128 ? 64 : 128;  // rows a stage
+  static constexpr int STAGES = 4;
+  static constexpr uint32_t RES_BYTES = RESIDENT * D * 2;
+  static constexpr uint32_t STREAM_BYTES = STREAM * D * 2;
+  static constexpr uint32_t TILES = 2 * RES_BYTES + 2 * STAGES * STREAM_BYTES;
+  static constexpr uint32_t STATS = 2 * STAGES * STREAM * 4;
+  // 1024 bytes of slack to align the base. dQ: q_full, then k_full,
+  // v_full, k_empty, v_empty per stage; dK/dV: kv_full, then full and
+  // empty per stage
+  static constexpr int DQ_SMEM = 1024 + TILES + 8 * (1 + 4 * STAGES);
+  static constexpr int DKV_SMEM = 1024 + TILES + STATS + 8 * (1 + 2 * STAGES);
+};
+
+template <int STAGES>
+__device__ __forceinline__ void advance(int& stage, uint32_t& phase) {
+  if (++stage == STAGES) {
+    stage = 0;
+    phase ^= 1;
+  }
+}
+
+// P of a key tile from k0 in place of the scores ``s`` (rows are q rows):
+// 2^(s * scale_log2 - lse) with ``lse`` in log2 units, masked scores
+// exactly 0. ``edge``: the tile holds keys past S or above the diagonal of
+// a row.
+template <int N2>
+__device__ __forceinline__ void dq_probabilities(
+    float (&s)[N2], int k0, const int (&qpos)[2], int S, int causal,
+    bool edge, int t4, float scale_log2, const float (&lse)[2]) {
+#pragma unroll
+  for (int j = 0; j < N2 / 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * r + e];
+        const float p = exp2_approx(fmaf(x, scale_log2, -lse[r]));
+        const int kpos = k0 + 8 * j + 2 * t4 + e;
+        x = !edge || (kpos < S && (!causal || kpos <= qpos[r])) ? p : 0.f;
+      }
+}
+
+// dS = P (dP - delta) in place of dP (rows are q rows).
+template <int N2>
+__device__ __forceinline__ void dq_ds(float (&dp)[N2], const float (&p)[N2],
+                                      const float (&delta)[2]) {
+#pragma unroll
+  for (int j = 0; j < N2 / 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * r + e;
+        dp[i] = p[i] * (dp[i] - delta[r]);
+      }
+}
+
+// P^T of a q tile from q0 in place of the scores ``st`` (rows are keys,
+// columns q rows), each column with its own LSE (log2 units, +inf past S)
+// from shared memory. ``edge``: a key of the rows lies above the diagonal
+// of a column.
+template <int N2>
+__device__ __forceinline__ void dkv_probabilities(
+    float (&st)[N2], int q0, const int (&kpos)[2], bool edge, int t4,
+    float scale_log2, const float* lse) {
+#pragma unroll
+  for (int j = 0; j < N2 / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + 2 * t4 + e;
+      const float l = lse[col];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float& x = st[4 * j + 2 * r + e];
+        const float p = exp2_approx(fmaf(x, scale_log2, -l));
+        x = !edge || kpos[r] <= q0 + col ? p : 0.f;
+      }
+    }
+}
+
+// dS^T = P^T (dP^T - delta) in place of dP^T, delta per column.
+template <int N2>
+__device__ __forceinline__ void dkv_ds(float (&dpt)[N2], const float (&pt)[N2],
+                                       int t4, const float* delta) {
+#pragma unroll
+  for (int j = 0; j < N2 / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float d = delta[8 * j + 2 * t4 + e];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = 4 * j + 2 * r + e;
+        dpt[i] = pt[i] * (dpt[i] - d);
+      }
+    }
+}
+
+// dQ: one CTA per (128-row q tile, b*h row). ``scale_log2`` is the score
+// scale times log2(e).
+template <int D>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dq,
+                     int S, int H, int Hkv, int causal, float scale,
+                     float scale_log2) {
+  using T = BwdTile<D>;
+  constexpr int SB = T::STREAM;                  // keys a stage
+  constexpr int STAGES = T::STAGES;
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  const uint32_t base = (smem_u32(bwd_smem) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t do_s = q_s + T::RES_BYTES;
+  const uint32_t k_s = do_s + T::RES_BYTES;
+  const uint32_t v_s = k_s + STAGES * T::STREAM_BYTES;
+  const uint32_t q_full = base + T::TILES;
+  const uint32_t k_full = q_full + 8;            // + 8 * stage
+  const uint32_t v_full = k_full + 8 * STAGES;
+  const uint32_t k_empty = v_full + 8 * STAGES;
+  const uint32_t v_empty = k_empty + 8 * STAGES;
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kvh = h / (H / Hkv);
+  // heaviest causal q tiles first
+  const int q0 =
+      (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * RESIDENT;
+  const int kv_tiles =
+      ((causal ? min(q0 + RESIDENT, S) : S) + SB - 1) / SB;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, CONSUMER_WARPS);
+      mbar_init(v_empty + 8 * s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  const int lane = threadIdx.x % 32;
+  if (wg == 2) {
+    // -- producer: one thread keeps the ring full -------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(BWD_PRODUCER_REGS));
+    if (threadIdx.x == 2 * WG_THREADS) {
+      mbar_expect_tx(q_full, 2 * T::RES_BYTES);
+      for (int blk = 0; blk < T::BLOCKS; ++blk) {
+        tma_load(q_s + blk * RESIDENT * 128, q_map, q_full, blk * 64, h, q0,
+                 b);
+        tma_load(do_s + blk * RESIDENT * 128, do_map, q_full, blk * 64, h,
+                 q0, b);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < kv_tiles; ++t) {
+        const uint32_t kf = k_full + 8 * stage;
+        const uint32_t vf = v_full + 8 * stage;
+        const uint32_t kd = k_s + stage * T::STREAM_BYTES;
+        const uint32_t vd = v_s + stage * T::STREAM_BYTES;
+        mbar_wait(k_empty + 8 * stage, phase ^ 1);
+        mbar_expect_tx(kf, T::STREAM_BYTES);
+        for (int blk = 0; blk < T::BLOCKS; ++blk)
+          tma_load(kd + blk * SB * 128, k_map, kf, blk * 64, kvh, t * SB, b);
+        mbar_wait(v_empty + 8 * stage, phase ^ 1);
+        mbar_expect_tx(vf, T::STREAM_BYTES);
+        for (int blk = 0; blk < T::BLOCKS; ++blk)
+          tma_load(vd + blk * SB * 128, v_map, vf, blk * 64, kvh, t * SB, b);
+        advance<STAGES>(stage, phase);
+      }
+    }
+  } else {
+    // -- consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63 ------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(BWD_CONSUMER_REGS));
+    const int warp = (threadIdx.x % WG_THREADS) / 32;
+    const int t4 = lane % 4;
+    const int row0 = q0 + wg * 64;
+    const int qpos[2] = {row0 + warp * 16 + lane / 4,
+                         row0 + warp * 16 + lane / 4 + 8};
+    float row_lse[2], row_delta[2];            // LSE in log2 units
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool ok = qpos[r] < S;
+      row_lse[r] = ok ? lse[(long)bh * S + qpos[r]] * LOG2E : CUDART_INF_F;
+      row_delta[r] = ok ? delta[(long)bh * S + qpos[r]] : 0.f;
+    }
+    // key tiles this warpgroup reads: causal rows stop at their diagonal
+    const int my_tiles =
+        row0 >= S ? 0
+                  : (causal ? (min(row0 + 64, S) - 1) / SB + 1 : kv_tiles);
+    const uint64_t q_desc = sw128_desc(q_s + wg * 64 * 128, 16, 1024);
+    const uint64_t do_desc = sw128_desc(do_s + wg * 64 * 128, 16, 1024);
+    float acc[D / 2];
+#pragma unroll
+    for (int n = 0; n < D / 2; ++n) acc[n] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    mbar_wait(q_full, 0);
+    for (int t = 0; t < my_tiles; ++t) {
+      const int k0 = t * SB;
+      const bool edge = k0 + SB > S || (causal && k0 + SB - 1 > row0);
+      float s[SB / 2], dp[SB / 2];
+      mbar_wait(k_full + 8 * stage, phase);
+      issue_ss<D, RESIDENT, SB>(s, q_desc, k_s + stage * T::STREAM_BYTES);
+      mbar_wait(v_full + 8 * stage, phase);
+      issue_ss<D, RESIDENT, SB>(dp, do_desc, v_s + stage * T::STREAM_BYTES);
+      wgmma_wait<1>();
+      fence_registers(s);
+      dq_probabilities(s, k0, qpos, S, causal, edge, t4, scale_log2, row_lse);
+      wgmma_wait<0>();
+      fence_registers(dp);
+      if (lane == 0) mbar_arrive(v_empty + 8 * stage);
+      dq_ds(dp, s, row_delta);
+      uint32_t ds[SB / 16][4];
+      pack_a(ds, dp);
+      issue_rs<SB>(acc, ds, k_s + stage * T::STREAM_BYTES);
+      wgmma_wait<0>();
+      fence_registers(acc);
+      if (lane == 0) mbar_arrive(k_empty + 8 * stage);
+      advance<STAGES>(stage, phase);
+    }
+    // tiles above every row of this warpgroup: released once landed
+    for (int t = my_tiles; t < kv_tiles; ++t) {
+      mbar_wait(k_full + 8 * stage, phase);
+      mbar_wait(v_full + 8 * stage, phase);
+      if (lane == 0) {
+        mbar_arrive(k_empty + 8 * stage);
+        mbar_arrive(v_empty + 8 * stage);
+      }
+      advance<STAGES>(stage, phase);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (qpos[r] >= S) continue;
+      bf16* out = dq + (((long)b * S + qpos[r]) * H + h) * D + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
+            __floats2bfloat162_rn(scale * acc[4 * n + 2 * r],
+                                  scale * acc[4 * n + 2 * r + 1]);
+    }
+  }
+}
+
+// dK/dV: one CTA per (128-key tile, b*hkv row).
+template <int D>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap do_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int S, int H, int Hkv,
+                      int causal, float scale, float scale_log2) {
+  using T = BwdTile<D>;
+  constexpr int SB = T::STREAM;                  // q rows a stage
+  constexpr int STAGES = T::STAGES;
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  const uint32_t offset = ((smem_u32(bwd_smem) + 1023u) & ~1023u) -
+                          smem_u32(bwd_smem);
+  const uint32_t base = smem_u32(bwd_smem) + offset;
+  const uint32_t k_s = base;
+  const uint32_t v_s = k_s + T::RES_BYTES;
+  const uint32_t q_s = v_s + T::RES_BYTES;
+  const uint32_t do_s = q_s + STAGES * T::STREAM_BYTES;
+  float* lse_s = reinterpret_cast<float*>(bwd_smem + offset + T::TILES);
+  float* delta_s = lse_s + STAGES * SB;          // [STAGES][SB] each
+  const uint32_t kv_full = base + T::TILES + T::STATS;
+  const uint32_t full = kv_full + 8;             // + 8 * stage
+  const uint32_t empty = full + 8 * STAGES;
+
+  const int bkv = blockIdx.y;
+  const int b = bkv / Hkv;
+  const int kvh = bkv % Hkv;
+  const int group = H / Hkv;
+  const int k0 = blockIdx.x * RESIDENT;          // heaviest causal first
+  const int first = causal ? k0 / SB : 0;
+  const int tiles = (S + SB - 1) / SB;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      // the TMA thread's expect_tx, then every producer lane once its
+      // LSE/delta stores are in
+      mbar_init(full + 8 * s, 1 + 32);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  const int lane = threadIdx.x % 32;
+  if (wg == 2) {
+    // -- producer: warp 0; lane 0 issues the TMA loads --------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(BWD_PRODUCER_REGS));
+    if (threadIdx.x < 2 * WG_THREADS + 32) {
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * T::RES_BYTES);
+        for (int blk = 0; blk < T::BLOCKS; ++blk) {
+          tma_load(k_s + blk * RESIDENT * 128, k_map, kv_full, blk * 64, kvh,
+                   k0, b);
+          tma_load(v_s + blk * RESIDENT * 128, v_map, kv_full, blk * 64, kvh,
+                   k0, b);
+        }
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int gi = 0; gi < group; ++gi) {
+        const int h = kvh * group + gi;
+        const long row = ((long)b * H + h) * S;
+        for (int t = first; t < tiles; ++t) {
+          const int q0 = t * SB;
+          const uint32_t f = full + 8 * stage;
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          if (lane == 0) {
+            mbar_expect_tx(f, 2 * T::STREAM_BYTES);
+            const uint32_t qd = q_s + stage * T::STREAM_BYTES;
+            const uint32_t dod = do_s + stage * T::STREAM_BYTES;
+            for (int blk = 0; blk < T::BLOCKS; ++blk) {
+              tma_load(qd + blk * SB * 128, q_map, f, blk * 64, h, q0, b);
+              tma_load(dod + blk * SB * 128, do_map, f, blk * 64, h, q0, b);
+            }
+          }
+          for (int i = lane; i < SB; i += 32) {
+            const bool ok = q0 + i < S;
+            lse_s[stage * SB + i] =
+                ok ? lse[row + q0 + i] * LOG2E : CUDART_INF_F;
+            delta_s[stage * SB + i] = ok ? delta[row + q0 + i] : 0.f;
+          }
+          mbar_arrive(f);
+          advance<STAGES>(stage, phase);
+        }
+      }
+    }
+  } else {
+    // -- consumers: warpgroup wg owns keys k0 + 64 wg .. + 63 --------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(BWD_CONSUMER_REGS));
+    const int warp = (threadIdx.x % WG_THREADS) / 32;
+    const int t4 = lane % 4;
+    const int kw0 = k0 + wg * 64;
+    const int kpos[2] = {kw0 + warp * 16 + lane / 4,
+                         kw0 + warp * 16 + lane / 4 + 8};
+    // the first q tile with a row that sees one of this warpgroup's keys
+    const int mine = kw0 >= S ? tiles : (causal ? kw0 / SB : 0);
+    const uint64_t k_desc = sw128_desc(k_s + wg * 64 * 128, 16, 1024);
+    const uint64_t v_desc = sw128_desc(v_s + wg * 64 * 128, 16, 1024);
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int n = 0; n < D / 2; ++n) dk_acc[n] = dv_acc[n] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    mbar_wait(kv_full, 0);
+    for (int gi = 0; gi < group; ++gi) {
+      for (int t = first; t < tiles; ++t) {
+        mbar_wait(full + 8 * stage, phase);
+        if (t >= mine) {
+          const int q0 = t * SB;
+          const uint32_t qt = q_s + stage * T::STREAM_BYTES;
+          const uint32_t dot = do_s + stage * T::STREAM_BYTES;
+          float st[SB / 2], dpt[SB / 2];
+          issue_ss<D, RESIDENT, SB>(st, k_desc, qt);
+          issue_ss<D, RESIDENT, SB>(dpt, v_desc, dot);
+          wgmma_wait<1>();
+          fence_registers(st);
+          dkv_probabilities(st, q0, kpos, causal && q0 < kw0 + 64, t4,
+                            scale_log2, lse_s + stage * SB);
+          wgmma_wait<0>();
+          fence_registers(dpt);
+          dkv_ds(dpt, st, t4, delta_s + stage * SB);
+          uint32_t pt[SB / 16][4], dst[SB / 16][4];
+          pack_a(pt, st);
+          pack_a(dst, dpt);
+          issue_rs<SB>(dv_acc, pt, dot);
+          issue_rs<SB>(dk_acc, dst, qt);
+          wgmma_wait<0>();
+          fence_registers(dv_acc);
+          fence_registers(dk_acc);
+        }
+        if (lane == 0) mbar_arrive(empty + 8 * stage);
+        advance<STAGES>(stage, phase);
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (kpos[r] >= S) continue;
+      const long at = (((long)b * S + kpos[r]) * Hkv + kvh) * D + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + n * 8) =
+            __floats2bfloat162_rn(scale * dk_acc[4 * n + 2 * r],
+                                  scale * dk_acc[4 * n + 2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + n * 8) =
+            __floats2bfloat162_rn(dv_acc[4 * n + 2 * r],
+                                  dv_acc[4 * n + 2 * r + 1]);
+      }
+    }
+  }
+}
+
 struct Args {
   const void* q;
   const void* k;
@@ -764,27 +1244,71 @@ int launch_f32(const Args& a) {
 }
 
 template <int D>
-int launch_bf16(const Args& a) {
+int launch_bf16_mma(const Args& a) {
   const size_t dq_smem = dq_bf16_smem<D>();
   const size_t dkv_smem = dkv_bf16_smem<D>();
-  cudaError_t status = allow_smem(flash_dq_bf16_kernel<D>, dq_smem);
+  cudaError_t status = allow_smem(flash_dq_mma_bf16_kernel<D>, dq_smem);
   if (status == cudaSuccess)
-    status = allow_smem(flash_dkv_bf16_kernel<D>, dkv_smem);
+    status = allow_smem(flash_dkv_mma_bf16_kernel<D>, dkv_smem);
   if (status != cudaSuccess) return (int)status;
   const dim3 dq_grid((a.S + BLOCK_Q - 1) / BLOCK_Q, a.B * a.H);
-  flash_dq_bf16_kernel<D><<<dq_grid, MMA_THREADS, dq_smem, a.stream>>>(
+  flash_dq_mma_bf16_kernel<D><<<dq_grid, MMA_THREADS, dq_smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
       a.delta, static_cast<bf16*>(a.dq), a.S, a.H, a.Hkv, a.causal, a.scale);
   status = cudaGetLastError();
   if (status != cudaSuccess) return (int)status;
   const dim3 dkv_grid((a.S + BLOCK_K - 1) / BLOCK_K, a.B * a.Hkv);
-  flash_dkv_bf16_kernel<D><<<dkv_grid, MMA_THREADS, dkv_smem, a.stream>>>(
+  flash_dkv_mma_bf16_kernel<D><<<dkv_grid, MMA_THREADS, dkv_smem,
+                                 a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
       a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.S, a.H,
       a.Hkv, a.causal, a.scale);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bf16_tma(const Args& a) {
+  using T = BwdTile<D>;
+  constexpr int SB = T::STREAM;
+  // dQ: q and dO resident, k and v streamed; dK/dV the other way round
+  CUtensorMap q_res, do_res, k_str, v_str, q_str, do_str, k_res, v_res;
+  if (!bshd_map(&q_res, a.q, a.B, a.S, a.H, D, RESIDENT) ||
+      !bshd_map(&do_res, a.dout, a.B, a.S, a.H, D, RESIDENT) ||
+      !bshd_map(&k_str, a.k, a.B, a.S, a.Hkv, D, SB) ||
+      !bshd_map(&v_str, a.v, a.B, a.S, a.Hkv, D, SB) ||
+      !bshd_map(&q_str, a.q, a.B, a.S, a.H, D, SB) ||
+      !bshd_map(&do_str, a.dout, a.B, a.S, a.H, D, SB) ||
+      !bshd_map(&k_res, a.k, a.B, a.S, a.Hkv, D, RESIDENT) ||
+      !bshd_map(&v_res, a.v, a.B, a.S, a.Hkv, D, RESIDENT))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t status = allow_smem(flash_dq_bf16_kernel<D>, T::DQ_SMEM);
+  if (status == cudaSuccess)
+    status = allow_smem(flash_dkv_bf16_kernel<D>, T::DKV_SMEM);
+  if (status != cudaSuccess) return (int)status;
+  const float scale_log2 = a.scale * LOG2E;
+  const int tiles = (a.S + RESIDENT - 1) / RESIDENT;
+  flash_dq_bf16_kernel<D><<<dim3(tiles, a.B * a.H), BWD_THREADS, T::DQ_SMEM,
+                            a.stream>>>(
+      q_res, do_res, k_str, v_str, a.lse, a.delta, static_cast<bf16*>(a.dq),
+      a.S, a.H, a.Hkv, a.causal, a.scale, scale_log2);
+  status = cudaGetLastError();
+  if (status != cudaSuccess) return (int)status;
+  flash_dkv_bf16_kernel<D><<<dim3(tiles, a.B * a.Hkv), BWD_THREADS,
+                             T::DKV_SMEM, a.stream>>>(
+      q_str, do_str, k_res, v_res, a.lse, a.delta, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.S, a.H, a.Hkv, a.causal, a.scale,
+      scale_log2);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bf16(const Args& a) {
+  if constexpr (D >= 64)
+    return launch_bf16_tma<D>(a);
+  else
+    return launch_bf16_mma<D>(a);
 }
 
 template <int D>

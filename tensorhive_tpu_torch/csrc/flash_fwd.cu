@@ -91,10 +91,7 @@
 // scales every product and every partial sum exactly, so it gives these
 // scores bit for bit, and any other scale is the rule's residual on the f32
 // scores. A zero row sum divides by 1.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -314,11 +311,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
 
 __device__ __forceinline__ uint32_t load32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&pair);
 }
 
 // One (b*h row, 64-row q tile) of the bf16 forward (see fwd_f32_tile).
@@ -560,18 +552,13 @@ int launch_bf16_mma(const void* q, const void* k, const void* v, void* o,
 // Shared memory (1024-byte aligned for the 128-byte swizzle): the Q tile,
 // then STAGES K tiles, then STAGES V tiles, each stored as D/64 blocks of
 // (rows x 64 columns), 128 bytes a row, as TMA writes them; then the
-// mbarriers. A consumer warpgroup's fragment layout is mma.sync's per warp:
-// warp w of the group holds rows 16w + g and 16w + g + 8 (g = lane / 4) of
-// its 64, and the accumulator register 4j + 2r + e is column 8j + 2t + e
-// (t = lane % 4) of row g + 8r.
-constexpr int WG_THREADS = 128;
+// mbarriers. The fragment layouts, descriptors and products are
+// hopper.cuh's, shared with the backward.
 constexpr int TMA_Q = 128;                  // q rows per CTA, 64 a consumer
 constexpr int TMA_K = 128;                  // keys per K/V stage
 constexpr int TMA_THREADS = 3 * WG_THREADS; // consumers 0, 1; producer 2
 constexpr int PRODUCER_REGS = 56;
 constexpr int CONSUMER_REGS = 224;          // 2 * 224 + 56 = 3 * 168
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct TmaTile {
@@ -585,183 +572,6 @@ struct TmaTile {
   // 1024 bytes of slack to align the base
   static constexpr int SMEM = 1024 + BARRIERS + 8 * (2 + 4 * STAGES);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// Returns once the phase of parity ``parity`` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// One box of a 4-d tensor map (coordinates innermost first) into shared
-// memory; completion is counted in bytes on ``bar``.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Returns once at most ``pending`` committed wgmma groups of this thread
-// are still running (groups complete in the order they were committed).
-template <int pending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(pending)
-               : "memory");
-}
-
-// Keeps the compiler from touching accumulator registers across a pending
-// wgmma: each register is read and written here, in order with the asm.
-template <int N>
-__device__ __forceinline__ void fence_registers(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_registers(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int x = 0; x < 4; ++x) asm volatile("" : "+r"(r[i][x]) :: "memory");
-}
-
-#define THP_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define THP_F16(i) THP_F4(i), THP_F4(i + 4), THP_F4(i + 8), THP_F4(i + 12)
-#define THP_R32                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31"
-#define THP_R64                                                              \
-  THP_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
-  "%58, %59, %60, %61, %62, %63"
-
-// S (64 x 128) (+)= Q (64 x 16) K^T: both operands K-major in shared memory.
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a,
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " THP_R64
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : THP_F16(0), THP_F16(16), THP_F16(32), THP_F16(48)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// O (64 x D) += P (64 x 16, registers) V (16 x D, MN-major in shared
-// memory), D = 128 and 64.
-__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " THP_R64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : THP_F16(0), THP_F16(16), THP_F16(32), THP_F16(48)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " THP_R32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : THP_F16(0), THP_F16(16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-#undef THP_R64
-#undef THP_R32
-#undef THP_F16
-#undef THP_F4
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Descriptor offset (16-byte units) of the 16 columns kk*16.. of a K-major
-// tile of ``rows`` rows stored as 64-column swizzle blocks.
-template <int rows>
-__device__ __forceinline__ uint64_t k_major_step(int kk) {
-  return static_cast<uint64_t>(((kk / 4) * rows * 128 + (kk % 4) * 32) >> 4);
-}
-
-// S = Q K^T for one key tile into ``s`` (issued, committed, not waited).
-template <int D>
-__device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t q_desc,
-                                         uint32_t k_tile) {
-  const uint64_t k_desc = sw128_desc(k_tile, 16, 1024);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_qk(s, q_desc + k_major_step<TMA_Q>(kk),
-             k_desc + k_major_step<TMA_K>(kk), kk > 0);
-  wgmma_commit();
-}
-
-// O += P V for one key tile (issued, committed, not waited). V is the
-// MN-major B operand: 8-row groups 1024 bytes apart, the second 64-column
-// block TMA_K rows after the first.
-template <int N>
-__device__ __forceinline__ void issue_pv(float (&acc)[N],
-                                         uint32_t (&p)[TMA_K / 16][4],
-                                         uint32_t v_tile) {
-  const uint64_t v_desc = sw128_desc(v_tile, TMA_K * 128, 1024);
-  fence_registers(acc);
-  fence_registers(p);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < TMA_K / 16; ++kk)
-    wgmma_pv(acc, p[kk], v_desc + ((kk * 16 * 128) >> 4));
-  wgmma_commit();
-}
 
 // One online-softmax step over a key tile from k0, in f32: the scores in
 // ``s`` become probabilities (masked ones exactly 0), the row maxima ``m``
@@ -812,17 +622,6 @@ __device__ __forceinline__ void softmax_tile(
     l[r] = l[r] * correction[r] + row_sum;
     m[r] = m_new;
   }
-}
-
-// P in bf16 (the JAX kernel's probs.astype(v.dtype)): the S accumulator
-// layout is the A operand layout of the PV product, register for register.
-__device__ __forceinline__ void pack_probabilities(
-    uint32_t (&p)[TMA_K / 16][4], const float (&s)[64]) {
-#pragma unroll
-  for (int kk = 0; kk < TMA_K / 16; ++kk)
-#pragma unroll
-    for (int x = 0; x < 4; ++x)
-      p[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
 }
 
 template <int N>
@@ -955,7 +754,7 @@ __device__ __forceinline__ void fwd_bf16_cta(
       // product; O is rescaled once P V is done.
       mbar_wait(q_full, i & 1);
       mbar_wait(k_full + 8 * stage, phase);
-      issue_qk<D>(s, q_desc, k_s + stage * T::KV_BYTES);
+      issue_ss<D, TMA_Q, TMA_K>(s, q_desc, k_s + stage * T::KV_BYTES);
       wgmma_wait<0>();
       fence_registers(s);
       if (tid == 0) {
@@ -964,7 +763,7 @@ __device__ __forceinline__ void fwd_bf16_cta(
       }
       softmax_tile(s, 0, qpos, S, causal, edge(0), t4, scale_log2, m, l,
                    correction);
-      pack_probabilities(p, s);
+      pack_a(p, s);
       int prev_stage = stage;
       uint32_t prev_phase = phase;
       if (++stage == STAGES) {
@@ -973,9 +772,9 @@ __device__ __forceinline__ void fwd_bf16_cta(
       }
       for (int t = 1; t < my_tiles; ++t) {
         mbar_wait(k_full + 8 * stage, phase);
-        issue_qk<D>(s, q_desc, k_s + stage * T::KV_BYTES);
+        issue_ss<D, TMA_Q, TMA_K>(s, q_desc, k_s + stage * T::KV_BYTES);
         mbar_wait(v_full + 8 * prev_stage, prev_phase);
-        issue_pv(acc, p, v_s + prev_stage * T::KV_BYTES);
+        issue_rs<TMA_K>(acc, p, v_s + prev_stage * T::KV_BYTES);
         wgmma_wait<1>();                // S is in, P V still running
         fence_registers(s);
         if (tid == 0) {
@@ -988,7 +787,7 @@ __device__ __forceinline__ void fwd_bf16_cta(
         fence_registers(acc);
         if (tid == 0) mbar_arrive(v_empty + 8 * prev_stage);
         rescale_rows(acc, correction);
-        pack_probabilities(p, s);
+        pack_a(p, s);
         prev_stage = stage;
         prev_phase = phase;
         if (++stage == STAGES) {
@@ -997,7 +796,7 @@ __device__ __forceinline__ void fwd_bf16_cta(
         }
       }
       mbar_wait(v_full + 8 * prev_stage, prev_phase);
-      issue_pv(acc, p, v_s + prev_stage * T::KV_BYTES);
+      issue_rs<TMA_K>(acc, p, v_s + prev_stage * T::KV_BYTES);
       wgmma_wait<0>();
       fence_registers(acc);
       if (tid == 0) mbar_arrive(v_empty + 8 * prev_stage);
@@ -1060,52 +859,6 @@ flash_fwd_bh_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                          float scale_log2, int G) {
   fwd_bf16_cta<D>(q_map, k_map, v_map, o, lse, S, H, H, causal, scale_log2,
                   blockIdx.y * G, G);
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* entry = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t status = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &entry, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t status = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &entry, cudaEnableDefault, &found);
-#endif
-    if (status == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      encode = reinterpret_cast<EncodeTiled>(entry);
-  }
-  return encode;
-}
-
-// The tensor map of a bf16 [B, S, heads, D] tensor: boxes of 64 columns x
-// 1 head x ``rows`` positions x 1 batch, 128-byte swizzle, zeros past S.
-bool bshd_map(CUtensorMap* map, const void* data, int B, int S, int heads,
-              int D, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(data), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>

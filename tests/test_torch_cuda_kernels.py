@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions at every head dim, GQA
 group, head block and page type they accept, and the tiny engine on the
 card against the same engine on the CPU. The head-blocked flash forward
-is also held bitwise to the per-head kernel, whose per-tile code it runs.
+is also held bitwise to the per-head kernel, whose per-tile code it runs,
+and the flash backward bitwise to itself over two launches (no atomics).
 
 These tests need the card and skip without a CUDA device. On the card,
 where JAX is not installed, run them without the suite's conftest:
@@ -217,50 +218,106 @@ def test_head_blocked_autograd_on_the_card_matches_the_cpu(device):
         assert grad_row_error(card, cpu) <= CARD_VS_CPU_TOL
 
 
+# S 129, 200 and 255 cross the 128-row resident and 64/128-row streamed
+# tiles of the bf16 TMA body (d 64/128); 1000 and 4095 wrap its ring of 4
+# stages, 4095 with a ragged last tile
+BACKWARD_SEQS = [(True, 1), (True, 70), (True, 128), (False, 100),
+                 (True, 200), (False, 255), (True, 1000), (False, 1000),
+                 (True, 4095)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("heads,kv_heads", [(4, 4), (4, 2), (8, 2), (8, 1)])
-@pytest.mark.parametrize("causal,seq", [(True, 1), (True, 70), (True, 128),
-                                        (False, 100), (True, 200)])
+@pytest.mark.parametrize("causal,seq", BACKWARD_SEQS)
 def test_flash_backward_kernel_matches_plain(device, dtype, d, heads,
                                              kv_heads, causal, seq):
     """dq/dk/dv of both backward kernels (dQ, dK/dV) at every head dim and
-    GQA group 1-8, causal or not, S ragged against the 64-row tiles."""
+    GQA group 1-8, causal or not, S ragged against the tiles."""
+    check_flash_backward(device, dtype, d, 2, heads, kv_heads, causal, seq)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,seq", BACKWARD_SEQS)
+def test_flash_backward_kernel_gqa_group_4_matches_plain(device, dtype,
+                                                         causal, seq):
+    """The 7b heads: H 32 over Hkv 8 at d_head 128 (dK/dV sum 4 heads)."""
+    check_flash_backward(device, dtype, 128, 1, 32, 8, causal, seq)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("batch,seq,heads,kv_heads,d", [
+    (16, 1024, 32, 8, 128), (64, 1024, 8, 8, 64)])
+def test_flash_backward_causal_grid_fills_the_card(device, dtype, batch, seq,
+                                                   heads, kv_heads, d):
+    """Causal over B*H 512 rows of S 1024: 4096 dQ CTAs and 1024 or 4096
+    dK/dV CTAs of 128 rows in bf16, many waves of the heaviest-first
+    order; the plain version in batch chunks."""
+    check_flash_backward(device, dtype, d, batch, heads, kv_heads, True, seq,
+                         chunk=8)
+
+
+def check_flash_backward(device, dtype, d, batch, heads, kv_heads, causal,
+                         seq, chunk=None):
     generator = torch.Generator(device=device).manual_seed(d * 100 + seq)
-    q = normal(generator, (2, seq, heads, d), dtype)
-    k = normal(generator, (2, seq, kv_heads, d), dtype)
-    v = normal(generator, (2, seq, kv_heads, d), dtype)
-    do = normal(generator, (2, seq, heads, d), dtype)
+    q = normal(generator, (batch, seq, heads, d), dtype)
+    k = normal(generator, (batch, seq, kv_heads, d), dtype)
+    v = normal(generator, (batch, seq, kv_heads, d), dtype)
+    do = normal(generator, (batch, seq, heads, d), dtype)
     out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
     variant = "bwd_bf16" if dtype == torch.bfloat16 else "bwd_f32"
     before = fa.launches[variant]
     grads = fa.flash_attention_backward(q, k, v, out, lse, do, causal=causal)
-    refs = fa.flash_attention_backward_reference(q, k, v, out, lse, do,
-                                                 causal=causal)
     torch.cuda.synchronize()
     assert fa.launches[variant] == before + 1
-    for grad, ref, like, name in zip(grads, refs, (q, k, v), "qkv"):
-        assert grad.shape == like.shape and grad.dtype == dtype, name
-        assert bool(torch.isfinite(grad).all()), name
-        if seq == 1 and name != "v":      # zero in exact arithmetic
-            assert (grad.float() - ref.float()).abs().max().item() \
-                <= ZERO_GRAD_ABS, name
-            continue
-        error = grad_row_error(grad, ref,
-                               first_row_zero=causal and name == "q")
-        assert error <= GRAD_ROW_TOL[dtype], (name, error)
+    chunk = chunk or batch
+    lse = lse.reshape(batch, heads, 1, seq)
+    for b in range(0, batch, chunk):            # plain version in chunks
+        rows = slice(b, b + chunk)
+        n = q[rows].shape[0]
+        refs = fa.flash_attention_backward_reference(
+            q[rows], k[rows], v[rows], out[rows],
+            lse[rows].reshape(n * heads, 1, seq), do[rows], causal=causal)
+        for grad, ref, like, name in zip(grads, refs, (q, k, v), "qkv"):
+            assert grad.shape == like.shape and grad.dtype == dtype, name
+            grad = grad[rows]
+            assert bool(torch.isfinite(grad).all()), name
+            if seq == 1 and name != "v":      # zero in exact arithmetic
+                assert (grad.float() - ref.float()).abs().max().item() \
+                    <= ZERO_GRAD_ABS, name
+                continue
+            error = grad_row_error(grad, ref,
+                                   first_row_zero=causal and name == "q")
+            assert error <= GRAD_ROW_TOL[dtype], (name, error)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("causal,seq", [(True, 1000), (False, 255)])
+def test_flash_backward_kernel_is_bitwise_reproducible(device, dtype, d,
+                                                       causal, seq):
+    """Two launches on one input give the same dq, dk and dv bit for bit:
+    every sum runs in a fixed order (no atomics), over a GQA group of 4."""
+    generator = torch.Generator(device=device).manual_seed(d + seq)
+    q, do = (normal(generator, (2, seq, 8, d), dtype) for _ in range(2))
+    k, v = (normal(generator, (2, seq, 2, d), dtype) for _ in range(2))
+    out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    first = fa.flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+    second = fa.flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, "qkv"):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("scale", [0.25, 0.3])
-def test_flash_backward_kernel_explicit_scale_and_delta(device, scale):
+def test_flash_backward_kernel_explicit_scale_and_delta(device, scale, dtype):
     """Ring attention's call: non-causal, its own scale (a power of two is
     folded into q by the JAX rule, 0.3 stays on the scores) and a delta
-    computed beforehand."""
+    computed beforehand; bf16 runs the TMA body."""
     generator = torch.Generator(device=device).manual_seed(5)
-    q, do = (normal(generator, (1, 96, 4, 64), torch.float32)
-             for _ in range(2))
-    k, v = (normal(generator, (1, 96, 2, 64), torch.float32)
-            for _ in range(2))
+    q, do = (normal(generator, (1, 96, 4, 64), dtype) for _ in range(2))
+    k, v = (normal(generator, (1, 96, 2, 64), dtype) for _ in range(2))
     out, lse = fa.flash_attention(q, k, v, causal=False, scale=scale,
                                   return_lse=True)
     delta = fa.flash_bwd_delta(do, out)
@@ -270,7 +327,7 @@ def test_flash_backward_kernel_explicit_scale_and_delta(device, scale):
         q, k, v, out, lse, do, causal=False, scale=scale, delta=delta)
     torch.cuda.synchronize()
     for grad, ref in zip(grads, refs):
-        assert grad_row_error(grad, ref) <= GRAD_ROW_TOL[torch.float32]
+        assert grad_row_error(grad, ref) <= GRAD_ROW_TOL[dtype]
 
 
 def test_flash_autograd_on_the_card_matches_the_cpu(device):
