@@ -12,7 +12,8 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
               SASS of the bf16 flash forward and of both bf16 backward
               kernels (dQ, dK/dV) at d_head 64/128 must hold wgmma (HGMMA)
               and TMA loads (UTMALDG), and ptxas must report neither
-              spills nor serialized wgmma for them.
+              spills nor serialized wgmma for them, nor a spill in any
+              paged-decode kernel.
 3. kernels  — every kernel variant against its plain PyTorch version at
               the main paths' shapes (serving: 7b heads, H 32, Hkv 8,
               d 128, and a long S 16384; training: the t2t-base forward
@@ -22,7 +23,10 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
               head-blocked forward at the encoder's t2t-base attention, G
               2/4/8, causal or not, t2t-big's at G 4 and a ragged S 1000,
               also against the per-head kernel on the same input, which it
-              must equal bitwise), timed beside its bound and, for flash,
+              must equal bitwise; paged decode at the serving shape and in a
+              sweep of 1, 8 and 32 slots at position 4095, page 16, and 8
+              slots at page 64, timed with a cold L2 and, warm, in a CUDA
+              graph), timed beside its bound and, for flash,
               PyTorch's scaled_dot_product_attention and its backward
               (timed here only); forward and backward lines add TFLOP/s,
               the share of the bound and the time over SDPA's.
@@ -134,6 +138,53 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cold_ms(fn, reps: int, flush_bytes: int = 256 << 20) -> float:
+    """Mean device time of one ``fn`` launch in ms with a cold L2: before
+    each launch ``flush_bytes`` (5x the 50 MB L2) are written, and one
+    event pair brackets the launch alone. A sleep kernel first puts the
+    card behind the host, and each flush takes longer on the card than the
+    host takes to enqueue the next launch, so the launch is queued before
+    its start event is reached: host time does not enter the pair."""
+    import torch
+
+    flush = torch.empty(flush_bytes // 4, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(50_000_000)
+    for start, end in pairs:
+        flush.fill_(1.0)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` in ms with a warm L2 and no host in the
+    way: ``reps`` calls captured in one CUDA graph, replayed between CUDA
+    events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -288,6 +339,12 @@ def phase_build():
                 if spilled:
                     spills[kernel] = (spills.get(kernel, 0)
                                       + sum(map(int, spilled.groups())))
+    paged = [kernel for kernel in spills if kernel.startswith("paged_decode")]
+    require(paged, "ptxas reported no paged_decode kernel")
+    for kernel in paged:
+        require(spills[kernel] == 0,
+                f"{kernel}: ptxas reports {spills[kernel]} spill bytes")
+    log(f"  paged_decode: {len(paged)} kernels, 0 spill bytes")
     for library, names in TMA_KERNELS.items():
         sass = subprocess.run(
             [cuda_build.toolkit_tool("cuobjdump"), "-sass",
@@ -590,20 +647,28 @@ def flash_backward_case(batch, seq, heads, kv_heads, d, causal, variant,
     return row
 
 
-def paged_case(variant, generator):
-    """8 slots at page 16, mixed positions up to 4095, slot 6 parked (position
-    0, a row of trash pages). ``variant`` is the page type; ``int8/bf16q``
-    is int8 pages under a bf16 query, the serving case."""
+#: the serving shape: 8 slots at page 16 over a 4096-token window, mixed
+#: positions, slot 6 parked (position 0, a row of trash pages)
+PAGED_SERVING = ([4095, 2999, 1499, 299, 16, 15, 0, 2047], 16, 256, (6,))
+#: the sweep: 1, 8 and 32 slots all at position 4095, page 16; 8 slots at
+#: page 64
+PAGED_SWEEP = (([4095], 16, 256, ()), ([4095] * 8, 16, 256, ()),
+               ([4095] * 32, 16, 256, ()), ([4095] * 8, 64, 64, ()))
+
+
+def paged_case(variant, generator, positions, page_size, max_pages, parked):
+    """7b heads (H 32, Hkv 8, d 128) over a shuffled page pool. ``variant``
+    is the page type; ``int8/bf16q`` is int8 pages under a bf16 query, the
+    serving case. Timed with a cold L2 (the serving step reads each layer's
+    pages once) and, warm, in a CUDA graph."""
     import numpy as np
     import torch
 
     from tensorhive_tpu_torch.ops import paged_attention as pa
 
-    heads, kv_heads, d, page_size, max_pages = 32, 8, 128, 16, 256
-    positions = [4095, 2999, 1499, 299, 16, 15, 0, 2047]
-    parked = 6
+    heads, kv_heads, d = 32, 8, 128
     rng = np.random.default_rng(7)
-    live = [0 if slot == parked else pos // page_size + 1
+    live = [0 if slot in parked else pos // page_size + 1
             for slot, pos in enumerate(positions)]
     num_pages = 1 + sum(live) + 64                 # trash + live + spare
     physical = rng.permutation(np.arange(1, num_pages))
@@ -647,18 +712,22 @@ def paged_case(variant, generator):
     require(out.shape == q.shape and out.dtype == q.dtype,
             "paged output shape/dtype")
     require(bool(torch.isfinite(out).all()), "paged output not finite")
-    live_slots = [s for s in range(len(positions)) if s != parked]
+    live_slots = [s for s in range(len(positions)) if s not in parked]
     err, rel = errors(out[live_slots], ref[live_slots])
     bf16_out = q_dtype == torch.bfloat16
     require(within_tolerance(err, rel, bf16_out),
             f"paged {variant}: max |out - plain| {err}, max row "
             f"||out - plain|| / ||plain|| {rel}; tolerance "
             f"{ROW_REL_TOL if bf16_out else ABS_TOL}")
-    kernel_ms = cuda_ms(lambda: pa.paged_attention(
-        q, k_pages, v_pages, page_table, pos, k_scales=k_scales,
-        v_scales=v_scales), 50)
+
+    def kernel():
+        pa.paged_attention(q, k_pages, v_pages, page_table, pos,
+                           k_scales=k_scales, v_scales=v_scales)
+
+    kernel_ms = cold_ms(kernel, 20)
+    warm_ms = graph_ms(kernel, 20)
     plain_ms = cuda_ms(lambda: pa.paged_attention_reference(
-        q, k_pages, v_pages, page_table, pos, k_scales, v_scales), 10)
+        q, k_pages, v_pages, page_table, pos, k_scales, v_scales), 5)
     # bytes this data needs: the K and V rows of every visible position of
     # every slot once, the scale rows and table entries of the live pages,
     # q and out
@@ -674,8 +743,11 @@ def paged_case(variant, generator):
            "max_row_rel_err": rel, "ms": kernel_ms,
            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound,
            "bound_by": bound_by}
-    log(f"paged_decode {variant}: err {err:.3e} row_rel {rel:.3e} kernel {kernel_ms:.4f} ms "
-        f"plain {plain_ms:.4f} ms bound {bound:.4f} ms ({bound_by})")
+    log(f"paged_decode {variant}: {len(positions)} slots, page {page_size}, "
+        f"{rows} rows, {nbytes / 1e6:.2f} MB; err {err:.3e} row_rel "
+        f"{rel:.3e}; kernel {kernel_ms:.4f} ms cold L2, {warm_ms:.4f} warm; "
+        f"plain {plain_ms:.4f} ms; bound {bound:.4f} ms ({bound_by}); "
+        f"{100 * bound / kernel_ms:.1f}% of the bound")
     return row
 
 
@@ -692,7 +764,10 @@ def phase_kernels():
         results[f"flash_fwd_{variant}"] = rows
         torch.cuda.empty_cache()
     for variant in ("bf16", "f32", "int8", "int8/bf16q"):
-        results[f"paged_decode_{variant}"] = [paged_case(variant, generator)]
+        results[f"paged_decode_{variant}"] = [
+            paged_case(variant, generator, *case)
+            for case in (PAGED_SERVING,) + PAGED_SWEEP]
+        torch.cuda.empty_cache()
     for variant in ("bf16", "f32"):
         shapes = BACKWARD_SHAPES + ((ENCODER_BACKWARD,) if variant == "bf16"
                                     else ())
@@ -1417,16 +1492,18 @@ def kernel_report(kernels, runs, path_launches):
                                 if name.startswith("flash_fwd")
                                 else (bwd_src, bwd_tpu))
         else:
-            row = rows[0]
-            err, rel = row["max_abs_err"], row["max_row_rel_err"]
+            # the serving shape (rows[0]); errors over it and the sweep
+            if name.endswith("int8"):
+                # the serving case: int8 pages under a bf16 query
+                rows = rows + kernels["paged_decode_int8/bf16q"]
+                row = kernels["paged_decode_int8/bf16q"][0]
+            else:
+                row = rows[0]
+            err = max(r["max_abs_err"] for r in rows)
+            rel = max(r["max_row_rel_err"] for r in rows)
             source = paged_src
             replaces = paged_tpu + (
                 "(quant=True)" if name.endswith("int8") else "(quant=False)")
-            if name.endswith("int8"):
-                # the serving case: int8 pages under a bf16 query
-                row = kernels["paged_decode_int8/bf16q"][0]
-                err = max(err, row["max_abs_err"])
-                rel = max(rel, row["max_row_rel_err"])
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches.get(name, 0),

@@ -3,12 +3,20 @@
 
 ``paged_attention`` launches the hand-written kernel
 ``csrc/paged_decode.cu`` for CUDA tensors: one query token per slot
-against that slot's KV pages, read through its page-table row with an
-online softmax, for bf16/f32 pages and for int8 pages with per-(page,
-kv_head) f32 scales. For CPU tensors it runs its plain version,
-``paged_attention_reference`` (the JAX package's page gather: gather,
-dequantize, masked grouped softmax) — there is no fallback for CUDA
-tensors.
+against that slot's KV pages, read through its page-table row, for
+bf16/f32 pages and for int8 pages with per-(page, kv_head) f32 scales.
+Each (slot, kv_head) is split over CTAs of 256 tokens (flash-decoding)
+whose partial softmax states one of them merges; the wrapper allocates the
+partials and owns the merge tickets. The launch grid depends only on the
+shapes, never on ``positions``, so a call can be captured in a CUDA graph
+and replayed after positions and page tables change. For CPU tensors it
+runs its plain version, ``paged_attention_reference`` (the JAX package's
+page gather: gather, dequantize, masked grouped softmax) — there is no
+fallback for CUDA tensors.
+
+The CUDA kernel takes d_head 16, 32, 64 or 128 and 1, 2, 4 or 8 query
+heads per kv head, at any page size and page-table width; on the card the
+wrapper raises for other shapes (the JAX package falls back to its gather).
 
 ``launches`` counts kernel launches per page type; the kernel-vs-plain
 checks call ``paged_attention_reference`` directly and do not count.
@@ -33,6 +41,10 @@ _PAGE_DTYPES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"),
                 torch.int8: (2, "int8")}
 _HEAD_DIMS = (16, 32, 64, 128)
 _GROUPS = (1, 2, 4, 8)
+
+#: merge tickets per device, [slots * kv_heads] int32: zero between calls
+#: (the kernel's merging CTA resets its own); one call at a time a device
+_tickets: Dict[int, torch.Tensor] = {}
 
 
 def resolve_paged_kernel(mode: str) -> str:
@@ -100,11 +112,20 @@ def _library() -> ctypes.CDLL:
     library = cuda_build.load("paged_decode")
     function = library.thp_paged_decode
     if function.argtypes is None:
-        function.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
-                             + [ctypes.c_int] * 7
+        function.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11
+                             + [ctypes.c_int] * 8
                              + [ctypes.c_float, ctypes.c_void_p])
         function.restype = ctypes.c_int
     return library
+
+
+def _merge_tickets(device: torch.device, count: int) -> torch.Tensor:
+    tickets = _tickets.get(device.index)
+    if tickets is None or tickets.numel() < count:
+        tickets = torch.zeros(max(count, 256), dtype=torch.int32,
+                              device=device)
+        _tickets[device.index] = tickets
+    return tickets
 
 
 def _check_inputs(q, k_pages, v_pages, page_table, positions, k_scales,
@@ -150,6 +171,9 @@ def _check_inputs(q, k_pages, v_pages, page_table, positions, k_scales,
             raise ValueError("every operand must be on q's device")
         if not tensor.is_contiguous():
             raise ValueError("the CUDA kernel takes contiguous operands")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16 or q.data_ptr() % 4:
+        raise ValueError("the CUDA kernel takes 16-byte aligned pages and a "
+                         "4-byte aligned q")
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -174,15 +198,25 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     num_pages, page_size, kv_heads, _ = k_pages.shape
     page_code, variant = _PAGE_DTYPES[k_pages.dtype]
     quant = k_pages.dtype == torch.int8
+    library = _library()
+    chunk = library.thp_paged_decode_chunk_tokens()
+    max_pages = page_table.shape[1]
+    chunks = -(-max_pages * page_size // chunk)
     out = torch.empty_like(q)
+    part_acc = torch.empty(slots * heads * chunks * d_head,
+                           dtype=torch.float32, device=q.device)
+    part_ml = torch.empty(slots * heads * chunks * 2, dtype=torch.float32,
+                          device=q.device)
+    tickets = _merge_tickets(q.device, slots * kv_heads)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = _library().thp_paged_decode(
+    status = library.thp_paged_decode(
         _Q_DTYPES[q.dtype], page_code, q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), k_scales.data_ptr() if quant else None,
         v_scales.data_ptr() if quant else None, page_table.data_ptr(),
-        positions.data_ptr(), out.data_ptr(), slots, heads, kv_heads, d_head,
-        num_pages, page_size, page_table.shape[1], float(d_head ** -0.5),
-        stream)
+        positions.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+        part_ml.data_ptr(), tickets.data_ptr(), slots, heads, kv_heads,
+        d_head, num_pages, page_size, max_pages, chunks,
+        float(d_head ** -0.5), stream)
     cuda_build.check(status, "paged_decode")
     launches[variant] += 1
     return out

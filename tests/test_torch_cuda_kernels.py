@@ -349,9 +349,83 @@ def test_flash_autograd_on_the_card_matches_the_cpu(device):
             <= CARD_VS_CPU_TOL
 
 
-@pytest.mark.parametrize("variant", ["bf16", "f32", "int8", "int8/bf16q"])
+PAGED_VARIANTS = ["bf16", "f32", "int8", "int8/bf16q"]
+PAGED_GROUPS = [(4, 4), (4, 2), (8, 2), (8, 1)]       # group 1, 2, 4, 8
+
+
+def paged_inputs(device, generator, rng, variant, d, heads, kv_heads,
+                 page_size, positions, max_pages, parked=(0,), poisoned=(),
+                 spare=3):
+    """q, pages, page table and positions over a shuffled pool (page 0 =
+    trash): each slot's live pages (none for a parked slot, whose row is
+    all trash), then, for a ``poisoned`` slot, one entry >= P right past
+    its live window; ``variant`` is the page type (``int8/bf16q``: int8
+    pages under a bf16 query)."""
+    live = [0 if slot in parked else pos // page_size + 1
+            for slot, pos in enumerate(positions)]
+    num_pages = 1 + sum(live) + spare
+    physical = rng.permutation(np.arange(1, num_pages))
+    table = np.zeros((len(positions), max_pages), np.int32)
+    cursor = 0
+    for slot, count in enumerate(live):
+        table[slot, :count] = physical[cursor:cursor + count]
+        cursor += count
+        if slot in poisoned and count < max_pages:
+            table[slot, count] = num_pages + 5
+    quant = variant.startswith("int8")
+    q_dtype = (torch.float32 if variant in ("f32", "int8")
+               else torch.bfloat16)
+    shape = (num_pages, page_size, kv_heads, d)
+    q = normal(generator, (len(positions), 1, heads, d), q_dtype)
+    scales = {}
+    if quant:
+        k_pages = torch.randint(-127, 128, shape, generator=generator,
+                                device=device, dtype=torch.int8)
+        v_pages = torch.randint(-127, 128, shape, generator=generator,
+                                device=device, dtype=torch.int8)
+        for name in ("k_scales", "v_scales"):
+            scales[name] = 0.005 + 0.015 * torch.rand(
+                (num_pages, kv_heads), generator=generator, device=device)
+    else:
+        k_pages = normal(generator, shape, q_dtype)
+        v_pages = normal(generator, shape, q_dtype)
+    page_table = torch.from_numpy(table).to(device)
+    pos = torch.tensor(positions, dtype=torch.int32, device=device)
+    return q, k_pages, v_pages, page_table, pos, scales
+
+
+def check_paged(variant, q, k_pages, v_pages, page_table, pos, scales,
+                parked=(0,)):
+    """One launch against the plain version (f32 on the same values; for
+    bf16 pages also the plain version on the bf16 values themselves, which
+    rounds P to bf16 as the JAX function does); parked slots only finite."""
+    key = variant.split("/")[0]
+    before = pa.launches[key]
+    out = pa.paged_attention(q, k_pages, v_pages, page_table, pos, **scales)
+    plain_pages = ((k_pages, v_pages) if k_pages.dtype == torch.int8
+                   else (k_pages.float(), v_pages.float()))
+    # the plain gather reads every entry: ids >= P (past the windows, where
+    # the kernel reads nothing) become the trash page there
+    plain_table = torch.where(page_table < k_pages.shape[0], page_table, 0)
+    ref = pa.paged_attention_reference(q.float(), *plain_pages, plain_table,
+                                       pos, scales.get("k_scales"),
+                                       scales.get("v_scales"))
+    torch.cuda.synchronize()
+    assert pa.launches[key] == before + 1
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert bool(torch.isfinite(out).all())
+    live = [s for s in range(q.shape[0]) if s not in parked]
+    assert_close_to_plain(out[live], ref[live])
+    if k_pages.dtype == torch.bfloat16:
+        ref = pa.paged_attention_reference(q, k_pages, v_pages,
+                                           plain_table, pos)
+        assert_close_to_plain(out[live], ref[live].float())
+    return out
+
+
+@pytest.mark.parametrize("variant", PAGED_VARIANTS)
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
-@pytest.mark.parametrize("heads,kv_heads", [(4, 4), (4, 2), (8, 2), (8, 1)])
+@pytest.mark.parametrize("heads,kv_heads", PAGED_GROUPS)
 @pytest.mark.parametrize("page_size", [8, 16])
 def test_paged_kernel_matches_plain(device, variant, d, heads, kv_heads,
                                     page_size):
@@ -362,50 +436,86 @@ def test_paged_kernel_matches_plain(device, variant, d, heads, kv_heads,
     max_pages = 4
     positions = [0, page_size - 1, page_size, 3 * page_size + 2,
                  max_pages * page_size - 1]
-    live = [0] + [p // page_size + 1 for p in positions[1:]]
-    num_pages = 1 + sum(live) + 3
-    physical = np.random.default_rng(d).permutation(np.arange(1, num_pages))
-    table = np.zeros((len(positions), max_pages), np.int32)
+    check_paged(variant, *paged_inputs(
+        device, generator, np.random.default_rng(d), variant, d, heads,
+        kv_heads, page_size, positions, max_pages))
+
+
+@pytest.mark.parametrize("variant", PAGED_VARIANTS)
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("heads,kv_heads", PAGED_GROUPS)
+@pytest.mark.parametrize("page_size,max_pages", [(8, 64), (16, 64),
+                                                 (8, 256), (16, 256)])
+def test_paged_kernel_long_context_matches_plain(device, variant, d, heads,
+                                                 kv_heads, page_size,
+                                                 max_pages):
+    """Contexts over many 256-token chunks of the split: positions at the
+    chunk edges +-1, a slot inside the first chunk only, the parked slot,
+    the last position of the window, and entries >= P right past two
+    slots' live pages (never read)."""
+    generator = torch.Generator(device=device).manual_seed(
+        d + heads + max_pages)
+    window = max_pages * page_size
+    edges = [255, 256, 257, 511, 512, 513, 1023, 1024]
+    positions = ([0, 100] + [e for e in edges if e < window - 1]
+                 + [window - 1, window // 2 + 1])
+    check_paged(variant, *paged_inputs(
+        device, generator, np.random.default_rng(d + max_pages), variant, d,
+        heads, kv_heads, page_size, positions, max_pages, poisoned=(1, 4)))
+
+
+@pytest.mark.parametrize("variant", PAGED_VARIANTS)
+def test_paged_kernel_is_bitwise_reproducible(device, variant):
+    """Two launches on the same inputs give the same bits: the merge
+    tickets reset and the merge sums the chunks in a fixed order."""
+    generator = torch.Generator(device=device).manual_seed(3)
+    inputs = paged_inputs(device, generator, np.random.default_rng(3),
+                          variant, 128, 32, 8, 16,
+                          [4095, 2999, 1499, 299, 16, 15, 0, 2047], 256,
+                          parked=(6,))
+    first = check_paged(variant, *inputs, parked=(6,))
+    second = check_paged(variant, *inputs, parked=(6,))
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("variant", PAGED_VARIANTS)
+def test_paged_kernel_replays_in_a_cuda_graph(device, variant):
+    """One call captured in a CUDA graph, replayed after the contents of
+    positions and the page table changed, matches the plain version on the
+    new contents: the grid does not depend on positions."""
+    generator = torch.Generator(device=device).manual_seed(5)
+    max_pages, page_size, slots = 32, 16, 4
+    rng = np.random.default_rng(5)
+    positions = [511, 40, 0, 300]
+    q, k_pages, v_pages, page_table, pos, scales = paged_inputs(
+        device, generator, rng, variant, 64, 8, 2, page_size, positions,
+        max_pages, parked=(2,), spare=40)
+    pa.paged_attention(q, k_pages, v_pages, page_table, pos, **scales)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_attention(q, k_pages, v_pages, page_table, pos,
+                                 **scales)
+    new_positions = [17, 300, 511, 0]
+    table = np.zeros((slots, max_pages), np.int32)
+    physical = rng.permutation(np.arange(1, k_pages.shape[0]))
     cursor = 0
-    for slot, count in enumerate(live):
+    for slot, position in enumerate(new_positions[:3]):
+        count = position // page_size + 1
         table[slot, :count] = physical[cursor:cursor + count]
         cursor += count
-    quant = variant.startswith("int8")
-    q_dtype = (torch.float32 if variant in ("f32", "int8")
-               else torch.bfloat16)
-    shape = (num_pages, page_size, kv_heads, d)
-    q = normal(generator, (len(positions), 1, heads, d), q_dtype)
-    if quant:
-        k_pages = torch.randint(-127, 128, shape, generator=generator,
-                                device=device, dtype=torch.int8)
-        v_pages = torch.randint(-127, 128, shape, generator=generator,
-                                device=device, dtype=torch.int8)
-        k_scales = 0.005 + 0.015 * torch.rand((num_pages, kv_heads),
-                                              generator=generator,
-                                              device=device)
-        v_scales = 0.005 + 0.015 * torch.rand((num_pages, kv_heads),
-                                              generator=generator,
-                                              device=device)
-        plain_pages = (k_pages, v_pages)
-    else:
-        k_pages = normal(generator, shape, q_dtype)
-        v_pages = normal(generator, shape, q_dtype)
-        k_scales = v_scales = None
-        plain_pages = (k_pages.float(), v_pages.float())
-    page_table = torch.from_numpy(table).to(device)
-    pos = torch.tensor(positions, dtype=torch.int32, device=device)
-    key = variant.split("/")[0]
-    before = pa.launches[key]
-    out = pa.paged_attention(q, k_pages, v_pages, page_table, pos,
-                             k_scales=k_scales, v_scales=v_scales)
-    ref = pa.paged_attention_reference(q.float(), *plain_pages, page_table,
-                                       pos, k_scales, v_scales)
-    torch.cuda.synchronize()
-    assert pa.launches[key] == before + 1
-    assert out.shape == q.shape and out.dtype == q_dtype
-    assert bool(torch.isfinite(out).all())
-    # slot 0 is parked: its output is finite garbage by contract
-    assert_close_to_plain(out[1:], ref[1:])
+    page_table.copy_(torch.from_numpy(table))
+    pos.copy_(torch.tensor(new_positions, dtype=torch.int32))
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        plain_pages = ((k_pages, v_pages) if k_pages.dtype == torch.int8
+                       else (k_pages.float(), v_pages.float()))
+        ref = pa.paged_attention_reference(
+            q.float(), *plain_pages, page_table, pos,
+            scales.get("k_scales"), scales.get("v_scales"))
+        assert bool(torch.isfinite(out).all())
+        assert_close_to_plain(out[:3], ref[:3])
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(device):
@@ -431,6 +541,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError, match="scales"):
         pa.paged_attention(q, pages.to(torch.int8), pages.to(torch.int8),
                            table, pos)
+    shifted = torch.zeros(pages.numel() + 1, device=device)[1:].view(
+        pages.shape)                  # contiguous, 4 bytes off 16
+    with pytest.raises(ValueError, match="aligned"):
+        pa.paged_attention(q, shifted, shifted, table, pos)
 
 
 def test_prefetch_to_the_card(device, tmp_path):

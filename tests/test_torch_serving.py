@@ -44,21 +44,25 @@ def configs(kv_heads):
     return jax_config, config
 
 
-def run_schedule(engine):
+def run_schedule(engine, after_step=lambda: None):
     """Staggered joins, a cancel and a follow-up; returns each request's
-    (outcome, tokens)."""
+    (outcome, tokens). ``after_step`` runs after every step."""
+    def step():
+        engine.step()
+        after_step()
+
     handles = []
     for prompt, new in zip(PROMPTS, NEWS):
         handles.append(engine.submit(prompt, max_new_tokens=new))
-        engine.step()
+        step()
     cancelled = engine.submit(list(range(4, 40)), max_new_tokens=20)
-    engine.step()
-    engine.step()
+    step()
+    step()
     cancelled.cancel()
     handles.append(cancelled)
     handles.append(engine.submit([9, 8, 7, 6, 5], max_new_tokens=8))
     while engine.has_work():
-        engine.step()
+        step()
     return [(summary["outcome"], summary["tokens"])
             for summary in (h.result(timeout_s=5) for h in handles)]
 
@@ -95,6 +99,40 @@ def test_port_engine_matches_jax_engine(kv_quant, kv_heads):
             ours = getattr(engine._cache, name).numpy()[:, 1:]
             theirs = np.asarray(getattr(jax_engine._cache, name))[:, 1:]
             np.testing.assert_allclose(ours, theirs, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("kv_heads", [None, 2])
+@pytest.mark.parametrize("kv_quant", ["off", "on"])
+def test_port_engine_matches_jax_engine_with_eos(kv_quant, kv_heads):
+    """The same schedule with an ``eos_token`` both engines reach (the third
+    greedy token of the first request without one): identical tokens,
+    outcomes and free pages after every step."""
+    jax_config, config = configs(kv_heads)
+    jax_params = JaxLM.init(jax.random.PRNGKey(0), jax_config)
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jax_params),
+                             config, device="cpu")
+    engine_args = dict(slots=4, max_len=96, queue_depth=8, page_size=16,
+                       kv_quant=kv_quant, prefix_cache="off",
+                       speculative="off")
+    probe = JaxSlotEngine(jax_params, jax_config, paged_kernel="off",
+                          **engine_args)
+    first = run_schedule(probe)[0][1]
+    eos = first[2]
+    engines = [JaxSlotEngine(jax_params, jax_config, paged_kernel="off",
+                             eos_token=eos, **engine_args),
+               SlotEngine(params, config, device="cpu", eos_token=eos,
+                          **engine_args)]
+    free = [[], []]
+    results = [run_schedule(engine, lambda: free[index].append(
+        engine.stats()["kvPagesFree"]))
+        for index, engine in enumerate(engines)]
+    assert results[1] == results[0]
+    assert free[1] == free[0]
+    # the first request stops at the first eos it emits
+    assert results[0][0] == ("completed", first[:first.index(eos) + 1])
+    for engine in engines:
+        stats = engine.stats()
+        assert stats["kvPagesFree"] == stats["kvPagesTotal"]
 
 
 @pytest.mark.parametrize("paged_kernel", ["on", "off"])
