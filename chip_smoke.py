@@ -11,9 +11,11 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
               each, in parallel; ptxas registers/spills per kernel; the
               SASS of the bf16 flash forward and of both bf16 backward
               kernels (dQ, dK/dV) at d_head 64/128 must hold wgmma (HGMMA)
-              and TMA loads (UTMALDG), and ptxas must report neither
-              spills nor serialized wgmma for them, nor a spill in any
-              paged-decode kernel.
+              and TMA loads (UTMALDG), that of both f32 backward kernels at
+              every d_head TF32 mma.sync (HMMA.1688.F32.TF32) and TMA loads,
+              and ptxas must report neither spills nor a performance loss
+              (serialized wgmma) for them, nor a spill in any paged-decode
+              kernel.
 3. kernels  — every kernel variant against its plain PyTorch version at
               the main paths' shapes (serving: 7b heads, H 32, Hkv 8,
               d 128, and a long S 16384; training: the t2t-base forward
@@ -28,8 +30,10 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
               slots at page 64, timed with a cold L2 and, warm, in a CUDA
               graph), timed beside its bound and, for flash,
               PyTorch's scaled_dot_product_attention and its backward
-              (timed here only); forward and backward lines add TFLOP/s,
-              the share of the bound and the time over SDPA's.
+              (timed here only; the backward's gradients also held to the
+              plain version by the kernel's measure, reported only);
+              forward and backward lines add TFLOP/s, the share of the
+              bound and the time over SDPA's.
 4. model    — a 2-layer model at 7b widths in f32: logits on the card
               (flash kernel) against the CPU (plain reference).
 5. training — the training path, train_loop / make_train_step with the
@@ -79,9 +83,14 @@ REPO = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel is the
 # larger of its bytes over the memory rate and its FLOPs over the rate of
-# its operand type
+# its operand type. f32: three TF32 tensor-core products (495 TFLOP/s) give
+# one f32-accurate product, so 495 / 3 is the least time this card needs
+# for f32 work, less than the 67 TFLOP/s of exact f32 on the CUDA cores
+# (CUDA_CORE_F32_FLOPS, the bound the f32 rows used to be held to, printed
+# beside it).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "f32": 495e12 / 3}
+CUDA_CORE_F32_FLOPS = 67e12
 
 # Kernel vs plain. f32 outputs (f32 pages, int8 pages under an f32 query)
 # differ by accumulation order only: max |out - plain| <= ABS_TOL. A bf16
@@ -95,13 +104,23 @@ ABS_TOL = 1e-5
 ROW_REL_TOL = 1e-2
 LSE_TOL = 5e-5                              # f32 LSE ~10 in magnitude
 MODEL_TOL = 1e-3
-# Flash backward vs plain, per gradient row (the d_head values of one token
-# and head): ||grad - plain||_2 / ||plain||_2 <= GRAD_ROW_TOL. The plain
-# version rounds P and dS to bf16 where the kernel does; bf16 rows differ
-# by the output rounding and rare rounding flips, f32 rows by the summation
-# order. The one row that is zero in exact arithmetic — dq of the first
-# query under the causal mask, whose softmax sees one key — is noise on
-# both sides and is held to GRAD_ROW_TOL x the largest dq row norm instead.
+# Flash backward, per gradient row (the d_head values of one token and
+# head). bf16: ||grad - plain||_2 / ||plain||_2 <= GRAD_ROW_TOL; the plain
+# version rounds P and dS to bf16 where the kernel does, so rows differ by
+# the output rounding and rare rounding flips. f32: against the plain
+# version evaluated in f64 on the same inputs ("exact"), no row may be
+# further from it than the exact-f32 plain version's own row is, by more
+# than GRAD_ROW_TOL of the row: ||grad - exact|| <= ||plain - exact|| +
+# GRAD_ROW_TOL ||exact||. Most rows are held to about 2e-5 of exact; a row
+# that cancels to a small part of its terms (a causal row that sees two
+# keys, a saturated softmax) is one where f32 arithmetic itself is far from
+# exact, and there the kernel may be no worse than the plain f32 version.
+# The kernel's products do not round as the plain version's do, so its
+# error there must be smaller than an f32 one: dP is an f64 product. The
+# one row that is zero in exact arithmetic — dq of the first query under
+# the causal mask, whose softmax sees one key — is noise on both sides and
+# is held against the largest dq row norm instead. A control: the plain
+# backward with single-pass TF32 matmuls must fail this measure.
 GRAD_ROW_TOL = {"bf16": 1e-2, "f32": 2e-5}
 # Training on the card vs the CPU (f32 both): loss and pre-clip grad norm
 # within TRAIN_REL_TOL (measured 1.2e-6); params on average per leaf within
@@ -220,6 +239,25 @@ def grad_errors(grad, ref, first_row_zero):
     return diff.abs().max().item(), rel.max().item(), small
 
 
+def f32_grad_errors(grad, plain, exact, first_row_zero):
+    """(max |grad - exact|, max row ||grad - exact|| / ||exact||, max row
+    (||grad - exact|| - ||plain - exact||) / ||exact||) of one [B, S, H, D]
+    f32 gradient against the f64 evaluation ``exact``, beside the exact-f32
+    ``plain`` version; with ``first_row_zero`` the rows of token 0 are held
+    against the largest row norm."""
+    exact = exact.double()
+    norms = exact.norm(dim=-1)
+    largest = norms.max()
+    require(largest.item() > 0, "the plain gradient is all zeros")
+    error = (grad.double() - exact).norm(dim=-1)
+    own = (plain.double() - exact).norm(dim=-1)
+    scale = norms.clamp_min(1e-300)
+    if first_row_zero:
+        scale[:, 0] = largest
+    return ((grad.double() - exact).abs().max().item(),
+            (error / scale).max().item(), ((error - own) / scale).max().item())
+
+
 def bound_ms(flops: float, nbytes: float, variant: str):
     op_ms = flops / PEAK_FLOPS[variant] * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -305,12 +343,20 @@ def kernel_label(mangled):
     return mangled
 
 
-#: SASS of the bf16 flash kernels at d_head 64/128: wgmma (HGMMA), TMA
-#: loads (UTMALDG) and mbarrier operations (SYNCS)
-SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
-#: the bf16 TMA + wgmma kernels, by library
-TMA_KERNELS = {"flash_fwd": ("flash_fwd_bf16_kernel", "flash_fwd_bh_bf16_kernel"),
-               "flash_bwd": ("flash_dq_bf16_kernel", "flash_dkv_bf16_kernel")}
+#: SASS counted per kernel: wgmma (HGMMA), TF32 mma.sync (HMMA.1688.F32.TF32),
+#: f64 mma.sync (DMMA), TMA loads (UTMALDG) and mbarrier operations (SYNCS)
+SASS_OPS = ("HGMMA", "HMMA.1688.F32.TF32", "DMMA", "UTMALDG", "SYNCS")
+#: by library: (kernels, d_heads, SASS each must hold) — the bf16 TMA +
+#: wgmma kernels, and the f32 backward's kernels (three-pass TF32 products,
+#: dO V^T in f64)
+SASS_REQUIRED = {
+    "flash_fwd": ((("flash_fwd_bf16_kernel", "flash_fwd_bh_bf16_kernel"),
+                   (64, 128), ("HGMMA", "UTMALDG")),),
+    "flash_bwd": ((("flash_dq_bf16_kernel", "flash_dkv_bf16_kernel"),
+                   (64, 128), ("HGMMA", "UTMALDG")),
+                  (("flash_dq_f32_kernel", "flash_dkv_f32_kernel"),
+                   (16, 32, 64, 128),
+                   ("HMMA.1688.F32.TF32", "DMMA", "UTMALDG")))}
 
 
 def phase_build():
@@ -345,7 +391,7 @@ def phase_build():
         require(spills[kernel] == 0,
                 f"{kernel}: ptxas reports {spills[kernel]} spill bytes")
     log(f"  paged_decode: {len(paged)} kernels, 0 spill bytes")
-    for library, names in TMA_KERNELS.items():
+    for library, groups in SASS_REQUIRED.items():
         sass = subprocess.run(
             [cuda_build.toolkit_tool("cuobjdump"), "-sass",
              str(cuda_build.library_path(library))],
@@ -361,21 +407,24 @@ def phase_build():
             elif kernel is not None:
                 for op in SASS_OPS:
                     counts[kernel][op] += op in line
-        for d in (64, 128):
-            for name in names:
-                label = f"{name}<{d}>"
-                found = counts.get(label, {})
-                log(f"  sass {label}: " + ", ".join(
-                    f"{op} {found.get(op, 0)}" for op in SASS_OPS)
-                    + f"; ptxas spill bytes {spills.get(label, 'not reported')}")
-                require(found.get("HGMMA", 0) > 0
-                        and found.get("UTMALDG", 0) > 0,
-                        f"{label} issues no wgmma or no TMA load")
-                require(spills.get(label) == 0,
-                        f"{label}: ptxas reports spills "
-                        f"({spills.get(label, 'no report')})")
-                require(label not in serialized,
-                        f"{label}: ptxas serialized its wgmma instructions")
+        for names, d_heads, required in groups:
+            for d in d_heads:
+                for name in names:
+                    label = f"{name}<{d}>"
+                    found = counts.get(label, {})
+                    log(f"  sass {label}: " + ", ".join(
+                        f"{op} {found.get(op, 0)}" for op in SASS_OPS)
+                        + f"; ptxas spill bytes "
+                        f"{spills.get(label, 'not reported')}")
+                    for op in required:
+                        require(found.get(op, 0) > 0,
+                                f"{label} issues no {op}")
+                    require(spills.get(label) == 0,
+                            f"{label}: ptxas reports spills "
+                            f"({spills.get(label, 'no report')})")
+                    require(label not in serialized,
+                            f"{label}: ptxas reports a performance loss "
+                            f"(serialized products)")
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -389,7 +438,7 @@ FORWARD_SHAPES = ((1, 512, 32, 8, 128), (1, 4095, 32, 8, 128),
 
 #: (batch, seq, heads, kv_heads, d, causal) of the flash backward checks:
 #: the t2t-base and t2t-big training attention, the 7b heads (GQA), ragged
-#: S; bf16 adds the encoder's non-causal t2t-base attention
+#: S, and the encoder's non-causal t2t-base attention
 BACKWARD_SHAPES = ((64, 1024, 8, 8, 64, True), (8, 4096, 16, 16, 64, True),
                    (1, 4096, 32, 8, 128, True), (1, 4095, 32, 8, 128, True))
 ENCODER_BACKWARD = (64, 1024, 8, 8, 64, False)
@@ -549,25 +598,30 @@ def flash_bh_cases(batch, seq, heads, d, causal, requests, variant,
     return rows
 
 
-def plain_backward(q, k, v, out, lse, do, delta, causal):
+def plain_backward(q, k, v, out, lse, do, delta, causal, exact=False):
     """The plain backward over batch chunks whose score matrices stay near
-    2 GB (the function is independent per batch element)."""
+    2 GB (the function is independent per batch element); ``exact``
+    evaluates it in f64 on the same inputs: [dq, dk, dv]."""
     import torch
 
     from tensorhive_tpu_torch.ops import flash_attention as fa
 
     batch, seq, heads, _ = q.shape
-    chunk = max(1, (2 << 30) // (heads * seq * seq * 4))
+    width = 8 if exact else 4
+    chunk = max(1, (2 << 30) // (heads * seq * seq * width))
     lse = lse.reshape(batch, heads, 1, seq)
     delta = delta.reshape(batch, heads, 1, seq)
     parts = []
     for start in range(0, batch, chunk):
         rows = slice(start, start + chunk)
         n = q[rows].shape[0]
+        inputs = [q[rows], k[rows], v[rows], out[rows],
+                  lse[rows].reshape(n * heads, 1, seq), do[rows],
+                  delta[rows].reshape(n * heads, 1, seq)]
+        if exact:
+            inputs = [t.double() for t in inputs]
         parts.append(fa.flash_attention_backward_reference(
-            q[rows], k[rows], v[rows], out[rows],
-            lse[rows].reshape(n * heads, 1, seq), do[rows], causal=causal,
-            delta=delta[rows].reshape(n * heads, 1, seq)))
+            *inputs[:6], causal=causal, delta=inputs[6]))
     return [torch.cat(grads) for grads in zip(*parts)]
 
 
@@ -594,25 +648,40 @@ def flash_backward_case(batch, seq, heads, kv_heads, d, causal, variant,
     grads = fa.flash_attention_backward(q, k, v, out, lse, do, causal=causal,
                                         delta=delta)
     refs = plain_backward(q, k, v, out, lse, do, delta, causal)
+    exact = (plain_backward(q, k, v, out, lse, do, delta, causal, exact=True)
+             if variant == "f32" else None)
     torch.cuda.synchronize()
     label = (f"flash_bwd {variant} B={batch} S={seq} H={heads} "
              f"Hkv={kv_heads} d={d} {'causal' if causal else 'non-causal'}")
     worst = [0.0, 0.0]
+    excess = 0.0
     per_grad = []
-    for grad, ref, like, name in zip(grads, refs, (q, k, v), "qkv"):
+    for index, (grad, ref, like, name) in enumerate(zip(grads, refs, (q, k, v),
+                                                        "qkv")):
         require(grad.shape == like.shape and grad.dtype == dtype,
                 f"{label}: d{name} shape/dtype")
         require(bool(torch.isfinite(grad).all()), f"{label}: d{name} not "
                 f"finite")
-        err, rel, small = grad_errors(grad, ref,
-                                      first_row_zero=causal and name == "q")
-        require(math.isfinite(rel) and rel <= GRAD_ROW_TOL[variant],
-                f"{label}: d{name} max row ||g - plain|| / ||plain|| "
-                f"{rel} > {GRAD_ROW_TOL[variant]}")
+        first = causal and name == "q"
+        if variant == "f32":
+            err, rel, beyond = f32_grad_errors(grad, ref, exact[index], first)
+            own = f32_grad_errors(ref, ref, exact[index], first)[1]
+            require(math.isfinite(beyond)
+                    and beyond <= GRAD_ROW_TOL[variant],
+                    f"{label}: d{name} max row (||g - exact|| - ||plain - "
+                    f"exact||) / ||exact|| {beyond} > {GRAD_ROW_TOL[variant]}")
+            excess = max(excess, beyond)
+            per_grad.append(f"d{name} {rel:.2e} vs exact (plain f32 "
+                            f"{own:.2e}), beyond plain {beyond:.2e}")
+        else:
+            err, rel, small = grad_errors(grad, ref, first_row_zero=first)
+            require(math.isfinite(rel) and rel <= GRAD_ROW_TOL[variant],
+                    f"{label}: d{name} max row ||g - plain|| / ||plain|| "
+                    f"{rel} > {GRAD_ROW_TOL[variant]}")
+            per_grad.append(f"d{name} {rel:.2e} ({small} rows < 1% of the "
+                            f"largest)")
         worst = [max(worst[0], err), max(worst[1], rel)]
-        per_grad.append(f"d{name} {rel:.2e} ({small} rows < 1% of the "
-                        f"largest)")
-    del grads, refs
+    del grads
     big = batch * heads * seq * seq * d > 2 ** 34
     reps = 3 if variant == "f32" or big else 10
     kernel_ms = cuda_ms(lambda: fa.flash_attention_backward(
@@ -625,7 +694,21 @@ def flash_backward_case(batch, seq, heads, kv_heads, d, causal, variant,
     grad_out = do.transpose(1, 2)
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         sdpa_out, leaves, grad_out, retain_graph=True), reps)
-    del sdpa_out, leaves
+    # is SDPA's backward the same function? its gradients' row errors by
+    # the kernel's measures (f32: against the exact evaluation, and beyond
+    # the plain f32 version's own error)
+    library_rel = library_excess = 0.0
+    sdpa_grads = torch.autograd.grad(sdpa_out, leaves, grad_out)
+    for index, (grad, name) in enumerate(zip(sdpa_grads, "qkv")):
+        grad, first = grad.transpose(1, 2), causal and name == "q"
+        if variant == "f32":
+            _, rel, beyond = f32_grad_errors(grad, refs[index], exact[index],
+                                             first)
+            library_excess = max(library_excess, beyond)
+        else:
+            rel = grad_errors(grad, refs[index], first_row_zero=first)[1]
+        library_rel = max(library_rel, rel)
+    del sdpa_out, leaves, refs, exact, sdpa_grads
     itemsize = q.element_size()
     # 5 products of 2 S^2 D per head (halved by the causal mask)
     flops = (5.0 if causal else 10.0) * seq * seq * heads * d * batch
@@ -637,14 +720,66 @@ def flash_backward_case(batch, seq, heads, kv_heads, d, causal, variant,
            "d": d, "causal": causal, "max_abs_err": worst[0],
            "max_row_rel_err": worst[1], "ms": kernel_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_max_row_rel_err": library_rel,
            "bound_ms": bound, "bound_by": bound_by, **rates}
+    if variant == "f32":
+        row["max_row_excess"] = excess
+        row["library_max_row_excess"] = library_excess
+    cuda_core = ("" if variant == "bf16" else
+                 f", {flops / CUDA_CORE_F32_FLOPS * 1e3:.4f} ms at the "
+                 f"{CUDA_CORE_F32_FLOPS / 1e12:.0f} TFLOP/s of exact f32")
     log(f"{label}: err {worst[0]:.3e} row_rel {worst[1]:.3e} kernel "
         f"{kernel_ms:.4f} ms plain {plain_ms:.4f} ms "
-        f"sdpa bwd {library_ms:.4f} ms bound {bound:.4f} ms ({bound_by}); "
-        f"{rate_text}")
+        f"sdpa bwd {library_ms:.4f} ms (row_rel {library_rel:.3e}) bound "
+        f"{bound:.4f} ms ({bound_by}{cuda_core}); {rate_text}")
     log(f"  row_rel by gradient: {'; '.join(per_grad)}")
+    if variant == "f32":
+        log(f"  max row error beyond the plain f32 version's: kernel "
+            f"{excess:.3e}, sdpa {library_excess:.3e} (bound "
+            f"{GRAD_ROW_TOL['f32']})")
     torch.cuda.empty_cache()
     return row
+
+
+def f32_backward_control(generator):
+    """The f32 backward measure tells f32 from TF32 arithmetic: on one
+    causal GQA case with scores of std about 4 (q x 4, where an error in a
+    score grows through exp) the kernel holds it, and the plain backward
+    with single-pass TF32 matmuls (cuBLAS's TF32 mode) must not."""
+    import torch
+
+    from tensorhive_tpu_torch.ops import flash_attention as fa
+
+    batch, seq, heads, kv_heads, d = 2, 1000, 8, 2, 64
+
+    def draw(h):
+        return torch.randn((batch, seq, h, d), generator=generator,
+                           device="cuda")
+
+    q, k, v, do = draw(heads) * 4.0, draw(kv_heads), draw(kv_heads), draw(
+        heads)
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    delta = fa.flash_bwd_delta(do, out)
+    grads = fa.flash_attention_backward(q, k, v, out, lse, do, causal=True,
+                                        delta=delta)
+    refs = plain_backward(q, k, v, out, lse, do, delta, True)
+    exact = plain_backward(q, k, v, out, lse, do, delta, True, exact=True)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = plain_backward(q, k, v, out, lse, do, delta, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    kernel, single = (max(f32_grad_errors(g, r, e, name == "q")[2]
+                          for g, r, e, name in zip(grads, refs, exact, "qkv"))
+                      for grads in (grads, tf32))
+    log(f"flash_bwd f32 control B={batch} S={seq} H={heads} Hkv={kv_heads} "
+        f"d={d} causal q x 4: max row error beyond the plain f32 version's: "
+        f"kernel {kernel:.3e}, single-pass TF32 plain {single:.3e} (bound "
+        f"{GRAD_ROW_TOL['f32']})")
+    require(kernel <= GRAD_ROW_TOL["f32"],
+            f"f32 control: kernel {kernel} > {GRAD_ROW_TOL['f32']}")
+    require(single > GRAD_ROW_TOL["f32"],
+            f"f32 control: single-pass TF32 {single} passes the f32 measure")
 
 
 #: the serving shape: 8 slots at page 16 over a 4096-token window, mixed
@@ -769,11 +904,10 @@ def phase_kernels():
             for case in (PAGED_SERVING,) + PAGED_SWEEP]
         torch.cuda.empty_cache()
     for variant in ("bf16", "f32"):
-        shapes = BACKWARD_SHAPES + ((ENCODER_BACKWARD,) if variant == "bf16"
-                                    else ())
         results[f"flash_bwd_{variant}"] = [
             flash_backward_case(*shape, variant, generator)
-            for shape in shapes]
+            for shape in BACKWARD_SHAPES + (ENCODER_BACKWARD,)]
+    f32_backward_control(generator)
     for variant in ("bf16", "f32"):
         results[f"flash_fwd_bh_{variant}"] = [
             row for shape in BH_SHAPES
@@ -1504,13 +1638,18 @@ def kernel_report(kernels, runs, path_launches):
             source = paged_src
             replaces = paged_tpu + (
                 "(quant=True)" if name.endswith("int8") else "(quant=False)")
-        entries.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches.get(name, 0),
             "max_abs_err": err, "max_row_rel_err": rel, "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"]})
+            "library_ms": row["library_ms"]}
+        for key in ("library_max_row_rel_err", "max_row_excess",
+                    "library_max_row_excess"):
+            if key in row:
+                entry[key] = max(r[key] for r in rows)
+        entries.append(entry)
     return entries
 
 

@@ -20,8 +20,11 @@
 // P^T dO), halved by causality: 5*S^2*H*D FLOPs against about
 // 4*S*(H+Hkv)*D*itemsize bytes. At S=4096, H=32, Hkv=8, D=128 that is
 // 344 GFLOP against 168 MB, so operations bound it: ~0.35 ms at the bf16
-// tensor-core rate, ~5.1 ms for f32 at the 67 TFLOP/s of exact f32. The two
-// passes below do 7 products, not 5: each computes Q K^T and dO V^T itself.
+// tensor-core rate, ~2.1 ms for f32 at 165 TFLOP/s — an f32-accurate product
+// on the tensor cores takes three TF32 products (495 / 3 TFLOP/s), less
+// time than the 67 TFLOP/s of exact f32 on the CUDA cores. The two passes
+// below do 7 products, not 5: each computes Q K^T and dO V^T itself; the
+// f32 kernels take dO V^T at the f64 tensor-core rate (67 TFLOP/s).
 //
 // Two passes, as the TPU kernels split it: the dQ kernel sums over keys,
 // the dK/dV kernel over q rows and the GQA group, each CTA owning its
@@ -89,10 +92,19 @@
 // Both bf16 bodies round P to bf16 before P^T dO and dS before dS K and
 // dS^T Q — the JAX kernels' .astype(do.dtype) / .astype(q.dtype) /
 // .astype(k.dtype).
-// f32: CUDA-core FMAs in exact f32 (no TF32), 256 threads as a 16x16 grid;
-// each thread owns 4 rows x 4 columns of a 64x64 score tile and 4 rows of
-// the gradient accumulators; P and dS pass through shared memory to the
-// second product; the same CTA grids as the mma.sync body.
+// f32, every d_head: the same two passes on the tensor cores with mma.sync.
+// Q K^T and the three gradient products are m16n8k8 in TF32, each to f32
+// accuracy in three passes of a split x = hi + lo (hi the TF32 rounding of
+// x: a_hi b_hi + a_hi b_lo + a_lo b_hi). dO V^T is m16n8k4 in f64 (the f32
+// operands widened exactly, the sum in f64) and dP - delta is rounded to
+// f32 once: where dP is close to delta (a causal row that sees two keys, a
+// saturated softmax) dS keeps only the low bits of dP, and a dP with f32
+// error relative to its terms — any f32 or TF32 sum — misses the plain f32
+// version's own accuracy on those rows. tf32 wgmma would take both
+// shared-memory operands K-major only, and three of each kernel's four
+// products read one MN-major. The CTA is the TMA body's three warpgroups;
+// the streamed stages are split once into hi/lo planes, and P and dS stay
+// in registers (see the f32 section below).
 // The scale always multiplies the f32 scores. _fold_scale_into_q folds a
 // power-of-two scale into q instead; scaling by a power of two commutes
 // with every rounding of the sum (and with the log2(e) factor), so both give
@@ -108,306 +120,9 @@ namespace {
 constexpr int BLOCK_Q = 64;      // dQ: q rows per CTA
 constexpr int BLOCK_K = 64;      // dQ: keys per tile; dK/dV: keys per CTA
 constexpr int BLOCK_QB = 32;     // mma.sync dK/dV: q rows per inner tile
-constexpr int THREADS = 256;     // f32 kernels
 constexpr int MMA_THREADS = 128; // mma.sync kernels: 4 warps x 16 rows
-constexpr int ROWS = 4;          // f32: rows per thread
-constexpr int COLS = 4;          // f32: score columns per thread
 
 using bf16 = __nv_bfloat16;
-
-// -- f32: exact f32 products on the CUDA cores --------------------------------
-
-template <int D>
-constexpr size_t dq_f32_smem() {
-  return sizeof(float) * (4 * 64 * (D + 1) + 64 * 65);
-}
-
-template <int D>
-constexpr size_t dkv_f32_smem() {
-  return sizeof(float) * (4 * 64 * (D + 1) + 2 * 64 * 65 + 2 * 64);
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    int S, int H, int Hkv, int causal, float scale) {
-  constexpr int DP = D + 1;           // padded rows: no bank conflicts
-  constexpr int PP = BLOCK_K + 1;
-  constexpr int OUT = D / 16;         // gradient columns per thread
-  extern __shared__ float smem[];
-  float* q_s = smem;                  // [BLOCK_Q][DP]
-  float* do_s = q_s + BLOCK_Q * DP;   // [BLOCK_Q][DP]
-  float* k_s = do_s + BLOCK_Q * DP;   // [BLOCK_K][DP]
-  float* v_s = k_s + BLOCK_K * DP;    // [BLOCK_K][DP]
-  float* ds_s = v_s + BLOCK_K * DP;   // [BLOCK_Q][PP]
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int kvh = h / (H / Hkv);
-  const int q0 = blockIdx.x * BLOCK_Q;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const long q_stride = (long)H * D;
-  const long kv_stride = (long)Hkv * D;
-  const float* q_base = q + ((long)b * S * H + h) * D;
-  const float* do_base = dout + ((long)b * S * H + h) * D;
-  const float* k_base = k + ((long)b * S * Hkv + kvh) * D;
-  const float* v_base = v + ((long)b * S * Hkv + kvh) * D;
-  float* dq_base = dq + ((long)b * S * H + h) * D;
-
-  for (int i = tid; i < BLOCK_Q * D; i += THREADS) {
-    const int r = i / D, c = i % D, s = q0 + r;
-    const bool ok = s < S;
-    q_s[r * DP + c] = ok ? q_base[s * q_stride + c] : 0.f;
-    do_s[r * DP + c] = ok ? do_base[s * q_stride + c] : 0.f;
-  }
-  float row_lse[ROWS], row_delta[ROWS], acc[ROWS][OUT];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int s = q0 + ty * ROWS + r;
-    row_lse[r] = s < S ? lse[(long)bh * S + s] : 0.f;
-    row_delta[r] = s < S ? delta[(long)bh * S + s] : 0.f;
-#pragma unroll
-    for (int j = 0; j < OUT; ++j) acc[r][j] = 0.f;
-  }
-
-  const int q_last = min(q0 + BLOCK_Q, S) - 1;
-  const int kv_end = causal ? q_last + 1 : S;
-  const int tiles = (kv_end + BLOCK_K - 1) / BLOCK_K;
-
-  for (int t = 0; t < tiles; ++t) {
-    const int k0 = t * BLOCK_K;
-    __syncthreads();  // the previous tile's k_s/v_s/ds_s are consumed
-    for (int i = tid; i < BLOCK_K * D; i += THREADS) {
-      const int r = i / D, c = i % D, s = k0 + r;
-      const bool ok = s < S;
-      k_s[r * DP + c] = ok ? k_base[s * kv_stride + c] : 0.f;
-      v_s[r * DP + c] = ok ? v_base[s * kv_stride + c] : 0.f;
-    }
-    __syncthreads();
-
-    float sc[ROWS][COLS], dp[ROWS][COLS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) sc[r][c] = dp[r][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[ROWS], dov[ROWS], kv[COLS], vv[COLS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        qv[r] = q_s[(ty * ROWS + r) * DP + d];
-        dov[r] = do_s[(ty * ROWS + r) * DP + d];
-      }
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) {
-        kv[c] = k_s[(tx + 16 * c) * DP + d];
-        vv[c] = v_s[(tx + 16 * c) * DP + d];
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-        for (int c = 0; c < COLS; ++c) {
-          sc[r][c] = fmaf(qv[r], kv[c], sc[r][c]);
-          dp[r][c] = fmaf(dov[r], vv[c], dp[r][c]);
-        }
-    }
-
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int row = ty * ROWS + r;
-      const int qpos = q0 + row;
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) {
-        const int kpos = k0 + tx + 16 * c;
-        const bool visible = kpos < S && (!causal || kpos <= qpos);
-        const float p = visible ? expf(sc[r][c] * scale - row_lse[r]) : 0.f;
-        ds_s[row * PP + tx + 16 * c] = p * (dp[r][c] - row_delta[r]);
-      }
-    }
-    __syncthreads();  // ds_s is complete
-
-#pragma unroll 4
-    for (int kk = 0; kk < BLOCK_K; ++kk) {
-      float dsv[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) dsv[r] = ds_s[(ty * ROWS + r) * PP + kk];
-#pragma unroll
-      for (int j = 0; j < OUT; ++j) {
-        const float kval = k_s[kk * DP + tx + 16 * j];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) acc[r][j] = fmaf(dsv[r], kval, acc[r][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int s = q0 + ty * ROWS + r;
-    if (s >= S) continue;
-#pragma unroll
-    for (int j = 0; j < OUT; ++j)
-      dq_base[s * q_stride + tx + 16 * j] = scale * acc[r][j];
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int S, int H, int Hkv,
-                     int causal, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int PP = 64 + 1;
-  constexpr int OUT = D / 16;
-  constexpr int BQ = 64;              // q rows per inner tile
-  extern __shared__ float smem[];
-  float* k_s = smem;                  // [BLOCK_K][DP]
-  float* v_s = k_s + BLOCK_K * DP;    // [BLOCK_K][DP]
-  float* q_s = v_s + BLOCK_K * DP;    // [BQ][DP]
-  float* do_s = q_s + BQ * DP;        // [BQ][DP]
-  float* p_s = do_s + BQ * DP;        // [BLOCK_K][PP], keys x q
-  float* ds_s = p_s + BLOCK_K * PP;   // [BLOCK_K][PP]
-  float* lse_s = ds_s + BLOCK_K * PP; // [BQ]
-  float* delta_s = lse_s + BQ;        // [BQ]
-
-  const int bkv = blockIdx.y;
-  const int b = bkv / Hkv;
-  const int kvh = bkv % Hkv;
-  const int group = H / Hkv;
-  const int k0 = blockIdx.x * BLOCK_K;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const long q_stride = (long)H * D;
-  const long kv_stride = (long)Hkv * D;
-  const float* k_base = k + ((long)b * S * Hkv + kvh) * D;
-  const float* v_base = v + ((long)b * S * Hkv + kvh) * D;
-
-  for (int i = tid; i < BLOCK_K * D; i += THREADS) {
-    const int r = i / D, c = i % D, s = k0 + r;
-    const bool ok = s < S;
-    k_s[r * DP + c] = ok ? k_base[s * kv_stride + c] : 0.f;
-    v_s[r * DP + c] = ok ? v_base[s * kv_stride + c] : 0.f;
-  }
-  float dk_acc[ROWS][OUT], dv_acc[ROWS][OUT];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-    for (int j = 0; j < OUT; ++j) dk_acc[r][j] = dv_acc[r][j] = 0.f;
-
-  const int first = causal ? k0 / BQ : 0;
-  const int tiles = (S + BQ - 1) / BQ;
-
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = kvh * group + gi;
-    const long bh = (long)b * H + h;
-    const float* q_base = q + ((long)b * S * H + h) * D;
-    const float* do_base = dout + ((long)b * S * H + h) * D;
-    for (int t = first; t < tiles; ++t) {
-      const int q0 = t * BQ;
-      __syncthreads();  // the previous tile's q_s/do_s/p_s/ds_s are consumed
-      for (int i = tid; i < BQ * D; i += THREADS) {
-        const int r = i / D, c = i % D, s = q0 + r;
-        const bool ok = s < S;
-        q_s[r * DP + c] = ok ? q_base[s * q_stride + c] : 0.f;
-        do_s[r * DP + c] = ok ? do_base[s * q_stride + c] : 0.f;
-      }
-      for (int i = tid; i < BQ; i += THREADS) {
-        const int s = q0 + i;
-        lse_s[i] = s < S ? lse[bh * S + s] : 0.f;
-        delta_s[i] = s < S ? delta[bh * S + s] : 0.f;
-      }
-      __syncthreads();
-
-      float sc[ROWS][COLS], dp[ROWS][COLS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-        for (int c = 0; c < COLS; ++c) sc[r][c] = dp[r][c] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float kv[ROWS], vv[ROWS], qv[COLS], dov[COLS];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          kv[r] = k_s[(ty * ROWS + r) * DP + d];
-          vv[r] = v_s[(ty * ROWS + r) * DP + d];
-        }
-#pragma unroll
-        for (int c = 0; c < COLS; ++c) {
-          qv[c] = q_s[(tx + 16 * c) * DP + d];
-          dov[c] = do_s[(tx + 16 * c) * DP + d];
-        }
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-          for (int c = 0; c < COLS; ++c) {
-            sc[r][c] = fmaf(kv[r], qv[c], sc[r][c]);
-            dp[r][c] = fmaf(vv[r], dov[c], dp[r][c]);
-          }
-      }
-
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int row = ty * ROWS + r;
-        const int kpos = k0 + row;
-#pragma unroll
-        for (int c = 0; c < COLS; ++c) {
-          const int col = tx + 16 * c;
-          const int qpos = q0 + col;
-          const bool visible =
-              qpos < S && kpos < S && (!causal || kpos <= qpos);
-          const float p =
-              visible ? expf(sc[r][c] * scale - lse_s[col]) : 0.f;
-          p_s[row * PP + col] = p;
-          ds_s[row * PP + col] = p * (dp[r][c] - delta_s[col]);
-        }
-      }
-      __syncthreads();  // p_s and ds_s are complete
-
-#pragma unroll 4
-      for (int qq = 0; qq < BQ; ++qq) {
-        float pv[ROWS], dsv[ROWS];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          pv[r] = p_s[(ty * ROWS + r) * PP + qq];
-          dsv[r] = ds_s[(ty * ROWS + r) * PP + qq];
-        }
-#pragma unroll
-        for (int j = 0; j < OUT; ++j) {
-          const float dov = do_s[qq * DP + tx + 16 * j];
-          const float qval = q_s[qq * DP + tx + 16 * j];
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r) {
-            dv_acc[r][j] = fmaf(pv[r], dov, dv_acc[r][j]);
-            dk_acc[r][j] = fmaf(dsv[r], qval, dk_acc[r][j]);
-          }
-        }
-      }
-    }
-  }
-
-  float* dk_base = dk + ((long)b * S * Hkv + kvh) * D;
-  float* dv_base = dv + ((long)b * S * Hkv + kvh) * D;
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int s = k0 + ty * ROWS + r;
-    if (s >= S) continue;
-#pragma unroll
-    for (int j = 0; j < OUT; ++j) {
-      dk_base[s * kv_stride + tx + 16 * j] = scale * dk_acc[r][j];
-      dv_base[s * kv_stride + tx + 16 * j] = dv_acc[r][j];
-    }
-  }
-}
 
 // -- bf16, d_head 16 and 32: mma.sync m16n8k16, f32 acc ---------------------
 //
@@ -1197,6 +912,709 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// -- f32: three-pass TF32 products on the tensor cores -----------------------
+//
+// A CTA of three warpgroups, as in the bf16 kernels: warpgroups 0 and 1 are
+// 8 consumer warps, 16 resident rows each; warpgroup 2 feeds them, and
+// setmaxnreg moves registers from it to the consumers (232 each: the dK/dV
+// accumulators alone are 128 at d_head 128). Its warp 0, lane 0, loads the
+// resident tile once and streams the other two operands, STREAM rows a
+// stage, into a ring of STAGES stages by TMA (f32 boxes of 32 columns,
+// 128-byte rows under the 128-byte swizzle; d_head 16: 64-byte rows under
+// the 64-byte swizzle), with full, split and empty mbarriers per stage. Its
+// warps 1-3 split each landed stage once, in place: every f32 x becomes hi
+// (x rounded to TF32) and its lo (x - hi, exact in f32; a TF32 operand
+// reads its top 19 bits) goes to a plane beside it, so that hi + lo gives
+// x back. The consumers take the streamed operands' fragments as they are,
+// hi and lo, and split only their resident operand in registers: with
+// every warp splitting every element it read, the products waited on the
+// splits.
+// Q K^T and the gradient products are mma.sync m16n8k8 in TF32 with f32
+// accumulation, three passes per product (``mma_3xtf32``); dO V^T is
+// mma.sync m16n8k4 in f64 (``mma_f64``), its B operand hi + lo of the
+// stage. Fragment layout (g = lane / 4, t = lane % 4): A holds rows g, g+8
+// x columns t, t+4 (m16n8k4: column t); B holds k rows t, t+4 (t) of column
+// g; C holds rows g, g+8 x columns 2t, 2t+1, in f32 or f64.
+// * Operands read along their rows (Q, dO, K, V in the score products) come
+//   through ldmatrix: an 8 x 4 f32 block is an 8 x 8 b16 matrix, and lane
+//   l receives row l / 4, column l % 4 — the A and B fragments as they are.
+//   The swizzle puts the 8 rows of a block in 8 different bank groups.
+// * The second products contract over the score columns. The accumulator
+//   holds columns 2t, 2t+1 where the A fragment wants t, t+4, so the
+//   contraction index is permuted instead of the registers: A column t is
+//   key (q row) 8j + 2t and t+4 is 8j + 2t + 1, and the B fragment reads
+//   rows 8j + 2t and 8j + 2t + 1 of the stage (plain shared loads, column
+//   g): P and dS never leave the registers. Under the swizzle those rows
+//   and 8 columns fall in 32 different banks for d_head >= 32 (2-way
+//   conflicts at d_head 16).
+// k-steps of 8 columns whose score passes sum from zero before joining the
+// scores (f32 adds cost issue slots; the tensor cores' truncating sums lose
+// accuracy as they grow)
+constexpr int SCORE_KSTEPS = 2;
+
+template <int D>
+struct F32Bwd {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
+                "d_head 16, 32, 64 or 128");
+  static constexpr int WARPS = CONSUMER_WARPS;    // warpgroups 0 and 1
+  static constexpr int SPLITTERS = 3;             // warps 1-3 of warpgroup 2
+  static constexpr int ROWS = 16 * WARPS;         // resident rows a CTA
+  static constexpr int STREAM = D == 128 ? 16 : 32;  // streamed rows a stage
+  static constexpr int STAGES = D == 128 ? 3 : 4;
+  static constexpr int BOX = D < 32 ? D : 32;        // columns a TMA box
+  static constexpr uint32_t RES_BYTES = ROWS * D * 4;
+  // a stage: the two streamed operands (hi after the split), then their lo
+  static constexpr uint32_t TILE_BYTES = STREAM * D * 4;
+  static constexpr uint32_t LO = 2 * TILE_BYTES;
+  static constexpr uint32_t STAGE_BYTES = 4 * TILE_BYTES;
+  static constexpr uint32_t TILES = 2 * RES_BYTES + STAGES * STAGE_BYTES;
+  static constexpr uint32_t STATS = 2 * STAGES * STREAM * 4;
+  // 1024 bytes of slack to align the base; the resident barrier, then full,
+  // split and empty per stage
+  static constexpr int BARRIERS = 8 * (1 + 3 * STAGES);
+  static constexpr int DQ_SMEM = 1024 + TILES + BARRIERS;
+  static constexpr int DKV_SMEM = 1024 + TILES + STATS + BARRIERS;
+  static_assert(DKV_SMEM <= 232448, "shared memory");
+};
+
+// Byte offset of element (row, col) of an f32 tile of ``rows`` rows as TMA
+// writes it: D/32 blocks of rows x 128 bytes, 16-byte chunk c of row r at
+// c ^ (r % 8); d_head 16: rows of 64 bytes, chunk c at c ^ (r / 2 % 4).
+template <int D, int rows>
+__device__ __forceinline__ uint32_t f32_offset(int row, int col) {
+  if constexpr (D >= 32)
+    return (col >> 5) * (rows * 128) + row * 128 +
+           ((((col >> 2) ^ row) & 7) << 4) + ((col & 3) << 2);
+  else
+    return row * 64 + ((((col >> 2) ^ (row >> 1)) & 3) << 4) +
+           ((col & 3) << 2);
+}
+
+// Byte offsets of (row0 + 8 R, col0 + 8 c + 32 C) in an f32 tile of
+// ``rows`` rows: table[c % 4] + R * 8 rows + C * rows * 128. The swizzle
+// depends on the row only modulo 8 (d_head 16: on row / 2 modulo 4) and on
+// the column's 16-byte chunk within its 32 columns, so four per-lane
+// offsets cover a warp's every load of an unrolled loop over a tile and the
+// rest is an immediate (ptxas kept a register for each load's address, and
+// spilled).
+template <int D, int rows>
+struct F32Addr {
+  static constexpr int C = D / 8 < 4 ? D / 8 : 4;
+  static constexpr uint32_t ROW8 = 8 * (D >= 32 ? 128 : 64);
+  uint32_t table[C];
+  __device__ __forceinline__ F32Addr(int row0, int col0) {
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      table[c] = f32_offset<D, rows>(row0, col0 + 8 * c);
+  }
+  __device__ __forceinline__ uint32_t at(int R, int c) const {
+    return table[c % C] + R * ROW8 + (c / 4) * rows * 128;
+  }
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t lds_f32(uint32_t addr) {
+  uint32_t x;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(x) : "r"(addr));
+  return x;
+}
+
+__device__ __forceinline__ float to_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return __uint_as_float(y);
+}
+
+// x = hi + lo: hi is x rounded to TF32 and lo = x - hi, exact in f32; the
+// product reads lo's top 19 bits, truncating it.
+template <int N>
+__device__ __forceinline__ void split_tf32(const uint32_t (&x)[N],
+                                           uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float h = to_tf32(__uint_as_float(x[i]));
+    hi[i] = __float_as_uint(h);
+    lo[i] = __float_as_uint(__uint_as_float(x[i]) - h);
+  }
+}
+
+// Splits the FLOATS f32 values at ``x`` in place, hi where x was and lo
+// FLOATS values further on, as split_tf32 does: thread t of n, 16 bytes at
+// a time. The fence orders the stores before the async proxy's (the TMA
+// load that later refills the stage).
+template <int FLOATS>
+__device__ __forceinline__ void split_stage(float* x, int t, int n) {
+  float4* hi = reinterpret_cast<float4*>(x);
+  float4* lo = reinterpret_cast<float4*>(x + FLOATS);
+#pragma unroll 1
+  for (int i = t; i < FLOATS / 4; i += n) {
+    const float4 v = hi[i];
+    const float4 h = make_float4(to_tf32(v.x), to_tf32(v.y), to_tf32(v.z),
+                                 to_tf32(v.w));
+    hi[i] = h;
+    lo[i] = make_float4(v.x - h.x, v.y - h.y, v.z - h.z, v.w - h.w);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Volatile, as the loads are: the products stay in the order written, so
+// ptxas does not hoist a whole unrolled tile's loads above them.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b for a 16 x 8 x 4 product in f64: a0, a1 rows g, g+8 of column
+// t; b row t of column g. Products of widened f32 values are exact in f64.
+__device__ __forceinline__ void mma_f64(double (&c)[4], double a0, double a1,
+                                        double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+// part[i] (+)= a[i] b[i] to f32 accuracy for CH independent products, in
+// three passes: a_lo b_hi and a_hi b_lo first, then a_hi b_hi (the dropped
+// a_lo b_lo is about 2^-22 of a product), each pass over all CH products
+// so that no product waits on the one before. Without ``ACCUMULATE`` the
+// passes start from zero. The tensor cores align a sum to its largest term
+// and truncate, so the callers keep these sums short (two k-steps of a
+// score, one stage of a gradient) and add them into their running sums in
+// f32, rounding to nearest: a running sum kept in the accumulator drifted
+// past the f32 bound over a long row.
+template <int CH, bool ACCUMULATE = false>
+__device__ __forceinline__ void mma_3xtf32(float (&part)[CH][4],
+                                           const uint32_t (&a_hi)[CH][4],
+                                           const uint32_t (&a_lo)[CH][4],
+                                           const uint32_t (&b_hi)[CH][2],
+                                           const uint32_t (&b_lo)[CH][2]) {
+  if (!ACCUMULATE) {
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+      part[i][0] = part[i][1] = part[i][2] = part[i][3] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < CH; ++i) mma_tf32(part[i], a_lo[i], b_hi[i]);
+#pragma unroll
+  for (int i = 0; i < CH; ++i) mma_tf32(part[i], a_hi[i], b_lo[i]);
+#pragma unroll
+  for (int i = 0; i < CH; ++i) mma_tf32(part[i], a_hi[i], b_hi[i]);
+}
+
+// The two score products of a warp over the D columns, their rows the 16
+// resident rows from ``row0`` (tiles of ROWS rows), their columns the
+// STREAM rows of a split stage tile (its lo ``LO`` bytes on):
+//   s  = A1 B1^T in three TF32 passes, A1 split here; the passes of KG
+//        k-steps sum from zero, then join s;
+//   dp = A2 B2^T in f64, A2 widened as it is and B2 as hi + lo (= x).
+// The k-step groups stay a loop: unrolled, ptxas hoisted their loads and
+// spilled.
+template <int D, int ROWS, int STREAM, uint32_t LO>
+__device__ __forceinline__ void scores(
+    float (&s)[STREAM / 8][4], double (&dp)[STREAM / 8][4], uint32_t a1_tile,
+    uint32_t a2_tile, int row0, uint32_t b1_tile, uint32_t b2_tile,
+    int lane) {
+  constexpr int KG = SCORE_KSTEPS < D / 8 ? SCORE_KSTEPS : D / 8;
+  const int m = lane >> 3;
+#pragma unroll
+  for (int j = 0; j < STREAM / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f, dp[j][e] = 0.0;
+  // ldmatrix.x4 rows: A's four 8 x 4 blocks a0..a3; B's b0, b1 of column
+  // tiles 2p and 2p + 1
+  const int a_row = row0 + ((m & 1) << 3) + (lane & 7);
+  const int a_col = (m >> 1) << 2;
+  const int b_row = ((m >> 1) << 3) + (lane & 7);
+  const int b_col = (m & 1) << 2;
+#pragma unroll 1
+  for (int k0 = 0; k0 < D / 8; k0 += KG) {
+    float part[STREAM / 16][2][4];
+#pragma unroll
+    for (int h = 0; h < KG; ++h) {
+      const int kk = k0 + h;
+      const uint32_t a_at = f32_offset<D, ROWS>(a_row, 8 * kk + a_col);
+      uint32_t a1[4], a2[4];
+      ldsm_x4(a1, a1_tile + a_at);
+      ldsm_x4(a2, a2_tile + a_at);
+      uint32_t a_hi[2][4], a_lo[2][4];
+      split_tf32(a1, a_hi[0], a_lo[0]);
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        a_hi[1][x] = a_hi[0][x], a_lo[1][x] = a_lo[0][x];
+      double w[4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) w[x] = __uint_as_float(a2[x]);
+#pragma unroll
+      for (int p = 0; p < STREAM / 16; ++p) {
+        const uint32_t at =
+            f32_offset<D, STREAM>(16 * p + b_row, 8 * kk + b_col);
+        uint32_t h1[4], l1[4], h2[4], l2[4];
+        ldsm_x4(h1, b1_tile + at);
+        ldsm_x4(l1, b1_tile + LO + at);
+        ldsm_x4(h2, b2_tile + at);
+        ldsm_x4(l2, b2_tile + LO + at);
+        const uint32_t b_hi[2][2] = {{h1[0], h1[1]}, {h1[2], h1[3]}};
+        const uint32_t b_lo[2][2] = {{l1[0], l1[1]}, {l1[2], l1[3]}};
+        if (h == 0)
+          mma_3xtf32<2>(part[p], a_hi, a_lo, b_hi, b_lo);
+        else
+          mma_3xtf32<2, true>(part[p], a_hi, a_lo, b_hi, b_lo);
+        double x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[e] = __uint_as_float(h2[e]) + __uint_as_float(l2[e]);
+        mma_f64(dp[2 * p], w[0], w[1], x[0]);          // k columns t
+        mma_f64(dp[2 * p], w[2], w[3], x[1]);          // and t + 4
+        mma_f64(dp[2 * p + 1], w[0], w[1], x[2]);
+        mma_f64(dp[2 * p + 1], w[2], w[3], x[3]);
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < STREAM / 16; ++p)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[2 * p][e] += part[p][0][e];
+        s[2 * p + 1][e] += part[p][1][e];
+      }
+  }
+}
+
+// acc_i (16 x D) += X_i B_i for the NP products of a warp: X_i (16 x
+// STREAM) in the registers of a score accumulator, split here; B_i the
+// STREAM x D split stage tile at ``b_tile[i]``, its lo LO bytes on, the
+// contraction index permuted as above. A group of NG column tiles of every
+// product at a time, over the whole stage; the group's sum over the stage's
+// rows starts from zero and joins ``acc`` by f32 adds.
+template <int D, int STREAM, uint32_t LO, int NP>
+__device__ __forceinline__ void accumulate_3xtf32(
+    float (*const (&acc)[NP])[4], const float (*const (&x)[NP])[4],
+    const uint32_t (&b_tile)[NP], int g, int t4) {
+  // products a group: 4, or 2 where dK and dV at d_head 128 hold 128
+  // accumulator registers already
+  constexpr int CH_MAX = D == 128 && NP == 2 ? 2 : 4;
+  constexpr int NG = CH_MAX / NP < D / 8 ? CH_MAX / NP : D / 8;
+  constexpr int CH = NP * NG;
+  // b_e of the B fragment: row 8j + 2 t4 + e, column 8n + g
+  const F32Addr<D, STREAM> b_addr[2] = {F32Addr<D, STREAM>(2 * t4, g),
+                                        F32Addr<D, STREAM>(2 * t4 + 1, g)};
+#pragma unroll
+  for (int grp = 0; grp < D / 8 / NG; ++grp) {
+    float part[CH][4];
+#pragma unroll
+    for (int j = 0; j < STREAM / 8; ++j) {
+      uint32_t a_hi[CH][4], a_lo[CH][4], b_hi[CH][2], b_lo[CH][2];
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        const uint32_t a[4] = {__float_as_uint(x[i][j][0]),
+                               __float_as_uint(x[i][j][2]),
+                               __float_as_uint(x[i][j][1]),
+                               __float_as_uint(x[i][j][3])};
+        split_tf32(a, a_hi[i * NG], a_lo[i * NG]);
+#pragma unroll
+        for (int q = 0; q < NG; ++q) {
+          if (q > 0) {
+#pragma unroll
+            for (int y = 0; y < 4; ++y)
+              a_hi[i * NG + q][y] = a_hi[i * NG][y],
+              a_lo[i * NG + q][y] = a_lo[i * NG][y];
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const uint32_t at = b_tile[i] + b_addr[e].at(j, grp * NG + q);
+            b_hi[i * NG + q][e] = lds_f32(at);
+            b_lo[i * NG + q][e] = lds_f32(at + LO);
+          }
+        }
+      }
+      if (j == 0)
+        mma_3xtf32<CH>(part, a_hi, a_lo, b_hi, b_lo);
+      else
+        mma_3xtf32<CH, true>(part, a_hi, a_lo, b_hi, b_lo);
+    }
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+#pragma unroll
+      for (int q = 0; q < NG; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][grp * NG + q][e] += part[i * NG + q][e];
+  }
+}
+
+// P = exp(s scale - lse) by the plain version's own arithmetic (a product
+// and a difference each rounded to f32, then expf), not ex2.approx with a
+// log2(e) factor: some rows of the gradients (a causal row that sees two
+// keys) cancel to a small part of their terms, and there every difference
+// in P shows.
+__device__ __forceinline__ float probability(float s, float scale,
+                                             float lse) {
+  return expf(__fsub_rn(__fmul_rn(s, scale), lse));
+}
+
+// dQ: one CTA per (ROWS-row q tile, b*h row), the heaviest causal tiles
+// first. Q and dO load once; K and V stream up to the diagonal of the
+// CTA's last row.
+template <int D>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_dq_f32_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap do_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int S, int H, int Hkv, int causal, float scale) {
+  using T = F32Bwd<D>;
+  constexpr int SB = T::STREAM;                  // keys a stage
+  constexpr int STAGES = T::STAGES;
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  unsigned char* const smem =
+      bwd_smem + (((smem_u32(bwd_smem) + 1023u) & ~1023u) -
+                  smem_u32(bwd_smem));
+  const uint32_t base = smem_u32(smem);
+  const uint32_t q_s = base;
+  const uint32_t do_s = q_s + T::RES_BYTES;
+  const uint32_t ring = do_s + T::RES_BYTES;     // + stage * STAGE_BYTES
+  const uint32_t q_full = base + T::TILES;
+  const uint32_t full = q_full + 8;              // + 8 * stage
+  const uint32_t split = full + 8 * STAGES;
+  const uint32_t empty = split + 8 * STAGES;
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kvh = h / (H / Hkv);
+  const int q0 =
+      (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * T::ROWS;
+  const int tiles = ((causal ? min(q0 + T::ROWS, S) : S) + SB - 1) / SB;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(split + 8 * s, T::SPLITTERS);
+      mbar_init(empty + 8 * s, T::WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp >= T::WARPS) {
+    // -- warpgroup 2: TMA loads (warp 0, lane 0) and splits (warps 1-3) ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(BWD_PRODUCER_REGS));
+    int stage = 0;
+    uint32_t phase = 0;
+    if (threadIdx.x == 32 * T::WARPS) {
+      mbar_expect_tx(q_full, 2 * T::RES_BYTES);
+      for (int c = 0; c < D; c += T::BOX) {
+        const uint32_t at = c / T::BOX * T::ROWS * 128;
+        tma_load(q_s + at, q_map, q_full, c, h, q0, b);
+        tma_load(do_s + at, do_map, q_full, c, h, q0, b);
+      }
+      for (int t = 0; t < tiles; ++t) {
+        const uint32_t f = full + 8 * stage;
+        const uint32_t kt = ring + stage * T::STAGE_BYTES;
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        mbar_expect_tx(f, 2 * T::TILE_BYTES);
+        for (int c = 0; c < D; c += T::BOX) {
+          const uint32_t at = c / T::BOX * SB * 128;
+          tma_load(kt + at, k_map, f, c, kvh, t * SB, b);
+          tma_load(kt + T::TILE_BYTES + at, v_map, f, c, kvh, t * SB, b);
+        }
+        advance<STAGES>(stage, phase);
+      }
+    } else if (warp > T::WARPS) {
+      const int t0 = threadIdx.x - 32 * (T::WARPS + 1);
+      for (int t = 0; t < tiles; ++t) {
+        mbar_wait(full + 8 * stage, phase);
+        split_stage<2 * SB * D>(reinterpret_cast<float*>(
+            smem + 2 * T::RES_BYTES + stage * T::STAGE_BYTES), t0,
+            32 * T::SPLITTERS);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(split + 8 * stage);
+        advance<STAGES>(stage, phase);
+      }
+    }
+  } else {
+    // -- consumers: warp w owns q rows q0 + 16 w .. + 15 --------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(BWD_CONSUMER_REGS));
+    const int g = lane / 4;
+    const int t4 = lane % 4;
+    const int row0 = 16 * warp;
+    const int first_row = q0 + row0;
+    const int qpos[2] = {first_row + g, first_row + g + 8};
+    float row_lse[2];
+    double row_delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool ok = qpos[r] < S;
+      row_lse[r] = ok ? lse[(long)bh * S + qpos[r]] : CUDART_INF_F;
+      row_delta[r] = ok ? delta[(long)bh * S + qpos[r]] : 0.f;
+    }
+    // key tiles this warp reads: causal rows stop at their diagonal
+    const int my_tiles =
+        first_row >= S
+            ? 0
+            : (causal ? (min(first_row + 16, S) - 1) / SB + 1 : tiles);
+    float acc[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    mbar_wait(q_full, 0);
+    for (int t = 0; t < tiles; ++t) {
+      mbar_wait(split + 8 * stage, phase);
+      if (t < my_tiles) {
+        const int k0 = t * SB;
+        const uint32_t kt = ring + stage * T::STAGE_BYTES;
+        float s[SB / 8][4], ds[SB / 8][4];
+        double dp[SB / 8][4];
+        scores<D, T::ROWS, SB, T::LO>(s, dp, q_s, do_s, row0, kt,
+                                      kt + T::TILE_BYTES, lane);
+        // P = exp(s scale - lse), masked scores exactly 0; dS = P (dP -
+        // delta), the difference rounded to f32 once
+        const bool edge = k0 + SB > S || (causal && k0 + SB - 1 > first_row);
+#pragma unroll
+        for (int j = 0; j < SB / 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 2 * r + e;
+              const int kpos = k0 + 8 * j + 2 * t4 + e;
+              float p = probability(s[j][i], scale, row_lse[r]);
+              if (edge && !(kpos < S && (!causal || kpos <= qpos[r])))
+                p = 0.f;
+              ds[j][i] = p * __double2float_rn(dp[j][i] - row_delta[r]);
+            }
+        float (*const out[1])[4] = {acc};           // dQ += dS K
+        const float (*const in[1])[4] = {ds};
+        const uint32_t stages[1] = {kt};
+        accumulate_3xtf32<D, SB, T::LO, 1>(out, in, stages, g, t4);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * stage);
+      advance<STAGES>(stage, phase);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (qpos[r] >= S) continue;
+      float* out = dq + (((long)b * S + qpos[r]) * H + h) * D + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(out + 8 * n) =
+            make_float2(scale * acc[n][2 * r], scale * acc[n][2 * r + 1]);
+    }
+  }
+}
+
+// dK/dV: one CTA per (ROWS-key tile, b*hkv row). K and V load once; Q and
+// dO stream, q tile by q tile from the key tile's diagonal (causal), for
+// each of the ``group`` query heads in turn, the ring running across the
+// head boundary. The loading warp also writes each tile's LSE (+inf past S)
+// and delta into the stage. The scores are computed transposed (rows are
+// keys), so P^T and dS^T are the A operands of dV += P^T dO and dK +=
+// dS^T Q.
+template <int D>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_dkv_f32_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int S, int H, int Hkv,
+                     int causal, float scale) {
+  using T = F32Bwd<D>;
+  constexpr int SB = T::STREAM;                  // q rows a stage
+  constexpr int STAGES = T::STAGES;
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  unsigned char* const smem =
+      bwd_smem + (((smem_u32(bwd_smem) + 1023u) & ~1023u) -
+                  smem_u32(bwd_smem));
+  const uint32_t base = smem_u32(smem);
+  const uint32_t k_s = base;
+  const uint32_t v_s = k_s + T::RES_BYTES;
+  const uint32_t ring = v_s + T::RES_BYTES;      // + stage * STAGE_BYTES
+  float* lse_s = reinterpret_cast<float*>(smem + T::TILES);
+  float* delta_s = lse_s + STAGES * SB;          // [STAGES][SB] each
+  const uint32_t kv_full = base + T::TILES + T::STATS;
+  const uint32_t full = kv_full + 8;             // + 8 * stage
+  const uint32_t split = full + 8 * STAGES;
+  const uint32_t empty = split + 8 * STAGES;
+
+  const int bkv = blockIdx.y;
+  const int b = bkv / Hkv;
+  const int kvh = bkv % Hkv;
+  const int group = H / Hkv;
+  const int k0 = blockIdx.x * T::ROWS;           // heaviest causal first
+  const int first = causal ? k0 / SB : 0;
+  const int tiles = (S + SB - 1) / SB;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      // lane 0's expect_tx, then every lane of the loading warp once its
+      // LSE/delta stores are in
+      mbar_init(full + 8 * s, 1 + 32);
+      mbar_init(split + 8 * s, T::SPLITTERS);
+      mbar_init(empty + 8 * s, T::WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp >= T::WARPS) {
+    // -- warpgroup 2: TMA loads and LSE/delta (warp 0), splits (warps 1-3) -
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(BWD_PRODUCER_REGS));
+    int stage = 0;
+    uint32_t phase = 0;
+    if (warp == T::WARPS) {
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * T::RES_BYTES);
+        for (int c = 0; c < D; c += T::BOX) {
+          const uint32_t at = c / T::BOX * T::ROWS * 128;
+          tma_load(k_s + at, k_map, kv_full, c, kvh, k0, b);
+          tma_load(v_s + at, v_map, kv_full, c, kvh, k0, b);
+        }
+      }
+      for (int gi = 0; gi < group; ++gi) {
+        const int h = kvh * group + gi;
+        const long row = ((long)b * H + h) * S;
+        for (int t = first; t < tiles; ++t) {
+          const int q0 = t * SB;
+          const uint32_t f = full + 8 * stage;
+          const uint32_t qt = ring + stage * T::STAGE_BYTES;
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          if (lane == 0) {
+            mbar_expect_tx(f, 2 * T::TILE_BYTES);
+            for (int c = 0; c < D; c += T::BOX) {
+              const uint32_t at = c / T::BOX * SB * 128;
+              tma_load(qt + at, q_map, f, c, h, q0, b);
+              tma_load(qt + T::TILE_BYTES + at, do_map, f, c, h, q0, b);
+            }
+          }
+          for (int i = lane; i < SB; i += 32) {
+            const bool ok = q0 + i < S;
+            lse_s[stage * SB + i] = ok ? lse[row + q0 + i] : CUDART_INF_F;
+            delta_s[stage * SB + i] = ok ? delta[row + q0 + i] : 0.f;
+          }
+          mbar_arrive(f);
+          advance<STAGES>(stage, phase);
+        }
+      }
+    } else {
+      const int t0 = threadIdx.x - 32 * (T::WARPS + 1);
+      for (int n = 0; n < group * (tiles - first); ++n) {
+        mbar_wait(full + 8 * stage, phase);
+        split_stage<2 * SB * D>(reinterpret_cast<float*>(
+            smem + 2 * T::RES_BYTES + stage * T::STAGE_BYTES), t0,
+            32 * T::SPLITTERS);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(split + 8 * stage);
+        advance<STAGES>(stage, phase);
+      }
+    }
+  } else {
+    // -- consumers: warp w owns keys k0 + 16 w .. + 15 ----------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(BWD_CONSUMER_REGS));
+    const int g = lane / 4;
+    const int t4 = lane % 4;
+    const int row0 = 16 * warp;
+    const int first_key = k0 + row0;
+    const int kpos[2] = {first_key + g, first_key + g + 8};
+    // the first q tile with a row that sees one of this warp's keys
+    const int mine = first_key >= S ? tiles : (causal ? first_key / SB : 0);
+    float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    mbar_wait(kv_full, 0);
+    for (int gi = 0; gi < group; ++gi) {
+      for (int t = first; t < tiles; ++t) {
+        mbar_wait(split + 8 * stage, phase);
+        if (t >= mine) {
+          const int q0 = t * SB;
+          const uint32_t qt = ring + stage * T::STAGE_BYTES;
+          const uint32_t dot = qt + T::TILE_BYTES;
+          const float* tile_lse = lse_s + stage * SB;
+          const float* tile_delta = delta_s + stage * SB;
+          float st[SB / 8][4], dst[SB / 8][4];
+          double dpt[SB / 8][4];
+          scores<D, T::ROWS, SB, T::LO>(st, dpt, k_s, v_s, row0, qt, dot,
+                                        lane);
+          // P^T into st, dS^T into dst; a key above a q row's diagonal gives
+          // P = 0 exactly, and so does a q row past S (its LSE is +inf)
+          const bool edge = causal && q0 < first_key + 15;
+#pragma unroll
+          for (int j = 0; j < SB / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = 8 * j + 2 * t4 + e;
+              const float l = tile_lse[col];
+              const double d = tile_delta[col];
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const int i = 2 * r + e;
+                float p = probability(st[j][i], scale, l);
+                if (edge && kpos[r] > q0 + col) p = 0.f;
+                st[j][i] = p;
+                dst[j][i] = p * __double2float_rn(dpt[j][i] - d);
+              }
+            }
+          // dV += P^T dO and dK += dS^T Q
+          float (*const out[2])[4] = {dv_acc, dk_acc};
+          const float (*const in[2])[4] = {st, dst};
+          const uint32_t stages[2] = {dot, qt};
+          accumulate_3xtf32<D, SB, T::LO, 2>(out, in, stages, g, t4);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * stage);
+        advance<STAGES>(stage, phase);
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (kpos[r] >= S) continue;
+      const long at = (((long)b * S + kpos[r]) * Hkv + kvh) * D + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<float2*>(dk + at + 8 * n) = make_float2(
+            scale * dk_acc[n][2 * r], scale * dk_acc[n][2 * r + 1]);
+        *reinterpret_cast<float2*>(dv + at + 8 * n) =
+            make_float2(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+      }
+    }
+  }
+}
+
 struct Args {
   const void* q;
   const void* k;
@@ -1220,26 +1638,33 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 template <int D>
 int launch_f32(const Args& a) {
-  const size_t dq_smem = dq_f32_smem<D>();
-  const size_t dkv_smem = dkv_f32_smem<D>();
-  cudaError_t status = allow_smem(flash_dq_f32_kernel<D>, dq_smem);
+  using T = F32Bwd<D>;
+  // dQ: q and dO resident, k and v streamed; dK/dV the other way round
+  CUtensorMap q_res, do_res, k_str, v_str, q_str, do_str, k_res, v_res;
+  if (!bshd_map_f32(&q_res, a.q, a.B, a.S, a.H, D, T::ROWS) ||
+      !bshd_map_f32(&do_res, a.dout, a.B, a.S, a.H, D, T::ROWS) ||
+      !bshd_map_f32(&k_str, a.k, a.B, a.S, a.Hkv, D, T::STREAM) ||
+      !bshd_map_f32(&v_str, a.v, a.B, a.S, a.Hkv, D, T::STREAM) ||
+      !bshd_map_f32(&q_str, a.q, a.B, a.S, a.H, D, T::STREAM) ||
+      !bshd_map_f32(&do_str, a.dout, a.B, a.S, a.H, D, T::STREAM) ||
+      !bshd_map_f32(&k_res, a.k, a.B, a.S, a.Hkv, D, T::ROWS) ||
+      !bshd_map_f32(&v_res, a.v, a.B, a.S, a.Hkv, D, T::ROWS))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t status = allow_smem(flash_dq_f32_kernel<D>, T::DQ_SMEM);
   if (status == cudaSuccess)
-    status = allow_smem(flash_dkv_f32_kernel<D>, dkv_smem);
+    status = allow_smem(flash_dkv_f32_kernel<D>, T::DKV_SMEM);
   if (status != cudaSuccess) return (int)status;
-  const dim3 dq_grid((a.S + BLOCK_Q - 1) / BLOCK_Q, a.B * a.H);
-  flash_dq_f32_kernel<D><<<dq_grid, THREADS, dq_smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(a.dq), a.S, a.H, a.Hkv, a.causal,
-      a.scale);
+  const int tiles = (a.S + T::ROWS - 1) / T::ROWS;
+  flash_dq_f32_kernel<D><<<dim3(tiles, a.B * a.H), BWD_THREADS, T::DQ_SMEM,
+                           a.stream>>>(
+      q_res, do_res, k_str, v_str, a.lse, a.delta, static_cast<float*>(a.dq),
+      a.S, a.H, a.Hkv, a.causal, a.scale);
   status = cudaGetLastError();
   if (status != cudaSuccess) return (int)status;
-  const dim3 dkv_grid((a.S + BLOCK_K - 1) / BLOCK_K, a.B * a.Hkv);
-  flash_dkv_f32_kernel<D><<<dkv_grid, THREADS, dkv_smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-      a.S, a.H, a.Hkv, a.causal, a.scale);
+  flash_dkv_f32_kernel<D><<<dim3(tiles, a.B * a.Hkv), BWD_THREADS,
+                            T::DKV_SMEM, a.stream>>>(
+      q_str, do_str, k_res, v_res, a.lse, a.delta, static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.S, a.H, a.Hkv, a.causal, a.scale);
   return (int)cudaGetLastError();
 }
 

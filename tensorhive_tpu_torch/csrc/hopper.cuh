@@ -5,11 +5,11 @@
 //
 // Tiles: TMA writes a [rows][64] bf16 box as rows of 128 bytes under the
 // 128-byte swizzle; a tile of D columns is D/64 such blocks one after the
-// other, each ``rows`` rows. A K-major operand (the 16-column step of a
-// product runs along a row) steps through a block 32 bytes at a time and to
-// the next block after 4 steps; an MN-major B operand (the step runs down
-// the rows) steps 16 rows at a time, its two 64-column halves (N = 128)
-// ``rows`` rows apart.
+// other, each ``rows`` rows (f32: [rows][32] boxes, ``bshd_map_f32``). A
+// K-major operand (the 16-column step of a product runs along a row) steps
+// through a block 32 bytes at a time and to the next block after 4 steps;
+// an MN-major B operand (the step runs down the rows) steps 16 rows at a
+// time, its two 64-column halves (N = 128) ``rows`` rows apart.
 //
 // wgmma fragments: warp w of a warpgroup holds rows 16w + g and 16w + g + 8
 // (g = lane / 4) of the 64; accumulator register 4j + 2r + e is column
@@ -271,23 +271,44 @@ EncodeTiled encode_tiled() {
   return encode;
 }
 
-// The tensor map of a bf16 [B, S, heads, D] tensor: boxes of 64 columns x
-// 1 head x ``rows`` positions x 1 batch, 128-byte swizzle, zeros past S.
-bool bshd_map(CUtensorMap* map, const void* data, int B, int S, int heads,
-              int D, int rows) {
+// The tensor map of a [B, S, heads, D] tensor of ``bytes``-byte elements:
+// boxes of ``cols`` columns x 1 head x ``rows`` positions x 1 batch under
+// ``swizzle``, zeros past S.
+bool bshd_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int bytes,
+                     const void* data, int B, int S, int heads, int D,
+                     int cols, int rows, CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * bytes,
+                                 (cuuint64_t)heads * D * bytes,
+                                 (cuuint64_t)S * heads * D * bytes};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(data), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, type, 4, const_cast<void*>(data), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// bf16 [B, S, heads, D]: boxes of 64 columns (128-byte rows), 128-byte
+// swizzle.
+bool bshd_map(CUtensorMap* map, const void* data, int B, int S, int heads,
+              int D, int rows) {
+  return bshd_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, data, B, S,
+                         heads, D, 64, rows, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// f32 [B, S, heads, D]: boxes of 32 columns (128-byte rows) under the
+// 128-byte swizzle; d_head 16 has one box of 64-byte rows under the 64-byte
+// swizzle.
+bool bshd_map_f32(CUtensorMap* map, const void* data, int B, int S,
+                  int heads, int D, int rows) {
+  return bshd_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, data, B, S,
+                         heads, D, D < 32 ? D : 32, rows,
+                         D < 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace

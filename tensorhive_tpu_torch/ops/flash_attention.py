@@ -288,10 +288,12 @@ def flash_attention_backward_reference(
     dq/dkv kernels over the whole score matrix: P = exp(S - LSE) with
     masked scores at NEG_INF, dS = P * (dO V^T - delta), dV = P^T dO,
     dK = scale * dS^T Q, dQ = scale * dS K. Products take the input type's
-    values with f32 accumulation; P and dS are rounded to the input type
-    before their products, as the JAX kernels' ``.astype`` do. GQA: dK/dV
-    sum over the ``group`` query heads of each KV head. Returns (dq, dk,
-    dv) in the layouts and types of q, k and v."""
+    values with f32 accumulation (f64 for f64 inputs: the same function
+    evaluated exactly enough to measure an f32 version against); P and dS
+    are rounded to the input type before their products, as the JAX
+    kernels' ``.astype`` do. GQA: dK/dV sum over the ``group`` query heads
+    of each KV head. Returns (dq, dk, dv) in the layouts and types of q, k
+    and v."""
     batch, seq, heads, d = q.shape
     kv_heads = k.shape[2]
     group = heads // kv_heads
@@ -299,15 +301,15 @@ def flash_attention_backward_reference(
         scale = d ** -0.5
     if delta is None:
         delta = flash_bwd_delta(do, out)
-    f32 = torch.float32
+    acc = torch.promote_types(q.dtype, torch.float32)
     if group > 1:
         k_heads = k.repeat_interleave(group, dim=2)
         v_heads = v.repeat_interleave(group, dim=2)
     else:
         k_heads, v_heads = k, v
     q_folded, residual = _fold_scale_into_q(q, scale)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q_folded.to(f32),
-                          k_heads.to(f32))
+    scores = torch.einsum("bqhd,bkhd->bhqk", q_folded.to(acc),
+                          k_heads.to(acc))
     if residual != 1.0:
         scores.mul_(residual)
     if causal:
@@ -315,15 +317,15 @@ def flash_attention_backward_reference(
         scores.masked_fill_(~mask, NEG_INF)
     probs = scores.sub_(lse.reshape(batch, heads, seq, 1)).exp_()
     del scores
-    ds = torch.einsum("bqhd,bkhd->bhqk", do.to(f32), v_heads.to(f32))
+    ds = torch.einsum("bqhd,bkhd->bhqk", do.to(acc), v_heads.to(acc))
     ds.sub_(delta.reshape(batch, heads, seq, 1)).mul_(probs)
-    dv = torch.einsum("bhqk,bqhd->bkhd", probs.to(do.dtype).to(f32),
-                      do.to(f32))
+    dv = torch.einsum("bhqk,bqhd->bkhd", probs.to(do.dtype).to(acc),
+                      do.to(acc))
     del probs
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).to(f32),
-                      q.to(f32)) * scale
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).to(f32),
-                      k_heads.to(f32)) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).to(acc),
+                      q.to(acc)) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).to(acc),
+                      k_heads.to(acc)) * scale
     del ds
     if group > 1:
         dk = dk.reshape(batch, seq, kv_heads, group, d).sum(3)

@@ -10,6 +10,14 @@ groups 1/2/4, d_head 32/64, with an explicit scale and delta. Autograd
 through ``flash_attention`` agrees with ``jax.grad`` through the JAX
 ``flash_attention``. The CUDA kernels themselves run only on the card
 (``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``).
+
+The f32 kernels take Q K^T and the gradient products on the tensor cores
+in TF32, split into three passes (x = hi + lo, a_hi b_hi + a_hi b_lo +
+a_lo b_hi), and dP = dO V^T in f64. An emulation of that arithmetic here
+holds the card's f32 measure (no gradient row further from the f64
+evaluation than the exact-f32 plain version's, by more than 2e-5 of the
+row); a single TF32 pass does not, and neither does a dP with f32 error
+where rows cancel (q x 4).
 """
 import jax
 import jax.numpy as jnp
@@ -194,3 +202,182 @@ def test_backward_refuses_other_devices():
     lse = torch.zeros((2, 1, 4), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_attention_backward(q, q, q, q, lse, q)
+
+
+# -- the f32 kernels' arithmetic, emulated ------------------------------------
+
+F32_GRAD_ROW_TOL = 2e-5     # the card's bound for the f32 kernels
+
+
+def tf32_round(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero: cvt.rna.tf32.f32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_truncate(x):
+    """x as a TF32 product operand reads it: the low 13 bits dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def matmul_split(a, b, arithmetic):
+    """a @ b in f32 by the named arithmetic: "tf32" one TF32 pass (hi x
+    hi); "3xtf32" three (lo x hi, hi x lo, then hi x hi, with hi the TF32
+    rounding and the product reading lo = x - hi truncated); "f32" exact
+    f32 products summed over the contraction in two halves (an order of its
+    own); "f64" the f64 product. Every TF32 x TF32 product is exact in
+    f32; the sums run in f32 (f64 for "f64", returned in f64)."""
+    if arithmetic == "f64":
+        return a.double() @ b.double()
+    if arithmetic == "f32":
+        half = a.shape[-1] // 2
+        return (a[..., :half] @ b[..., :half, :]
+                + a[..., half:] @ b[..., half:, :])
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    if arithmetic == "tf32":
+        return a_hi @ b_hi
+    a_lo, b_lo = tf32_truncate(a - a_hi), tf32_truncate(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def emulated_backward(q, k, v, out, lse, do, causal, products, dp_product):
+    """The backward's function with its products made by ``products`` and
+    dP = dO V^T by ``dp_product`` (see ``matmul_split``); dP - delta is
+    rounded to f32 once. The f32 kernels are ("3xtf32", "f64"). (dq, dk,
+    dv) in [B, S, H, D]."""
+    batch, seq, heads, d = q.shape
+    kv_heads = k.shape[2]
+    scale = d ** -0.5
+
+    def heads_first(x):
+        return x.repeat_interleave(heads // x.shape[2], dim=2).transpose(1, 2)
+
+    qh, kh, vh, doh = (heads_first(x) for x in (q, k, v, do))
+    delta = flash_bwd_delta(do, out).reshape(batch, heads, seq, 1)
+    scores = matmul_split(qh, kh.transpose(-1, -2), products) * scale
+    visible = torch.ones(seq, seq, dtype=torch.bool)
+    if causal:
+        visible = visible.tril()
+    probs = torch.where(visible, (scores - lse.reshape(batch, heads, seq, 1)
+                                  ).exp(), torch.zeros(()))
+    dp = matmul_split(doh, vh.transpose(-1, -2), dp_product)
+    ds = probs * (dp - delta.to(dp.dtype)).float()
+    dq = matmul_split(ds, kh, products) * scale
+    dk = matmul_split(ds.transpose(-1, -2), qh, products) * scale
+    dv = matmul_split(probs.transpose(-1, -2), doh, products)
+
+    def layout(x, h):
+        x = x.transpose(1, 2)
+        return x.reshape(batch, seq, h, heads // h, d).sum(3)
+
+    return layout(dq, heads), layout(dk, kv_heads), layout(dv, kv_heads)
+
+
+def row_errors(grads, refs, exact, causal):
+    """Over dq, dk, dv: the largest row ||grad - plain|| / ||plain|| (the
+    distance from the plain f32 version) and the largest row (||grad -
+    exact|| - ||plain - exact||) / ||exact|| (the card's f32 measure:
+    beyond the plain f32 version's own error). dq of query 0 under the
+    causal mask (zero in exact arithmetic) against the largest dq row, as
+    on the card."""
+    vs_plain = beyond = 0.0
+    for grad, ref, ex, name in zip(grads, refs, exact, "qkv"):
+        norms, exact_norms = ref.norm(dim=-1), ex.norm(dim=-1)
+        if causal and name == "q":
+            norms[:, 0], exact_norms[:, 0] = norms.max(), exact_norms.max()
+        vs_plain = max(vs_plain, ((grad - ref).norm(dim=-1)
+                                  / norms.clamp_min(1e-30)).max().item())
+        own = (ref.double() - ex).norm(dim=-1)
+        error = (grad.double() - ex).norm(dim=-1)
+        beyond = max(beyond, ((error - own)
+                              / exact_norms.clamp_min(1e-300)).max().item())
+    return vs_plain, beyond
+
+
+def emulation_case(causal, seq, heads, kv_heads, d, q_scale=1.0, batch=2):
+    q, k, v, do = (torch.from_numpy(a) for a in
+                   draw(seq + d + heads, batch, seq, heads, kv_heads, d))
+    q = q * q_scale
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    delta = flash_bwd_delta(do, out)
+    refs = flash_attention_backward_reference(q, k, v, out, lse, do,
+                                              causal=causal, delta=delta)
+    exact = flash_attention_backward_reference(
+        *(t.double() for t in (q, k, v, out, lse, do)), causal=causal,
+        delta=delta.double())
+    return (q, k, v, out, lse, do), refs, exact
+
+
+TF32_SHAPES = [(True, 100, 4, 2, 16), (False, 100, 4, 2, 64),
+               (True, 77, 4, 4, 64), (False, 130, 2, 2, 16)]
+#: q x 4: scores of std about 4, rows whose softmax saturates cancel
+LARGE_SCORE_SHAPES = [(True, 200, 4, 2, 64, 4.0, 2),
+                      (True, 300, 4, 1, 32, 4.0, 1)]
+
+
+@pytest.mark.parametrize("causal,seq,heads,kv_heads,d", TF32_SHAPES)
+def test_three_pass_tf32_holds_the_f32_bound(causal, seq, heads, kv_heads, d):
+    """The f32 kernels' arithmetic (three TF32 passes per product, dP in
+    f64) within 2e-5 per row of the exact-f32 plain backward, and within
+    the card's f32 measure: causal and not, GQA group 2, ragged S, d_head
+    16 and 64."""
+    inputs, refs, exact = emulation_case(causal, seq, heads, kv_heads, d)
+    grads = emulated_backward(*inputs, causal, "3xtf32", "f64")
+    vs_plain, beyond = row_errors(grads, refs, exact, causal)
+    assert vs_plain <= F32_GRAD_ROW_TOL and beyond <= F32_GRAD_ROW_TOL
+
+
+@pytest.mark.parametrize("causal,seq,heads,kv_heads,d", TF32_SHAPES)
+def test_single_pass_tf32_misses_the_f32_bound(causal, seq, heads, kv_heads,
+                                               d):
+    """One TF32 pass keeps about three decimal digits: on the same inputs
+    it fails the card's f32 measure (and 2e-5 of the plain version), so the
+    measure tells a single pass apart."""
+    inputs, refs, exact = emulation_case(causal, seq, heads, kv_heads, d)
+    grads = emulated_backward(*inputs, causal, "tf32", "tf32")
+    vs_plain, beyond = row_errors(grads, refs, exact, causal)
+    assert vs_plain > F32_GRAD_ROW_TOL and beyond > F32_GRAD_ROW_TOL
+
+
+@pytest.mark.parametrize("causal,seq,heads,kv_heads,d,q_scale,batch",
+                         LARGE_SCORE_SHAPES)
+def test_f64_dp_holds_the_f32_measure_on_large_scores(
+        causal, seq, heads, kv_heads, d, q_scale, batch):
+    """Under q x 4 rows cancel, the plain f32 version is far from exact on
+    them, and so is the kernels' arithmetic — by more than 2e-5 of the
+    plain version — yet no row of it is further from exact than the plain
+    f32 version's own row (+ 2e-5): dP - delta is rounded once from f64."""
+    inputs, refs, exact = emulation_case(causal, seq, heads, kv_heads, d,
+                                         q_scale, batch)
+    grads = emulated_backward(*inputs, causal, "3xtf32", "f64")
+    vs_plain, beyond = row_errors(grads, refs, exact, causal)
+    assert vs_plain > F32_GRAD_ROW_TOL and beyond <= F32_GRAD_ROW_TOL
+
+
+@pytest.mark.parametrize("dp_product", ["3xtf32", "f32"])
+@pytest.mark.parametrize("causal,seq,heads,kv_heads,d,q_scale,batch",
+                         LARGE_SCORE_SHAPES)
+def test_f32_error_in_dp_misses_the_f32_measure(causal, seq, heads, kv_heads,
+                                                d, q_scale, batch,
+                                                dp_product):
+    """Why the kernels take dP in f64: with dP (and every other product)
+    made by three TF32 passes, or by exact f32 products summed in another
+    order than the plain version's, some cancelling row ends further from
+    exact than the plain f32 version's by more than 2e-5."""
+    inputs, refs, exact = emulation_case(causal, seq, heads, kv_heads, d,
+                                         q_scale, batch)
+    grads = emulated_backward(*inputs, causal, dp_product, dp_product)
+    assert row_errors(grads, refs, exact, causal)[1] > F32_GRAD_ROW_TOL
+
+
+def test_tf32_rounding_helpers():
+    """hi rounds to nearest, ties away from zero (cvt.rna); an operand's
+    low 13 bits are dropped (truncation)."""
+    ulp = 2.0 ** -10                        # TF32 spacing at 1
+    x = torch.tensor([1 + ulp / 2, 1 + ulp / 4, -(1 + ulp / 2),
+                      1 + 3 * ulp / 4], dtype=torch.float32)
+    assert tf32_round(x).tolist() == [1 + ulp, 1.0, -(1 + ulp), 1 + ulp]
+    assert tf32_truncate(x).tolist() == [1.0, 1.0, -1.0, 1.0]
+    lo = x - tf32_round(x)
+    assert torch.equal(tf32_round(x) + lo, x)      # the split is exact
