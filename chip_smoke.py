@@ -8,10 +8,12 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
 
 1. device   — CUDA sm_90 present; prints the card's name and power limit.
 2. build    — the three kernel libraries compiled from csrc/, one nvcc
-              each, in parallel; ptxas registers/spills per kernel; the
+              each, in parallel; ptxas registers/spills per kernel and the
+              flash forward's dynamic shared memory per d_head; the
               SASS of the bf16 flash forward and of both bf16 backward
               kernels (dQ, dK/dV) at d_head 64/128 must hold wgmma (HGMMA)
-              and TMA loads (UTMALDG), that of both f32 backward kernels at
+              and TMA loads (UTMALDG), that of both f32 forward kernels
+              (per-head, head-blocked) and both f32 backward kernels at
               every d_head TF32 mma.sync (HMMA.1688.F32.TF32) and TMA loads,
               and ptxas must report neither spills nor a performance loss
               (serialized wgmma) for them, nor a spill in any paged-decode
@@ -30,10 +32,13 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
               slots at page 64, timed with a cold L2 and, warm, in a CUDA
               graph), timed beside its bound and, for flash,
               PyTorch's scaled_dot_product_attention and its backward
-              (timed here only; the backward's gradients also held to the
-              plain version by the kernel's measure, reported only);
+              (timed here only; SDPA's f32 outputs and gradients also held
+              to the f64 evaluation by the kernel's measure, reported only);
               forward and backward lines add TFLOP/s, the share of the
-              bound and the time over SDPA's.
+              bound and the time over SDPA's. Every f32 forward and backward
+              row is also held to the plain version evaluated in f64, and a
+              large-score control (q x 4) must pass that measure while the
+              plain version with single-pass TF32 matmuls fails it.
 4. model    — a 2-layer model at 7b widths in f32: logits on the card
               (flash kernel) against the CPU (plain reference).
 5. training — the training path, train_loop / make_train_step with the
@@ -129,6 +134,14 @@ GRAD_ROW_TOL = {"bf16": 1e-2, "f32": 2e-5}
 # learning rate either way, so two correct runs can differ there by twice
 # the summed rates.
 TRAIN_REL_TOL = 1e-5
+# f32 forward, per output row, by the f32 backward's measure: against the
+# plain version evaluated in f64 on the same inputs ("exact"), no O row may
+# be further from it than the exact-f32 plain version's own row, by more
+# than FWD_ROW_EXCESS of the row: ||O - exact|| <= ||plain - exact|| +
+# FWD_ROW_EXCESS ||exact||. The kernel's products are three TF32 passes;
+# with scores of std 4 (q x 4) the plain f32 version itself is ~1e-5 from
+# exact, and one TF32 pass (the control) is far beyond it.
+FWD_ROW_EXCESS = 2e-5
 
 
 def log(message: str) -> None:
@@ -239,22 +252,22 @@ def grad_errors(grad, ref, first_row_zero):
     return diff.abs().max().item(), rel.max().item(), small
 
 
-def f32_grad_errors(grad, plain, exact, first_row_zero):
-    """(max |grad - exact|, max row ||grad - exact|| / ||exact||, max row
-    (||grad - exact|| - ||plain - exact||) / ||exact||) of one [B, S, H, D]
-    f32 gradient against the f64 evaluation ``exact``, beside the exact-f32
-    ``plain`` version; with ``first_row_zero`` the rows of token 0 are held
-    against the largest row norm."""
+def f32_row_errors(out, plain, exact, first_row_zero=False):
+    """(max |out - exact|, max row ||out - exact|| / ||exact||, max row
+    (||out - exact|| - ||plain - exact||) / ||exact||) of one [B, S, H, D]
+    f32 output or gradient against the f64 evaluation ``exact``, beside the
+    exact-f32 ``plain`` version; with ``first_row_zero`` the rows of token 0
+    are held against the largest row norm."""
     exact = exact.double()
     norms = exact.norm(dim=-1)
     largest = norms.max()
-    require(largest.item() > 0, "the plain gradient is all zeros")
-    error = (grad.double() - exact).norm(dim=-1)
+    require(largest.item() > 0, "the plain version is all zeros")
+    error = (out.double() - exact).norm(dim=-1)
     own = (plain.double() - exact).norm(dim=-1)
     scale = norms.clamp_min(1e-300)
     if first_row_zero:
         scale[:, 0] = largest
-    return ((grad.double() - exact).abs().max().item(),
+    return ((out.double() - exact).abs().max().item(),
             (error / scale).max().item(), ((error - own) / scale).max().item())
 
 
@@ -347,11 +360,13 @@ def kernel_label(mangled):
 #: f64 mma.sync (DMMA), TMA loads (UTMALDG) and mbarrier operations (SYNCS)
 SASS_OPS = ("HGMMA", "HMMA.1688.F32.TF32", "DMMA", "UTMALDG", "SYNCS")
 #: by library: (kernels, d_heads, SASS each must hold) — the bf16 TMA +
-#: wgmma kernels, and the f32 backward's kernels (three-pass TF32 products,
-#: dO V^T in f64)
+#: wgmma kernels, the f32 forward's kernels (three-pass TF32 products) and
+#: the f32 backward's (three-pass TF32 products, dO V^T in f64)
 SASS_REQUIRED = {
     "flash_fwd": ((("flash_fwd_bf16_kernel", "flash_fwd_bh_bf16_kernel"),
-                   (64, 128), ("HGMMA", "UTMALDG")),),
+                   (64, 128), ("HGMMA", "UTMALDG")),
+                  (("flash_fwd_f32_kernel", "flash_fwd_bh_f32_kernel"),
+                   (16, 32, 64, 128), ("HMMA.1688.F32.TF32", "UTMALDG"))),
     "flash_bwd": ((("flash_dq_bf16_kernel", "flash_dkv_bf16_kernel"),
                    (64, 128), ("HGMMA", "UTMALDG")),
                   (("flash_dq_f32_kernel", "flash_dkv_f32_kernel"),
@@ -385,6 +400,11 @@ def phase_build():
                 if spilled:
                     spills[kernel] = (spills.get(kernel, 0)
                                       + sum(map(int, spilled.groups())))
+    smem = cuda_build.load("flash_fwd").thp_flash_fwd_smem
+    log("  flash_fwd dynamic shared memory a CTA (K1/K2 and K3): "
+        + ", ".join(f"{variant} d {d} {smem(code, d)} B"
+                    for code, variant in ((0, "f32"), (1, "bf16"))
+                    for d in (16, 32, 64, 128)))
     paged = [kernel for kernel in spills if kernel.startswith("paged_decode")]
     require(paged, "ptxas reported no paged_decode kernel")
     for kernel in paged:
@@ -453,6 +473,35 @@ def rate_report(flops, kernel_ms, bound, library_ms):
     return rates, text
 
 
+def exact_forward(q, k, v, causal):
+    """The plain forward evaluated in f64 on the same inputs, over batch
+    chunks whose f64 score matrices stay near 2 GB (the function is
+    independent per batch element)."""
+    import torch
+
+    from tensorhive_tpu_torch.ops import flash_attention as fa
+
+    batch, seq, heads, _ = q.shape
+    chunk = max(1, (2 << 30) // (heads * seq * seq * 8))
+    return torch.cat([fa.reference_attention(
+        q[i:i + chunk].double(), k[i:i + chunk].double(),
+        v[i:i + chunk].double(), causal=causal)
+        for i in range(0, batch, chunk)])
+
+
+def forward_excess(out, plain, exact, library):
+    """The f32 forward's measure: (kernel's max row distance from exact,
+    plain f32's, kernel's max row excess over plain's own, SDPA's excess),
+    failing the phase when the kernel's excess tops FWD_ROW_EXCESS."""
+    _, rel, excess = f32_row_errors(out, plain, exact)
+    own = f32_row_errors(plain, plain, exact)[1]
+    library_excess = f32_row_errors(library, plain, exact)[2]
+    require(math.isfinite(excess) and excess <= FWD_ROW_EXCESS,
+            f"max row (||O - exact|| - ||plain - exact||) / ||exact|| "
+            f"{excess} > {FWD_ROW_EXCESS}")
+    return rel, own, excess, library_excess
+
+
 def flash_case(batch, seq, heads, kv_heads, d, variant, generator):
     import torch
     import torch.nn.functional as F
@@ -481,13 +530,20 @@ def flash_case(batch, seq, heads, kv_heads, d, variant, generator):
             f"{ROW_REL_TOL if variant == 'bf16' else ABS_TOL}")
     require(math.isfinite(lse_err) and lse_err <= LSE_TOL,
             f"{label}: max |LSE - plain| {lse_err} > {LSE_TOL}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    measure = None
+    if variant == "f32":
+        library = F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+        measure = forward_excess(out, ref_out, exact_forward(q, k, v, True),
+                                 library)
+        del library
     del ref_out, ref_lse
     reps = 20 if seq <= 4096 else 5
     kernel_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True),
                         reps)
     plain_ms = cuda_ms(lambda: fa.reference_attention(q, k, v, causal=True),
                        3, warmup=1)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), reps)
     itemsize = q.element_size()
@@ -505,7 +561,17 @@ def flash_case(batch, seq, heads, kv_heads, d, variant, generator):
         f"{lse_err:.3e} kernel {kernel_ms:.4f} ms plain {plain_ms:.4f} ms "
         f"sdpa {library_ms:.4f} ms bound {bound:.4f} ms ({bound_by}); "
         f"{rate_text}")
+    if measure:
+        row["max_row_excess"], row["library_max_row_excess"] = measure[2:]
+        log_forward_measure(measure)
     return row
+
+
+def log_forward_measure(measure):
+    rel, own, excess, library_excess = measure
+    log(f"  O rows vs exact: kernel {rel:.2e} (plain f32 {own:.2e}); beyond "
+        f"the plain f32 version's: kernel {excess:.3e}, sdpa "
+        f"{library_excess:.3e} (bound {FWD_ROW_EXCESS})")
 
 
 #: (batch, seq, heads, d, causal, requested G) of the head-blocked forward
@@ -537,12 +603,17 @@ def flash_bh_cases(batch, seq, heads, d, causal, requests, variant,
         q.float(), k.float(), v.float(), causal=causal, return_lse=True)
     per_head, per_head_lse = fa.flash_attention(q, k, v, causal=causal,
                                                 return_lse=True)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    exact = library = None
+    if variant == "f32":
+        exact = exact_forward(q, k, v, causal)
+        library = F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal).transpose(1, 2)
     reps = 10 if variant == "bf16" else 3
     per_head_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
                           reps)
     plain_ms = cuda_ms(lambda: fa.reference_attention(q, k, v, causal=causal),
                        1, warmup=1)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal), reps)
     itemsize = q.element_size()
@@ -573,6 +644,8 @@ def flash_bh_cases(batch, seq, heads, d, causal, requests, variant,
                 f"{label}: max |LSE - plain| {lse_err} > {LSE_TOL}")
         vs_per_head = max((out.float() - per_head.float()).abs().max().item(),
                           (lse - per_head_lse).abs().max().item())
+        measure = (forward_excess(out, ref_out, exact, library)
+                   if variant == "f32" else None)
         del out, lse
         require(vs_per_head == 0,
                 f"{label}: O/LSE differ from the per-head kernel's by "
@@ -593,7 +666,11 @@ def flash_bh_cases(batch, seq, heads, d, causal, requests, variant,
             f"{kernel_ms:.4f} ms, per-head kernel {per_head_ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound:.4f} "
             f"ms ({bound_by}); {rate_text}")
-    del ref_out, ref_lse, per_head, per_head_lse
+        if measure:
+            rows[-1]["max_row_excess"] = measure[2]
+            rows[-1]["library_max_row_excess"] = measure[3]
+            log_forward_measure(measure)
+    del ref_out, ref_lse, per_head, per_head_lse, exact, library
     torch.cuda.empty_cache()
     return rows
 
@@ -664,8 +741,8 @@ def flash_backward_case(batch, seq, heads, kv_heads, d, causal, variant,
                 f"finite")
         first = causal and name == "q"
         if variant == "f32":
-            err, rel, beyond = f32_grad_errors(grad, ref, exact[index], first)
-            own = f32_grad_errors(ref, ref, exact[index], first)[1]
+            err, rel, beyond = f32_row_errors(grad, ref, exact[index], first)
+            own = f32_row_errors(ref, ref, exact[index], first)[1]
             require(math.isfinite(beyond)
                     and beyond <= GRAD_ROW_TOL[variant],
                     f"{label}: d{name} max row (||g - exact|| - ||plain - "
@@ -702,7 +779,7 @@ def flash_backward_case(batch, seq, heads, kv_heads, d, causal, variant,
     for index, (grad, name) in enumerate(zip(sdpa_grads, "qkv")):
         grad, first = grad.transpose(1, 2), causal and name == "q"
         if variant == "f32":
-            _, rel, beyond = f32_grad_errors(grad, refs[index], exact[index],
+            _, rel, beyond = f32_row_errors(grad, refs[index], exact[index],
                                              first)
             library_excess = max(library_excess, beyond)
         else:
@@ -769,7 +846,7 @@ def f32_backward_control(generator):
         tf32 = plain_backward(q, k, v, out, lse, do, delta, True)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
-    kernel, single = (max(f32_grad_errors(g, r, e, name == "q")[2]
+    kernel, single = (max(f32_row_errors(g, r, e, name == "q")[2]
                           for g, r, e, name in zip(grads, refs, exact, "qkv"))
                       for grads in (grads, tf32))
     log(f"flash_bwd f32 control B={batch} S={seq} H={heads} Hkv={kv_heads} "
@@ -780,6 +857,48 @@ def f32_backward_control(generator):
             f"f32 control: kernel {kernel} > {GRAD_ROW_TOL['f32']}")
     require(single > GRAD_ROW_TOL["f32"],
             f"f32 control: single-pass TF32 {single} passes the f32 measure")
+
+
+def f32_forward_control(generator):
+    """The f32 forward measure on large scores (q x 4: std about 4, where an
+    error in a score grows through exp), causal, GQA group 4, ragged S 1000,
+    d_head 64 and 128: the kernel holds it, and the plain forward with
+    single-pass TF32 matmuls (cuBLAS's TF32 mode) must not. SDPA's f32
+    forward is measured beside them."""
+    import torch
+    import torch.nn.functional as F
+
+    from tensorhive_tpu_torch.ops import flash_attention as fa
+
+    batch, seq, heads, kv_heads = 2, 1000, 8, 2
+    for d in (64, 128):
+        def draw(h):
+            return torch.randn((batch, seq, h, d), generator=generator,
+                               device="cuda")
+
+        q, k, v = draw(heads) * 4.0, draw(kv_heads), draw(kv_heads)
+        out = fa.flash_attention(q, k, v, causal=True)
+        plain = fa.reference_attention(q, k, v, causal=True)
+        exact = exact_forward(q, k, v, True)
+        library = F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in (q, k, v)), is_causal=True,
+            enable_gqa=True).transpose(1, 2)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = fa.reference_attention(q, k, v, causal=True)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.synchronize()
+        rel, own, kernel, sdpa = forward_excess(out, plain, exact, library)
+        single = f32_row_errors(tf32, plain, exact)[2]
+        log(f"flash_fwd f32 control B={batch} S={seq} H={heads} "
+            f"Hkv={kv_heads} d={d} causal q x 4: O rows vs exact: kernel "
+            f"{rel:.2e} (plain f32 {own:.2e}); beyond the plain f32 "
+            f"version's: kernel {kernel:.3e}, sdpa {sdpa:.3e}, single-pass "
+            f"TF32 plain {single:.3e} (bound {FWD_ROW_EXCESS})")
+        require(single > FWD_ROW_EXCESS,
+                f"f32 forward control: single-pass TF32 {single} passes the "
+                f"f32 measure")
 
 
 #: the serving shape: 8 slots at page 16 over a 4096-token window, mixed
@@ -908,6 +1027,7 @@ def phase_kernels():
             flash_backward_case(*shape, variant, generator)
             for shape in BACKWARD_SHAPES + (ENCODER_BACKWARD,)]
     f32_backward_control(generator)
+    f32_forward_control(generator)
     for variant in ("bf16", "f32"):
         results[f"flash_fwd_bh_{variant}"] = [
             row for shape in BH_SHAPES

@@ -11,7 +11,7 @@
 // and fed the MXU a batched contraction; a CTA's tensor cores take one
 // head's tile at a time, so the CTA runs its G heads' tiles in turn through
 // the same shared memory and the same per-tile code as the per-head kernel
-// (what it amortizes is its own set-up: the bf16 TMA body keeps its load
+// (what it amortizes is its own set-up: the TMA bodies keep their load
 // ring running across the heads). A head's O and LSE are then bitwise those
 // of the per-head kernel; the grid is G times smaller.
 //
@@ -23,12 +23,14 @@
 // Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): one causal
 // layer does 2*S^2*H*D FLOPs on 2*S*(H+Hkv)*D*itemsize bytes — at S=4095,
 // H=32, Hkv=8, D=128 (K1, the 7b prefill) that is 137 GFLOP against 84 MB,
-// so operations bound it: ~0.14 ms at the bf16 tensor-core rate, ~2.0 ms
-// for f32 inputs at the 67 TFLOP/s of exact f32 outside the tensor cores.
-// K3 at the encoder shape (B 64, S 1024, H 8, D 64, non-causal) is 137
-// GFLOP on 67 MB, operations again (0.139 ms); at d_head 64 the softmax
-// weighs as much as the products: one exponential per score at the 16 per
-// clock of an SM's special-function units also takes ~0.14 ms.
+// so operations bound it: ~0.14 ms at the bf16 tensor-core rate, ~0.83 ms
+// for f32 at 165 TFLOP/s (three TF32 tensor-core products, 495 TFLOP/s,
+// make one f32-accurate product; exact f32 on the CUDA cores, 67 TFLOP/s,
+// would take ~2.0 ms). K3 at the encoder shape (B 64, S 1024, H 8, D 64,
+// non-causal) is 137 GFLOP on 67 MB, operations again (0.139 ms bf16,
+// 0.83 ms f32); at d_head 64 the bf16 softmax weighs as much as the
+// products: one exponential per score at the 16 per clock of an SM's
+// special-function units also takes ~0.14 ms.
 //
 // bf16, d_head 64 and 128 (every main path: t2t-base/big and the encoder
 // at 64, the 1b/7b presets at 128) — the Hopper design. The mma.sync body
@@ -74,11 +76,12 @@
 // columns, and a narrower head would need its own swizzle modes for work
 // no main path does.
 //
-// f32: CUDA-core FMAs in exact f32 (no TF32), 256 threads, one CTA per
-// (batch*head, 64-row q tile); thread (ty, tx) of a 16x16 grid owns score
-// rows 4*ty..4*ty+3 and columns tx+16*c, and the same rows of the O
-// accumulator in registers for columns tx+16*j. Row max/sum reduce over the
-// 16 lanes of a half-warp.
+// f32, every d_head (the f32 7b engine's prefill, the f32 training and
+// encoder parity runs): Q K^T and P V on the tensor cores, each product
+// three TF32 mma.sync products of a hi/lo split (f32-accurate), fed by a
+// TMA ring whose stages warpgroup 2 splits once (the f32 section below;
+// the split and the products are tf32.cuh's, shared with the f32
+// backward).
 //
 // Every body: online softmax over K tiles in order; the causal mask is
 // bottom-right aligned with seq_q == seq_k (key j visible to query i iff
@@ -91,195 +94,13 @@
 // scales every product and every partial sum exactly, so it gives these
 // scores bit for bit, and any other scale is the rule's residual on the f32
 // scores. A zero row sum divides by 1.
-#include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
-constexpr int BLOCK_Q = 64;
-constexpr int BLOCK_K = 64;
-constexpr int THREADS = 256;
-constexpr int ROWS = BLOCK_Q / 16;   // score/output rows per thread
-constexpr int COLS = BLOCK_K / 16;   // score columns per thread
+constexpr int BLOCK_Q = 64;     // mma.sync bf16 body: q rows per CTA
+constexpr int BLOCK_K = 64;     // and keys per tile
 constexpr float NEG_INF = -1e30f;
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (BLOCK_Q * (D + 1) + BLOCK_K * (D + 1) +
-                          BLOCK_K * D + BLOCK_Q * (BLOCK_K + 1));
-}
-
-// -- f32: exact f32 products on the CUDA cores --------------------------------
-// One (b*h row, 64-row q tile) of the f32 forward, run by the whole CTA in
-// shared memory ``smem``. Both the per-head kernel (K1/K2) and the
-// head-blocked kernel (K3) run their tiles through this one body, so a head
-// gets the same arithmetic, in the same order, from either.
-template <int D>
-__device__ __forceinline__ void fwd_f32_tile(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o,
-    float* __restrict__ lse, int S, int H, int Hkv, int causal, float scale,
-    int bh, int q0, float* smem) {
-  constexpr int DP = D + 1;           // padded rows: no bank conflicts
-  constexpr int PP = BLOCK_K + 1;
-  constexpr int OUT = D / 16;         // output columns per thread
-  float* q_s = smem;                  // [BLOCK_Q][DP]
-  float* k_s = q_s + BLOCK_Q * DP;    // [BLOCK_K][DP]
-  float* v_s = k_s + BLOCK_K * DP;    // [BLOCK_K][D]
-  float* p_s = v_s + BLOCK_K * D;     // [BLOCK_Q][PP]
-
-  const int b = bh / H;
-  const int h = bh % H;
-  const int kvh = h / (H / Hkv);
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const long q_stride = (long)H * D;
-  const long kv_stride = (long)Hkv * D;
-  const float* q_base = q + ((long)b * S * H + h) * D;
-  const float* k_base = k + ((long)b * S * Hkv + kvh) * D;
-  const float* v_base = v + ((long)b * S * Hkv + kvh) * D;
-  float* o_base = o + ((long)b * S * H + h) * D;
-
-  for (int i = tid; i < BLOCK_Q * D; i += THREADS) {
-    const int r = i / D, c = i % D, s = q0 + r;
-    q_s[r * DP + c] = s < S ? q_base[s * q_stride + c] : 0.f;
-  }
-
-  float acc[ROWS][OUT];
-  float m[ROWS], l[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < OUT; ++j) acc[r][j] = 0.f;
-  }
-
-  const int q_last = min(q0 + BLOCK_Q, S) - 1;
-  const int kv_end = causal ? q_last + 1 : S;
-  const int tiles = (kv_end + BLOCK_K - 1) / BLOCK_K;
-
-  for (int t = 0; t < tiles; ++t) {
-    const int k0 = t * BLOCK_K;
-    __syncthreads();  // the previous tile's k_s/v_s/p_s are consumed
-    for (int i = tid; i < BLOCK_K * D; i += THREADS) {
-      const int r = i / D, c = i % D, s = k0 + r;
-      const bool ok = s < S;
-      k_s[r * DP + c] = ok ? k_base[s * kv_stride + c] : 0.f;
-      v_s[r * D + c] = ok ? v_base[s * kv_stride + c] : 0.f;
-    }
-    __syncthreads();
-
-    float sc[ROWS][COLS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) sc[r][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[ROWS], kv[COLS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) qv[r] = q_s[(ty * ROWS + r) * DP + d];
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) kv[c] = k_s[(tx + 16 * c) * DP + d];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-        for (int c = 0; c < COLS; ++c) sc[r][c] = fmaf(qv[r], kv[c], sc[r][c]);
-    }
-
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int row = ty * ROWS + r;
-      const int qpos = q0 + row;
-      bool visible[COLS];
-      float block_max = NEG_INF;
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) {
-        const int kpos = k0 + tx + 16 * c;
-        visible[c] = kpos < S && (!causal || kpos <= qpos);
-        sc[r][c] = visible[c] ? sc[r][c] * scale : NEG_INF;
-        block_max = fmaxf(block_max, sc[r][c]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        block_max = fmaxf(block_max,
-                          __shfl_xor_sync(0xffffffffu, block_max, off));
-      const float m_new = fmaxf(m[r], block_max);
-      const float correction = expf(m[r] - m_new);
-      float row_sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) {
-        const float p = visible[c] ? expf(sc[r][c] - m_new) : 0.f;
-        p_s[row * PP + tx + 16 * c] = p;
-        row_sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
-      l[r] = l[r] * correction + row_sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int j = 0; j < OUT; ++j) acc[r][j] *= correction;
-    }
-    __syncthreads();  // p_s is complete
-
-#pragma unroll 4
-    for (int kk = 0; kk < BLOCK_K; ++kk) {
-      float pv[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) pv[r] = p_s[(ty * ROWS + r) * PP + kk];
-#pragma unroll
-      for (int j = 0; j < OUT; ++j) {
-        const float vv = v_s[kk * D + tx + 16 * j];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) acc[r][j] = fmaf(pv[r], vv, acc[r][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int s = q0 + ty * ROWS + r;
-    if (s >= S) continue;
-    const float denom = l[r] == 0.f ? 1.f : l[r];
-#pragma unroll
-    for (int j = 0; j < OUT; ++j)
-      o_base[s * q_stride + tx + 16 * j] = acc[r][j] / denom;
-    if (tx == 0) lse[(long)bh * S + s] = m[r] + logf(denom);
-  }
-}
-
-// K1/K2: one CTA per (q tile, b*h row).
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int S, int H, int Hkv,
-                     int causal, float scale) {
-  extern __shared__ float smem[];
-  fwd_f32_tile<D>(q, k, v, o, lse, S, H, Hkv, causal, scale, blockIdx.y,
-                  blockIdx.x * BLOCK_Q, smem);
-}
-
-// K3: one CTA per (q tile, block of G consecutive b*h rows); the CTA runs
-// the G heads' tiles one after the other in the same shared memory. Row i
-// of the block is b*h row blockIdx.y * G + i, i.e. batch (row / H) and head
-// (row % H): a block may straddle two batch elements when H % G != 0.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_bh_f32_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v, float* __restrict__ o,
-                        float* __restrict__ lse, int S, int H, int causal,
-                        float scale, int G) {
-  extern __shared__ float smem[];
-  for (int i = 0; i < G; ++i) {
-    __syncthreads();  // the previous head is done with every tile
-    fwd_f32_tile<D>(q, k, v, o, lse, S, H, H, causal, scale,
-                    blockIdx.y * G + i, blockIdx.x * BLOCK_Q, smem);
-  }
-}
 
 // -- bf16, d_head 16 and 32: mma.sync m16n8k16, f32 acc ----------------------
 //
@@ -313,7 +134,7 @@ __device__ __forceinline__ uint32_t load32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// One (b*h row, 64-row q tile) of the bf16 forward (see fwd_f32_tile).
+// One (b*h row, 64-row q tile) of the bf16 forward at d_head 16/32.
 template <int D>
 __device__ __forceinline__ void fwd_bf16_tile(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -910,33 +731,430 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                               stream);
 }
 
+// -- f32: three-pass TF32 products on the tensor cores, fed by a TMA ring ----
+//
+// The CTA is the backward's f32 layout (flash_bwd.cu), three warpgroups:
+// warpgroups 0 and 1 are 8 consumer warps of 16 q rows each (128 a CTA);
+// warpgroup 2 feeds them, and setmaxnreg moves registers from it to the
+// consumers. Its warp 0, lane 0, loads Q once per head by TMA and streams K
+// and V, STREAM keys a stage, into a ring of STAGES stages (f32 boxes of 32
+// columns, 128-byte rows under the 128-byte swizzle; d_head 16: 64-byte rows
+// under the 64-byte swizzle; zeros past S). Its warps 1-3 split each landed
+// K and V tile once, in place (tf32.cuh: hi where x was, lo in a plane
+// beside it). K and V have full, split and empty mbarriers of their own: a
+// consumer warp releases K once S is in and V after P V, so the next K load
+// does not wait for the last product.
+// * S = Q K^T: mma.sync m16n8k8 TF32 in three passes (lo·hi, hi·lo, hi·hi)
+//   per k-step, each pass over every column tile of the stage; Q's
+//   fragments come through ldmatrix from the resident tile and are split in
+//   registers, K's hi and lo through ldmatrix from the split stage. The
+//   passes of a 32-column block (4 k-steps) sum from zero and join the
+//   scores in f32 (the tensor cores align a sum to its largest term and
+//   truncate: a long sum in the accumulator drifts).
+// * The online softmax stays in f32 registers (rows g and g+8 of a lane;
+//   row max over the 4 lanes of a row, row sums per lane until the end):
+//   x = s * scale * log2(e), p = 2^(x - m) (ex2.approx), a masked score
+//   gives p = 0 exactly; the O rows are rescaled when m moves. expf of the
+//   scaled score, as the plain version rounds, took 6-24% more time and
+//   brought no row nearer the f64 evaluation.
+// * O += P V is the backward's gradient product (``accumulate_3xtf32``):
+//   P stays in the score registers and is split there, the contraction
+//   index permuted (A column t is key 8j + 2t, t + 4 is 8j + 2t + 1) so
+//   that no register moves, V's hi and lo fragments read from the split
+//   stage; the passes over a stage sum from zero and join O in f32. (A
+//   variant that permuted the output columns too, so that one 16-byte load
+//   brings four n-tiles' B fragments, was no faster.)
+// * Causal: the CTA streams key stages up to the diagonal of its last row;
+//   a warp whose rows end earlier releases the later stages unread (it
+//   still waits on each stage's split barrier: a parity wait cannot tell
+//   two phases apart). The q-tile order is reversed so that the longest
+//   CTAs start first.
+// * K3 runs the same body over its G heads in turn; the producer carries the
+//   ring across the head boundary and loads the next head's Q once every
+//   warp has read the last tile of this one. A head's O and LSE are bitwise
+//   K1's.
+constexpr int F32_PRODUCER_REGS = 40;
+constexpr int F32_CONSUMER_REGS = 232;       // 2 * 232 + 40 = 3 * 168
+
+template <int D>
+struct F32Fwd {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
+                "d_head 16, 32, 64 or 128");
+  static constexpr int WARPS = 8;                    // warpgroups 0 and 1
+  static constexpr int SPLITTERS = 3;                // warps 1-3 of wg 2
+  static constexpr int ROWS = 16 * WARPS;            // q rows a CTA
+  // keys a stage: at d 128, 16 left too few independent score products
+  // (a quarter more time) and 64 does not fit twice beside Q; 64 spilled
+  // at d 16
+  static constexpr int STREAM = D == 128 || D == 16 ? 32 : 64;
+  static constexpr int STAGES = D == 128 ? 2 : D == 64 ? 3 : 4;
+  static constexpr int BOX = D < 32 ? D : 32;        // columns a TMA box
+  static constexpr uint32_t Q_BYTES = ROWS * D * 4;
+  // a stage: K hi, K lo, V hi, V lo (a tile's lo plane follows its hi)
+  static constexpr uint32_t TILE_BYTES = STREAM * D * 4;
+  static constexpr uint32_t LO = TILE_BYTES;
+  static constexpr uint32_t STAGE_BYTES = 4 * TILE_BYTES;
+  static constexpr uint32_t TILES = Q_BYTES + STAGES * STAGE_BYTES;
+  // q_full, q_empty, then k_full, v_full, k_split, v_split, k_empty and
+  // v_empty per stage; 1024 bytes of slack to align the base
+  static constexpr int SMEM = 1024 + TILES + 8 * (2 + 6 * STAGES);
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// s (16 x STREAM) = Q K^T for the 16 rows of a warp from ``row0`` of the Q
+// tile (ROWS rows) and the split K tile at ``k_tile`` (its lo LO bytes
+// on), in three TF32 passes. The 32-column blocks stay a loop, as in the
+// backward's score product (unrolled there, ptxas hoisted the loads and
+// spilled); inside one, the offsets are a per-lane table and immediates.
+template <int D, int ROWS, int STREAM, uint32_t LO>
+__device__ __forceinline__ void fwd_scores(float (&s)[STREAM / 8][4],
+                                           uint32_t q_tile, int row0,
+                                           uint32_t k_tile, int lane) {
+  constexpr int STEPS = D / 8 < 4 ? D / 8 : 4;     // k-steps a block
+  // k-steps of one short sum: a block's 4 (twice the backward's
+  // SCORE_KSTEPS: faster at d 64, rows far inside the f64 measure either
+  // way; tools/torch_fwd_f32_variants.py); 2 below d_head 64, where one
+  // block is the whole tile and 4 spilled
+  constexpr int KG = D >= 64 ? 4 : 2;
+  static_assert(STEPS % KG == 0, "whole short sums in a block");
+  constexpr int CH = STREAM / 8;                    // column tiles
+  const int m = lane >> 3;
+#pragma unroll
+  for (int j = 0; j < STREAM / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  // ldmatrix.x4 rows: A's four 8 x 4 blocks a0..a3; B's b0, b1 of column
+  // tiles n and n + 1
+  const F32Addr<D, ROWS> a_addr(row0 + ((m & 1) << 3) + (lane & 7),
+                                (m >> 1) << 2);
+  const F32Addr<D, STREAM> b_addr(((m >> 1) << 3) + (lane & 7),
+                                  (m & 1) << 2);
+#pragma unroll 1
+  for (int blk = 0; blk < D / 32 + (D < 32); ++blk) {
+    const uint32_t a_blk = q_tile + blk * ROWS * 128;
+    const uint32_t b_blk = k_tile + blk * STREAM * 128;
+#pragma unroll
+    for (int k0 = 0; k0 < STEPS; k0 += KG) {
+      float part[STREAM / 8][4];
+#pragma unroll
+      for (int h = 0; h < KG; ++h) {
+        const int kk = k0 + h;
+        uint32_t a[4], a_hi[4], a_lo[4];
+        ldsm_x4(a, a_blk + a_addr.at(0, kk));
+        split_tf32(a, a_hi, a_lo);
+        uint32_t ah[CH][4], al[CH][4], b_hi[CH][2], b_lo[CH][2];
+#pragma unroll
+        for (int n = 0; n < CH; n += 2) {
+          const uint32_t at = b_blk + b_addr.at(n, kk);
+          uint32_t hi[4], lo[4];
+          ldsm_x4(hi, at);
+          ldsm_x4(lo, at + LO);
+#pragma unroll
+          for (int y = 0; y < 2; ++y) {
+            b_hi[n + y][0] = hi[2 * y], b_hi[n + y][1] = hi[2 * y + 1];
+            b_lo[n + y][0] = lo[2 * y], b_lo[n + y][1] = lo[2 * y + 1];
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < CH; ++n)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) ah[n][x] = a_hi[x], al[n][x] = a_lo[x];
+        if (h == 0)
+          mma_3xtf32<CH>(part, ah, al, b_hi, b_lo);
+        else
+          mma_3xtf32<CH, true>(part, ah, al, b_hi, b_lo);
+      }
+#pragma unroll
+      for (int n = 0; n < STREAM / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] += part[n][e];
+    }
+  }
+}
+
+// One CTA of the f32 forward: the ROWS-row q tile of this block's grid
+// column for ``items`` consecutive b*h rows from ``bh0`` (K1/K2: one; K3:
+// G), in turn.
+template <int D>
+__device__ __forceinline__ void fwd_f32_cta(
+    const CUtensorMap& q_map, const CUtensorMap& k_map,
+    const CUtensorMap& v_map, float* __restrict__ o, float* __restrict__ lse,
+    int S, int H, int Hkv, int causal, float scale_log2, int bh0,
+    int items) {
+  using T = F32Fwd<D>;
+  constexpr int SB = T::STREAM;
+  constexpr int STAGES = T::STAGES;
+  extern __shared__ __align__(1024) unsigned char f32_smem[];
+  unsigned char* const smem =
+      f32_smem + (((smem_u32(f32_smem) + 1023u) & ~1023u) -
+                  smem_u32(f32_smem));
+  const uint32_t base = smem_u32(smem);
+  const uint32_t q_s = base;
+  const uint32_t ring = base + T::Q_BYTES;       // + stage * STAGE_BYTES
+  const uint32_t q_full = base + T::TILES;
+  const uint32_t q_empty = q_full + 8;
+  const uint32_t k_full = q_full + 16;           // + 8 * stage
+  const uint32_t v_full = k_full + 8 * STAGES;
+  const uint32_t k_split = v_full + 8 * STAGES;
+  const uint32_t v_split = k_split + 8 * STAGES;
+  const uint32_t k_empty = v_split + 8 * STAGES;
+  const uint32_t v_empty = k_empty + 8 * STAGES;
+
+  // heaviest causal q tiles first
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * T::ROWS;
+  const int tiles = ((causal ? min(q0 + T::ROWS, S) : S) + SB - 1) / SB;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, T::WARPS);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_split + 8 * s, T::SPLITTERS);
+      mbar_init(v_split + 8 * s, T::SPLITTERS);
+      mbar_init(k_empty + 8 * s, T::WARPS);
+      mbar_init(v_empty + 8 * s, T::WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp >= T::WARPS) {
+    // -- warpgroup 2: TMA loads (warp 0, lane 0) and splits (warps 1-3) ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(F32_PRODUCER_REGS));
+    int stage = 0;
+    uint32_t phase = 0;
+    if (threadIdx.x == 32 * T::WARPS) {
+      for (int i = 0; i < items; ++i) {
+        const int bh = bh0 + i;
+        const int b = bh / H;
+        const int h = bh % H;
+        const int kvh = h / (H / Hkv);
+        mbar_wait(q_empty, (i & 1) ^ 1);         // every warp is past Q
+        mbar_expect_tx(q_full, T::Q_BYTES);
+        for (int c = 0; c < D; c += T::BOX)
+          tma_load(q_s + c / T::BOX * T::ROWS * 128, q_map, q_full, c, h, q0,
+                   b);
+        for (int t = 0; t < tiles; ++t) {
+          const uint32_t kt = ring + stage * T::STAGE_BYTES;
+          const uint32_t vt = kt + 2 * T::TILE_BYTES;
+          const uint32_t kf = k_full + 8 * stage;
+          const uint32_t vf = v_full + 8 * stage;
+          mbar_wait(k_empty + 8 * stage, phase ^ 1);
+          mbar_expect_tx(kf, T::TILE_BYTES);
+          for (int c = 0; c < D; c += T::BOX)
+            tma_load(kt + c / T::BOX * SB * 128, k_map, kf, c, kvh, t * SB, b);
+          mbar_wait(v_empty + 8 * stage, phase ^ 1);
+          mbar_expect_tx(vf, T::TILE_BYTES);
+          for (int c = 0; c < D; c += T::BOX)
+            tma_load(vt + c / T::BOX * SB * 128, v_map, vf, c, kvh, t * SB, b);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    } else if (warp > T::WARPS) {
+      const int t0 = threadIdx.x - 32 * (T::WARPS + 1);
+      for (int n = 0; n < items * tiles; ++n) {
+        float* const kt = reinterpret_cast<float*>(
+            smem + T::Q_BYTES + stage * T::STAGE_BYTES);
+        mbar_wait(k_full + 8 * stage, phase);
+        split_stage<SB * D>(kt, t0, 32 * T::SPLITTERS);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(k_split + 8 * stage);
+        mbar_wait(v_full + 8 * stage, phase);
+        split_stage<SB * D>(kt + 2 * SB * D, t0, 32 * T::SPLITTERS);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(v_split + 8 * stage);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // -- consumers: warp w owns q rows q0 + 16 w .. + 15 --------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(F32_CONSUMER_REGS));
+    const int g = lane / 4;
+    const int t4 = lane % 4;
+    const int row0 = 16 * warp;
+    const int first_row = q0 + row0;
+    const int qpos[2] = {first_row + g, first_row + g + 8};
+    // key stages this warp reads: causal rows stop at their diagonal
+    const int my_tiles =
+        first_row >= S
+            ? 0
+            : (causal ? (min(first_row + 16, S) - 1) / SB + 1 : tiles);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int i = 0; i < items; ++i) {
+      const int bh = bh0 + i;
+      float acc[D / 8][4];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+      float m[2] = {NEG_INF, NEG_INF};  // in scaled log2 units
+      float l[2] = {0.f, 0.f};          // this lane's share of the row sums
+      mbar_wait(q_full, i & 1);
+      if (my_tiles == 0 && lane == 0) mbar_arrive(q_empty);
+      for (int t = 0; t < tiles; ++t) {
+        const int k0 = t * SB;
+        const uint32_t kt = ring + stage * T::STAGE_BYTES;
+        const bool mine = t < my_tiles;
+        float s[SB / 8][4];
+        mbar_wait(k_split + 8 * stage, phase);
+        if (mine) fwd_scores<D, T::ROWS, SB, T::LO>(s, q_s, row0, kt, lane);
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(k_empty + 8 * stage);
+          if (t == my_tiles - 1) mbar_arrive(q_empty);
+        }
+        if (mine) {
+          // x = s * scale * log2(e); p = 2^(x - m), masked scores
+          // exactly 0
+          const bool edge = k0 + SB > S || (causal && k0 + SB - 1 > first_row);
+          float correction[2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float block_max = NEG_INF;
+#pragma unroll
+            for (int j = 0; j < SB / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int kpos = k0 + 8 * j + 2 * t4 + e;
+                float& x = s[j][2 * r + e];
+                x = !edge || (kpos < S && (!causal || kpos <= qpos[r]))
+                        ? x * scale_log2
+                        : NEG_INF;
+                block_max = fmaxf(block_max, x);
+              }
+            block_max =
+                fmaxf(block_max, __shfl_xor_sync(0xffffffffu, block_max, 1));
+            block_max =
+                fmaxf(block_max, __shfl_xor_sync(0xffffffffu, block_max, 2));
+            const float m_new = fmaxf(m[r], block_max);
+            correction[r] = exp2_approx(m[r] - m_new);
+            float row_sum = 0.f;
+#pragma unroll
+            for (int j = 0; j < SB / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float& x = s[j][2 * r + e];
+                x = edge && x <= 0.5f * NEG_INF ? 0.f
+                                                : exp2_approx(x - m_new);
+                row_sum += x;
+              }
+            l[r] = l[r] * correction[r] + row_sum;
+            m[r] = m_new;
+          }
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n) {
+            acc[n][0] *= correction[0];
+            acc[n][1] *= correction[0];
+            acc[n][2] *= correction[1];
+            acc[n][3] *= correction[1];
+          }
+        }
+        mbar_wait(v_split + 8 * stage, phase);
+        if (mine) {                                   // O += P V
+          float (*const out[1])[4] = {acc};
+          const float (*const in[1])[4] = {s};
+          const uint32_t v_tile[1] = {kt + 2 * T::TILE_BYTES};
+          accumulate_3xtf32<D, SB, T::LO, 1>(out, in, v_tile, g, t4);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(v_empty + 8 * stage);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+
+      const int b = bh / H;
+      const int h = bh % H;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float total = l[r];
+        total += __shfl_xor_sync(0xffffffffu, total, 1);
+        total += __shfl_xor_sync(0xffffffffu, total, 2);
+        const float denom = total == 0.f ? 1.f : total;
+        if (qpos[r] >= S) continue;
+        float* const out =
+            o + (((long)b * S + qpos[r]) * H + h) * D + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<float2*>(out + 8 * n) = make_float2(
+              acc[n][2 * r] / denom, acc[n][2 * r + 1] / denom);
+        if (t4 == 0) lse[(long)bh * S + qpos[r]] = m[r] * LN2 + logf(denom);
+      }
+    }
+  }
+}
+
+// K1/K2: one CTA per (q tile, b*h row).
+template <int D>
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     float* __restrict__ o, float* __restrict__ lse, int S,
+                     int H, int Hkv, int causal, float scale_log2) {
+  fwd_f32_cta<D>(q_map, k_map, v_map, o, lse, S, H, Hkv, causal, scale_log2,
+                 blockIdx.y, 1);
+}
+
+// K3: one CTA per (q tile, block of G consecutive b*h rows), MHA. Row i of
+// the block is b*h row blockIdx.y * G + i, i.e. batch (row / H) and head
+// (row % H): a block may straddle two batch elements when H % G != 0.
+template <int D>
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+flash_fwd_bh_f32_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        float* __restrict__ o, float* __restrict__ lse, int S,
+                        int H, int causal, float scale_log2, int G) {
+  fwd_f32_cta<D>(q_map, k_map, v_map, o, lse, S, H, H, causal, scale_log2,
+                 blockIdx.y * G, G);
+}
+
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                void* lse, int B, int S, int H, int Hkv, int causal,
                float scale, int G, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  const auto* qp = static_cast<const float*>(q);
-  const auto* kp = static_cast<const float*>(k);
-  const auto* vp = static_cast<const float*>(v);
+  using T = F32Fwd<D>;
+  CUtensorMap q_map, k_map, v_map;
+  if (!bshd_map_f32(&q_map, q, B, S, H, D, T::ROWS) ||
+      !bshd_map_f32(&k_map, k, B, S, Hkv, D, T::STREAM) ||
+      !bshd_map_f32(&v_map, v, B, S, Hkv, D, T::STREAM))
+    return (int)cudaErrorInvalidValue;
   auto* op = static_cast<float*>(o);
   auto* lp = static_cast<float*>(lse);
-  const int tiles = (S + BLOCK_Q - 1) / BLOCK_Q;
+  const int tiles = (S + T::ROWS - 1) / T::ROWS;
+  const float scale_log2 = scale * LOG2E;
   cudaError_t status;
   if (G == 0) {
     status = cudaFuncSetAttribute(flash_fwd_f32_kernel<D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem);
+                                  T::SMEM);
     if (status != cudaSuccess) return (int)status;
-    flash_fwd_f32_kernel<D><<<dim3(tiles, B * H), THREADS, smem, stream>>>(
-        qp, kp, vp, op, lp, S, H, Hkv, causal, scale);
+    flash_fwd_f32_kernel<D><<<dim3(tiles, B * H), TMA_THREADS, T::SMEM,
+                              stream>>>(q_map, k_map, v_map, op, lp, S, H,
+                                        Hkv, causal, scale_log2);
   } else {
     status = cudaFuncSetAttribute(flash_fwd_bh_f32_kernel<D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem);
+                                  T::SMEM);
     if (status != cudaSuccess) return (int)status;
-    flash_fwd_bh_f32_kernel<D><<<dim3(tiles, B * H / G), THREADS, smem,
-                                 stream>>>(qp, kp, vp, op, lp, S, H, causal,
-                                           scale, G);
+    flash_fwd_bh_f32_kernel<D><<<dim3(tiles, B * H / G), TMA_THREADS,
+                                 T::SMEM, stream>>>(q_map, k_map, v_map, op,
+                                                    lp, S, H, causal,
+                                                    scale_log2, G);
   }
   return (int)cudaGetLastError();
 }
@@ -968,6 +1186,22 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, void* o,
 }
 
 }  // namespace
+
+// Bytes of dynamic shared memory a launch of either kernel (K1/K2 or K3)
+// requests for ``dtype`` (as below) and ``D``; 0 for what they do not take.
+extern "C" int thp_flash_fwd_smem(int dtype, int D) {
+  switch (dtype * 1000 + D) {
+    case 16: return F32Fwd<16>::SMEM;
+    case 32: return F32Fwd<32>::SMEM;
+    case 64: return F32Fwd<64>::SMEM;
+    case 128: return F32Fwd<128>::SMEM;
+    case 1016: return (int)bf16_smem_bytes<16>();
+    case 1032: return (int)bf16_smem_bytes<32>();
+    case 1064: return TmaTile<64>::SMEM;
+    case 1128: return TmaTile<128>::SMEM;
+    default: return 0;
+  }
+}
 
 // K1/K2. dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after
 // the launch (0 = launched).

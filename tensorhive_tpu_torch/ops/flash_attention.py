@@ -60,18 +60,20 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Union[torch.Tensor,
                                    Tuple[torch.Tensor, torch.Tensor]]:
     """Plain softmax attention with f32 accumulation — the JAX oracle
-    term for term. q [B, Sq, H, D], k/v [B, Sk, Hkv, D]; GQA is expanded
-    here (``repeat_interleave``: head h uses KV head h // group). The causal
-    mask is bottom-right aligned (``tril(.., Sk - Sq)``). With
-    ``return_lse`` also returns the row log-sum-exp as [B*H, 1, Sq] f32."""
+    term for term (f64 for f64 inputs: the same function evaluated exactly
+    enough to measure an f32 version against). q [B, Sq, H, D], k/v [B, Sk,
+    Hkv, D]; GQA is expanded here (``repeat_interleave``: head h uses KV
+    head h // group). The causal mask is bottom-right aligned (``tril(..,
+    Sk - Sq)``). With ``return_lse`` also returns the row log-sum-exp as
+    [B*H, 1, Sq] in the accumulation type."""
     if k.shape[2] != q.shape[2]:
         group = q.shape[2] // k.shape[2]
         k = k.repeat_interleave(group, dim=2)
         v = v.repeat_interleave(group, dim=2)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
-                          k.to(torch.float32)) * scale
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
     if causal:
         seq_q, seq_k = scores.shape[2], scores.shape[3]
         mask = torch.ones(seq_q, seq_k, dtype=torch.bool,
@@ -80,8 +82,7 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.logsumexp(scores, dim=-1) if return_lse else None
     probs = torch.softmax(scores, dim=-1)
     del scores
-    out = torch.einsum("bhqk,bkhd->bqhd", probs,
-                       v.to(torch.float32)).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(acc)).to(q.dtype)
     if not return_lse:
         return out
     batch, heads, seq_q = lse.shape

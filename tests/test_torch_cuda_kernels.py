@@ -14,7 +14,15 @@ where JAX is not installed, run them without the suite's conftest:
 version on the same bf16 values: the kernel rounds its output, and the
 flash kernel its probabilities, to bf16, an error that scales with the
 output row, so each row (the d_head values of one token and head) is held
-to ||out - plain||_2 / ||plain||_2 <= 1e-2.
+to ||out - plain||_2 / ||plain||_2 <= 1e-2. The f32 flash forward's O is
+also held to the plain version evaluated in f64 on the same inputs
+(``exact``), as the f32 backward's gradients are below: no row further from
+it than the plain f32 version's own row by more than 2e-5 of the row,
+||O - exact|| <= ||plain - exact|| + 2e-5 ||exact||, also with q x 4
+(scores of std about 4, where the 1e-5 abs bound is not the measure: the
+plain version itself is ~1e-5 from exact there). The f32 forward takes Q
+K^T and P V as three TF32 products each; the plain forward with
+single-pass TF32 matmuls fails the measure (the control test).
 
 Backward gradients (dq, dk, dv) are held per row. bf16 against the plain
 backward on the same inputs, ||grad - plain||_2 / ||plain||_2 <= 1e-2 (P
@@ -50,6 +58,7 @@ ABS_TOL = 1e-5
 ROW_REL_TOL = 1e-2
 LSE_TOL = 5e-5
 GRAD_ROW_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
+FWD_ROW_EXCESS = 2e-5
 ZERO_GRAD_ABS = 2e-5
 # card (kernels) vs CPU (plain versions through MKL), f32: the CPU sums and
 # exponentiates in its own order, ~1e-4 of a row where dS cancels
@@ -87,9 +96,9 @@ def grad_row_error(grad, ref, first_row_zero=False):
 
 
 def f32_row_error(grad, plain, exact, first_row_zero=False):
-    """max over the rows of a [B, S, H, D] f32 gradient of (||grad -
-    exact|| - ||plain - exact||) / ||exact||, ``exact`` the plain version
-    in f64 and ``plain`` the exact-f32 plain version; with
+    """max over the rows of a [B, S, H, D] f32 gradient (or forward output)
+    of (||grad - exact|| - ||plain - exact||) / ||exact||, ``exact`` the
+    plain version in f64 and ``plain`` the exact-f32 plain version; with
     ``first_row_zero`` the rows of token 0 over the largest ||exact||
     row."""
     exact = exact.double()
@@ -158,6 +167,56 @@ def check_flash_kernel(device, dtype, d, heads, kv_heads, causal, seq):
     assert out.shape == q.shape and out.dtype == dtype
     assert_close_to_plain(out, ref)
     assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+    if dtype == torch.float32:
+        assert f32_row_error(out, ref, exact_forward(q, k, v, causal)
+                             ) <= FWD_ROW_EXCESS
+
+
+def exact_forward(q, k, v, causal, scale=None):
+    """The plain forward evaluated in f64 on the f32 inputs."""
+    return fa.reference_attention(q.double(), k.double(), v.double(),
+                                  causal=causal, scale=scale)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("heads,kv_heads,g", [(8, 2, 1), (8, 8, 4)])
+def test_flash_forward_f32_large_scores_hold_the_measure(device, d, heads,
+                                                         kv_heads, g):
+    """q x 4, causal, ragged S 1000: the per-head kernel under GQA group 4
+    and the head-blocked kernel at G 4 hold the f64 measure."""
+    generator = torch.Generator(device=device).manual_seed(d + heads + g)
+    q = normal(generator, (2, 1000, heads, d), torch.float32) * 4.0
+    k, v = (normal(generator, (2, 1000, kv_heads, d), torch.float32)
+            for _ in range(2))
+    variant = "bh_f32" if g > 1 else "f32"
+    before = fa.launches[variant]
+    out = fa.flash_attention(q, k, v, causal=True, bh_block=g)
+    ref = fa.reference_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches[variant] == before + 1
+    assert f32_row_error(out, ref, exact_forward(q, k, v, True)
+                         ) <= FWD_ROW_EXCESS
+
+
+def test_flash_forward_f32_measure_rejects_single_pass_tf32(device):
+    """The control: the plain forward with single-pass TF32 matmuls
+    (cuBLAS's TF32 mode) fails the f64 measure on the large-score case the
+    kernel holds it on."""
+    generator = torch.Generator(device=device).manual_seed(64 + 1000)
+    q = normal(generator, (2, 1000, 8, 64), torch.float32) * 4.0
+    k, v = (normal(generator, (2, 1000, 2, 64), torch.float32)
+            for _ in range(2))
+    out = fa.flash_attention(q, k, v, causal=True)
+    ref = fa.reference_attention(q, k, v, causal=True)
+    exact = exact_forward(q, k, v, True)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = fa.reference_attention(q, k, v, causal=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert f32_row_error(out, ref, exact) <= FWD_ROW_EXCESS
+    assert f32_row_error(tf32, ref, exact) > FWD_ROW_EXCESS
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -189,6 +248,9 @@ def test_head_blocked_kernel_matches_plain_and_per_head(
     assert_close_to_plain(out, ref)
     assert (lse - ref_lse).abs().max().item() <= LSE_TOL
     assert torch.equal(out, per_head) and torch.equal(lse, per_head_lse)
+    if dtype == torch.float32:
+        assert f32_row_error(out, ref, exact_forward(q, k, v, causal)
+                             ) <= FWD_ROW_EXCESS
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
