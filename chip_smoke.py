@@ -62,12 +62,26 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
               merged tree. Launch counters exact as in training (the
               encoder's forward is the head-blocked kernel, "bh_bf16").
 7. serving  — the main path: the full 7b preset served through
-              build_engine -> SlotEngine.submit -> pump -> result, paged
-              with int8 pages (the default), then with bf16 pages, then
-              the f32 model with f32 pages; launch counters must equal
-              layers x prefills and layers x decode steps exactly. A
-              torch.profiler window over three decode steps of the
-              default engine closes the phase (device busy share).
+              build_engine -> SlotEngine.submit -> step/pump -> result.
+              With whole-prompt prefill (prefix_cache="off"): int8 pages,
+              then bf16 pages, then the f32 model with f32 pages; launch
+              counters must equal layers x prefills and layers x decode
+              steps exactly, and each join tick is timed. Then the
+              default engine (int8 pages, prefix cache with chunks of
+              256) on shared-system-prompt traffic: a 2,048-token prompt
+              P warmed, then P + 1/17/300/1,000, the warm prompt again, a
+              mid-page divergence and a 3,000-token miss, one join per
+              tick; 6 hits and 2 misses, the chunk count the page rule
+              gives, no flash launch, paged launches = layers x step
+              dispatches, no leaked page; TTFT of hits and misses, the
+              longest tick with a chunk against the longest whole-prompt
+              join tick; the same on bf16 pages. Then the contiguous
+              layout (bf16 rows): flash launches = layers x prefills, no
+              paged launch. Then 3,000 positions of K/V written in chunks
+              of 256 against the whole-prompt prefill (2-layer 7b widths,
+              f32): every row within 1e-5. torch.profiler windows over
+              three decode steps (device busy share) and three ticks that
+              each run a chunk and a decode step close the phase.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``; any failure exits non-zero without
@@ -1530,10 +1544,12 @@ def serve(engine_factory, label, prompts, new_tokens, expected_buckets):
     flash_key = "bf16" if config.dtype == torch.bfloat16 else "f32"
     paged_key = ("int8" if engine.kv_quant == "on" else flash_key)
     served = time.perf_counter()
-    handles = []
+    handles, join_ms = [], []
     for prompt in prompts:                        # staggered joins
         handles.append(engine.submit(prompt, max_new_tokens=new_tokens))
-        engine.step()
+        before = time.perf_counter()
+        engine.step()                             # prefill + decode step
+        join_ms.append((time.perf_counter() - before) * 1e3)
     decode_ms = []
     while engine.has_work():
         before = time.perf_counter()
@@ -1552,9 +1568,13 @@ def serve(engine_factory, label, prompts, new_tokens, expected_buckets):
                 f"{summary['outcome']} with {len(summary['tokens'])} tokens")
         require(all(0 <= t < config.vocab_size for t in summary["tokens"]),
                 f"{label}: token out of vocabulary")
-    require(stats["kvPagesFree"] == stats["kvPagesTotal"],
-            f"{label}: pages leaked: {stats['kvPagesFree']} free of "
-            f"{stats['kvPagesTotal']}")
+    if engine.paged:
+        require(stats["kvPagesFree"] == stats["kvPagesTotal"],
+                f"{label}: pages leaked: {stats['kvPagesFree']} free of "
+                f"{stats['kvPagesTotal']}")
+    else:
+        require(stats["kvPagesTotal"] is None and stats["slotsBusy"] == 0,
+                f"{label}: contiguous engine reports pages or busy slots")
     require(engine.prefills == len(expected_buckets),
             f"{label}: {engine.prefills} prefills, expected "
             f"{len(expected_buckets)} (buckets {expected_buckets})")
@@ -1562,10 +1582,15 @@ def serve(engine_factory, label, prompts, new_tokens, expected_buckets):
             and sum(flash_launches.values()) == flash_launches[flash_key],
             f"{label}: flash launches {flash_launches} != {layers} x "
             f"{engine.prefills} prefills")
-    require(paged_launches[paged_key] == layers * engine.step_dispatches
+    # the contiguous step attends its rows with the plain masked decode
+    # attention: no paged-decode launch
+    paged_steps = engine.step_dispatches if engine.paged else 0
+    require(paged_launches[paged_key] == layers * paged_steps
             and sum(paged_launches.values()) == paged_launches[paged_key],
             f"{label}: paged launches {paged_launches} != {layers} x "
-            f"{engine.step_dispatches} step dispatches")
+            f"{paged_steps} paged step dispatches")
+    require(engine.prefill_chunks == 0,
+            f"{label}: {engine.prefill_chunks} chunked prefills")
     param_bytes = sum(t.numel() * t.element_size()
                       for t in tree_leaves(engine.params))
     tokens = sum(len(s["tokens"]) for s in summaries)
@@ -1578,11 +1603,15 @@ def serve(engine_factory, label, prompts, new_tokens, expected_buckets):
         f"+ KV cache {engine.kv_cache_bytes / 1e9:.2f} GB")
     log(f"  TTFT s: " + ", ".join(
         f"{len(p)}->{s['ttftS']:.3f}" for p, s in zip(prompts, summaries)))
+    log(f"  join ticks ms (whole-prompt prefill + decode step): " + ", ".join(
+        f"{len(p)}->{ms:.1f}" for p, ms in zip(prompts, join_ms))
+        + f"; longest {max(join_ms):.1f}")
     log(f"  launches: flash {flash_launches} = {layers} x {engine.prefills} "
-        f"prefills; paged {paged_launches} = {layers} x "
-        f"{engine.step_dispatches} step dispatches")
+        f"prefills; paged {paged_launches} = {layers} x {paged_steps} "
+        f"step dispatches")
     result = {"tokens": [s["tokens"] for s in summaries],
               "step_ms": sum(steady) / len(steady),
+              "longest_join_ms": max(join_ms),
               "flash": (flash_key, flash_launches[flash_key]),
               "paged": (paged_key, paged_launches[paged_key])}
     del engine
@@ -1691,8 +1720,29 @@ def phase_serving():
     runs["f32"] = serve(f32_engine, "f32 weights, f32 pages", prompts,
                         new_tokens, buckets)
 
-    # where a decode step's device time goes, traced after the timed runs
-    # (the profiler slows every later step of the process)
+    default = GenerationConfig(preset="7b", slots=8, max_len=max_len,
+                               paged_kernel="on")
+    runs["prefix"] = shared_prompt_run(
+        default, "default engine (int8 pages), shared system prompt",
+        runs["int8"]["longest_join_ms"])
+    # the same traffic on bf16 pages, whose chunk writes need no
+    # data-dependent indexing (the int8 row merge's does)
+    runs["prefix_bf16"] = shared_prompt_run(
+        dataclasses.replace(default, kv_quant="off"),
+        "prefix cache on bf16 pages, shared system prompt",
+        runs["bf16"]["longest_join_ms"])
+    runs["contiguous"] = serve(
+        lambda: build_engine(generation(paged=False)),
+        "bf16 weights, contiguous bf16 cache", prompts, new_tokens, buckets)
+    greedy = [a == b for x, y in zip(runs["contiguous"]["tokens"],
+                                     runs["bf16"]["tokens"])
+              for a, b in zip(x, y)]
+    log(f"  greedy match rate contiguous vs bf16 pages: "
+        f"{sum(greedy) / len(greedy):.4f} (informational)")
+    chunked_vs_whole_prefill()
+
+    # where a tick's device time goes, traced after the timed runs (the
+    # profiler slows every later step of the process)
     engine = build_engine(generation())
     for prompt in prompts:
         engine.submit(prompt, max_new_tokens=new_tokens)
@@ -1702,7 +1752,292 @@ def phase_serving():
         f"the int8-page decode step ({runs['int8']['step_ms']:.2f} ms, "
         f"untraced)")
     engine.pump()
+    del engine
+    torch.cuda.empty_cache()
+    engine = build_engine(default)
+    profile_chunk_ticks(engine)
     return runs
+
+
+def expected_prefix(prompts, page_size, chunk_tokens, min_tokens):
+    """What the prefix cache's page rule gives each prompt admitted in this
+    order, each after the earlier ones' prefills were dispatched: (cached
+    tokens, prefill chunks) per prompt. Whole pages only, never the page
+    holding the prompt's last position, a match shorter than
+    ``min_tokens`` a miss; the prefill covers positions cached ..
+    len - 2 in chunks of ``chunk_tokens``."""
+    cached_pages = set()
+    result = []
+    for prompt in prompts:
+        target = len(prompt) - 1
+        limit = target // page_size
+        matched = 0
+        while (matched < limit and tuple(prompt[:(matched + 1) * page_size])
+               in cached_pages):
+            matched += 1
+        cached = matched * page_size
+        if cached < min_tokens:
+            cached = 0
+        remaining = target - min(cached, target)
+        result.append((cached, -(-remaining // chunk_tokens)))
+        cached_pages.update(tuple(prompt[:(j + 1) * page_size])
+                            for j in range(limit))
+    return result
+
+
+def shared_prompt_run(generation, label, whole_prompt_longest_ms):
+    """A prefix-cache engine (chunked prefill, chunks of 256) on a chat
+    service's traffic: a 2,048-token system prompt P, a warm
+    request P + 63 served to its first token, then one join per tick —
+    P + 1/17/300/1,000 tokens, the warm prompt again, P[:1000] + 200
+    divergent tokens, an unrelated 3,000-token prompt — 32 new tokens
+    each. Checks the prefix counters, the chunk count the page rule gives,
+    the launch counters (no flash launch) and that no page leaked."""
+    import numpy as np
+    import torch
+
+    from tensorhive_tpu_torch.core.services.generation import build_engine
+    from tensorhive_tpu_torch.ops import flash_attention as fa
+    from tensorhive_tpu_torch.ops import paged_attention as pa
+
+    new_tokens = 32
+    for counter in (fa.launches, pa.launches):
+        for key in counter:
+            counter[key] = 0
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    engine = build_engine(generation)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - started
+    config = engine.config
+    paged_key = "int8" if engine.kv_quant == "on" else "bf16"
+    stats = engine.stats()
+    require(stats["prefixCache"] == "on" and stats["prefillChunkTokens"] == 256
+            and config.dtype == torch.bfloat16,
+            f"{label}: not a bf16 prefix-cache engine: {stats}")
+    warmup_chunks = engine.prefill_chunks
+    rng = np.random.default_rng(1)
+
+    def unique(n):
+        return rng.integers(0, config.vocab_size, n).tolist()
+
+    system = unique(2048)
+    warm = system + unique(63)
+    divergent = system[:1000] + unique(200)
+    divergent[1000] = (system[1000] + 1) % config.vocab_size
+    requests = [("P+63 warm", warm), ("P+1", system + unique(1)),
+                ("P+17", system + unique(17)), ("P+300", system + unique(300)),
+                ("P+1000", system + unique(1000)), ("warm again", list(warm)),
+                ("P[:1000]+200", divergent), ("unrelated 3000", unique(3000))]
+    expected = expected_prefix([prompt for _, prompt in requests],
+                               engine.page_size, engine.prefill_chunk_tokens,
+                               engine.prefix_min_tokens)
+    log(f"serving {label}: 7b preset, 8 slots, max_len {engine.max_len}, "
+        f"chunks of {engine.prefill_chunk_tokens}, build+warmup "
+        f"{build_s:.2f} s; requests (tokens, cached, chunks): " + ", ".join(
+            f"{name} ({len(prompt)}, {cached}, {chunks})"
+            for (name, prompt), (cached, chunks) in zip(requests, expected)))
+    ticks = []                                  # (ms, chunks dispatched)
+
+    def tick():
+        chunks = engine.prefill_chunks
+        before = time.perf_counter()
+        engine.step()
+        ticks.append(((time.perf_counter() - before) * 1e3,
+                      engine.prefill_chunks - chunks))
+
+    served = time.perf_counter()
+    handles = [engine.submit(warm, max_new_tokens=new_tokens)]
+    while engine.stats()["tokensEmitted"] == 0:
+        tick()
+    warm_ticks = len(ticks)
+    for _, prompt in requests[1:]:                # one join per tick
+        handles.append(engine.submit(prompt, max_new_tokens=new_tokens))
+        tick()
+    while engine.has_work():
+        tick()
+    wall_s = time.perf_counter() - served
+    summaries = [h.result(timeout_s=60) for h in handles]
+    stats = engine.stats()
+    layers = config.n_layers
+    flash_launches, paged_launches = dict(fa.launches), dict(pa.launches)
+    for (name, _), summary in zip(requests, summaries):
+        require(summary["outcome"] == "completed"
+                and len(summary["tokens"]) == new_tokens
+                and all(0 <= t < config.vocab_size
+                        for t in summary["tokens"]),
+                f"{label}: {name} ended {summary['outcome']} with "
+                f"{summary['tokens']}")
+    hits = sum(1 for cached, _ in expected if cached)
+    require((hits, len(expected) - hits) == (6, 2),
+            f"{label}: the page rule gives {hits} hits, expected 6")
+    require((stats["prefixHits"], stats["prefixMisses"]) == (6, 2),
+            f"{label}: {stats['prefixHits']} hits, {stats['prefixMisses']} "
+            "misses, expected 6 and 2")
+    chunks = engine.prefill_chunks - warmup_chunks
+    require(chunks == sum(c for _, c in expected)
+            and sum(c for _, c in ticks) == chunks,
+            f"{label}: {chunks} chunks, the page rule gives "
+            f"{sum(c for _, c in expected)}")
+    require(warm_ticks == expected[0][1],
+            f"{label}: warm request's first token after {warm_ticks} ticks, "
+            f"expected {expected[0][1]} chunks")
+    require(engine.prefills == 0 and sum(flash_launches.values()) == 0,
+            f"{label}: flash launches {flash_launches}, "
+            f"{engine.prefills} whole-prompt prefills")
+    require(paged_launches[paged_key] == layers * engine.step_dispatches
+            and sum(paged_launches.values()) == paged_launches[paged_key],
+            f"{label}: paged launches {paged_launches} != {layers} x "
+            f"{engine.step_dispatches} step dispatches")
+    require(stats["kvPagesFree"] + stats["cachedPages"]
+            == stats["kvPagesTotal"] and stats["slotsBusy"] == 0,
+            f"{label}: pages leaked: {stats['kvPagesFree']} free + "
+            f"{stats['cachedPages']} cached of {stats['kvPagesTotal']}")
+    chunk_ticks = [ms for ms, c in ticks if c]
+    decode_ticks = [ms for ms, c in ticks[warm_ticks + len(requests) - 1:]
+                    if not c]
+    steady = decode_ticks[len(decode_ticks) // 4:] or decode_ticks
+    tokens = sum(len(s["tokens"]) for s in summaries)
+    log(f"  {len(requests)} requests x {new_tokens} tokens in {wall_s:.3f} s "
+        f"= {tokens / wall_s:.1f} tokens/s; {chunks} chunks in "
+        f"{len(chunk_ticks)} ticks; prefixHits {stats['prefixHits']}, "
+        f"prefixMisses {stats['prefixMisses']}, cachedPages "
+        f"{stats['cachedPages']}, kvPagesFree {stats['kvPagesFree']} of "
+        f"{stats['kvPagesTotal']}")
+    log("  TTFT s: " + ", ".join(
+        f"{name} {'hit' if cached else 'miss'} -> {s['ttftS']:.3f}"
+        for (name, _), (cached, _), s in zip(requests, expected, summaries)))
+    log(f"  decode step {sum(steady) / len(steady):.2f} ms (mean of the last "
+        f"{len(steady)} ticks without a chunk); longest tick with a chunk "
+        f"{max(chunk_ticks):.1f} ms (mean {sum(chunk_ticks) / len(chunk_ticks):.1f}"
+        f") against {whole_prompt_longest_ms:.1f} ms for the longest "
+        f"whole-prompt join tick of the prefix_cache=\"off\" {paged_key} "
+        "run")
+    by_chunks = {}
+    for ms, count in ticks:
+        by_chunks.setdefault(count, []).append(ms)
+    log("  tick ms by chunks dispatched in it: " + ", ".join(
+        f"{count} -> mean {sum(v) / len(v):.1f}, max {max(v):.1f} "
+        f"({len(v)} ticks)" for count, v in sorted(by_chunks.items())))
+    log(f"  launches: flash {flash_launches}; paged {paged_launches} = "
+        f"{layers} x {engine.step_dispatches} step dispatches")
+    result = {"tokens": [s["tokens"] for s in summaries],
+              "flash": ("bf16", flash_launches["bf16"]),
+              "paged": (paged_key, paged_launches[paged_key])}
+    del engine
+    torch.cuda.empty_cache()
+    return result
+
+
+def chunked_vs_whole_prefill(prompt_len=3000, chunk=256):
+    """A 2-layer model at 7b widths in f32 with f32 pages: one prompt's K/V
+    written in chunks of ``chunk`` through the chunked prefill body and at
+    once through the whole-prompt body (the f32 flash-forward kernel) into
+    a second page set. Every written K/V row (the d_head values of one
+    position and KV head) must be within ABS_TOL of the other, relative to
+    the row."""
+    import dataclasses
+
+    import torch
+
+    from tensorhive_tpu_torch.models.decode import KVCache, _prefill_bucket
+    from tensorhive_tpu_torch.models.transformer import (
+        PRESETS,
+        TransformerLM,
+        _rmsnorm,
+    )
+    from tensorhive_tpu_torch.serving.engine import (
+        _paged_chunk_prefill_body,
+        _paged_prefill_body,
+    )
+
+    config = dataclasses.replace(PRESETS["7b"], n_layers=2,
+                                 dtype=torch.float32)
+    generator = torch.Generator(device="cuda").manual_seed(2)
+    params = TransformerLM.init(config, generator, device="cuda")
+    page_size, max_len = 16, 4096
+    num_pages = max_len // page_size
+    prompt = torch.randint(0, config.vocab_size, (prompt_len,),
+                           generator=generator, device="cuda",
+                           dtype=torch.int32)
+    written = prompt_len - 1                  # the head the engine prefills
+    row = torch.arange(1, num_pages + 1, dtype=torch.int32, device="cuda")
+    shape = (config.n_layers, num_pages + 1, page_size, config.kv_heads,
+             config.d_head)
+    chunked, whole = (KVCache(torch.zeros(shape, device="cuda"),
+                              torch.zeros(shape, device="cuda"))
+                      for _ in range(2))
+    for start in range(0, written, chunk):
+        length = min(chunk, written - start)
+        head = torch.zeros((1, chunk), dtype=torch.int32, device="cuda")
+        head[0, :length] = prompt[start:start + length]
+        _paged_chunk_prefill_body(params, head, chunked, row, start, length,
+                                  config)
+    head = torch.zeros((1, _prefill_bucket(written, max_len - 1)),
+                       dtype=torch.int32, device="cuda")
+    head[0, :written] = prompt[:written]
+    _paged_prefill_body(params, head, whole, row, written, config)
+    positions = torch.arange(written, device="cuda")
+    pages, offsets = row.long()[positions // page_size], positions % page_size
+    worst = {}
+    for name, ours, theirs in zip(("k", "v"), chunked, whole):
+        for layer in range(config.n_layers):
+            a = ours[layer][pages, offsets]           # [written, Hkv, Dh]
+            b = theirs[layer][pages, offsets]
+            require(bool(torch.isfinite(a).all()) and b.abs().max() > 0,
+                    f"chunked prefill {name}{layer}: not finite or empty")
+            rel = ((a - b).norm(dim=-1)
+                   / b.norm(dim=-1).clamp_min(1e-30)).max().item()
+            worst[f"{name}{layer}"] = rel
+    # layer 0's K/V see no attention: what differs there is the f32 GEMM of
+    # the K projection at M = chunk rows against M = the bucket's rows
+    block = params["blocks"][0]
+    normed = _rmsnorm(params["tok_embed"][head.long()],
+                      block["attn_norm"]["scale"])
+    narrow = normed[:, :chunk] @ block["wk"]
+    wide = (normed @ block["wk"])[:, :chunk]
+    projection = ((narrow - wide).norm(dim=-1)
+                  / wide.norm(dim=-1).clamp_min(1e-30)).max().item()
+    log(f"chunked vs whole-prompt prefill: 2-layer 7b widths f32, f32 pages, "
+        f"{prompt_len}-token prompt, chunks of {chunk}: largest row-relative "
+        f"K/V difference " + ", ".join(f"{key} {value:.3e}"
+                                       for key, value in worst.items())
+        + f" (tolerance {ABS_TOL}); the layer-0 K projection alone, M "
+        f"{chunk} against M {head.shape[1]}: {projection:.3e}")
+    require(max(worst.values()) <= ABS_TOL,
+            f"chunked prefill K/V differ from the whole-prompt prefill's by "
+            f"{max(worst.values()):.3e} > {ABS_TOL} of the row")
+    del params, chunked, whole
+    torch.cuda.empty_cache()
+    return worst
+
+
+def profile_chunk_ticks(engine, steps=3):
+    """Two requests decoding while an unrelated 3,000-token prompt chunks:
+    trace ``steps`` ticks that each run a prefill chunk and a decode step;
+    print the device time per tick by kind of kernel."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    vocab = engine.config.vocab_size
+    for length in (17, 300):
+        engine.submit(rng.integers(0, vocab, length).tolist(),
+                      max_new_tokens=32)
+        engine.step()
+    engine.submit(rng.integers(0, vocab, 3000).tolist(), max_new_tokens=4)
+    engine.step()                               # chunk 1
+    chunks = engine.prefill_chunks
+    kinds, launched = profile_window(engine.step, steps)
+    require(engine.prefill_chunks - chunks == steps,
+            f"chunk profile: {engine.prefill_chunks - chunks} chunks in "
+            f"{steps} ticks")
+    total = sum(kinds.values())
+    require(total > 0, "chunk profile: the trace shows no device time")
+    log(f"  profile ({steps} ticks, each a 256-token chunk of a 3000-token "
+        f"miss + a decode step of 2 slots): {total:.2f} ms of kernels per "
+        f"tick (" + ", ".join(f"{kind} {ms:.2f}" for kind, ms in kinds.items())
+        + f"); {launched:.0f} kernel launches per tick")
+    engine.pump()
 
 
 # -- report -------------------------------------------------------------------

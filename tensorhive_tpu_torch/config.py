@@ -2,12 +2,13 @@
 fields of ``tensorhive_tpu/config.py`` (``[generation_service]``) that the
 ported engine reads, with the JAX package's defaults.
 
-Values the port cannot serve yet are accepted here and refused by
-``build_engine``/``SlotEngine`` with a "not yet ported" error: the prefix
-cache (``prefix_cache="on"``; ``auto`` resolves to off), the speculative
-lane (``speculative="on"``; ``auto`` resolves to off), host KV tiering
-(``host_kv_bytes > 0``), the serving mesh (``mesh_dp``/``mesh_tp`` > 1)
-and the contiguous layout (``paged=False``).
+The prefix cache with chunked prefill (``prefix_cache``; ``auto`` = on
+for the paged layout) and the contiguous layout (``paged=False``) are
+served. Values the port cannot serve yet are accepted here and refused by
+``build_engine``/``SlotEngine`` with a "not yet ported" error: the
+speculative lane (``speculative="on"``; ``auto`` resolves to off), host KV
+tiering (``host_kv_bytes > 0``) and the serving mesh (``mesh_dp``/
+``mesh_tp`` > 1).
 """
 from __future__ import annotations
 
@@ -29,7 +30,11 @@ class GenerationConfig:
                                      # kernel; off is refused
     kv_quant: str = "auto"           # int8 pages with per-(page, kv_head)
                                      # scales; auto = on for the paged layout
-    prefix_cache: str = "auto"
+    prefix_cache: str = "auto"      # radix prefix cache + chunked prefill;
+                                     # auto = on for the paged layout
+    prefix_min_tokens: int = 32      # shortest prefix match worth sharing
+    prefill_chunk_tokens: int = 256  # prefill positions per chunk (per
+                                     # tick); 0 = one chunk per prompt
     host_kv_bytes: int = 0
     speculative: str = "auto"
     queue_depth: int = 32

@@ -49,6 +49,8 @@ def build_engine(generation: GenerationConfig, device: DeviceLike = None,
         paged_kernel=generation.paged_kernel,
         kv_quant=generation.kv_quant,
         prefix_cache=generation.prefix_cache,
+        prefix_min_tokens=generation.prefix_min_tokens,
+        prefill_chunk_tokens=generation.prefill_chunk_tokens,
         speculative=generation.speculative,
         host_kv_bytes=generation.host_kv_bytes,
         queue_depth=generation.queue_depth,

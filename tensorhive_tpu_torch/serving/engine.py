@@ -1,33 +1,43 @@
 """Slot-based continuous-batching engine — the PyTorch counterpart of
-``tensorhive_tpu/serving/engine.py`` for the paged, whole-prompt-prefill,
-single-device engine.
+``tensorhive_tpu/serving/engine.py`` for the single-device engine, paged
+or contiguous.
 
 Many generation requests share ONE running decode batch: a fixed pool of
-slots over one persistent paged KV cache. A request joins by prefilling its
-prompt head into pages granted from the ``PagePool`` and leaves by having
-its pages released on EOS/max-tokens; every scheduler tick admits waiting
-requests, then advances the whole batch one token. The host logic
-(admission, validation, join/leave, cancel, drain) follows the JAX engine
-method for method; the device side is eager PyTorch:
+slots over one persistent KV cache. Every scheduler tick admits waiting
+requests, advances each prefill in progress by one chunk, then advances
+the whole batch one token. The host logic (admission, validation,
+join/leave, cancel, drain) follows the JAX engine method for method; the
+device side is eager PyTorch:
 
-* The cache ``[layers, 1 + num_pages, page_size, kv_heads, d_head]``
-  (int8 payload + f32 scales under ``kv_quant``) is allocated once and
-  written IN PLACE — the JAX engine donates it through each executable to
-  the same end.
-* Prefill runs the trunk over the bucketed prompt head with the CUDA
-  flash-forward kernel; the decode step attends through the page table
-  with the CUDA paged-attention kernel. CPU tensors run each kernel's
+* The cache is allocated once and written IN PLACE (the JAX engine donates
+  it through each executable to the same end): paged ``[layers, 1 +
+  num_pages, page_size, kv_heads, d_head]`` (int8 payload + f32 scales
+  under ``kv_quant``), or contiguous ``[layers, slots, max_len, kv_heads,
+  d_head]`` under ``paged=False``.
+* **Prefix cache + chunked prefill** (``prefix_cache`` auto = on for the
+  paged layout, as in JAX). A radix tree (``prefix_cache.py``) maps shared
+  prompt prefixes to page runs: admission grants the matched pages shared
+  and charges only the suffix, and every prefill — misses included — runs
+  through :func:`_paged_chunk_prefill_body`, one chunk of
+  ``prefill_chunk_tokens`` per tick, so a long join never stalls the
+  running batch. The chunk attends the slot's gathered page run in plain
+  f32 (:func:`_chunk_attend`; the JAX package leaves it to XLA).
+* ``prefix_cache="off"`` prefills each prompt whole inside the join, with
+  the CUDA flash-forward kernel; the contiguous layout does the same into
+  the slot's row. The paged decode step attends through the page table
+  with the CUDA paged-attention kernel; the contiguous step runs the plain
+  masked decode attention (XLA code in JAX). CPU tensors run each kernel's
   plain version.
-* Parked slots keep stepping, masked: their position is 0 and their
-  page-table row points at the trash page, so their garbage writes land
-  where no live sequence reads.
+* Parked slots keep stepping, masked: a freed paged slot's position is 0
+  and its page-table row points at the trash page; a slot mid-prefill has
+  its row sent to the trash page in the step's operand; a freed
+  contiguous slot writes its own row at its frozen position.
 
-Not ported yet, and refused with "not yet ported" where a knob would ask
-for them: the prefix cache and chunked prefill, the contiguous layout,
-the speculative lane, host KV tiering and the serving mesh. ``auto``
-resolves ``prefix_cache`` and ``speculative`` to ``off``. Deadlines,
-Retry-After estimation, the request ledger, tracer, tenant meter, flight
-recorder and metrics also wait for later work.
+Not ported yet, and refused with "not yet ported" where a knob asks for
+them: the speculative lane (``auto`` resolves ``speculative`` to off),
+host KV tiering and the serving mesh. Deadlines, Retry-After estimation,
+the request ledger, tracer, tenant meter, flight recorder and metrics also
+wait for later work.
 """
 from __future__ import annotations
 
@@ -57,10 +67,15 @@ from ..models.transformer import (
     _rmsnorm,
 )
 from ..ops import kv_quant as kvq
-from ..ops.flash_attention import flash_attention
-from ..ops.paged_attention import paged_attention, resolve_paged_kernel
+from ..ops.flash_attention import NEG_INF, flash_attention
+from ..ops.paged_attention import (
+    decode_attention,
+    paged_attention,
+    resolve_paged_kernel,
+)
 from . import EngineDrainingError, QueueFullError, RateLimitError
-from .paging import PagePool
+from .paging import TRASH_PAGE, PagePool
+from .prefix_cache import PrefixCache
 
 
 def _not_yet_ported(knob: str, value) -> ValueError:
@@ -89,6 +104,34 @@ def _choose_next(params: Params, x: torch.Tensor, tokens: torch.Tensor,
                                             logits.device), dim=-1)
     chosen = torch.where(temps > 0.0, sampled.to(torch.int32), greedy)
     return torch.where(active, chosen, tokens)
+
+
+def _step_body(params: Params, tokens: torch.Tensor,
+               positions: torch.Tensor, active: torch.Tensor,
+               temps: torch.Tensor, cache: KVCache,
+               generator: torch.Generator, config: TransformerConfig,
+               top_k: Optional[int]) -> torch.Tensor:
+    """One decode step over the CONTIGUOUS cache for the whole slot batch:
+    each slot consumes the token AT its position, writes that position's
+    K/V into its own row ``(layer, slot, position)`` in place, attends its
+    row masked to ``key <= position`` (the plain masked decode attention,
+    positions broadcast per slot) and returns the token for position + 1."""
+    x = params["tok_embed"][tokens.long()][:, None, :]            # [S,1,D]
+    rope_positions = positions[:, None]                           # [S,1]
+    slot_ids = torch.arange(tokens.shape[0], device=tokens.device)
+    write_positions = positions.long()
+
+    def attend(q, k, v, layer):
+        cache.k[layer][slot_ids, write_positions] = k[:, 0].to(cache.k.dtype)
+        cache.v[layer][slot_ids, write_positions] = v[:, 0].to(cache.v.dtype)
+        return decode_attention(q, cache.k[layer], cache.v[layer],
+                                positions[:, None, None, None, None])
+
+    for layer_index, block in enumerate(params["blocks"]):
+        x = TransformerLM.block_forward(x, block, config, rope_positions,
+                                        attend, layer_index=layer_index)
+    return _choose_next(params, x, tokens, active, temps, generator, config,
+                        top_k)
 
 
 def _paged_step_body(params: Params, tokens: torch.Tensor,
@@ -173,6 +216,114 @@ def _paged_prefill_body(params: Params, head: torch.Tensor, cache,
                                         layer_index=layer_index)
 
 
+def _prefill_body(params: Params, head: torch.Tensor, cache: KVCache,
+                  slot: int, real_len: int,
+                  config: TransformerConfig) -> None:
+    """Prefill one joining sequence's prompt head into its CONTIGUOUS slot
+    row: ``head`` [1, W] is padded to a bucket, positions ``w < real_len``
+    write their K/V to ``(layer, slot, w)`` and padded positions write
+    zeros; the prompt attends itself through the flash-forward kernel."""
+    batch, width = head.shape
+    x = params["tok_embed"][head.long()]
+    positions = torch.arange(width, dtype=torch.int32,
+                             device=head.device).expand(batch, width)
+    valid = (torch.arange(width, device=head.device)
+             < real_len)[None, :, None, None]
+
+    def attend(q, k, v, layer):
+        cache.k[layer, slot, :width] = torch.where(valid, k, 0)[0].to(
+            cache.k.dtype)
+        cache.v[layer, slot, :width] = torch.where(valid, v, 0)[0].to(
+            cache.v.dtype)
+        return flash_attention(q, k, v, causal=True)
+
+    for layer_index, block in enumerate(params["blocks"]):
+        x = TransformerLM.block_forward(x, block, config, positions, attend,
+                                        layer_index=layer_index)
+
+
+def _chunk_attend(q: torch.Tensor, k_ctx: torch.Tensor, v_ctx: torch.Tensor,
+                  q_positions: torch.Tensor) -> torch.Tensor:
+    """Attention for a prefill chunk that need not start at position 0:
+    queries [1, W, H, Dh] against the slot's whole gathered page run
+    [K, Hkv, Dh] (cached prefix + earlier chunks + this chunk's own
+    writes, in logical order), masked to ``key_pos <= q_pos``. The JAX
+    function term for term: GQA expanded (head h uses KV head h //
+    group), f32 scores and probabilities, the same scale. Keys past a
+    query's position hold trash or unwritten cells; the mask sends them to
+    NEG_INF, the softmax underflows them to exactly 0.0, and 0.0 times a
+    finite value adds exact zeros."""
+    if k_ctx.shape[1] != q.shape[2]:
+        group = q.shape[2] // k_ctx.shape[1]
+        k_ctx = k_ctx.repeat_interleave(group, dim=1)
+        v_ctx = v_ctx.repeat_interleave(group, dim=1)
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqhd,khd->bhqk", q.to(torch.float32),
+                          k_ctx.to(torch.float32)) * scale
+    key_positions = torch.arange(k_ctx.shape[0], device=q.device)
+    mask = key_positions[None, None, None, :] <= q_positions[None, None, :,
+                                                             None]
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,khd->bqhd", probs, v_ctx.to(torch.float32))
+    return out.to(q.dtype)
+
+
+def _paged_chunk_prefill_body(params: Params, head: torch.Tensor, cache,
+                              page_table_row: torch.Tensor, start: int,
+                              real_len: int,
+                              config: TransformerConfig) -> None:
+    """Prefill ONE CHUNK of a joining prompt, starting mid-sequence — the
+    body of the prefix cache and of chunked prefill. ``head`` [1, W] holds
+    prompt positions ``start .. start + real_len - 1`` (W a bucket, the
+    tail zero-padded). Position ``start + w`` writes its K/V to
+    ``(page_table_row[(start + w) // ps], (start + w) % ps)``; padded
+    positions write nothing. Queries at ``start + w`` must see positions
+    ``0 .. start + w``, whose K/V live in the slot's pages (shared prefix
+    pages, earlier chunks): writes land first, then the whole row gathers
+    in logical order and :func:`_chunk_attend` applies the positional
+    mask. Under int8 pages the write goes through ``kvq.row_merge`` and the
+    chunk attends the DEQUANTIZED post-write context it returns — what any
+    later reader (a prefix-cache hit above all) dequantizes."""
+    batch, width = head.shape
+    x = params["tok_embed"][head.long()]
+    chunk_offsets = torch.arange(width, dtype=torch.int32, device=head.device)
+    global_positions = start + chunk_offsets                      # [W]
+    positions = global_positions.expand(batch, width)
+    page_size = cache.k.shape[2]
+    valid = chunk_offsets < real_len
+    window = page_table_row.shape[0] * page_size
+    safe_logical = torch.clamp(global_positions, 0, window - 1)
+    written = global_positions[:real_len].long()
+    row = page_table_row.long()
+    pages = row[written // page_size]
+    page_offsets = written % page_size
+    quant = isinstance(cache, QuantKVCache)
+
+    def attend(q, k, v, layer):
+        if quant:
+            _, _, ctx_k = kvq.row_merge(
+                cache.k[layer], cache.k_scale[layer], page_table_row[None],
+                k, safe_logical[None], valid[None], config.dtype)
+            _, _, ctx_v = kvq.row_merge(
+                cache.v[layer], cache.v_scale[layer], page_table_row[None],
+                v, safe_logical[None], valid[None], config.dtype)
+            return _chunk_attend(q, ctx_k[0], ctx_v[0], global_positions)
+        cache.k[layer][pages, page_offsets] = k[0, :real_len].to(
+            cache.k.dtype)
+        cache.v[layer][pages, page_offsets] = v[0, :real_len].to(
+            cache.v.dtype)
+        # gather AFTER the writes: within-chunk causality comes from the
+        # positional mask, as in the decode step's write-then-attend
+        ctx_k = cache.k[layer][row].reshape(window, *cache.k.shape[3:])
+        ctx_v = cache.v[layer][row].reshape(window, *cache.v.shape[3:])
+        return _chunk_attend(q, ctx_k, ctx_v, global_positions)
+
+    for layer_index, block in enumerate(params["blocks"]):
+        x = TransformerLM.block_forward(x, block, config, positions, attend,
+                                        layer_index=layer_index)
+
+
 # -- host side ----------------------------------------------------------------
 
 #: handle event kinds
@@ -248,12 +399,34 @@ class _Request:
     finished: bool = False
 
 
+@dataclasses.dataclass
+class _Slot:
+    request: _Request
+    joined_ts: float
+    #: tokens the prefix cache let this request skip (0 = full miss)
+    cached_tokens: int = 0
+    #: next prompt position to prefill; == prefill_target once armed
+    prefill_next: int = 0
+    #: last prompt position exclusive (prompt_len - 1; the final token
+    #: goes through the decode step, as everywhere)
+    prefill_target: int = 0
+    #: False while chunks are still being dispatched — the slot is held
+    #: out of the decode batch (active stays False) until armed
+    prefill_done: bool = True
+    prefill_chunks: int = 0
+    prefill_ms: float = 0.0
+    prefill_started_ts: float = 0.0
+
+
+
+
 class SlotEngine:
     """The continuous-batching scheduler + device state.
 
-    Host bookkeeping (queue, slot table, per-user counts) is guarded by one
-    lock; device work runs outside it, from the single thread that calls
-    ``step``/``pump``, so submitters never wait behind a decode step."""
+    Host bookkeeping (queue, slot table, per-user counts, the page pool and
+    the prefix cache) is guarded by one lock; device work runs outside it,
+    from the single thread that calls ``step``/``pump``, so submitters
+    never wait behind a decode step."""
 
     def __init__(
         self,
@@ -273,6 +446,8 @@ class SlotEngine:
         paged_kernel: str = "auto",
         kv_quant: str = "auto",
         prefix_cache: str = "auto",
+        prefix_min_tokens: int = 32,
+        prefill_chunk_tokens: int = 256,
         speculative: str = "auto",
         host_kv_bytes: int = 0,
         mesh=None,
@@ -282,13 +457,17 @@ class SlotEngine:
         if not config.causal:
             raise ValueError("serving needs an autoregressive model; this "
                              "config is a bidirectional encoder")
-        if not paged:
-            raise _not_yet_ported("paged", paged)
         if prefix_cache not in ("auto", "on", "off"):
             raise ValueError(
                 f"prefix_cache must be auto|on|off, got {prefix_cache!r}")
-        if prefix_cache == "on":
-            raise _not_yet_ported("prefix_cache", prefix_cache)
+        if not paged and prefix_cache == "on":
+            raise ValueError(
+                "prefix_cache=on needs the paged cache layout (pages are "
+                "the sharing unit); set paged=true or prefix_cache=auto/off")
+        if prefill_chunk_tokens < 0:
+            raise ValueError(
+                f"prefill_chunk_tokens must be >= 0, got "
+                f"{prefill_chunk_tokens}")
         if speculative not in ("auto", "on", "off"):
             raise ValueError(
                 f"speculative must be auto|on|off, got {speculative!r}")
@@ -308,8 +487,6 @@ class SlotEngine:
         if top_k is not None and not 0 < top_k <= config.vocab_size:
             raise ValueError(
                 f"top_k must be in (0, {config.vocab_size}], got {top_k}")
-        if page_size < 1:
-            raise ValueError(f"page_size must be >= 1, got {page_size}")
         if params["tok_embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['tok_embed'].device}, "
                              f"the engine on {self.device}")
@@ -322,51 +499,62 @@ class SlotEngine:
         self.eos_token = eos_token
         self.max_new_tokens_cap = int(max_new_tokens_cap)
         self.max_concurrent_per_user = int(max_concurrent_per_user)
-        self.paged = True
-        self.prefix_cache = "off"
+        self.paged = bool(paged)
         self.speculative = "off"
         self.kv_quant = kvq.resolve_kv_quant(kv_quant, self.paged)
         self._quant = self.kv_quant == "on"
-        self.paged_kernel = resolve_paged_kernel(paged_kernel)
         self._draining = False
 
         self._lock = threading.Lock()
         self._pending: Deque[_Request] = collections.deque()
-        #: the request each slot serves (None = free)
-        self._slots: List[Optional[_Request]] = [None] * self.capacity
+        #: each slot's request and prefill state (None = free)
+        self._slots: List[Optional[_Slot]] = [None] * self.capacity
         self._user_active: Dict[str, int] = {}
         self.completed_requests = 0
         self.emitted_tokens = 0
         self.steps = 0
-        #: device dispatches (warmup's included): each decode step launches
-        #: the paged-attention kernel once per layer, each prefill the
-        #: flash kernel once per layer
+        #: device dispatches (warmup's included): each paged decode step
+        #: launches the paged-attention kernel once per layer; each
+        #: whole-prompt prefill (``prefills``) the flash kernel once per
+        #: layer; a prefill chunk (``prefill_chunks``) launches neither
         self.step_dispatches = 0
         self.prefills = 0
+        self.prefill_chunks = 0
 
-        self.page_size = int(page_size)
-        max_pages_per_slot = -(-self.max_len // self.page_size)
-        itemsize = torch.empty((), dtype=config.dtype).element_size()
-        dtype_page = kvq.page_bytes(self.page_size, config.kv_heads,
-                                    config.d_head, itemsize)
-        quant_page = kvq.quant_page_bytes(self.page_size, config.kv_heads,
-                                          config.d_head)
-        #: bytes one page costs across all layers (payload + int8 scales)
-        self._page_bytes = config.n_layers * (quant_page if self._quant
-                                              else dtype_page)
-        if kv_pages:
-            num_pages = int(kv_pages)
+        if self.paged:
+            if page_size < 1:
+                raise ValueError(f"page_size must be >= 1, got {page_size}")
+            self.page_size = int(page_size)
+            self.paged_kernel = resolve_paged_kernel(paged_kernel)
+            max_pages_per_slot = -(-self.max_len // self.page_size)
+            itemsize = torch.empty((), dtype=config.dtype).element_size()
+            dtype_page = kvq.page_bytes(self.page_size, config.kv_heads,
+                                        config.d_head, itemsize)
+            quant_page = kvq.quant_page_bytes(self.page_size,
+                                              config.kv_heads, config.d_head)
+            #: bytes one page costs across all layers (payload + scales)
+            self._page_bytes = config.n_layers * (quant_page if self._quant
+                                                  else dtype_page)
+            if kv_pages:
+                num_pages = int(kv_pages)
+            else:
+                # 0 = the contiguous layout's bytes at this slot count;
+                # int8 pages fit that budget more times over
+                num_pages = self.capacity * max_pages_per_slot
+                if self._quant:
+                    num_pages = num_pages * dtype_page // quant_page
+            self._pool: Optional[PagePool] = PagePool(
+                num_pages=num_pages, page_size=self.page_size,
+                slots=self.capacity, max_pages_per_slot=max_pages_per_slot)
+            shape = (config.n_layers, self._pool.physical_pages,
+                     self.page_size, config.kv_heads, config.d_head)
         else:
-            # 0 = the contiguous layout's bytes at this slot count; int8
-            # pages fit that budget more times over
-            num_pages = self.capacity * max_pages_per_slot
-            if self._quant:
-                num_pages = num_pages * dtype_page // quant_page
-        self._pool = PagePool(num_pages=num_pages, page_size=self.page_size,
-                              slots=self.capacity,
-                              max_pages_per_slot=max_pages_per_slot)
-        shape = (config.n_layers, self._pool.physical_pages, self.page_size,
-                 config.kv_heads, config.d_head)
+            self.page_size = None
+            self.paged_kernel = None
+            self._page_bytes = None
+            self._pool = None
+            shape = (config.n_layers, self.capacity, self.max_len,
+                     config.kv_heads, config.d_head)
         if self._quant:
             scale_shape = (config.n_layers, shape[1], config.kv_heads)
             self._cache = QuantKVCache(
@@ -386,6 +574,22 @@ class SlotEngine:
         self._active = np.zeros(self.capacity, bool)
         self._temps = np.zeros(self.capacity, np.float32)
         self._generator = torch.Generator(device=self.device).manual_seed(0)
+
+        # radix prefix cache + chunked prefill: auto = on for the paged
+        # layout, off for the contiguous one (no pages, nothing to share).
+        # On, EVERY prefill (misses included, from position 0) runs through
+        # the chunked body; off keeps the whole-prompt prefill.
+        self.prefix_cache = ("on" if self.paged and prefix_cache != "off"
+                             else "off")
+        self.prefix_min_tokens = max(0, int(prefix_min_tokens))
+        #: per-chunk position budget; 0 = one chunk per prompt
+        self.prefill_chunk_tokens = int(prefill_chunk_tokens)
+        self._use_chunk_prefill = self.prefix_cache == "on"
+        self._prefix = (PrefixCache(self._pool,
+                                    min_tokens=self.prefix_min_tokens)
+                        if self._use_chunk_prefill else None)
+        self.prefix_hits = 0
+        self.prefix_misses = 0
 
     @property
     def kv_cache_bytes(self) -> int:
@@ -424,12 +628,13 @@ class SlotEngine:
                 f"engine sequence budget {self.max_len}")
         if temperature < 0.0:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
-        needed = self._pool.pages_for(len(prompt) + max_new_tokens)
-        if needed > self._pool.num_pages:
-            raise ValueError(
-                f"request needs {needed} KV pages but the pool only has "
-                f"{self._pool.num_pages}; shorten the prompt or "
-                "max_new_tokens")
+        if self.paged:
+            needed = self._pool.pages_for(len(prompt) + max_new_tokens)
+            if needed > self._pool.num_pages:
+                raise ValueError(
+                    f"request needs {needed} KV pages but the pool only "
+                    f"has {self._pool.num_pages}; shorten the prompt or "
+                    "max_new_tokens")
         request = _Request(prompt=prompt, max_new_tokens=int(max_new_tokens),
                            temperature=float(temperature),
                            user_key=str(user_key) if user_key else None,
@@ -478,13 +683,16 @@ class SlotEngine:
     def has_work(self) -> bool:
         with self._lock:
             return (bool(self._pending)
-                    or any(request is not None for request in self._slots))
+                    or any(slot is not None for slot in self._slots))
 
     def step(self) -> int:
-        """One scheduler iteration: admit joins (each prefills its prompt),
-        then advance the running batch one token. Returns the number of
-        active slots stepped."""
+        """One scheduler iteration: admit joins, advance every prefill in
+        progress by ONE chunk (``prefill_chunk_tokens`` bounds the prefill
+        work a tick inserts between two decode steps), then advance the
+        running batch one token. Returns the number of active slots
+        stepped."""
         self._admit()
+        self._advance_prefills()
         return self._decode_step()
 
     def pump(self, budget_s: Optional[float] = None,
@@ -503,38 +711,89 @@ class SlotEngine:
         return steps
 
     def warmup(self, prompt_lens: Sequence[int] = ()) -> None:
-        """Run the prefill for each bucket the given prompt lengths map to
-        (the smallest bucket when none are given) and one decode step, so
-        the first request pays no first-use cost (kernel build and load,
-        library initialisation). Every prefill write is dropped (real
-        length 0) and the step only writes the trash page."""
-        buckets = {_prefill_bucket(max(1, length - 1), self.max_len - 1)
-                   for length in prompt_lens} or {
-                       _prefill_bucket(1, self.max_len - 1)}
-        for width in sorted(buckets):
-            self._dispatch_prefill(np.zeros((1, width), np.int32), slot=0,
-                                   real_len=0)
+        """Run each prefill width the given prompt lengths map to and one
+        decode step, so the first request pays no first-use cost (kernel
+        build and load, library initialisation). Whole-prompt engines run
+        the bucket of each length (the smallest bucket when none are
+        given); chunked engines run each length's chunk widths plus the
+        floor bucket (cache-hit suffixes are usually short). Every prefill
+        write is dropped (real length 0) and the step only writes the
+        trash page (paged) or slot rows no request holds (contiguous)."""
+        if self._use_chunk_prefill:
+            widths = {_prefill_bucket(1, self.max_len - 1)}
+            for length in prompt_lens:
+                remaining = max(1, length - 1)
+                while remaining > 0:
+                    chunk = min(remaining,
+                                self.prefill_chunk_tokens or remaining)
+                    widths.add(_prefill_bucket(chunk, self.max_len - 1))
+                    remaining -= chunk
+            for width in sorted(widths):
+                self._dispatch_chunk_prefill(np.zeros((1, width), np.int32),
+                                             slot=0, start=0, real_len=0)
+        else:
+            buckets = {_prefill_bucket(max(1, length - 1), self.max_len - 1)
+                       for length in prompt_lens} or {
+                           _prefill_bucket(1, self.max_len - 1)}
+            for width in sorted(buckets):
+                self._dispatch_prefill(np.zeros((1, width), np.int32),
+                                       slot=0, real_len=0)
         self._run_step().cpu()
 
     # -- internals --------------------------------------------------------
     def _dispatch_prefill(self, head: np.ndarray, slot: int,
                           real_len: int) -> None:
+        """The whole-prompt prefill through whichever layout this engine
+        uses: the slot's page-table row (paged) or its cache row."""
         self.prefills += 1
-        _paged_prefill_body(self.params, self._operand(head), self._cache,
-                            self._operand(self._pool.page_table[slot]),
-                            int(real_len), self.config)
+        if self.paged:
+            _paged_prefill_body(self.params, self._operand(head),
+                                self._cache,
+                                self._operand(self._pool.page_table[slot]),
+                                int(real_len), self.config)
+        else:
+            _prefill_body(self.params, self._operand(head), self._cache,
+                          int(slot), int(real_len), self.config)
+
+    def _dispatch_chunk_prefill(self, head: np.ndarray, slot: int,
+                                start: int, real_len: int) -> None:
+        """One prefill chunk (positions ``start .. start + real_len - 1``)
+        through the slot's page-table row."""
+        self.prefill_chunks += 1
+        _paged_chunk_prefill_body(
+            self.params, self._operand(head), self._cache,
+            self._operand(self._pool.page_table[slot]), int(start),
+            int(real_len), self.config)
 
     def _run_step(self) -> torch.Tensor:
         self.step_dispatches += 1
+        if not self.paged:
+            return _step_body(
+                self.params, self._operand(self._tokens),
+                self._operand(self._positions), self._operand(self._active),
+                self._operand(self._temps), self._cache, self._generator,
+                self.config, self.top_k)
+        page_table = self._pool.page_table
+        if self._use_chunk_prefill:
+            # a mid-prefill slot's row already points at REAL pages (shared
+            # prefix pages above all), but the step writes K/V for every
+            # slot at its frozen position: route inactive rows to the trash
+            # page in the operand, so that write never lands on a page
+            # another sequence reads
+            page_table = page_table.copy()
+            page_table[~self._active] = TRASH_PAGE
         return _paged_step_body(
             self.params, self._operand(self._tokens),
             self._operand(self._positions), self._operand(self._active),
-            self._operand(self._temps), self._operand(self._pool.page_table),
+            self._operand(self._temps), self._operand(page_table),
             self._cache, self._generator, self.config, self.top_k)
 
     def _admit(self) -> int:
         """Move pending requests into free slots (head of line first; a
-        request waits while the pool cannot grant its pages)."""
+        request waits while the pool cannot grant its pages). With the
+        prefix cache, the matched prefix pages are granted shared and only
+        the suffix is charged; pool pressure first evicts LRU cache-only
+        pages."""
         joined = 0
         while True:
             with self._lock:
@@ -544,14 +803,35 @@ class SlotEngine:
                 if free is None or not self._pending:
                     return joined
                 request = self._pending[0]
-                needed = self._pool.pages_for(
-                    len(request.prompt) + request.max_new_tokens)
-                if not self._pool.assign(free, needed):
-                    # strict FIFO: smaller requests never overtake, so long
-                    # ones cannot starve (submit() rejected the impossible)
-                    return joined
+                cached_tokens = 0
+                if self.paged:
+                    needed = self._pool.pages_for(
+                        len(request.prompt) + request.max_new_tokens)
+                    if self._prefix is not None:
+                        cached_tokens, shared = self._prefix.match(
+                            request.prompt)
+                        fresh = needed - len(shared)
+                        shortfall = fresh - self._pool.free_pages
+                        if shortfall > 0:
+                            self._prefix.evict(shortfall)
+                        granted = self._pool.assign_shared(free, shared,
+                                                           fresh)
+                    else:
+                        granted = self._pool.assign(free, needed)
+                    if not granted:
+                        # strict FIFO: smaller requests never overtake, so
+                        # long ones cannot starve (submit() rejected the
+                        # impossible)
+                        return joined
+                    if self._prefix is not None:
+                        if cached_tokens > 0:
+                            self.prefix_hits += 1
+                        else:
+                            self.prefix_misses += 1
                 self._pending.popleft()
-                self._slots[free] = request
+                self._slots[free] = _Slot(request=request,
+                                          joined_ts=time.monotonic(),
+                                          cached_tokens=cached_tokens)
             self._join(free, request)
             joined += 1
 
@@ -565,11 +845,28 @@ class SlotEngine:
         self._pending = kept
 
     def _join(self, slot: int, request: _Request) -> None:
-        """Prefill the prompt head (all but the last token) into the slot's
-        pages and arm its per-slot state; the next decode step consumes the
-        last prompt token and emits the first generated one."""
+        """Prefill the prompt head (all but the last token) into the slot
+        and arm its per-slot state; the next decode step consumes the last
+        prompt token and emits the first generated one.
+
+        A prefix-cache engine SCHEDULES the prefill instead: the slot
+        starts parked (inactive, its row sent to the trash page in the step
+        operand) at the first uncached position, and
+        :meth:`_advance_prefills` — in this same tick — dispatches one
+        chunk per tick until the slot arms. A full-prefix hit arms at once,
+        with zero chunks."""
         prompt = request.prompt
         prompt_len = len(prompt)
+        if self._use_chunk_prefill:
+            state = self._slots[slot]
+            state.prefill_target = prompt_len - 1
+            state.prefill_next = min(state.cached_tokens,
+                                     state.prefill_target)
+            state.prefill_done = False
+            state.prefill_started_ts = time.monotonic()
+            if state.prefill_next >= state.prefill_target:
+                self._finish_prefill(slot, state)
+            return
         if prompt_len > 1:
             width = _prefill_bucket(prompt_len - 1, self.max_len - 1)
             head = np.zeros((1, width), np.int32)
@@ -580,7 +877,8 @@ class SlotEngine:
                 # a failed prefill must not wedge the slot: free it and
                 # requeue the request at the head before re-raising
                 with self._lock:
-                    if self._slots[slot] is request:
+                    if (self._slots[slot] is not None
+                            and self._slots[slot].request is request):
                         self._free_slot_locked(slot)
                     self._pending.appendleft(request)
                 raise
@@ -590,11 +888,78 @@ class SlotEngine:
             self._temps[slot] = request.temperature
             self._active[slot] = True
 
+    def _advance_prefills(self) -> int:
+        """Dispatch ONE prefill chunk for every slot still mid-prefill. A
+        cancel is honored here too, so a cancel mid-chunk frees the slot
+        (and its net-releasable pages) without arming it. Returns the
+        chunks dispatched."""
+        if not self._use_chunk_prefill:
+            return 0    # whole prompts are prefilled inside _join
+        with self._lock:
+            pending = [(index, slot) for index, slot in enumerate(self._slots)
+                       if slot is not None and not slot.prefill_done]
+        chunks = 0
+        for index, state in pending:
+            if state.request.cancelled:
+                with self._lock:
+                    if self._slots[index] is state:
+                        self._free_slot_locked(index)
+                        self._finish_locked(state.request,
+                                            outcome="cancelled")
+                continue
+            self._advance_prefill_slot(index, state)
+            chunks += 1
+        return chunks
+
+    def _advance_prefill_slot(self, index: int, state: _Slot) -> None:
+        """One chunk of ``state``'s prompt: positions ``prefill_next ..
+        prefill_next + chunk - 1``, width bucketed. The pages wholly covered
+        by dispatched chunks enter the radix tree right away: every later
+        reader is dispatched after this chunk, in stream order."""
+        request = state.request
+        prompt = request.prompt
+        start = state.prefill_next
+        remaining = state.prefill_target - start
+        length = min(remaining, self.prefill_chunk_tokens or remaining)
+        width = _prefill_bucket(length, self.max_len - 1)
+        head = np.zeros((1, width), np.int32)
+        head[0, :length] = prompt[start:start + length]
+        started = time.monotonic()
+        self._dispatch_chunk_prefill(head, index, start, length)
+        state.prefill_ms += (time.monotonic() - started) * 1e3
+        state.prefill_chunks += 1
+        state.prefill_next = start + length
+        with self._lock:
+            if self._slots[index] is state:
+                self._prefix.insert(prompt, self._pool.page_table[index],
+                                    state.prefill_next)
+        if state.prefill_next >= state.prefill_target:
+            self._finish_prefill(index, state)
+
+    def _finish_prefill(self, index: int, state: _Slot) -> None:
+        """Arm a slot whose prefill (possibly zero chunks — a full-prefix
+        hit) is dispatched: the next decode step emits its first token."""
+        request = state.request
+        with self._lock:
+            if self._slots[index] is not state:
+                return                       # cancelled and freed meanwhile
+            if request.cancelled:
+                self._free_slot_locked(index)
+                self._finish_locked(request, outcome="cancelled")
+                return
+            state.prefill_done = True
+            self._tokens[index] = request.prompt[-1]
+            self._positions[index] = state.prefill_target
+            self._temps[index] = request.temperature
+            self._active[index] = True
+
     def _decode_step(self) -> int:
         with self._lock:
-            stepped = [(index, request)
-                       for index, request in enumerate(self._slots)
-                       if request is not None and bool(self._active[index])]
+            # slots still chunk-prefilling are parked (active False): they
+            # join the batch only once armed
+            stepped = [(index, slot.request)
+                       for index, slot in enumerate(self._slots)
+                       if slot is not None and bool(self._active[index])]
         if not stepped:
             return 0
         emitted = self._run_step().cpu().numpy()
@@ -602,7 +967,8 @@ class SlotEngine:
         with self._lock:
             self.steps += 1
             for index, request in stepped:
-                if self._slots[index] is not request:
+                if (self._slots[index] is None
+                        or self._slots[index].request is not request):
                     continue        # freed between snapshot and apply
                 token = int(emitted[index])
                 self._tokens[index] = token
@@ -629,13 +995,18 @@ class SlotEngine:
             self._finish_locked(request, outcome="completed")
 
     def _free_slot_locked(self, index: int) -> None:
-        """Release the slot's pages NOW (they may be reassigned on the next
-        admission): the row points back at the trash page and the position
-        resets to 0, so the parked slot's writes land at (trash, 0)."""
+        """Free the slot. Paged: release its grant NOW through the
+        refcounted pool (pages still shared with other slots or held by the
+        prefix cache survive; the rest may be reassigned on the next
+        admission), so the row points back at the trash page and the
+        position resets to 0 — the parked slot's writes land at (trash,
+        0). Contiguous: the position stays frozen, so the parked slot's
+        writes keep landing on one consumed cell of its own row."""
         self._slots[index] = None
         self._active[index] = False
-        self._pool.release(index)
-        self._positions[index] = 0
+        if self.paged:
+            self._pool.release(index)
+            self._positions[index] = 0
 
     def _finish_locked(self, request: _Request, outcome: str) -> None:
         """Terminal bookkeeping, exactly once per request."""
@@ -664,11 +1035,20 @@ class SlotEngine:
 
     # -- introspection ----------------------------------------------------
     def _busy_locked(self) -> int:
-        return sum(1 for request in self._slots if request is not None)
+        return sum(1 for slot in self._slots if slot is not None)
 
     def stats(self) -> Dict:
-        """Engine snapshot (a subset of the JAX engine's ``stats``)."""
+        """Engine snapshot: a subset of the JAX engine's ``stats``, under
+        the same key names. Not here yet: the mesh keys (``meshShape``,
+        ``numDevices``), the host tier's (``hostKvBytes``,
+        ``hostPagesResident``, ``hostBytesUsed``, ``hostHitRate``), the
+        speculative counters (``specTokens``, ``specProposed``,
+        ``specAccepted``, ``specAcceptanceRate``), ``busySlotSeconds`` and
+        the latency quantiles (``ttftP50Ms``, ``ttftP95Ms``,
+        ``intertokenP50Ms``, ``intertokenP95Ms``). ``device``,
+        ``stepDispatches`` and ``prefills`` are the port's own."""
         with self._lock:
+            lookups = self.prefix_hits + self.prefix_misses
             return {
                 "slots": self.capacity,
                 "slotsBusy": self._busy_locked(),
@@ -680,12 +1060,23 @@ class SlotEngine:
                 "paged": self.paged,
                 "pageSize": self.page_size,
                 "pagedKernel": self.paged_kernel,
-                "kvPagesTotal": self._pool.num_pages,
-                "kvPagesFree": self._pool.free_pages,
+                "kvPagesTotal": (self._pool.num_pages if self.paged
+                                 else None),
+                "kvPagesFree": (self._pool.free_pages if self.paged
+                                else None),
                 "kvQuant": self.kv_quant,
-                "kvBytesPerToken": round(self._page_bytes / self.page_size,
-                                         1),
+                "kvBytesPerToken": (
+                    round(self._page_bytes / self.page_size, 1)
+                    if self.paged else None),
                 "prefixCache": self.prefix_cache,
+                "prefixHits": self.prefix_hits,
+                "prefixMisses": self.prefix_misses,
+                "prefixHitRate": (round(self.prefix_hits / lookups, 4)
+                                  if lookups else None),
+                "cachedPages": (self._prefix.cached_pages
+                                if self._prefix is not None else None),
+                "prefillChunkTokens": (self.prefill_chunk_tokens
+                                       if self._use_chunk_prefill else None),
                 "speculative": self.speculative,
                 "requestsCompleted": self.completed_requests,
                 "tokensEmitted": self.emitted_tokens,

@@ -1,6 +1,7 @@
 """Block-paged KV cache bookkeeping, host side — a copy of the page
-allocator of ``tensorhive_tpu/serving/paging.py`` (``PagePool`` without the
-prefix-cache references and the host tier, which are not ported yet).
+allocator of ``tensorhive_tpu/serving/paging.py`` (``PagePool`` with its
+refcounts and prefix-cache references, and ``page_content_key``; the host
+tier's ``HostPageStore``/``HostCopyLane`` are not ported yet).
 
 The cache is a pool of fixed-size pages of ``page_size`` token positions; a
 slot owns only the pages its request needs, handed out from a host-side
@@ -8,13 +9,19 @@ free list at admission and recycled when the slot leaves. The free list
 pops in the same order as the JAX pool's, so the two engines assign the
 same physical page ids to the same schedule.
 
+Pages are refcounted: the prefix cache (``prefix_cache.py``) maps shared
+prompt prefixes to physical page runs, so one page can back many slots at
+once. Each slot's grant and each radix-tree node holds one reference, and a
+page returns to the free list only when the last reference drops. With no
+sharing every refcount is 1 and the pool behaves as a plain allocator.
+
 Physical page 0 is the **trash page**: never handed out; a freed slot's
 page-table row resets to it, so a parked slot's garbage writes land where
 no live sequence reads.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -23,13 +30,17 @@ TRASH_PAGE = 0
 
 
 class PagePool:
-    """Fixed-size page allocator + per-slot page tables.
+    """Fixed-size page allocator + per-slot page tables + refcounts.
 
     ``num_pages`` usable pages (physical ``1..num_pages``; 0 is the trash
     page). ``page_table`` is the ``[slots, max_pages_per_slot]`` int32
     array the paged step/prefill consume: row ``s``, entry ``j`` is the
     physical page holding slot ``s``'s logical positions ``j*page_size ..
-    (j+1)*page_size-1``; unassigned entries point at the trash page."""
+    (j+1)*page_size-1``; unassigned entries point at the trash page.
+
+    A page is FREE (refcount 0, on the free list) or LIVE (refcount = slot
+    grants + at most one prefix-cache reference). ``free_pages +
+    live_pages == num_pages`` after every operation."""
 
     def __init__(self, num_pages: int, page_size: int, slots: int,
                  max_pages_per_slot: int) -> None:
@@ -50,6 +61,8 @@ class PagePool:
         # physical pages are 1 .. num_pages
         self._free: List[int] = list(range(self.num_pages, 0, -1))
         self._owned: List[List[int]] = [[] for _ in range(self.slots)]
+        #: per physical page: slot grants + prefix-cache references
+        self._refcounts = np.zeros(1 + self.num_pages, np.int32)
         self.page_table = np.full((self.slots, self.max_pages_per_slot),
                                   TRASH_PAGE, np.int32)
 
@@ -72,6 +85,46 @@ class PagePool:
     def used_pages(self) -> int:
         return self.num_pages - len(self._free)
 
+    @property
+    def live_pages(self) -> int:
+        """Pages with at least one reference (slot grant or prefix-cache
+        retention) — the complement of the free list."""
+        return int((self._refcounts > 0).sum())
+
+    def refcount(self, page: int) -> int:
+        return int(self._refcounts[page])
+
+    def owned_count(self, slot: int) -> int:
+        return len(self._owned[slot])
+
+    def owned_pages(self, slot: int) -> List[int]:
+        """The slot's granted pages in logical order (a copy)."""
+        return list(self._owned[slot])
+
+    def slot_ref_counts(self) -> Dict[int, int]:
+        """page -> number of slots holding a grant on it. A live page
+        absent from this map is held only by the prefix cache."""
+        counts: Dict[int, int] = {}
+        for owned in self._owned:
+            for page in owned:
+                counts[page] = counts.get(page, 0) + 1
+        return counts
+
+    def cached_only_pages(self) -> int:
+        """Live pages held ONLY by the prefix cache (no slot grant) — the
+        evictable headroom admission can reclaim under pressure."""
+        slot_held = set()
+        for owned in self._owned:
+            slot_held.update(owned)
+        return int(sum(1 for page in range(1, self.physical_pages)
+                       if self._refcounts[page] > 0
+                       and page not in slot_held))
+
+    def saturation(self) -> float:
+        """Fraction of the pool in use (1.0 = exhausted)."""
+        return self.used_pages / self.num_pages
+
+    # -- allocation --------------------------------------------------------
     def assign(self, slot: int, pages: int) -> bool:
         """Move ``pages`` fresh pages from the free list to ``slot`` and fill
         its page-table row. Returns False (taking nothing) when the pool
@@ -81,22 +134,85 @@ class PagePool:
             raise ValueError(
                 f"pages must be in [1, {self.max_pages_per_slot}], "
                 f"got {pages}")
+        return self.assign_shared(slot, (), pages)
+
+    def assign_shared(self, slot: int, shared: Sequence[int],
+                      fresh: int) -> bool:
+        """Grant ``slot`` a run of already-live ``shared`` pages (a prefix-
+        cache hit: each gains one reference and is read-only to this slot)
+        followed by ``fresh`` pages popped from the free list (the private
+        suffix). Returns False taking nothing when the free list cannot
+        cover ``fresh``; raises on an occupied slot, an oversize grant or
+        sharing a page nobody holds."""
+        total = len(shared) + fresh
+        if not 0 < total <= self.max_pages_per_slot:
+            raise ValueError(
+                f"total pages must be in [1, {self.max_pages_per_slot}], "
+                f"got {total}")
         if self._owned[slot]:
             raise ValueError(
                 f"slot {slot} already owns {len(self._owned[slot])} pages; "
                 "release before reassigning")
-        if pages > len(self._free):
+        for page in shared:
+            if not 1 <= page < self.physical_pages:
+                raise ValueError(f"shared page {page} is not a usable page")
+            if self._refcounts[page] < 1:
+                raise ValueError(
+                    f"shared page {page} has no live reference — sharing a "
+                    "free page would read recycled garbage")
+        if fresh > len(self._free):
             return False
-        granted = [self._free.pop() for _ in range(pages)]
-        self._owned[slot] = granted
-        self.page_table[slot, :pages] = granted
+        granted = [self._free.pop() for _ in range(fresh)]
+        for page in shared:
+            self._refcounts[page] += 1
+        for page in granted:
+            self._refcounts[page] = 1
+        row = list(shared) + granted
+        self._owned[slot] = row
+        self.page_table[slot, :len(row)] = row
         return True
 
     def release(self, slot: int) -> int:
-        """Return ``slot``'s pages to the free list and point its whole row
-        back at the trash page; idempotent. Returns the pages freed."""
+        """Drop ``slot``'s reference on each granted page, returning pages
+        whose refcount reaches 0 to the free list, and point the whole row
+        back at the trash page; idempotent. Returns the NET number of pages
+        freed (shared pages survive their sharers)."""
         granted = self._owned[slot]
         self._owned[slot] = []
-        self._free.extend(reversed(granted))
+        freed = 0
+        for page in reversed(granted):
+            self._refcounts[page] -= 1
+            if self._refcounts[page] == 0:
+                self._free.append(page)
+                freed += 1
         self.page_table[slot, :] = TRASH_PAGE
-        return len(granted)
+        return freed
+
+    # -- prefix-cache references -------------------------------------------
+    def cache_ref(self, page: int) -> None:
+        """Add the prefix cache's retention reference to a LIVE page."""
+        if self._refcounts[page] < 1:
+            raise ValueError(
+                f"page {page} is free — the prefix cache can only retain "
+                "pages a slot currently holds")
+        self._refcounts[page] += 1
+
+    def cache_unref(self, page: int) -> bool:
+        """Drop the prefix cache's reference (eviction); True when that
+        freed the page back to the pool."""
+        if self._refcounts[page] < 1:
+            raise ValueError(f"page {page} has no reference to drop")
+        self._refcounts[page] -= 1
+        if self._refcounts[page] == 0:
+            self._free.append(page)
+            return True
+        return False
+
+
+def page_content_key(prompt: Sequence[int], page_index: int,
+                     page_size: int) -> bytes:
+    """Content key of logical page ``page_index`` of ``prompt``: the WHOLE
+    token prefix through the page's last position, serialized (K/V at a
+    position depends on every earlier token)."""
+    end = (page_index + 1) * page_size
+    return np.asarray(prompt[:end], np.int32).tobytes()

@@ -1,7 +1,7 @@
 """Package rules of the port: it imports neither JAX nor anything of the
 JAX package, its entry points refuse to run without CUDA unless the CPU
-is asked for by name, and serving knobs it cannot serve yet are refused
-with "not yet ported"."""
+is asked for by name, serving knobs it cannot serve yet are refused with
+"not yet ported", and ``auto`` knobs resolve as in JAX."""
 import ast
 import dataclasses
 import subprocess
@@ -89,8 +89,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("prefix_cache", "on"), ("speculative", "on"), ("host_kv_bytes", 1 << 20),
-    ("mesh_dp", 2), ("mesh_tp", 2), ("paged", False)])
+    ("speculative", "on"), ("host_kv_bytes", 1 << 20), ("mesh_dp", 2),
+    ("mesh_tp", 2)])
 def test_unported_knobs_are_refused(knob, value):
     generation = GenerationConfig(preset="tiny", max_len=64, **{knob: value})
     with pytest.raises(ValueError, match="not yet ported") as info:
@@ -99,8 +99,17 @@ def test_unported_knobs_are_refused(knob, value):
 
 
 def test_auto_knobs_resolve_off():
-    engine = SlotEngine(TransformerLM.init(TINY, device="cpu"), TINY, slots=2,
-                        max_len=64, device="cpu")
-    stats = engine.stats()
-    assert stats["prefixCache"] == "off" and stats["speculative"] == "off"
+    """``auto`` resolves as in JAX: the prefix cache on for the paged layout
+    and off for the contiguous one (int8 pages likewise), and the
+    speculative lane — not ported yet — off."""
+    params = TransformerLM.init(TINY, device="cpu")
+    stats = SlotEngine(params, TINY, slots=2, max_len=64,
+                       device="cpu").stats()
+    assert stats["prefixCache"] == "on" and stats["speculative"] == "off"
     assert stats["kvQuant"] == "on" and stats["pagedKernel"] == "cuda"
+    assert stats["prefillChunkTokens"] == 256 and stats["cachedPages"] == 0
+    stats = SlotEngine(params, TINY, slots=2, max_len=64, paged=False,
+                       device="cpu").stats()
+    assert stats["prefixCache"] == "off" and stats["speculative"] == "off"
+    assert stats["kvQuant"] == "off" and stats["pagedKernel"] is None
+    assert stats["kvPagesTotal"] is None and stats["cachedPages"] is None

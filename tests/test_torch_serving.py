@@ -11,7 +11,9 @@ requests wrote must be identical. The f32 scales agree to a few ULP, not
 bitwise: a scale is amax(K/V) / 127, and the K/V entering the quantizer
 come from XLA's and PyTorch's CPU matmuls, which sum in different orders
 (the quantizer itself is byte-identical on equal inputs,
-test_torch_kv_quant.py). ``build_engine`` runs on the CPU too.
+test_torch_kv_quant.py). The contiguous layout (``paged=False``) runs the
+same schedule. ``build_engine`` runs on the CPU too. The prefix cache with
+chunked prefill has its own file, test_torch_prefix_cache.py.
 """
 import dataclasses
 
@@ -135,6 +137,37 @@ def test_port_engine_matches_jax_engine_with_eos(kv_quant, kv_heads):
         assert stats["kvPagesFree"] == stats["kvPagesTotal"]
 
 
+@pytest.mark.parametrize("kv_heads", [None, 2])
+def test_contiguous_port_engine_matches_jax_engine(kv_heads):
+    """The contiguous layout (``paged=False``: one cache row per slot, no
+    pool, no prefix cache, f32 K/V): the same schedule gives identical
+    greedy tokens and outcomes, and every cache row within 1e-5 of the
+    largest K/V element. The JAX whole-prompt prefill runs its plain
+    reference attention, the port's the plain version of its flash
+    wrapper; the step is the masked decode attention on both sides."""
+    jax_config, config = configs(kv_heads)
+    jax_params = JaxLM.init(jax.random.PRNGKey(0), jax_config)
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jax_params),
+                             config, device="cpu")
+    engine_args = dict(slots=4, max_len=96, queue_depth=8, paged=False)
+    jax_engine = JaxSlotEngine(jax_params, jax_config, **engine_args)
+    engine = SlotEngine(params, config, device="cpu", **engine_args)
+    expected = run_schedule(jax_engine)
+    assert run_schedule(engine) == expected
+    assert [outcome for outcome, _ in expected] == [
+        "completed"] * 4 + ["cancelled", "completed"]
+    stats = engine.stats()
+    assert (stats["paged"], stats["kvQuant"], stats["prefixCache"]) == (
+        False, "off", "off")
+    assert stats["kvPagesTotal"] is None and stats["pageSize"] is None
+    # the cancelled request leaves from the queue; [5] needs no prefill
+    assert engine.prefill_chunks == 0 and engine.prefills == 4
+    for ours, theirs in zip(engine._cache, jax_engine._cache):
+        ours, theirs = ours.numpy(), np.asarray(theirs)
+        assert ours.shape == theirs.shape == (2, 4, 96, config.kv_heads, 16)
+        assert np.abs(ours - theirs).max() <= 1e-5 * np.abs(theirs).max()
+
+
 @pytest.mark.parametrize("paged_kernel", ["on", "off"])
 def test_build_engine_serves_on_cpu(paged_kernel):
     generation = GenerationConfig(preset="tiny", max_len=64, slots=2,
@@ -151,8 +184,11 @@ def test_build_engine_serves_on_cpu(paged_kernel):
     assert flash_module.launches == before
     assert engine.stats()["pagedKernel"] == "cuda"
     assert engine.stats()["kvQuant"] == "on"
-    # warmup: the buckets of (16, max_len // 2) and one step
-    assert engine.prefills == 2 and engine.step_dispatches == 1
+    # warmup: the chunk widths of (16, max_len // 2) — the default engine
+    # prefills through the chunked body — and one step
+    assert engine.stats()["prefixCache"] == "on"
+    assert (engine.prefills, engine.prefill_chunks) == (0, 2)
+    assert engine.step_dispatches == 1
     handles = [engine.submit([1, 2, 3], max_new_tokens=4),
                engine.submit([7], max_new_tokens=3, temperature=0.8)]
     engine.pump()
