@@ -79,9 +79,23 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
               layout (bf16 rows): flash launches = layers x prefills, no
               paged launch. Then 3,000 positions of K/V written in chunks
               of 256 against the whole-prompt prefill (2-layer 7b widths,
-              f32): every row within 1e-5. torch.profiler windows over
-              three decode steps (device busy share) and three ticks that
-              each run a chunk and a decode step close the phase.
+              f32): every row within 1e-5. Every run so far pins
+              speculative="off". Then the speculative lane (spec_tokens
+              4): f32 weights and pages with the 16-layer self-draft and
+              with an independent 1b draft, each token-identical to the
+              spec-off f32 run (on a mismatch the first divergence and the
+              target's top-2 logit gap there are printed first); bf16
+              pages with the self-draft (agreement informational); the
+              default engine, speculative="auto" -> on, on the shared-
+              system-prompt traffic with the same hit, miss and chunk
+              checks; flash launches = (layers + draft layers) x
+              prefills, paged = draft layers x 3 draft steps x draft
+              dispatches; then the
+              spec-off f32 and default engines again, so spec-on and
+              spec-off are timed in turns. torch.profiler windows over
+              three decode steps (device busy share), three ticks that
+              each run a chunk and a decode step, and three speculative
+              ticks of the default engine close the phase.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``; any failure exits non-zero without
@@ -1523,6 +1537,60 @@ def phase_families():
 
 # -- phase 7 ------------------------------------------------------------------
 
+def release_device_memory():
+    """Collect the reference cycles that keep a dropped engine's tensors
+    alive (request <-> handle -> engine, engine <-> draft lane), then
+    return the cached blocks: the serving runs hold 30-45 GB each."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def launch_expectation(engine):
+    """(flash, paged) launches the engine's counters must show, with the
+    product each is: every whole-prompt prefill launches the flash forward
+    once per layer of the target and of the draft lane (whose mirror runs
+    each prefill); a plain paged step launches paged decode once per layer;
+    a speculative tick launches it only in the draft's k - 1 single-token
+    steps, once per draft layer (the catch-up and verify windows attend in
+    plain PyTorch); the contiguous layout's attention is plain PyTorch."""
+    layers = engine.config.n_layers
+    lane = engine._spec
+    draft_layers = lane.draft_config.n_layers if lane is not None else 0
+    flash = ((layers + draft_layers) * engine.prefills,
+             f"({layers} + {draft_layers}) x {engine.prefills} prefills")
+    if not engine.paged:
+        return flash, (0, "0 (contiguous layout)")
+    if lane is None:
+        return flash, (layers * engine.step_dispatches,
+                       f"{layers} x {engine.step_dispatches} step dispatches")
+    steps = engine.spec_tokens - 1
+    return flash, (draft_layers * steps * engine.draft_dispatches,
+                   f"{draft_layers} draft layers x {steps} draft steps x "
+                   f"{engine.draft_dispatches} draft dispatches")
+
+
+def lane_report(engine):
+    """The speculative lane's line of a run: acceptance, dispatches and the
+    draft KV bytes beside the target's."""
+    stats = engine.stats()
+    if engine._spec is None:
+        return "speculative off"
+    draft = engine._spec.draft_config
+    kind = "self" if engine._spec.shares_target else "own weights"
+    return (f"speculative on: draft {draft.n_layers} layers (d_model "
+            f"{draft.d_model}, {kind}), "
+            f"specTokens {stats['specTokens']}, specAcceptanceRate "
+            f"{stats['specAcceptanceRate']} ({stats['specAccepted']} of "
+            f"{stats['specProposed']}), {engine.draft_dispatches} draft + "
+            f"{engine.step_dispatches} verify dispatches; draft lane KV "
+            f"{engine._spec.kv_cache_bytes / 1e9:.2f} GB beside the "
+            f"target's {engine.kv_cache_bytes / 1e9:.2f} GB")
+
+
 def serve(engine_factory, label, prompts, new_tokens, expected_buckets):
     """Reset the launch counters, build the engine (warmup included), serve
     the prompts with staggered joins, and check the counters exactly."""
@@ -1557,7 +1625,6 @@ def serve(engine_factory, label, prompts, new_tokens, expected_buckets):
         decode_ms.append((time.perf_counter() - before) * 1e3)
     wall_s = time.perf_counter() - served
     summaries = [h.result(timeout_s=60) for h in handles]
-    layers = config.n_layers
     flash_launches = dict(fa.launches)
     paged_launches = dict(pa.launches)
     stats = engine.stats()
@@ -1578,44 +1645,45 @@ def serve(engine_factory, label, prompts, new_tokens, expected_buckets):
     require(engine.prefills == len(expected_buckets),
             f"{label}: {engine.prefills} prefills, expected "
             f"{len(expected_buckets)} (buckets {expected_buckets})")
-    require(flash_launches[flash_key] == layers * engine.prefills
+    (flash_expected, flash_what), (paged_expected, paged_what) = \
+        launch_expectation(engine)
+    require(flash_launches[flash_key] == flash_expected
             and sum(flash_launches.values()) == flash_launches[flash_key],
-            f"{label}: flash launches {flash_launches} != {layers} x "
-            f"{engine.prefills} prefills")
-    # the contiguous step attends its rows with the plain masked decode
-    # attention: no paged-decode launch
-    paged_steps = engine.step_dispatches if engine.paged else 0
-    require(paged_launches[paged_key] == layers * paged_steps
+            f"{label}: flash launches {flash_launches} != {flash_what}")
+    require(paged_launches[paged_key] == paged_expected
             and sum(paged_launches.values()) == paged_launches[paged_key],
-            f"{label}: paged launches {paged_launches} != {layers} x "
-            f"{paged_steps} paged step dispatches")
+            f"{label}: paged launches {paged_launches} != {paged_what}")
     require(engine.prefill_chunks == 0,
             f"{label}: {engine.prefill_chunks} chunked prefills")
     param_bytes = sum(t.numel() * t.element_size()
                       for t in tree_leaves(engine.params))
     tokens = sum(len(s["tokens"]) for s in summaries)
     steady = decode_ms[len(decode_ms) // 4:] or decode_ms
+    tick = "speculative tick" if engine._spec is not None else "decode step"
     log(f"serving {label}: build+warmup {build_s:.2f} s; "
         f"{len(prompts)} requests x {new_tokens} tokens in {wall_s:.3f} s = "
-        f"{tokens / wall_s:.1f} tokens/s; decode step "
+        f"{tokens / wall_s:.1f} tokens/s; {tick} "
         f"{sum(steady) / len(steady):.2f} ms (mean of the last "
-        f"{len(steady)} steps, 8 slots); weights {param_bytes / 1e9:.2f} GB "
-        f"+ KV cache {engine.kv_cache_bytes / 1e9:.2f} GB")
+        f"{len(steady)} of {len(decode_ms)} ticks after the joins, 8 slots); "
+        f"weights {param_bytes / 1e9:.2f} GB + KV cache "
+        f"{engine.kv_cache_bytes / 1e9:.2f} GB")
+    log(f"  {lane_report(engine)}")
     log(f"  TTFT s: " + ", ".join(
         f"{len(p)}->{s['ttftS']:.3f}" for p, s in zip(prompts, summaries)))
     log(f"  join ticks ms (whole-prompt prefill + decode step): " + ", ".join(
         f"{len(p)}->{ms:.1f}" for p, ms in zip(prompts, join_ms))
         + f"; longest {max(join_ms):.1f}")
-    log(f"  launches: flash {flash_launches} = {layers} x {engine.prefills} "
-        f"prefills; paged {paged_launches} = {layers} x {paged_steps} "
-        f"step dispatches")
+    log(f"  launches: flash {flash_launches} = {flash_what}; paged "
+        f"{paged_launches} = {paged_what}")
     result = {"tokens": [s["tokens"] for s in summaries],
               "step_ms": sum(steady) / len(steady),
+              "tokens_per_s": tokens / wall_s,
+              "acceptance": stats["specAcceptanceRate"],
               "longest_join_ms": max(join_ms),
               "flash": (flash_key, flash_launches[flash_key]),
               "paged": (paged_key, paged_launches[paged_key])}
-    del engine
-    torch.cuda.empty_cache()
+    del engine, handles
+    release_device_memory()
     return result
 
 
@@ -1691,6 +1759,9 @@ def phase_serving():
         f"{[len(p) for p in prompts]}, prefill buckets {buckets}")
 
     def generation(**knobs):
+        # every run that measures the plain step pins the lane off (auto
+        # turns it on for the card); the speculative section asks for it
+        knobs.setdefault("speculative", "off")
         return GenerationConfig(preset="7b", slots=8, max_len=max_len,
                                 paged_kernel="on", prefix_cache="off",
                                 **knobs)
@@ -1708,12 +1779,15 @@ def phase_serving():
     log(f"  greedy match rate int8 vs bf16 pages: "
         f"{sum(greedy) / len(greedy):.4f} (informational)")
 
-    def f32_engine():
-        config = dataclasses.replace(PRESETS["7b"], dtype=torch.float32)
-        engine = SlotEngine(TransformerLM.init(config, device="cuda"), config,
-                            slots=8, max_len=max_len, paged_kernel="on",
-                            kv_quant="off", prefix_cache="off",
-                            max_new_tokens_cap=128, device="cuda")
+    f32_config = dataclasses.replace(PRESETS["7b"], dtype=torch.float32)
+
+    def f32_engine(speculative="off", **knobs):
+        # the same seeded weights in every f32 run
+        engine = SlotEngine(TransformerLM.init(f32_config, device="cuda"),
+                            f32_config, slots=8, max_len=max_len,
+                            paged_kernel="on", kv_quant="off",
+                            prefix_cache="off", max_new_tokens_cap=128,
+                            speculative=speculative, device="cuda", **knobs)
         engine.warmup(prompt_lens=(16, max_len // 2))
         return engine
 
@@ -1721,7 +1795,7 @@ def phase_serving():
                         new_tokens, buckets)
 
     default = GenerationConfig(preset="7b", slots=8, max_len=max_len,
-                               paged_kernel="on")
+                               paged_kernel="on", speculative="off")
     runs["prefix"] = shared_prompt_run(
         default, "default engine (int8 pages), shared system prompt",
         runs["int8"]["longest_join_ms"])
@@ -1740,6 +1814,8 @@ def phase_serving():
     log(f"  greedy match rate contiguous vs bf16 pages: "
         f"{sum(greedy) / len(greedy):.4f} (informational)")
     chunked_vs_whole_prefill()
+    speculative_runs(runs, prompts, new_tokens, buckets, generation,
+                     f32_engine, f32_config, default)
 
     # where a tick's device time goes, traced after the timed runs (the
     # profiler slows every later step of the process)
@@ -1753,10 +1829,150 @@ def phase_serving():
         f"untraced)")
     engine.pump()
     del engine
-    torch.cuda.empty_cache()
+    release_device_memory()
     engine = build_engine(default)
     profile_chunk_ticks(engine)
+    del engine
+    release_device_memory()
+    profile_spec_ticks(dataclasses.replace(default, speculative="auto"),
+                       prompts)
     return runs
+
+
+def first_divergence(reference, tokens, prompts, params_factory, config):
+    """Print where two runs' greedy tokens first part, and the plain f32
+    target's top-2 logit gap there (a full forward of the prompt and the
+    reference tokens before it): a gap near f32 rounding says a near-tie
+    flipped between the window attention and the kernel; a wide one says
+    the lane is wrong."""
+    import torch
+
+    from tensorhive_tpu_torch.models.transformer import TransformerLM
+
+    for index, (ref, got) in enumerate(zip(reference, tokens)):
+        position = next((j for j, (a, b) in enumerate(zip(ref, got))
+                         if a != b), None)
+        if position is None:
+            continue
+        params = params_factory()
+        sequence = torch.tensor([prompts[index] + ref[:position]],
+                                dtype=torch.int32, device="cuda")
+        with torch.no_grad():
+            logits = TransformerLM.apply(params, sequence, config)[0, -1]
+        top = torch.topk(logits.float(), 2).values.tolist()
+        log(f"  first divergence: request {index} ({len(prompts[index])} "
+            f"tokens), generated position {position}: spec-off {ref[position]}"
+            f", spec-on {got[position]}; spec-off target's top-2 logit gap "
+            f"{top[0] - top[1]:.3e} (top logit {top[0]:.4f})")
+        del params
+        release_device_memory()
+        return
+
+
+def speculative_runs(runs, prompts, new_tokens, buckets, generation,
+                     f32_engine, f32_config, default):
+    """The speculative lane at the full 7b preset: f32 weights and pages
+    with the 16-layer self-draft and with an independent 1b draft, each
+    token-identical to the spec-off f32 run on the same seeded weights;
+    bf16 pages (agreement informational); the default engine (int8 pages,
+    prefix cache, ``speculative="auto"`` -> on) on the shared-system-prompt
+    traffic. Then the spec-off f32 and default engines again, so spec-on
+    and spec-off are timed in turns in this one process."""
+    import dataclasses
+
+    from tensorhive_tpu_torch.core.services.generation import build_engine
+    from tensorhive_tpu_torch.models.transformer import TransformerLM
+
+    def identical(key, label):
+        if runs[key]["tokens"] != runs["f32"]["tokens"]:
+            first_divergence(runs["f32"]["tokens"], runs[key]["tokens"],
+                             prompts,
+                             lambda: TransformerLM.init(f32_config,
+                                                        device="cuda"),
+                             f32_config)
+        require(runs[key]["tokens"] == runs["f32"]["tokens"],
+                f"{label}: greedy tokens differ from the spec-off f32 run's")
+        log(f"  greedy tokens identical to the spec-off f32 run's "
+            f"({sum(len(t) for t in runs[key]['tokens'])} tokens)")
+
+    log("speculative lane (spec_tokens 4):")
+    runs["spec_f32"] = serve(
+        lambda: f32_engine("on"), "f32 weights, f32 pages, speculative, "
+        "16-layer self-draft", prompts, new_tokens, buckets)
+    identical("spec_f32", "speculative f32 self-draft")
+    runs["spec_f32_1b"] = serve(
+        lambda: f32_engine("on", draft_preset="1b"), "f32 weights, f32 "
+        "pages, speculative, independent 1b draft", prompts, new_tokens,
+        buckets)
+    identical("spec_f32_1b", "speculative f32 with the 1b draft")
+    runs["spec_bf16"] = serve(
+        lambda: build_engine(generation(kv_quant="off", speculative="on")),
+        "bf16 weights, bf16 pages, speculative, 16-layer self-draft",
+        prompts, new_tokens, buckets)
+    greedy = [a == b for x, y in zip(runs["spec_bf16"]["tokens"],
+                                     runs["bf16"]["tokens"])
+              for a, b in zip(x, y)]
+    log(f"  greedy match rate spec-on vs spec-off bf16 pages: "
+        f"{sum(greedy) / len(greedy):.4f} (informational)")
+    auto = dataclasses.replace(default, speculative="auto")
+    runs["spec_default"] = shared_prompt_run(
+        auto, "default engine (int8 pages, prefix cache, speculative auto)",
+        runs["int8"]["longest_join_ms"])
+    require(runs["spec_default"]["speculative"] == "on",
+            "speculative='auto' did not turn the lane on for the card")
+    # in turns: the spec-off engines once more after the spec-on ones
+    runs["f32_again"] = serve(f32_engine, "f32 weights, f32 pages, again",
+                              prompts, new_tokens, buckets)
+    require(runs["f32_again"]["tokens"] == runs["f32"]["tokens"],
+            "the second spec-off f32 run's tokens differ from the first's")
+    runs["prefix_again"] = shared_prompt_run(
+        default, "default engine with speculative off, again",
+        runs["int8"]["longest_join_ms"])
+    log("speculative in turns (tokens/s, mean tick ms, acceptance): "
+        + "; ".join(
+            f"{key} {runs[key]['tokens_per_s']:.1f}, "
+            f"{runs[key]['step_ms']:.2f}, {runs[key]['acceptance']}"
+            for key in ("f32", "spec_f32", "spec_f32_1b", "f32_again",
+                        "bf16", "spec_bf16", "prefix", "spec_default",
+                        "prefix_again")))
+
+
+def profile_spec_ticks(generation, prompts, steps=3):
+    """The default engine with the lane on: the five prompts joined (128
+    new tokens each, so all stay busy), prefilled in chunks, then three
+    speculative ticks timed untraced and three traced; prints the device
+    time per tick by kind of kernel and the busy share."""
+    from tensorhive_tpu_torch.core.services.generation import build_engine
+
+    engine = build_engine(generation)
+    require(engine.speculative == "on", "profile: the lane is off")
+    for prompt in prompts:
+        engine.submit(prompt, max_new_tokens=128)
+        engine.step()
+    while any(slot is not None and not slot.prefill_done
+              for slot in engine._slots):
+        engine.step()
+    busy = engine.stats()["slotsBusy"]
+    untraced = []
+    for _ in range(steps):
+        before = time.perf_counter()
+        engine.step()
+        untraced.append((time.perf_counter() - before) * 1e3)
+    chunks = engine.prefill_chunks
+    tick_ms = sum(untraced) / len(untraced)
+    kinds, launched = profile_window(engine.step, steps)
+    require(engine.prefill_chunks == chunks,
+            "speculative profile: a chunk ran in the traced ticks")
+    total = sum(kinds.values())
+    require(total > 0, "speculative profile: the trace shows no device time")
+    log(f"  profile ({steps} speculative ticks, default engine, {busy} busy "
+        f"slots): {total:.2f} ms of kernels per tick (" + ", ".join(
+            f"{kind} {ms:.2f}" for kind, ms in kinds.items())
+        + f"); {launched:.0f} kernel launches per tick; untraced tick "
+        f"{tick_ms:.2f} ms (mean of {steps}), device busy "
+        f"{100 * total / tick_ms:.1f}%")
+    del engine                      # the unfinished requests go with it
+    release_device_memory()
 
 
 def expected_prefix(prompts, page_size, chunk_tokens, min_tokens):
@@ -1859,7 +2075,6 @@ def shared_prompt_run(generation, label, whole_prompt_longest_ms):
     wall_s = time.perf_counter() - served
     summaries = [h.result(timeout_s=60) for h in handles]
     stats = engine.stats()
-    layers = config.n_layers
     flash_launches, paged_launches = dict(fa.launches), dict(pa.launches)
     for (name, _), summary in zip(requests, summaries):
         require(summary["outcome"] == "completed"
@@ -1885,10 +2100,11 @@ def shared_prompt_run(generation, label, whole_prompt_longest_ms):
     require(engine.prefills == 0 and sum(flash_launches.values()) == 0,
             f"{label}: flash launches {flash_launches}, "
             f"{engine.prefills} whole-prompt prefills")
-    require(paged_launches[paged_key] == layers * engine.step_dispatches
+    # the draft lane mirrors each chunk without adding to prefill_chunks
+    paged_expected, paged_what = launch_expectation(engine)[1]
+    require(paged_launches[paged_key] == paged_expected
             and sum(paged_launches.values()) == paged_launches[paged_key],
-            f"{label}: paged launches {paged_launches} != {layers} x "
-            f"{engine.step_dispatches} step dispatches")
+            f"{label}: paged launches {paged_launches} != {paged_what}")
     require(stats["kvPagesFree"] + stats["cachedPages"]
             == stats["kvPagesTotal"] and stats["slotsBusy"] == 0,
             f"{label}: pages leaked: {stats['kvPagesFree']} free + "
@@ -1907,7 +2123,8 @@ def shared_prompt_run(generation, label, whole_prompt_longest_ms):
     log("  TTFT s: " + ", ".join(
         f"{name} {'hit' if cached else 'miss'} -> {s['ttftS']:.3f}"
         for (name, _), (cached, _), s in zip(requests, expected, summaries)))
-    log(f"  decode step {sum(steady) / len(steady):.2f} ms (mean of the last "
+    tick = "speculative tick" if engine._spec is not None else "decode step"
+    log(f"  {tick} {sum(steady) / len(steady):.2f} ms (mean of the last "
         f"{len(steady)} ticks without a chunk); longest tick with a chunk "
         f"{max(chunk_ticks):.1f} ms (mean {sum(chunk_ticks) / len(chunk_ticks):.1f}"
         f") against {whole_prompt_longest_ms:.1f} ms for the longest "
@@ -1920,12 +2137,17 @@ def shared_prompt_run(generation, label, whole_prompt_longest_ms):
         f"{count} -> mean {sum(v) / len(v):.1f}, max {max(v):.1f} "
         f"({len(v)} ticks)" for count, v in sorted(by_chunks.items())))
     log(f"  launches: flash {flash_launches}; paged {paged_launches} = "
-        f"{layers} x {engine.step_dispatches} step dispatches")
+        f"{paged_what}")
+    log(f"  {lane_report(engine)}")
     result = {"tokens": [s["tokens"] for s in summaries],
+              "speculative": engine.speculative,
+              "step_ms": sum(steady) / len(steady),
+              "tokens_per_s": tokens / wall_s,
+              "acceptance": stats["specAcceptanceRate"],
               "flash": ("bf16", flash_launches["bf16"]),
               "paged": (paged_key, paged_launches[paged_key])}
-    del engine
-    torch.cuda.empty_cache()
+    del engine, handles
+    release_device_memory()
     return result
 
 
@@ -2008,7 +2230,7 @@ def chunked_vs_whole_prefill(prompt_len=3000, chunk=256):
             f"chunked prefill K/V differ from the whole-prompt prefill's by "
             f"{max(worst.values()):.3e} > {ABS_TOL} of the row")
     del params, chunked, whole
-    torch.cuda.empty_cache()
+    release_device_memory()
     return worst
 
 

@@ -3,12 +3,12 @@ fields of ``tensorhive_tpu/config.py`` (``[generation_service]``) that the
 ported engine reads, with the JAX package's defaults.
 
 The prefix cache with chunked prefill (``prefix_cache``; ``auto`` = on
-for the paged layout) and the contiguous layout (``paged=False``) are
-served. Values the port cannot serve yet are accepted here and refused by
-``build_engine``/``SlotEngine`` with a "not yet ported" error: the
-speculative lane (``speculative="on"``; ``auto`` resolves to off), host KV
-tiering (``host_kv_bytes > 0``) and the serving mesh (``mesh_dp``/
-``mesh_tp`` > 1).
+for the paged layout), the contiguous layout (``paged=False``) and the
+speculative lane (``speculative``; ``auto`` = on where the engine runs on
+the card, off on the CPU) are served. Values the port cannot serve yet are
+accepted here and refused by ``build_engine``/``SlotEngine`` with a "not
+yet ported" error: host KV tiering (``host_kv_bytes > 0``) and the serving
+mesh (``mesh_dp``/``mesh_tp`` > 1).
 """
 from __future__ import annotations
 
@@ -36,7 +36,18 @@ class GenerationConfig:
     prefill_chunk_tokens: int = 256  # prefill positions per chunk (per
                                      # tick); 0 = one chunk per prompt
     host_kv_bytes: int = 0
-    speculative: str = "auto"
+    speculative: str = "auto"        # draft-model speculative decoding:
+                                     # auto = on where the engine runs on
+                                     # the card, off on the CPU. Greedy
+                                     # output is token-identical to the
+                                     # non-speculative engine's either way
+    draft_preset: str = ""           # draft model preset (must share the
+                                     # vocab); "" = self-draft from the
+                                     # target's first draft_layers layers
+    draft_layers: int = 0            # self-draft depth (0 = half the
+                                     # target's layers, min 1)
+    spec_tokens: int = 4             # draft tokens proposed + verified in
+                                     # one batched pass per tick
     queue_depth: int = 32
     max_new_tokens: int = 128        # per-request cap
     top_k: int = 0                   # 0 = no top-k sampling filter

@@ -52,6 +52,9 @@ def build_engine(generation: GenerationConfig, device: DeviceLike = None,
         prefix_min_tokens=generation.prefix_min_tokens,
         prefill_chunk_tokens=generation.prefill_chunk_tokens,
         speculative=generation.speculative,
+        draft_preset=generation.draft_preset,
+        draft_layers=generation.draft_layers,
+        spec_tokens=generation.spec_tokens,
         host_kv_bytes=generation.host_kv_bytes,
         queue_depth=generation.queue_depth,
         top_k=generation.top_k or None,

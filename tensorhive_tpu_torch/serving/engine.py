@@ -12,8 +12,9 @@ device side is eager PyTorch:
 * The cache is allocated once and written IN PLACE (the JAX engine donates
   it through each executable to the same end): paged ``[layers, 1 +
   num_pages, page_size, kv_heads, d_head]`` (int8 payload + f32 scales
-  under ``kv_quant``), or contiguous ``[layers, slots, max_len, kv_heads,
-  d_head]`` under ``paged=False``.
+  under ``kv_quant``; one page more with the speculative lane on, the page
+  that takes the writes JAX drops), or contiguous ``[layers, slots,
+  max_len, kv_heads, d_head]`` under ``paged=False``.
 * **Prefix cache + chunked prefill** (``prefix_cache`` auto = on for the
   paged layout, as in JAX). A radix tree (``prefix_cache.py``) maps shared
   prompt prefixes to page runs: admission grants the matched pages shared
@@ -32,12 +33,18 @@ device side is eager PyTorch:
   and its page-table row points at the trash page; a slot mid-prefill has
   its row sent to the trash page in the step's operand; a freed
   contiguous slot writes its own row at its frozen position.
+* **Speculative decoding** (``speculative``; ``auto`` = on where the
+  engine runs on the card, off on the CPU): a draft model
+  (``speculative.py``) proposes ``spec_tokens`` tokens per slot, one
+  batched target pass verifies them and the longest matching prefix is
+  accepted, so greedy output equals the plain step's. Every prefill is
+  mirrored into the draft lane; each tick is one propose and one verify
+  instead of the plain step.
 
 Not ported yet, and refused with "not yet ported" where a knob asks for
-them: the speculative lane (``auto`` resolves ``speculative`` to off),
-host KV tiering and the serving mesh. Deadlines, Retry-After estimation,
-the request ledger, tracer, tenant meter, flight recorder and metrics also
-wait for later work.
+them: host KV tiering and the serving mesh. Deadlines, Retry-After
+estimation, the request ledger, tracer, tenant meter, flight recorder and
+metrics also wait for later work.
 """
 from __future__ import annotations
 
@@ -76,6 +83,13 @@ from ..ops.paged_attention import (
 from . import EngineDrainingError, QueueFullError, RateLimitError
 from .paging import TRASH_PAGE, PagePool
 from .prefix_cache import PrefixCache
+from .speculative import (
+    SpeculativeLane,
+    _paged_spec_verify_body,
+    _spec_verify_body,
+    build_draft,
+    resolve_speculative,
+)
 
 
 def _not_yet_ported(knob: str, value) -> ValueError:
@@ -449,6 +463,9 @@ class SlotEngine:
         prefix_min_tokens: int = 32,
         prefill_chunk_tokens: int = 256,
         speculative: str = "auto",
+        draft_preset: str = "",
+        draft_layers: int = 0,
+        spec_tokens: int = 4,
         host_kv_bytes: int = 0,
         mesh=None,
         device: DeviceLike = None,
@@ -468,11 +485,8 @@ class SlotEngine:
             raise ValueError(
                 f"prefill_chunk_tokens must be >= 0, got "
                 f"{prefill_chunk_tokens}")
-        if speculative not in ("auto", "on", "off"):
-            raise ValueError(
-                f"speculative must be auto|on|off, got {speculative!r}")
-        if speculative == "on":
-            raise _not_yet_ported("speculative", speculative)
+        if spec_tokens < 1:
+            raise ValueError(f"spec_tokens must be >= 1, got {spec_tokens}")
         if host_kv_bytes < 0:
             raise ValueError(
                 f"host_kv_bytes must be >= 0, got {host_kv_bytes}")
@@ -500,7 +514,8 @@ class SlotEngine:
         self.max_new_tokens_cap = int(max_new_tokens_cap)
         self.max_concurrent_per_user = int(max_concurrent_per_user)
         self.paged = bool(paged)
-        self.speculative = "off"
+        self.speculative = resolve_speculative(speculative, self.device)
+        self.spec_tokens = int(spec_tokens)
         self.kv_quant = kvq.resolve_kv_quant(kv_quant, self.paged)
         self._quant = self.kv_quant == "on"
         self._draining = False
@@ -520,6 +535,12 @@ class SlotEngine:
         self.step_dispatches = 0
         self.prefills = 0
         self.prefill_chunks = 0
+        #: draft-lane propose calls (warmup's included): each launches the
+        #: paged-attention kernel draft_layers x (spec_tokens - 1) times;
+        #: on a speculative engine ``step_dispatches`` counts verify passes,
+        #: and the draft lane's prefill mirrors add to neither ``prefills``
+        #: nor ``prefill_chunks``
+        self.draft_dispatches = 0
 
         if self.paged:
             if page_size < 1:
@@ -546,7 +567,10 @@ class SlotEngine:
             self._pool: Optional[PagePool] = PagePool(
                 num_pages=num_pages, page_size=self.page_size,
                 slots=self.capacity, max_pages_per_slot=max_pages_per_slot)
-            shape = (config.n_layers, self._pool.physical_pages,
+            # a speculative engine's cache holds one page past the pool:
+            # the drop page of speculative.drop_page
+            shape = (config.n_layers,
+                     self._pool.physical_pages + (self.speculative == "on"),
                      self.page_size, config.kv_heads, config.d_head)
         else:
             self.page_size = None
@@ -590,6 +614,23 @@ class SlotEngine:
                         if self._use_chunk_prefill else None)
         self.prefix_hits = 0
         self.prefix_misses = 0
+
+        # the speculative lane: with it on, every tick is one draft propose
+        # and one batched verify; the plain step is never dispatched
+        self._spec: Optional[SpeculativeLane] = None
+        if self.speculative == "on":
+            self._spec = SpeculativeLane(self, *build_draft(
+                params, config, draft_preset=draft_preset,
+                draft_layers=draft_layers))
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        #: per-slot tokens accepted since the draft lane last caught up
+        #: (the right-aligned propose window; [] while the slot is free)
+        self._spec_windows: List[List[int]] = [[] for _ in
+                                               range(self.capacity)]
+        #: per-slot last legal write position (prompt + max_new - 1); -1
+        #: for free slots, so speculative writes to them never land
+        self._pos_limits = np.full(self.capacity, -1, np.int32)
 
     @property
     def kv_cache_bytes(self) -> int:
@@ -718,7 +759,9 @@ class SlotEngine:
         given); chunked engines run each length's chunk widths plus the
         floor bucket (cache-hit suffixes are usually short). Every prefill
         write is dropped (real length 0) and the step only writes the
-        trash page (paged) or slot rows no request holds (contiguous)."""
+        trash page (paged) or slot rows no request holds (contiguous). A
+        speculative engine also runs the draft lane's prefill mirrors, and
+        one propose and one verify instead of the step."""
         if self._use_chunk_prefill:
             widths = {_prefill_bucket(1, self.max_len - 1)}
             for length in prompt_lens:
@@ -731,6 +774,9 @@ class SlotEngine:
             for width in sorted(widths):
                 self._dispatch_chunk_prefill(np.zeros((1, width), np.int32),
                                              slot=0, start=0, real_len=0)
+                if self._spec is not None:
+                    self._spec.chunk_prefill(np.zeros((1, width), np.int32),
+                                             0, 0, 0)
         else:
             buckets = {_prefill_bucket(max(1, length - 1), self.max_len - 1)
                        for length in prompt_lens} or {
@@ -738,7 +784,20 @@ class SlotEngine:
             for width in sorted(buckets):
                 self._dispatch_prefill(np.zeros((1, width), np.int32),
                                        slot=0, real_len=0)
-        self._run_step().cpu()
+                if self._spec is not None:
+                    self._spec.prefill(np.zeros((1, width), np.int32), 0, 0)
+        if self._spec is None:
+            self._run_step().cpu()
+            return
+        # a fresh engine's operands: empty windows, limits -1, every row
+        # at the trash page, so no speculative write lands on a real page
+        with self._lock:
+            window, lens, limits, page_table = self._spec_operands_locked()
+        proposals = self._spec.propose(window, lens, self._positions, limits,
+                                       page_table).cpu().numpy()
+        verify_window = np.concatenate([self._tokens[:, None], proposals],
+                                       axis=1)
+        self._run_spec_verify(verify_window, limits, page_table)[0].cpu()
 
     # -- internals --------------------------------------------------------
     def _dispatch_prefill(self, head: np.ndarray, slot: int,
@@ -828,6 +887,9 @@ class SlotEngine:
                             self.prefix_hits += 1
                         else:
                             self.prefix_misses += 1
+                # last legal write position of the speculative windows
+                self._pos_limits[free] = (len(request.prompt)
+                                          + request.max_new_tokens - 1)
                 self._pending.popleft()
                 self._slots[free] = _Slot(request=request,
                                           joined_ts=time.monotonic(),
@@ -873,6 +935,9 @@ class SlotEngine:
             head[0, :prompt_len - 1] = prompt[:-1]
             try:
                 self._dispatch_prefill(head, slot, prompt_len - 1)
+                if self._spec is not None:
+                    # the same head into the draft lane's K/V
+                    self._spec.prefill(head, slot, prompt_len - 1)
             except Exception:
                 # a failed prefill must not wedge the slot: free it and
                 # requeue the request at the head before re-raising
@@ -887,6 +952,8 @@ class SlotEngine:
             self._positions[slot] = prompt_len - 1
             self._temps[slot] = request.temperature
             self._active[slot] = True
+            # the draft's first catch-up window: just the current token
+            self._spec_windows[slot] = [int(prompt[-1])]
 
     def _advance_prefills(self) -> int:
         """Dispatch ONE prefill chunk for every slot still mid-prefill. A
@@ -926,6 +993,10 @@ class SlotEngine:
         head[0, :length] = prompt[start:start + length]
         started = time.monotonic()
         self._dispatch_chunk_prefill(head, index, start, length)
+        if self._spec is not None:
+            # into the draft lane BEFORE the radix tree adopts the chunk's
+            # pages: a cached page carries both lanes' K/V
+            self._spec.chunk_prefill(head, index, start, length)
         state.prefill_ms += (time.monotonic() - started) * 1e3
         state.prefill_chunks += 1
         state.prefill_next = start + length
@@ -952,8 +1023,114 @@ class SlotEngine:
             self._positions[index] = state.prefill_target
             self._temps[index] = request.temperature
             self._active[index] = True
+            self._spec_windows[index] = [int(request.prompt[-1])]
+
+    # -- speculative tick --------------------------------------------------
+    def _spec_operands_locked(self):
+        """Host operands of the two speculative dispatches: the
+        right-aligned catch-up window (tokens accepted since the draft last
+        ran, ending at each slot's current token) and its lengths, the
+        per-slot write limits and — paged — the page table with inactive
+        rows sent to the trash page (a parked or freed slot's speculative
+        writes never land on a real or shared page)."""
+        width = self.spec_tokens + 1
+        window = np.zeros((self.capacity, width), np.int32)
+        lens = np.zeros(self.capacity, np.int32)
+        for index in range(self.capacity):
+            if not self._active[index]:
+                continue
+            tokens = (self._spec_windows[index]
+                      or [int(self._tokens[index])])[-width:]
+            lens[index] = len(tokens)
+            window[index, width - len(tokens):] = tokens
+        limits = self._pos_limits.copy()
+        page_table = None
+        if self.paged:
+            page_table = self._pool.page_table.copy()
+            page_table[~self._active] = TRASH_PAGE
+        return window, lens, limits, page_table
+
+    def _run_spec_verify(self, verify_window: np.ndarray, limits: np.ndarray,
+                         page_table: Optional[np.ndarray]):
+        """The batched target verify over ``[S, k+1]`` window tokens
+        (current token + proposals): ``(greedy [S, k+1], chosen [S])`` on
+        the device."""
+        self.step_dispatches += 1
+        operands = (self._operand(verify_window),
+                    self._operand(self._positions),
+                    self._operand(self._active), self._operand(self._temps),
+                    self._operand(limits))
+        if self.paged:
+            return _paged_spec_verify_body(
+                self.params, *operands, self._operand(page_table),
+                self._cache, self._generator, self.config, self.top_k)
+        return _spec_verify_body(self.params, *operands, self._cache,
+                                 self._generator, self.config, self.top_k)
+
+    def _spec_decode_step(self) -> int:
+        """One speculative tick: draft catch-up + k proposals, ONE batched
+        verify over all k+1 positions, then longest-matching-prefix
+        acceptance. Greedy slots emit the target's own greedy tokens (the
+        matched proposals and the bonus token: what k+1 plain steps would
+        emit); sampled slots emit the verify pass's one ``_choose_next``
+        token. Rollback is not advancing past the last accepted token:
+        rejected positions hold stale K/V that the next tick overwrites
+        before anything attends them, in both lanes."""
+        with self._lock:
+            stepped = [(index, slot.request)
+                       for index, slot in enumerate(self._slots)
+                       if slot is not None and bool(self._active[index])]
+            if not stepped:
+                return 0
+            window, lens, limits, page_table = self._spec_operands_locked()
+        proposals = np.asarray(self._spec.propose(
+            window, lens, self._positions, limits, page_table).cpu())
+        verify_window = np.concatenate([self._tokens[:, None], proposals],
+                                       axis=1)
+        greedy, chosen = self._run_spec_verify(verify_window, limits,
+                                               page_table)
+        greedy, chosen = greedy.cpu().numpy(), chosen.cpu().numpy()
+        now = time.monotonic()
+        with self._lock:
+            self.steps += 1
+            for index, request in stepped:
+                if (self._slots[index] is None
+                        or self._slots[index].request is not request):
+                    continue        # freed between snapshot and apply
+                if self._temps[index] > 0.0:
+                    # sampled slots don't speculate: one token per tick,
+                    # proposals discarded and not counted
+                    emitted = [int(chosen[index])]
+                else:
+                    matched = 0
+                    while (matched < self.spec_tokens
+                           and int(proposals[index, matched])
+                           == int(greedy[index, matched])):
+                        matched += 1
+                    emitted = [int(greedy[index, j])
+                               for j in range(matched + 1)]
+                    self.spec_proposed += self.spec_tokens
+                    self.spec_accepted += matched
+                consumed: List[int] = []
+                for token in emitted:
+                    # EOS inside the accepted run, the budget and a pending
+                    # cancel truncate here, token by token, through the
+                    # plain step's own bookkeeping
+                    self._tokens[index] = token
+                    self._positions[index] += 1
+                    self._apply_token_locked(index, request, token, now)
+                    consumed.append(token)
+                    if self._slots[index] is None or request.finished:
+                        break
+                if (self._slots[index] is not None
+                        and self._slots[index].request is request):
+                    # next tick's catch-up window = what was accepted
+                    self._spec_windows[index] = consumed
+        return len(stepped)
 
     def _decode_step(self) -> int:
+        if self._spec is not None:
+            return self._spec_decode_step()
         with self._lock:
             # slots still chunk-prefilling are parked (active False): they
             # join the batch only once armed
@@ -1004,6 +1181,10 @@ class SlotEngine:
         writes keep landing on one consumed cell of its own row."""
         self._slots[index] = None
         self._active[index] = False
+        self._spec_windows[index] = []
+        # speculative writes to a freed slot must not land (the contiguous
+        # layout keeps its position frozen: the limit is its only guard)
+        self._pos_limits[index] = -1
         if self.paged:
             self._pool.release(index)
             self._positions[index] = 0
@@ -1041,11 +1222,9 @@ class SlotEngine:
         """Engine snapshot: a subset of the JAX engine's ``stats``, under
         the same key names. Not here yet: the mesh keys (``meshShape``,
         ``numDevices``), the host tier's (``hostKvBytes``,
-        ``hostPagesResident``, ``hostBytesUsed``, ``hostHitRate``), the
-        speculative counters (``specTokens``, ``specProposed``,
-        ``specAccepted``, ``specAcceptanceRate``), ``busySlotSeconds`` and
-        the latency quantiles (``ttftP50Ms``, ``ttftP95Ms``,
-        ``intertokenP50Ms``, ``intertokenP95Ms``). ``device``,
+        ``hostPagesResident``, ``hostBytesUsed``, ``hostHitRate``),
+        ``busySlotSeconds`` and the latency quantiles (``ttftP50Ms``,
+        ``ttftP95Ms``, ``intertokenP50Ms``, ``intertokenP95Ms``). ``device``,
         ``stepDispatches`` and ``prefills`` are the port's own."""
         with self._lock:
             lookups = self.prefix_hits + self.prefix_misses
@@ -1078,9 +1257,27 @@ class SlotEngine:
                 "prefillChunkTokens": (self.prefill_chunk_tokens
                                        if self._use_chunk_prefill else None),
                 "speculative": self.speculative,
+                "specTokens": (self.spec_tokens if self._spec is not None
+                               else None),
+                "specProposed": self.spec_proposed,
+                "specAccepted": self.spec_accepted,
+                "specAcceptanceRate": (
+                    round(self.spec_accepted / self.spec_proposed, 4)
+                    if self.spec_proposed else None),
                 "requestsCompleted": self.completed_requests,
                 "tokensEmitted": self.emitted_tokens,
                 "steps": self.steps,
                 "stepDispatches": self.step_dispatches,
                 "prefills": self.prefills,
             }
+
+    def spec_acceptance_rate(self,
+                             min_proposed: int = 64) -> Optional[float]:
+        """Lifetime draft-token acceptance rate: None while the lane is off
+        or fewer than ``min_proposed`` tokens have been proposed."""
+        if self._spec is None:
+            return None
+        with self._lock:
+            if self.spec_proposed < min_proposed:
+                return None
+            return self.spec_accepted / self.spec_proposed

@@ -704,12 +704,17 @@ def test_prefetch_to_the_card(device, tmp_path):
             dataset.batch_at(step)))
 
 
+@pytest.mark.parametrize("speculative", ["off", "on"])
 @pytest.mark.parametrize("kv_quant", ["off", "on"])
-def test_tiny_engine_on_the_card_matches_the_cpu(device, kv_quant):
+def test_tiny_engine_on_the_card_matches_the_cpu(device, kv_quant,
+                                                 speculative):
     """The f32 tiny engine emits the tokens its plain CPU twin emits on the
     same params: with whole-prompt prefill through both kernels (d_head 16,
     MHA), and with the default prefix cache, whose chunked prefill attends
-    in plain f32 and whose decode runs the paged kernel."""
+    in plain f32 and whose decode runs the paged kernel. With the
+    speculative lane on, the draft steps run the paged kernel, the draft
+    prefill mirrors the flash kernel, and the proposal counters agree
+    too."""
     from tensorhive_tpu_torch.convert import params_from_jax, params_to_numpy
     from tensorhive_tpu_torch.models.transformer import PRESETS, TransformerLM
     from tensorhive_tpu_torch.serving.engine import SlotEngine
@@ -725,13 +730,16 @@ def test_tiny_engine_on_the_card_matches_the_cpu(device, kv_quant):
         for device_params, where in ((params, "cpu"), (on_card, device)):
             engine = SlotEngine(device_params, config, slots=4, max_len=96,
                                 kv_quant=kv_quant, prefix_cache=prefix_cache,
-                                prefill_chunk_tokens=16, device=where)
+                                prefill_chunk_tokens=16,
+                                speculative=speculative, device=where)
             engine.warmup(prompt_lens=(16, 48))
             handles = []
             for prompt in prompts + [list(range(1, 41)) + [7, 7]]:
                 handles.append(engine.submit(prompt, max_new_tokens=8))
                 engine.step()
             engine.pump()
-            results.append([h.result(timeout_s=30)["tokens"]
-                            for h in handles])
+            results.append(([h.result(timeout_s=30)["tokens"]
+                             for h in handles],
+                            engine.spec_proposed, engine.spec_accepted,
+                            engine.steps, engine.draft_dispatches))
         assert results[0] == results[1], prefix_cache

@@ -89,8 +89,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("speculative", "on"), ("host_kv_bytes", 1 << 20), ("mesh_dp", 2),
-    ("mesh_tp", 2)])
+    ("host_kv_bytes", 1 << 20), ("mesh_dp", 2), ("mesh_tp", 2)])
 def test_unported_knobs_are_refused(knob, value):
     generation = GenerationConfig(preset="tiny", max_len=64, **{knob: value})
     with pytest.raises(ValueError, match="not yet ported") as info:
@@ -98,10 +97,27 @@ def test_unported_knobs_are_refused(knob, value):
     assert knob in str(info.value)
 
 
+def test_speculative_on_builds_and_serves():
+    """The speculative lane, once refused, is served: ``build_engine``
+    warms a propose and a verify and the engine answers a request."""
+    engine = build_engine(GenerationConfig(preset="tiny", max_len=64,
+                                           speculative="on", draft_layers=1),
+                          device="cpu")
+    handle = engine.submit([1, 2, 3], max_new_tokens=5)
+    engine.pump()
+    summary = handle.result(timeout_s=5)
+    assert summary["outcome"] == "completed" and len(summary["tokens"]) == 5
+    stats = engine.stats()
+    assert stats["speculative"] == "on" and stats["specTokens"] == 4
+    assert stats["specProposed"] > 0 and stats["kvPagesFree"] == (
+        stats["kvPagesTotal"] - stats["cachedPages"])
+
+
 def test_auto_knobs_resolve_off():
     """``auto`` resolves as in JAX: the prefix cache on for the paged layout
     and off for the contiguous one (int8 pages likewise), and the
-    speculative lane — not ported yet — off."""
+    speculative lane off on the CPU (on where the engine runs on the
+    card)."""
     params = TransformerLM.init(TINY, device="cpu")
     stats = SlotEngine(params, TINY, slots=2, max_len=64,
                        device="cpu").stats()
