@@ -75,7 +75,23 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
               gives, no flash launch, paged launches = layers x step
               dispatches, no leaked page; TTFT of hits and misses, the
               longest tick with a chunk against the longest whole-prompt
-              join tick; the same on bf16 pages. Then the contiguous
+              join tick; the same on bf16 pages. Then KV-page tiering
+              (int8 pages, chunks of 256, 1 GiB of host RAM, a 340-page
+              pool): P + 17 missed, then hit on the device (tokens T),
+              two 3,000-token misses that push P's 129 cached pages out
+              to the host, two background requests decoding while P + 17
+              comes back as a host hit, and P + 17 again; the host hit's
+              and the last hit's tokens must be T, the promoted pages
+              byte-identical to a snapshot taken before the churn, 129
+              promotions with no recompute fallback, no leaked page, the
+              stats' host keys equal to the counters; TTFT of the miss and
+              the hits, the tier's copies timed (copy stream, CUDA
+              events; the lane's jobs), and the ticks with the promotion
+              in flight against the ticks around them. On that engine, a
+              0.3 s deadline must end a 3,000-token miss mid-prefill
+              with no page leaked, and an injected step fault must raise
+              out of step() once, the next ticks giving the unfaulted
+              run's tokens. Then the contiguous
               layout (bf16 rows): flash launches = layers x prefills, no
               paged launch. Then 3,000 positions of K/V written in chunks
               of 256 against the whole-prompt prefill (2-layer 7b widths,
@@ -1735,7 +1751,7 @@ def profile_steps(engine, label, steps=3):
     return total
 
 
-def phase_serving():
+def phase_serving(card):
     import dataclasses
 
     import numpy as np
@@ -1805,6 +1821,7 @@ def phase_serving():
         dataclasses.replace(default, kv_quant="off"),
         "prefix cache on bf16 pages, shared system prompt",
         runs["bf16"]["longest_join_ms"])
+    runs["tiering"] = tiering_run(card)
     runs["contiguous"] = serve(
         lambda: build_engine(generation(paged=False)),
         "bf16 weights, contiguous bf16 cache", prompts, new_tokens, buckets)
@@ -2151,6 +2168,311 @@ def shared_prompt_run(generation, label, whole_prompt_longest_ms):
     return result
 
 
+def promoting(engine):
+    """Whether a slot is parked on a promotion still in the copy lane."""
+    return any(state is not None and state.promote_job is not None
+               for state in engine._slots)
+
+
+def tier_copy_rates(engine, pages, card):
+    """The tier's copies of ``pages`` (a promoted run) on this engine: the
+    device-to-host and host-to-device copies alone, on the engine's copy
+    stream between pinned buffers, timed with CUDA events; and the copy
+    lane's two jobs on their own thread's clock — the demotion (pinned
+    staging, copy out, wait, split per page) and the promotion (assembly
+    into pinned staging, copy up, wait). Prints ms and GB/s of the
+    pages' bytes and returns them."""
+    import torch
+
+    from tensorhive_tpu_torch.serving.paging import HostPageEntry
+
+    extracted, ready = engine._dispatch_page_extract(pages)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in extracted)
+    require(nbytes == len(pages) * engine._page_bytes,
+            f"tier: {nbytes} bytes for {len(pages)} pages of "
+            f"{engine._page_bytes}")
+    stream = engine._copy_stream
+    pinned = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+              for t in extracted]
+    back = [torch.empty_like(t) for t in extracted]
+
+    def timed(copy, reps=5):
+        with torch.cuda.stream(stream):
+            copy()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            for _ in range(reps):
+                copy()
+            end.record(stream)
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def down():
+        for host, tensor in zip(pinned, extracted):
+            host.copy_(tensor, non_blocking=True)
+
+    def up():
+        for tensor, host in zip(back, pinned):
+            tensor.copy_(host, non_blocking=True)
+
+    d2h_ms, h2d_ms = timed(down), timed(up)
+    require(all(torch.equal(a, b) for a, b in zip(back, extracted)),
+            "tier: pages changed on a copy out and back")
+    before = time.perf_counter()
+    _, split = engine._materialize_demotion([b""] * len(pages), extracted,
+                                            ready)
+    demote_lane_ms = (time.perf_counter() - before) * 1e3
+    entries = [HostPageEntry(*page, last_used=0) for page in split]
+    before = time.perf_counter()
+    staged, _ = engine._stage_promotion(entries)
+    promote_lane_ms = (time.perf_counter() - before) * 1e3
+    require(all(torch.equal(a, b) for a, b in zip(staged, extracted)),
+            "tier: a staged promotion differs from the gathered pages")
+    rate = lambda ms: nbytes / ms / 1e6                       # GB/s
+    log(f"  tier copies of {len(pages)} pages ({nbytes / 1e6:.1f} MB, "
+        f"{card}): copy out (device to pinned host, copy stream, CUDA "
+        f"events) {d2h_ms:.3f} ms = {rate(d2h_ms):.1f} GB/s; copy up "
+        f"{h2d_ms:.3f} ms = {rate(h2d_ms):.1f} GB/s; the lane's demotion "
+        f"job {demote_lane_ms:.2f} ms = {rate(demote_lane_ms):.1f} GB/s and "
+        f"promotion job {promote_lane_ms:.2f} ms = "
+        f"{rate(promote_lane_ms):.1f} GB/s (host clock, staging included)")
+    return {"d2h_ms": d2h_ms, "h2d_ms": h2d_ms,
+            "demote_lane_ms": demote_lane_ms,
+            "promote_lane_ms": promote_lane_ms}
+
+
+def tiering_run(card):
+    """KV-page tiering on the full 7b preset through build_engine: int8
+    pages, chunks of 256, spec off, 1 GiB of host RAM, a pool small enough
+    that two 3,000-token misses push a 2,048-token system prompt's cached
+    run out to the host. Traffic, one join per tick: P + 17 (a miss),
+    P + 17 (an HBM hit, tokens T), two 3,000-token misses, then two
+    background requests decoding while P + 17 comes back as a host hit
+    (its promotion in flight beside their ticks), and P + 17 once more (an
+    HBM hit on the run the promotion reseeded). Then two guards on the same
+    engine: a deadline that ends a 3,000-token miss mid-prefill, and an
+    injected step fault the next ticks recover from with the same
+    tokens."""
+    import numpy as np
+    import torch
+
+    from tensorhive_tpu_torch.config import GenerationConfig
+    from tensorhive_tpu_torch.core.services.generation import build_engine
+    from tensorhive_tpu_torch.ops import flash_attention as fa
+    from tensorhive_tpu_torch.ops import paged_attention as pa
+    from tensorhive_tpu_torch.serving import faults
+    from tensorhive_tpu_torch.serving.paging import page_content_key
+
+    new_tokens, page, pool = 32, 16, 340
+    label = "tiering (7b, int8 pages, 1 GiB host)"
+    for counter in (fa.launches, pa.launches):
+        for key in counter:
+            counter[key] = 0
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    engine = build_engine(GenerationConfig(
+        preset="7b", slots=8, max_len=4096, paged_kernel="on",
+        speculative="off", page_size=page, kv_pages=pool,
+        host_kv_bytes=1 << 30))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - started
+    config = engine.config
+    require(engine.kv_quant == "on" and engine.prefill_chunk_tokens == 256
+            and engine._copy_stream is not None
+            and engine._copy_stream.cuda_stream
+            != torch.cuda.current_stream().cuda_stream
+            and engine.default_deadline_s == 120.0,
+            f"{label}: not a tiered int8 engine with a copy stream")
+    rng = np.random.default_rng(2)
+
+    def unique(n):
+        return rng.integers(0, config.vocab_size, n).tolist()
+
+    system = unique(2048)
+    p17 = system + unique(17)
+    misses = [unique(3000), unique(3000)]
+    background = [unique(100), unique(100)]
+    pages_for = engine._pool.pages_for
+    run_pages = (len(p17) - 1) // page
+    miss_pages, miss_cached = pages_for(3000 + new_tokens), 2999 // page
+    free_after = pool - run_pages - miss_cached
+    log(f"serving {label}: build+warmup {build_s:.2f} s; pool {pool} pages "
+        f"of {engine._page_bytes} B; P + 17 needs "
+        f"{pages_for(len(p17) + new_tokens)} pages and caches {run_pages}; "
+        f"a 3,000-token miss needs {miss_pages} and caches {miss_cached}: "
+        f"after the HBM hit {pool - run_pages} pages are free, after the "
+        f"first miss {free_after}, and the second's shortfall of "
+        f"{miss_pages - free_after} evicts P's {run_pages} least recently "
+        "used pages first")
+    ticks = []                              # (ms, chunks, promotion in flight)
+
+    def tick():
+        chunks, was = engine.prefill_chunks, promoting(engine)
+        before = time.perf_counter()
+        engine.step()
+        ticks.append(((time.perf_counter() - before) * 1e3,
+                      engine.prefill_chunks - chunks,
+                      was or promoting(engine)))
+
+    def serve_alone(prompt):
+        handle = engine.submit(prompt, max_new_tokens=new_tokens)
+        while engine.has_work():
+            tick()
+        return handle.result(timeout_s=60)
+
+    miss = serve_alone(p17)
+    hbm = serve_alone(p17)
+    tokens = hbm["tokens"]
+    cached, run = engine._prefix.match(p17)
+    require(cached == run_pages * page and len(run) == run_pages,
+            f"{label}: P + 17 cached {cached} tokens, expected "
+            f"{run_pages * page}")
+    snapshot = [t[:, run].clone() for t in engine._cache]
+    for prompt in misses:
+        require(serve_alone(prompt)["outcome"] == "completed",
+                f"{label}: a 3,000-token miss did not complete")
+    store = engine._host_store
+    require(engine._prefix.match(p17)[0] == 0
+            and all(page_content_key(p17, i, page) in store
+                    for i in range(run_pages)),
+            f"{label}: P's run was not pushed out to the host whole")
+    runners = [engine.submit(prompt, max_new_tokens=64)
+               for prompt in background]
+    while min(len(h._request.generated) for h in runners) < 4:
+        tick()
+    first_tick = len(ticks)
+    host = engine.submit(p17, max_new_tokens=new_tokens)
+    tick()
+    require(promoting(engine) or engine.host_kv_promotions == run_pages,
+            f"{label}: the host hit did not park on a promotion")
+    while not host._request.generated:
+        tick()
+    again = engine.submit(p17, max_new_tokens=new_tokens)
+    while engine.has_work():
+        tick()
+    host_summary = host.result(timeout_s=60)
+    again_summary = again.result(timeout_s=60)
+    require(all(h.result(timeout_s=60)["outcome"] == "completed"
+                for h in runners), f"{label}: a background request failed")
+    require(host_summary["tokens"] == tokens
+            and again_summary["tokens"] == tokens,
+            f"{label}: host hit {host_summary['tokens']} / HBM hit again "
+            f"{again_summary['tokens']} != HBM hit {tokens}")
+    _, promoted = engine._prefix.match(p17)
+    require(len(promoted) == run_pages
+            and all(torch.equal(t[:, promoted], before)
+                    for t, before in zip(engine._cache, snapshot)),
+            f"{label}: the promoted pages differ from the snapshot taken "
+            "before the churn")
+    require(engine.host_kv_hits == 1
+            and engine.host_kv_promotions == run_pages
+            and host._request.host_hit_pages == run_pages
+            and engine.host_kv_fallbacks == 0,
+            f"{label}: hits {engine.host_kv_hits}, promotions "
+            f"{engine.host_kv_promotions} (schedule: {run_pages}), fallbacks "
+            f"{engine.host_kv_fallbacks}")
+    stats = engine.stats()
+    require(stats["kvPagesFree"] + stats["cachedPages"] == pool
+            and stats["slotsBusy"] == 0,
+            f"{label}: pages leaked: {stats['kvPagesFree']} free + "
+            f"{stats['cachedPages']} cached of {pool}")
+    lookups = engine.host_kv_hits + engine.host_kv_misses
+    require(stats["hostPagesResident"] == store.resident_pages
+            == engine.host_kv_demotions and store.evictions == 0
+            and stats["hostBytesUsed"] == store.bytes_used
+            == store.resident_pages * engine._page_bytes
+            and stats["hostHitRate"] == round(engine.host_kv_hits / lookups,
+                                              4)
+            and stats["hostKvBytes"] == 1 << 30,
+            f"{label}: stats host keys disagree with the counters: {stats}")
+    flash_launches, paged_launches = dict(fa.launches), dict(pa.launches)
+    layers = config.n_layers
+    require(sum(flash_launches.values()) == 0
+            and paged_launches["int8"] == layers * engine.step_dispatches
+            and sum(paged_launches.values()) == paged_launches["int8"],
+            f"{label}: launches flash {flash_launches}, paged "
+            f"{paged_launches} != {layers} x {engine.step_dispatches}")
+    span = ticks[first_tick:]
+    in_flight = [ms for ms, chunks, flying in span if flying]
+    around = [ms for ms, chunks, flying in span if not flying and not chunks]
+    log(f"  TTFT s ({card}): P + 17 miss {miss['ttftS']:.3f}, HBM hit "
+        f"{hbm['ttftS']:.3f}, host hit {host_summary['ttftS']:.3f} (promote "
+        f"{host._request.promote_ms:.1f} ms, join to inject, host clock), "
+        f"HBM hit after the promotion {again_summary['ttftS']:.3f}")
+    log(f"  ticks with 2-4 slots decoding ({card}): {len(in_flight)} with "
+        f"the promotion in flight, mean {sum(in_flight) / len(in_flight):.1f} "
+        f"ms, max {max(in_flight):.1f} (" + ", ".join(
+            f"{ms:.1f}" for ms in in_flight) + f"); {len(around)} around "
+        f"them without a chunk, mean {sum(around) / len(around):.1f} ms, "
+        f"max {max(around):.1f}")
+    log(f"  host tier: hits {engine.host_kv_hits}, misses "
+        f"{engine.host_kv_misses}, demotions {engine.host_kv_demotions}, "
+        f"promotions {engine.host_kv_promotions}, fallbacks "
+        f"{engine.host_kv_fallbacks}; {stats['hostPagesResident']} pages "
+        f"resident, {stats['hostBytesUsed'] / 1e6:.1f} MB of "
+        f"{stats['hostKvBytes'] / 2**20:.0f} MiB; kvPagesFree "
+        f"{stats['kvPagesFree']} + cachedPages {stats['cachedPages']} = "
+        f"{pool}; launches paged {paged_launches['int8']} = {layers} x "
+        f"{engine.step_dispatches}")
+    rates = tier_copy_rates(engine, promoted, card)
+
+    # guard 1: a deadline that passes mid-prefill frees the slot
+    doomed = engine.submit(unique(3000), max_new_tokens=new_tokens,
+                           deadline_s=0.3)
+    chunks = engine.prefill_chunks
+    while engine.has_work():
+        engine.step()
+    summary = doomed.result(timeout_s=60)
+    stats = engine.stats()
+    require(summary["outcome"] == "timeout" and summary["tokens"] == []
+            and 0 < engine.prefill_chunks - chunks < 12
+            and stats["kvPagesFree"] + stats["cachedPages"] == pool
+            and stats["slotsBusy"] == 0,
+            f"{label}: the 0.3 s deadline ended {summary['outcome']} after "
+            f"{engine.prefill_chunks - chunks} of 12 chunks; pages "
+            f"{stats['kvPagesFree']} + {stats['cachedPages']} of {pool}")
+    log(f"  deadline 0.3 s on a 3,000-token miss: timeout after "
+        f"{engine.prefill_chunks - chunks} of 12 chunks, "
+        f"{summary['durationS']:.3f} s ({card}); no page leaked")
+
+    # guard 2: an injected step fault, then the same tokens
+    probes = [p17, unique(20)]
+
+    def serve_probes(fault_at=None):
+        handles = [engine.submit(p, max_new_tokens=16) for p in probes]
+        raised, ticks_run = 0, 0
+        while engine.has_work():
+            if ticks_run == fault_at:
+                engine.fault_plan.fail_next("step")
+            try:
+                engine.step()
+            except faults.DeviceLostError:
+                raised += 1
+            ticks_run += 1
+        return [h.result(timeout_s=60)["tokens"] for h in handles], raised
+
+    reference, _ = serve_probes()
+    engine.fault_plan = faults.ServingFaultPlan()
+    recovered, raised = serve_probes(fault_at=5)
+    require(raised == 1 and engine.fault_plan.faults_injected["step"] == 1
+            and recovered == reference,
+            f"{label}: an injected step fault raised {raised} times; tokens "
+            f"after it {recovered} != {reference}")
+    log("  injected step fault: raised out of step() once; the next ticks "
+        "gave the unfaulted run's tokens")
+    log(f"  tiering section {time.perf_counter() - started:.1f} s, build "
+        f"included ({card})")
+    result = {"tokens": tokens, "flash": ("bf16", flash_launches["bf16"]),
+              "paged": ("int8", paged_launches["int8"]),
+              "ttft": (miss["ttftS"], hbm["ttftS"], host_summary["ttftS"]),
+              **rates}
+    del engine, host, again, runners, doomed
+    release_device_memory()
+    return result
+
+
 def chunked_vs_whole_prefill(prompt_len=3000, chunk=256):
     """A 2-layer model at 7b widths in f32 with f32 pages: one prompt's K/V
     written in chunks of ``chunk`` through the chunked prefill body and at
@@ -2348,7 +2670,7 @@ def main() -> int:
     started = time.perf_counter()
     phase = "device"
     try:
-        phase_device()
+        card = phase_device()
         phase = "build"
         phase_build()
         phase = "kernels"
@@ -2365,7 +2687,7 @@ def main() -> int:
         families = phase_families()
         phase = "serving"
         log("== serving")
-        runs = phase_serving()
+        runs = phase_serving(card)
     except Exception:                       # every phase failure is fatal
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} FAILED", file=sys.stderr)

@@ -11,7 +11,9 @@ What runs so far:
 * serving: ``build_engine`` -> ``SlotEngine`` on the paged cache (bf16/f32
   or int8 pages), whole-prompt prefill through the hand-written
   flash-forward kernel (``csrc/flash_fwd.cu``) and decode through the
-  hand-written paged-attention kernel (``csrc/paged_decode.cu``);
+  hand-written paged-attention kernel (``csrc/paged_decode.cu``), with the
+  prefix cache, the speculative lane, host KV-page tiering, deadlines,
+  Retry-After estimates and a fault-injection plan;
 * training on one device: ``TransformerLM.loss`` -> ``train.make_train_step``
   -> ``train.train_loop``, attention differentiated through the
   hand-written flash-backward kernels (``csrc/flash_bwd.cu``);

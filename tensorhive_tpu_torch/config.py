@@ -3,12 +3,13 @@ fields of ``tensorhive_tpu/config.py`` (``[generation_service]``) that the
 ported engine reads, with the JAX package's defaults.
 
 The prefix cache with chunked prefill (``prefix_cache``; ``auto`` = on
-for the paged layout), the contiguous layout (``paged=False``) and the
+for the paged layout), the contiguous layout (``paged=False``), the
 speculative lane (``speculative``; ``auto`` = on where the engine runs on
-the card, off on the CPU) are served. Values the port cannot serve yet are
-accepted here and refused by ``build_engine``/``SlotEngine`` with a "not
-yet ported" error: host KV tiering (``host_kv_bytes > 0``) and the serving
-mesh (``mesh_dp``/``mesh_tp`` > 1).
+the card, off on the CPU), host KV tiering (``host_kv_bytes`` > 0, paged
+int8 with the prefix cache) and per-request deadlines
+(``default_deadline_s``, ``max_deadline_s``) are served. The serving mesh
+(``mesh_dp``/``mesh_tp`` > 1) is accepted here and refused by
+``build_engine`` with a "not yet ported" error.
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ class GenerationConfig:
     prefix_min_tokens: int = 32      # shortest prefix match worth sharing
     prefill_chunk_tokens: int = 256  # prefill positions per chunk (per
                                      # tick); 0 = one chunk per prompt
-    host_kv_bytes: int = 0
+    host_kv_bytes: int = 0           # host-RAM budget for demoted int8
+                                     # pages; 0 = no tier
     speculative: str = "auto"        # draft-model speculative decoding:
                                      # auto = on where the engine runs on
                                      # the card, off on the CPU. Greedy
@@ -53,3 +55,7 @@ class GenerationConfig:
     top_k: int = 0                   # 0 = no top-k sampling filter
     eos_token: int = -1              # -1 = no EOS, run to max_new_tokens
     max_concurrent_per_user: int = 4  # 0 = unlimited
+    default_deadline_s: float = 120.0  # per-request wall budget (queue +
+                                       # prefill + decode) when the caller
+                                       # gives none; 0 = no deadline
+    max_deadline_s: float = 600.0    # ceiling for per-request overrides

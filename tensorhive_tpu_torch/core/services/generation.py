@@ -1,6 +1,8 @@
 """Engine factory of the port — the counterpart of ``build_engine`` in
-``tensorhive_tpu/core/services/generation.py`` (the ``GenerationService``
-daemon, its supervisor and checkpoint loading are not ported yet)."""
+``tensorhive_tpu/core/services/generation.py``: every serving knob the
+port serves (host KV tiering and the deadlines included) passes through.
+The ``GenerationService`` daemon, its supervisor and checkpoint loading
+are not ported yet."""
 from __future__ import annotations
 
 import dataclasses
@@ -56,6 +58,8 @@ def build_engine(generation: GenerationConfig, device: DeviceLike = None,
         draft_layers=generation.draft_layers,
         spec_tokens=generation.spec_tokens,
         host_kv_bytes=generation.host_kv_bytes,
+        default_deadline_s=generation.default_deadline_s,
+        max_deadline_s=generation.max_deadline_s,
         queue_depth=generation.queue_depth,
         top_k=generation.top_k or None,
         eos_token=None if generation.eos_token < 0 else generation.eos_token,

@@ -1,5 +1,6 @@
 """Int8 KV-page quantization — the PyTorch counterpart of
-``tensorhive_tpu/ops/kv_quant.py`` (write and read primitives).
+``tensorhive_tpu/ops/kv_quant.py`` (write and read primitives, and the
+host tier's page gather and scatter).
 
 Same scheme, same bytes: symmetric int8 with one f32 scale per (physical
 page, kv_head), scale = max(running max, amax / 127, 1e-8), rescale-on-
@@ -10,9 +11,10 @@ payloads and scales come out byte-identical to the JAX functions.
 
 Two differences in form, none in values:
 
-* JAX returns new arrays; ``step_write`` and ``row_merge`` here update
-  ``pages_i8``/``scales`` IN PLACE (and return them), so the engine writes
-  one layer's pages of its cache without copying the layer.
+* JAX returns new arrays; ``step_write``, ``row_merge`` and
+  ``inject_pages`` here update ``pages_i8``/``scales`` IN PLACE (and
+  return them), so the engine writes one layer's pages of its cache
+  without copying the layer.
 * JAX drops out-of-range scatter indices (``mode="drop"``); torch has no
   such mode. ``row_merge`` masks its indices before ``index_put_``, so a
   dropped write touches no physical page. ``step_write`` takes only page
@@ -145,6 +147,37 @@ def row_merge(pages_i8: torch.Tensor, scales: torch.Tensor,
     ctx_pages = torch.where(touched[:, :, None, None, None], requant, deq)
     ctx = ctx_pages.reshape(num_rows, mp * ps, hkv, dh).to(dtype)
     return pages_i8, scales, ctx
+
+
+# -- tier transitions ---------------------------------------------------------
+
+def extract_pages(pages_i8: torch.Tensor, scales: torch.Tensor,
+                  page_ids: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather whole pages AND their scale rows for demotion to the host
+    tier: ``pages_i8`` [L, P, ps, Hkv, Dh] int8 + ``scales`` [L, P, Hkv] f32
+    over ``page_ids`` [n] -> ([L, n, ps, Hkv, Dh], [L, n, Hkv]), fresh
+    tensors. The scales travel with the payload: a promotion restores
+    both, so a host-tier hit dequantizes byte for byte what the writer
+    stored. JAX pads ``page_ids`` to a fixed width so that one executable
+    serves every batch; here ``n`` is the real page count."""
+    page_ids = page_ids.long()
+    return (pages_i8.index_select(1, page_ids),
+            scales.index_select(1, page_ids))
+
+
+def inject_pages(pages_i8: torch.Tensor, scales: torch.Tensor,
+                 page_ids: torch.Tensor, payload: torch.Tensor,
+                 payload_scales: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter promoted page payloads + scale rows back into the cache, IN
+    PLACE: the inverse of :func:`extract_pages`. Every id must name a
+    physical page (JAX's out-of-range pad lanes, which it drops, do not
+    exist here)."""
+    page_ids = page_ids.long()
+    pages_i8.index_copy_(1, page_ids, payload)
+    scales.index_copy_(1, page_ids, payload_scales)
+    return pages_i8, scales
 
 
 def dequant_gather(pages_i8: torch.Tensor, scales: torch.Tensor,

@@ -41,20 +41,41 @@ device side is eager PyTorch:
   mirrored into the draft lane; each tick is one propose and one verify
   instead of the plain step.
 
+* **KV-page tiering** (``host_kv_bytes`` > 0; paged int8 with the prefix
+  cache). Pages the radix tree evicts, and a leaving slot's prefix pages
+  no one else holds, are gathered on the compute stream (in stream order
+  ahead of any later write to the recycled page) and copied to a bounded
+  host-RAM store (``paging.HostPageStore``, LRU in a byte budget). A later
+  prompt whose prefix continues past the device match into resident
+  pages is granted fresh pages as usual, parks, and has the run PROMOTED:
+  the copy lane assembles it and copies it up, then the pump injects it
+  and resumes prefill past it. On the card both copies run on a copy
+  stream of their own, through pinned host buffers, and a lane thread
+  waits on them, so the pump never waits on a copy; only the run's real
+  pages cross the link (JAX pads both ways to a fixed width).
+* **Deadlines, Retry-After and the fault plan** (the data-plane guards):
+  a request past its ``deadline_s`` ends ``timeout`` in the queue,
+  mid-prefill or mid-decode; the admission errors quote a Retry-After
+  estimated from the observed inter-token p50 and the page walk; a
+  :class:`~.faults.ServingFaultPlan` is consulted before every dispatch,
+  ahead of its first write to the cache. Every bookkeeping timestamp reads
+  the injectable ``clock``.
+
 Not ported yet, and refused with "not yet ported" where a knob asks for
-them: host KV tiering and the serving mesh. Deadlines, Retry-After
-estimation, the request ledger, tracer, tenant meter, flight recorder and
-metrics also wait for later work.
+it: the serving mesh. The request ledger, tracer, tenant meter, flight
+recorder and metrics registry also wait for later work.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import itertools
+import logging
 import queue as queue_module
 import threading
 import time
-from typing import Callable, Deque, Dict, List, Optional, Sequence
+from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -80,8 +101,18 @@ from ..ops.paged_attention import (
     paged_attention,
     resolve_paged_kernel,
 )
+from ..observability.metrics import Histogram
 from . import EngineDrainingError, QueueFullError, RateLimitError
-from .paging import TRASH_PAGE, PagePool
+from .faults import ServingFaultPlan
+from .paging import (
+    TRASH_PAGE,
+    HostCopyLane,
+    HostPageEntry,
+    HostPageStore,
+    LaneJob,
+    PagePool,
+    page_content_key,
+)
 from .prefix_cache import PrefixCache
 from .speculative import (
     SpeculativeLane,
@@ -90,6 +121,8 @@ from .speculative import (
     build_draft,
     resolve_speculative,
 )
+
+log = logging.getLogger(__name__)
 
 
 def _not_yet_ported(knob: str, value) -> ValueError:
@@ -338,10 +371,34 @@ def _paged_chunk_prefill_body(params: Params, head: torch.Tensor, cache,
                                         layer_index=layer_index)
 
 
+def _page_extract_body(cache: QuantKVCache, page_ids: torch.Tensor
+                       ) -> Tuple[torch.Tensor, ...]:
+    """Gather whole int8 pages + their scale rows out of the paged cache
+    for DEMOTION to the host tier: ``(k, k_scale, v, v_scale)``, fresh
+    tensors ``[L, n, ...]``. A pure read. JAX's donated-buffer chain
+    orders it before any overwriting prefill; here stream order does: it
+    is enqueued on the compute stream before any later write to the
+    gathered pages, so it reads the bytes as they were."""
+    k, k_scale = kvq.extract_pages(cache.k, cache.k_scale, page_ids)
+    v, v_scale = kvq.extract_pages(cache.v, cache.v_scale, page_ids)
+    return k, k_scale, v, v_scale
+
+
+def _page_inject_body(cache: QuantKVCache, page_ids: torch.Tensor,
+                      k: torch.Tensor, k_scale: torch.Tensor,
+                      v: torch.Tensor, v_scale: torch.Tensor) -> None:
+    """Scatter host-staged int8 pages + scales into freshly granted
+    physical pages, in place: the device half of PROMOTION. A host round
+    trip is byte-exact: payload and scales come back untouched, with no
+    requantization either way."""
+    kvq.inject_pages(cache.k, cache.k_scale, page_ids, k, k_scale)
+    kvq.inject_pages(cache.v, cache.v_scale, page_ids, v, v_scale)
+
+
 # -- host side ----------------------------------------------------------------
 
 #: handle event kinds
-TOKEN, DONE = "token", "done"
+TOKEN, DONE, ERROR = "token", "done", "error"
 
 _request_ids = itertools.count(1)
 
@@ -361,7 +418,8 @@ class GenerationHandle:
 
     def tokens(self, timeout_s: float = 30.0):
         """Yield generated token ids as they are produced. Raises
-        ``TimeoutError`` when nothing arrives for ``timeout_s``."""
+        ``TimeoutError`` when nothing arrives for ``timeout_s`` and
+        ``RuntimeError`` when the engine failed the request."""
         while True:
             try:
                 kind, payload = self._events.get(timeout=timeout_s)
@@ -369,10 +427,13 @@ class GenerationHandle:
                 self.cancel()
                 raise TimeoutError(
                     f"no token within {timeout_s:.0f}s") from None
-            if kind == DONE:
+            if kind == TOKEN:
+                yield payload
+            elif kind == DONE:
                 self._summary = payload
                 return
-            yield payload
+            else:
+                raise RuntimeError(str(payload))
 
     def result(self, timeout_s: float = 30.0) -> Dict:
         """Drain the stream and return the completion summary."""
@@ -409,8 +470,16 @@ class _Request:
     generated: List[int] = dataclasses.field(default_factory=list)
     first_token_ts: Optional[float] = None
     last_token_ts: Optional[float] = None
+    #: engine-clock stamp past which the request times out (queue, prefill
+    #: or mid-decode); None = no deadline
+    deadline_ts: Optional[float] = None
     cancelled: bool = False
     finished: bool = False
+    #: pages the host tier promoted for this request (None with the tier
+    #: off) and the promotion's ms (None without a host hit): JAX keeps
+    #: both on its ledger row
+    host_hit_pages: Optional[int] = None
+    promote_ms: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -430,8 +499,23 @@ class _Slot:
     prefill_chunks: int = 0
     prefill_ms: float = 0.0
     prefill_started_ts: float = 0.0
-
-
+    # -- host tier ---------------------------------------------------------
+    #: pages granted from the host store at admission (0 = no host hit)
+    host_hit_pages: int = 0
+    #: store entries to promote, handed to the copy lane by _join
+    promote_entries: List[HostPageEntry] = dataclasses.field(
+        default_factory=list)
+    #: physical destination pages: the fresh pages right after the shared
+    #: run in this slot's page-table row
+    promote_pages: List[int] = dataclasses.field(default_factory=list)
+    #: prompt tokens covered once the inject lands; prefill resumes here
+    promote_boundary: int = 0
+    #: the copy lane's staging job; while set the slot is PARKED like a
+    #: slot mid-prefill (out of the decode batch; cancel and deadline
+    #: still fire), so a slow copy never stalls the pump
+    promote_job: Optional[LaneJob] = None
+    promote_started_ts: float = 0.0
+    promote_ms: float = 0.0
 
 
 class SlotEngine:
@@ -468,6 +552,10 @@ class SlotEngine:
         spec_tokens: int = 4,
         host_kv_bytes: int = 0,
         mesh=None,
+        default_deadline_s: float = 0.0,
+        max_deadline_s: float = 600.0,
+        fault_plan: Optional[ServingFaultPlan] = None,
+        clock: Callable[[], float] = time.monotonic,
         device: DeviceLike = None,
     ) -> None:
         self.device = resolve_device(device)
@@ -490,8 +578,14 @@ class SlotEngine:
         if host_kv_bytes < 0:
             raise ValueError(
                 f"host_kv_bytes must be >= 0, got {host_kv_bytes}")
-        if host_kv_bytes > 0:
-            raise _not_yet_ported("host_kv_bytes", host_kv_bytes)
+        if default_deadline_s < 0 or max_deadline_s <= 0:
+            raise ValueError(
+                f"deadlines must be positive (default_deadline_s >= 0), got "
+                f"default={default_deadline_s} max={max_deadline_s}")
+        if default_deadline_s > max_deadline_s:
+            raise ValueError(
+                f"default_deadline_s={default_deadline_s} exceeds "
+                f"max_deadline_s={max_deadline_s}")
         if mesh is not None:
             raise _not_yet_ported("mesh", mesh)
         if slots < 1:
@@ -519,6 +613,14 @@ class SlotEngine:
         self.kv_quant = kvq.resolve_kv_quant(kv_quant, self.paged)
         self._quant = self.kv_quant == "on"
         self._draining = False
+        self.clock = clock
+        #: per-request wall budget when submit() gets no override; 0 = no
+        #: deadline
+        self.default_deadline_s = float(default_deadline_s)
+        self.max_deadline_s = float(max_deadline_s)
+        #: fault-injection seam consulted before every dispatch; None in
+        #: production
+        self.fault_plan = fault_plan
 
         self._lock = threading.Lock()
         self._pending: Deque[_Request] = collections.deque()
@@ -541,6 +643,11 @@ class SlotEngine:
         #: and the draft lane's prefill mirrors add to neither ``prefills``
         #: nor ``prefill_chunks``
         self.draft_dispatches = 0
+        #: private latency views behind ``stats()``'s p50/p95 and the
+        #: Retry-After estimate
+        self._ttft_hist = Histogram()
+        self._intertoken_hist = Histogram()
+        self._queue_wait_hist = Histogram()
 
         if self.paged:
             if page_size < 1:
@@ -615,6 +722,59 @@ class SlotEngine:
         self.prefix_hits = 0
         self.prefix_misses = 0
 
+        # KV-page tiering: a bounded host-RAM store catches the pages the
+        # radix tree would discard and hands them back on the next content
+        # hit, refilled by copy instead of recompute. host_kv_bytes=0
+        # builds no store, no lane and no copy stream
+        self.host_kv_bytes = int(host_kv_bytes)
+        self._host_store: Optional[HostPageStore] = None
+        self._host_lane: Optional[HostCopyLane] = None
+        #: the tier's copies on the card run here, beside the compute
+        #: stream (None on the CPU or with the tier off)
+        self._copy_stream: Optional[torch.cuda.Stream] = None
+        #: pinned host staging for one lane job's pages (k, k_scale, v,
+        #: v_scale, flat, max_pages_per_slot pages), pinned once here: the
+        #: lane's jobs take turns on it under _staging_lock
+        self._staging: Tuple[torch.Tensor, ...] = ()
+        self._staging_lock = threading.Lock()
+        if self.host_kv_bytes:
+            if not (self.paged and self._quant
+                    and self._prefix is not None):
+                raise ValueError(
+                    "host_kv_bytes > 0 needs the paged int8 layout with "
+                    "the prefix cache on (pages are the tier unit and the "
+                    "radix key is the content identity); set paged=true, "
+                    "kv_quant=auto/on, prefix_cache=auto/on — or "
+                    "host_kv_bytes=0 to disable tiering")
+            self._host_store = HostPageStore(self.host_kv_bytes)
+            self._host_lane = HostCopyLane()
+            self._prefix.spill = self._spill_page_locked
+            if self.device.type == "cuda":
+                self._copy_stream = torch.cuda.Stream(self.device)
+                # pinning is slow and stalls other CUDA calls of the
+                # process, so no job pins memory of its own
+                width = self._pool.max_pages_per_slot
+                payload = (config.n_layers * width * self.page_size
+                           * config.kv_heads * config.d_head)
+                scales = config.n_layers * width * config.kv_heads
+                self._staging = tuple(
+                    torch.empty(size, dtype=dtype, pin_memory=True)
+                    for size, dtype in ((payload, torch.int8),
+                                        (scales, torch.float32),
+                                        (payload, torch.int8),
+                                        (scales, torch.float32)))
+        #: (content_key, physical_page) demotions queued under the lock,
+        #: gathered outside it on the pump thread
+        self._pending_demotes: List[Tuple[bytes, int]] = []
+        #: copy-lane jobs bringing gathered pages to host RAM
+        self._demote_jobs: List[LaneJob] = []
+        self.host_kv_hits = 0
+        self.host_kv_misses = 0
+        self.host_kv_demotions = 0
+        self.host_kv_promotions = 0
+        #: promotions whose copy failed and were recomputed instead
+        self.host_kv_fallbacks = 0
+
         # the speculative lane: with it on, every tick is one draft propose
         # and one batched verify; the plain step is never dispatched
         self._spec: Optional[SpeculativeLane] = None
@@ -644,15 +804,30 @@ class SlotEngine:
     # -- admission --------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int,
                temperature: float = 0.0,
-               user_key: Optional[str] = None) -> GenerationHandle:
+               user_key: Optional[str] = None,
+               deadline_s: Optional[float] = None) -> GenerationHandle:
         """Queue one request; raises ``ValueError`` on malformed input (and
         on a request the page pool can never hold), ``RateLimitError``/
         ``QueueFullError`` on admission failure, ``EngineDrainingError``
-        while the engine drains."""
+        while the engine drains — each carrying a Retry-After estimate.
+
+        ``deadline_s`` overrides the engine's ``default_deadline_s``
+        (capped by ``max_deadline_s``); the deadline binds in the queue,
+        mid-prefill and mid-decode, where the request ends with the
+        outcome ``timeout``."""
         if self._draining:
             raise EngineDrainingError(
                 "engine is draining: in-flight requests are finishing, no "
-                "new admissions; retry after the drain completes")
+                "new admissions; retry after the drain completes",
+                retry_after_s=self.drain_retry_after())
+        if deadline_s is not None:
+            deadline_s = float(deadline_s)
+            if not 0.0 < deadline_s <= self.max_deadline_s:
+                raise ValueError(
+                    f"deadline_s must be in (0, {self.max_deadline_s:g}], "
+                    f"got {deadline_s:g}")
+        elif self.default_deadline_s > 0:
+            deadline_s = self.default_deadline_s
         prompt = [int(token) for token in prompt]
         if not prompt:
             raise ValueError("prompt must contain at least one token")
@@ -676,11 +851,14 @@ class SlotEngine:
                     f"request needs {needed} KV pages but the pool only "
                     f"has {self._pool.num_pages}; shorten the prompt or "
                     "max_new_tokens")
+        submitted_ts = self.clock()
         request = _Request(prompt=prompt, max_new_tokens=int(max_new_tokens),
                            temperature=float(temperature),
                            user_key=str(user_key) if user_key else None,
-                           submitted_ts=time.monotonic(),
-                           request_id=f"req-{next(_request_ids)}")
+                           submitted_ts=submitted_ts,
+                           request_id=f"req-{next(_request_ids)}",
+                           deadline_ts=(submitted_ts + deadline_s
+                                        if deadline_s else None))
         handle = GenerationHandle(self, request)
         request.handle = handle
         with self._lock:
@@ -690,16 +868,72 @@ class SlotEngine:
                 raise RateLimitError(
                     f"user has {self.max_concurrent_per_user} generation "
                     "requests in flight; retry when one completes",
+                    retry_after_s=self._retry_after_locked(),
                     request_id=request.request_id)
             if len(self._pending) >= self.queue_depth:
                 raise QueueFullError(
                     f"admission queue is full ({self.queue_depth} waiting); "
-                    "retry shortly", request_id=request.request_id)
+                    "retry shortly",
+                    retry_after_s=self._retry_after_locked(
+                        needed_pages=(self._pool.pages_for(
+                            len(prompt) + max_new_tokens)
+                            if self.paged else None),
+                        prompt=prompt),
+                    request_id=request.request_id)
             if request.user_key:
                 self._user_active[request.user_key] = (
                     self._user_active.get(request.user_key, 0) + 1)
             self._pending.append(request)
         return handle
+
+    def _retry_after_locked(self, needed_pages: Optional[int] = None,
+                            prompt: Optional[Sequence[int]] = None) -> float:
+        """Retry-After estimate (floor 1 s), as JAX computes it.
+        Contiguous: the time for the running sequence with the fewest
+        tokens left to free its slot at the observed inter-token p50. Paged
+        with ``needed_pages``: walk the running sequences in completion
+        order, counting a page available when its LAST slot holder
+        completes (shared pages must not count twice), on top of the free
+        and cache-only (evictable) pages, and answer the completion time at
+        which ``needed_pages`` fit. With ``prompt``, the prefix cache's
+        matched pages (granted shared) and, with the tier on, the
+        host-resident continuation pages (filled by copy, not recompute)
+        come off the bill."""
+        per_token = self._intertoken_hist.quantile(0.5) or 0.05
+        running = [
+            (slot.request.max_new_tokens - len(slot.request.generated), index)
+            for index, slot in enumerate(self._slots) if slot is not None]
+        if not running:
+            return 1.0
+        if self.paged and needed_pages is not None:
+            if prompt is not None and self._prefix is not None:
+                _, shared = self._prefix.match(prompt)
+                discount = len(shared)
+                if self._host_store is not None:
+                    limit = (self._prefix.cacheable_tokens(len(prompt))
+                             // self.page_size)
+                    index = len(shared)
+                    while index < limit and page_content_key(
+                            prompt, index, self.page_size) in self._host_store:
+                        discount += 1
+                        index += 1
+                needed_pages = max(1, needed_pages - discount)
+            available = self._pool.free_pages
+            if self._prefix is not None:
+                available += self._pool.cached_only_pages()
+            if available < needed_pages:
+                slot_refs = self._pool.slot_ref_counts()
+                eta_tokens = 0
+                for remaining, index in sorted(running):
+                    for page in self._pool.owned_pages(index):
+                        slot_refs[page] -= 1
+                        if slot_refs[page] == 0:
+                            available += 1      # net-releasable now
+                    eta_tokens = remaining
+                    if available >= needed_pages:
+                        break
+                return max(1.0, round(eta_tokens * per_token, 1))
+        return max(1.0, round(min(r for r, _ in running) * per_token, 1))
 
     def _cancel(self, request: _Request) -> None:
         with self._lock:
@@ -720,18 +954,42 @@ class SlotEngine:
         """Re-open admission after a drain. Idempotent."""
         self._draining = False
 
+    def drain_retry_after(self) -> float:
+        """Retry-After while draining: the estimated time for every
+        in-flight request to finish at the observed inter-token p50 — the
+        slowest running slot plus the queued work spread over the slot
+        pool (floor 1 s)."""
+        with self._lock:
+            per_token = self._intertoken_hist.quantile(0.5) or 0.05
+            running = [slot.request.max_new_tokens
+                       - len(slot.request.generated)
+                       for slot in self._slots if slot is not None]
+            queued = sum(request.max_new_tokens
+                         for request in self._pending)
+            tokens_left = (max(running) if running else 0) + (
+                queued / max(1, self.capacity))
+            return max(1.0, round(tokens_left * per_token, 1))
+
     # -- scheduler --------------------------------------------------------
     def has_work(self) -> bool:
         with self._lock:
+            # the tier's backlog counts: queued demotions still need their
+            # gather, and copies in flight need adopting into the store
             return (bool(self._pending)
-                    or any(slot is not None for slot in self._slots))
+                    or any(slot is not None for slot in self._slots)
+                    or bool(self._pending_demotes)
+                    or bool(self._demote_jobs))
 
     def step(self) -> int:
-        """One scheduler iteration: admit joins, advance every prefill in
+        """One scheduler iteration: tick the host tier's copies (adopt what
+        landed, gather queued demotions ahead of anything that could
+        overwrite their pages), admit joins, advance every prefill in
         progress by ONE chunk (``prefill_chunk_tokens`` bounds the prefill
         work a tick inserts between two decode steps), then advance the
         running batch one token. Returns the number of active slots
         stepped."""
+        if self._host_store is not None:
+            self._pump_host_lane()
         self._admit()
         self._advance_prefills()
         return self._decode_step()
@@ -740,12 +998,12 @@ class SlotEngine:
              should_stop: Optional[Callable[[], bool]] = None) -> int:
         """Run scheduler iterations until idle, the wall budget is spent,
         or ``should_stop()``."""
-        deadline = None if budget_s is None else time.monotonic() + budget_s
+        deadline = None if budget_s is None else self.clock() + budget_s
         steps = 0
         while self.has_work():
             if should_stop is not None and should_stop():
                 break
-            if deadline is not None and time.monotonic() >= deadline:
+            if deadline is not None and self.clock() >= deadline:
                 break
             self.step()
             steps += 1
@@ -761,7 +1019,9 @@ class SlotEngine:
         write is dropped (real length 0) and the step only writes the
         trash page (paged) or slot rows no request holds (contiguous). A
         speculative engine also runs the draft lane's prefill mirrors, and
-        one propose and one verify instead of the step."""
+        one propose and one verify instead of the step. A tiered engine
+        also takes the trash page through the tier's whole path: gather,
+        copy out, copy back, inject (its own bytes, to the write sink)."""
         if self._use_chunk_prefill:
             widths = {_prefill_bucket(1, self.max_len - 1)}
             for length in prompt_lens:
@@ -777,6 +1037,12 @@ class SlotEngine:
                 if self._spec is not None:
                     self._spec.chunk_prefill(np.zeros((1, width), np.int32),
                                              0, 0, 0)
+            if self._host_store is not None:
+                _, [page] = self._materialize_demotion(
+                    [b""], *self._dispatch_page_extract([TRASH_PAGE]))
+                self._dispatch_page_inject(
+                    [TRASH_PAGE], self._stage_promotion(
+                        [HostPageEntry(*page, last_used=0)]))
         else:
             buckets = {_prefill_bucket(max(1, length - 1), self.max_len - 1)
                        for length in prompt_lens} or {
@@ -800,10 +1066,18 @@ class SlotEngine:
         self._run_spec_verify(verify_window, limits, page_table)[0].cpu()
 
     # -- internals --------------------------------------------------------
+    def _fault_point(self, kind: str) -> None:
+        """Fault-injection seam, consulted at the top of every dispatch,
+        before its first in-place write to the cache: an injected fault
+        leaves the cache as it was. A no-op without a plan."""
+        if self.fault_plan is not None:
+            self.fault_plan.before_dispatch(kind)
+
     def _dispatch_prefill(self, head: np.ndarray, slot: int,
                           real_len: int) -> None:
         """The whole-prompt prefill through whichever layout this engine
         uses: the slot's page-table row (paged) or its cache row."""
+        self._fault_point("prefill")
         self.prefills += 1
         if self.paged:
             _paged_prefill_body(self.params, self._operand(head),
@@ -818,6 +1092,7 @@ class SlotEngine:
                                 start: int, real_len: int) -> None:
         """One prefill chunk (positions ``start .. start + real_len - 1``)
         through the slot's page-table row."""
+        self._fault_point("prefill")
         self.prefill_chunks += 1
         _paged_chunk_prefill_body(
             self.params, self._operand(head), self._cache,
@@ -825,6 +1100,7 @@ class SlotEngine:
             int(real_len), self.config)
 
     def _run_step(self) -> torch.Tensor:
+        self._fault_point("step")
         self.step_dispatches += 1
         if not self.paged:
             return _step_body(
@@ -846,6 +1122,289 @@ class SlotEngine:
             self._operand(self._positions), self._operand(self._active),
             self._operand(self._temps), self._operand(page_table),
             self._cache, self._generator, self.config, self.top_k)
+
+    # -- KV-page tiering internals ------------------------------------------
+    #
+    # Threads: the HostPageStore is read and written ONLY on the pump
+    # thread; the copy lane's thread does the copies' host side (pinned
+    # staging, enqueueing on the copy stream, waiting for it) and publishes
+    # through LaneJob.done. The gather and the inject are dispatched on the
+    # pump thread outside the engine lock, on the compute stream, like
+    # every other dispatch. On the card, the copy stream orders itself
+    # after the gather by an event, the inject's stream waits on the copy's
+    # event, and the tensors that cross streams stay alive (held in the job)
+    # or are marked with record_stream.
+
+    def _dispatch_page_extract(self, pages: Sequence[int]):
+        """Gather ``pages`` for demotion: ``(extracted, ready)`` with
+        ``ready`` an event recorded on the compute stream after the gather
+        (None on the CPU). Dispatched before anything that could overwrite
+        the pages, so it reads them as they were."""
+        self._fault_point("extract")
+        extracted = _page_extract_body(
+            self._cache, self._operand(np.asarray(pages, np.int32)))
+        if self._copy_stream is None:
+            return extracted, None
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        return extracted, ready
+
+    def _staged_run(self, count: int) -> Tuple[torch.Tensor, ...]:
+        """``(k, k_scale, v, v_scale)`` ``[L, count, ...]`` host tensors for
+        one lane job: contiguous views of the pinned staging on the card
+        (the caller holds ``_staging_lock``), fresh tensors on the CPU."""
+        config = self.config
+        payload = (config.n_layers, count, self.page_size, config.kv_heads,
+                   config.d_head)
+        scales = (config.n_layers, count, config.kv_heads)
+        shapes = (payload, scales, payload, scales)
+        dtypes = (torch.int8, torch.float32) * 2
+        if not self._staging:
+            return tuple(torch.empty(shape, dtype=dtype)
+                         for shape, dtype in zip(shapes, dtypes))
+        return tuple(flat[:int(np.prod(shape))].view(shape)
+                     for flat, shape in zip(self._staging, shapes))
+
+    def _materialize_demotion(self, keys: List[bytes], extracted,
+                              ready: Optional[torch.cuda.Event]):
+        """(copy lane) Bring gathered pages to host RAM and split them:
+        returns ``(keys, pages)``, one ``(k, v, k_scale, v_scale)`` of
+        numpy copies per key — per-page copies, since a view into the
+        batch would pin the whole transfer buffer and lie to byte
+        accounting. On the card the copy runs on the copy stream, after
+        the gather's event, into the pinned staging, and is waited for
+        here, never on the pump. The job's closure holds ``extracted``
+        until the pump drops the finished job, so the gathered tensors
+        outlive the copy that reads them."""
+        if ready is None:
+            return keys, self._split_pages(extracted, len(keys))
+        with self._staging_lock:
+            host = self._staged_run(len(keys))
+            with torch.cuda.device(self.device), \
+                    torch.cuda.stream(self._copy_stream):
+                self._copy_stream.wait_event(ready)
+                for pinned, tensor in zip(host, extracted):
+                    pinned.copy_(tensor, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self._copy_stream)
+            done.synchronize()
+            return keys, self._split_pages(host, len(keys))
+
+    @staticmethod
+    def _split_pages(host, count: int) -> List[Tuple[np.ndarray, ...]]:
+        """One ``(k, v, k_scale, v_scale)`` per page, each a numpy array of
+        its own memory, filled by ONE torch copy per array
+        (``_foreach_copy_``, which runs without the interpreter lock): the
+        pump's decode step is thousands of small calls that each take the
+        lock back, and a lane thread taking it once a page slows every one
+        of them."""
+        columns = []
+        for tensor in (host[0], host[2], host[1], host[3]):   # k, v, scales
+            shape = tensor.shape[:1] + tensor.shape[2:]
+            dtype = np.int8 if tensor.dtype == torch.int8 else np.float32
+            pages = [np.empty(shape, dtype) for _ in range(count)]
+            torch._foreach_copy_([torch.from_numpy(page) for page in pages],
+                                 list(tensor.unbind(1)))
+            columns.append(pages)
+        return list(zip(*columns))
+
+    def _stage_promotion(self, entries: List[HostPageEntry]):
+        """(copy lane) Assemble the promotion run — only its real pages —
+        into ``(k, k_scale, v, v_scale)`` ``[L, n, ...]``, and on the card
+        copy it up: assembled in the pinned staging, copied on the copy
+        stream, waited for here. Returns ``(tensors, done)`` with ``done``
+        the copy's event (None on the CPU)."""
+        def assemble(staged):
+            # one torch op per array, for the reason _split_pages gives
+            for target, name in zip(staged, ("k", "k_scale", "v",
+                                             "v_scale")):
+                torch.stack([torch.from_numpy(getattr(entry, name))
+                             for entry in entries], dim=1, out=target)
+            return staged
+
+        if self._copy_stream is None:
+            return assemble(self._staged_run(len(entries))), None
+        with self._staging_lock:
+            staged = assemble(self._staged_run(len(entries)))
+            with torch.cuda.device(self.device), \
+                    torch.cuda.stream(self._copy_stream):
+                on_device = tuple(t.to(self.device, non_blocking=True)
+                                  for t in staged)
+                done = torch.cuda.Event()
+                done.record(self._copy_stream)
+            done.synchronize()
+        return on_device, done
+
+    def _dispatch_page_inject(self, pages: Sequence[int], staged) -> None:
+        """Scatter a staged run into the slot's fresh pages, in place. On
+        the card the compute stream first waits on the copy's event, and
+        the copied tensors, allocated on the copy stream, are marked as
+        used by the compute stream, so the allocator cannot hand their
+        memory out again while the inject still reads it."""
+        self._fault_point("inject")
+        tensors, done = staged
+        if done is not None:
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_event(done)
+            for tensor in tensors:
+                tensor.record_stream(compute)
+        _page_inject_body(self._cache,
+                          self._operand(np.asarray(pages, np.int32)),
+                          *tensors)
+
+    def _spill_page_locked(self, key: bytes, page: int) -> None:
+        """PrefixCache eviction hook (under the engine lock, BEFORE the
+        victim's reference drops): queue a demotion. The pump gathers it
+        right after the lock releases, before any prefill can be
+        dispatched at the recycled page."""
+        if key not in self._host_store:
+            self._pending_demotes.append((key, page))
+
+    def _queue_slot_demotions_locked(self, index: int, state: _Slot) -> None:
+        """Queue demotions for a leaving slot's sole-held prefix pages:
+        fully dispatched cacheable pages with refcount 1 (the tree never
+        adopted them or already let go), which release() is about to
+        net-free. Shared pages are the tree's to spill when it evicts
+        them."""
+        prompt = state.request.prompt
+        covered = min(state.prefill_next,
+                      self._prefix.cacheable_tokens(len(prompt)))
+        row = self._pool.owned_pages(index)
+        for page_index in range(covered // self.page_size):
+            page = row[page_index]
+            if self._pool.refcount(page) != 1:
+                continue
+            key = page_content_key(prompt, page_index, self.page_size)
+            if key in self._host_store:
+                continue
+            self._pending_demotes.append((key, page))
+
+    def _probe_host_locked(self, prompt: Sequence[int],
+                           start_pages: int) -> List[HostPageEntry]:
+        """Walk successive content keys past the device match; returns the
+        resident continuation run (LRU-touched). The prefix_min_tokens gate
+        of match() applies: a promotion covering less is not worth its
+        copy."""
+        limit = self._prefix.cacheable_tokens(len(prompt)) // self.page_size
+        entries: List[HostPageEntry] = []
+        index = start_pages
+        while index < limit:
+            entry = self._host_store.get(
+                page_content_key(prompt, index, self.page_size))
+            if entry is None:
+                break
+            entries.append(entry)
+            index += 1
+        if entries and index * self.page_size < self.prefix_min_tokens:
+            entries = []
+        if entries:
+            self.host_kv_hits += 1
+        else:
+            self.host_kv_misses += 1
+        return entries
+
+    def _pump_host_lane(self) -> None:
+        """Tick the tier — first thing in step(), before admission: gather
+        queued demotions ahead of anything that could overwrite their
+        pages, adopt finished copies. Poll and dispatch only; a copy still
+        in flight is picked up on a later tick."""
+        self._dispatch_demotions()
+        self._adopt_demotions()
+        self._adopt_promotions()
+
+    def _dispatch_demotions(self) -> None:
+        """Drain queued demotions: gather their pages (pump thread, outside
+        the lock) and hand them to the lane for the copy to host RAM."""
+        with self._lock:
+            pending, self._pending_demotes = self._pending_demotes, []
+        width = self._pool.max_pages_per_slot
+        for start in range(0, len(pending), width):
+            group = pending[start:start + width]
+            try:
+                extracted, ready = self._dispatch_page_extract(
+                    [page for _, page in group])
+            except Exception:
+                # nothing of this group was gathered: it and the rest go
+                # back to the head of the queue, which the next tick
+                # gathers before anything else
+                with self._lock:
+                    self._pending_demotes[:0] = pending[start:]
+                raise
+            self._demote_jobs.append(self._host_lane.submit(
+                functools.partial(self._materialize_demotion,
+                                  [key for key, _ in group], extracted,
+                                  ready)))
+
+    def _adopt_demotions(self) -> None:
+        """Adopt finished copies into the host store (pump thread: the
+        store's single writer)."""
+        still_running: List[LaneJob] = []
+        for job in self._demote_jobs:
+            if not job.done:
+                still_running.append(job)
+                continue
+            if job.error is not None:
+                log.warning("host-kv demotion dropped: %s", job.error)
+                continue
+            keys, pages = job.result
+            adopted = sum(self._host_store.put(key, *page)
+                          for key, page in zip(keys, pages))
+            if adopted:
+                with self._lock:
+                    self.host_kv_demotions += adopted
+        self._demote_jobs = still_running
+
+    def _adopt_promotions(self) -> None:
+        """Poll parked slots' staging jobs; for each finished one, inject
+        the run and resume the slot's prefill past ``promote_boundary``. A
+        failed copy falls back to recomputing the span, logged and counted
+        in ``host_kv_fallbacks``. Slots are freed only on this pump thread,
+        so the identity check under the lock holds through the inject."""
+        with self._lock:
+            parked = [(index, state)
+                      for index, state in enumerate(self._slots)
+                      if state is not None and state.promote_job is not None]
+        for index, state in parked:
+            job = state.promote_job
+            if not job.done:
+                continue
+            if job.error is not None:
+                log.warning("host-kv promotion failed (slot %d): %s — "
+                            "falling back to recompute", index, job.error)
+                with self._lock:
+                    if self._slots[index] is state:
+                        self.host_kv_fallbacks += 1
+                        state.promote_job = None
+                        state.promote_entries = []
+                        state.promote_pages = []
+                        state.promote_boundary = 0
+                        state.host_hit_pages = 0
+                continue
+            with self._lock:
+                if self._slots[index] is not state:
+                    continue        # cancelled and freed while it copied
+            self._dispatch_page_inject(state.promote_pages, job.result)
+            promoted = len(state.promote_pages)
+            now = self.clock()
+            finish = False
+            with self._lock:
+                if self._slots[index] is not state:
+                    continue
+                state.promote_job = None
+                state.promote_entries = []
+                state.promote_ms = (now - state.promote_started_ts) * 1e3
+                state.prefill_next = max(state.prefill_next,
+                                         min(state.promote_boundary,
+                                             state.prefill_target))
+                self.host_kv_promotions += promoted
+                # injected pages are dispatched content: into the radix
+                # tree, so the next identical prompt hits on the device
+                self._prefix.insert(state.request.prompt,
+                                    self._pool.page_table[index],
+                                    state.promote_boundary)
+                finish = state.prefill_next >= state.prefill_target
+            if finish:
+                self._finish_prefill(index, state)
 
     def _admit(self) -> int:
         """Move pending requests into free slots (head of line first; a
@@ -882,26 +1441,67 @@ class SlotEngine:
                         # long ones cannot starve (submit() rejected the
                         # impossible)
                         return joined
+                    host_entries: List[HostPageEntry] = []
                     if self._prefix is not None:
                         if cached_tokens > 0:
                             self.prefix_hits += 1
                         else:
                             self.prefix_misses += 1
+                        if self._host_store is not None:
+                            # the host tier can only EXTEND the device
+                            # match: resident content keys past the shared
+                            # run are promoted into this slot's first
+                            # fresh pages instead of recomputed
+                            host_entries = self._probe_host_locked(
+                                request.prompt, len(shared))
+                self._pending.popleft()
+                joined_ts = self.clock()
+                self._slots[free] = _Slot(request=request,
+                                          joined_ts=joined_ts,
+                                          cached_tokens=cached_tokens)
+                if self.paged and host_entries:
+                    # the promoted run lands in the fresh pages right after
+                    # the shared run; the grant is unchanged — promotion
+                    # replaces the fill (recompute -> copy), not the pages
+                    state = self._slots[free]
+                    row = self._pool.owned_pages(free)
+                    state.promote_entries = host_entries
+                    state.promote_pages = row[
+                        len(shared):len(shared) + len(host_entries)]
+                    state.promote_boundary = (
+                        (len(shared) + len(host_entries)) * self.page_size)
+                    state.host_hit_pages = len(host_entries)
                 # last legal write position of the speculative windows
                 self._pos_limits[free] = (len(request.prompt)
                                           + request.max_new_tokens - 1)
-                self._pending.popleft()
-                self._slots[free] = _Slot(request=request,
-                                          joined_ts=time.monotonic(),
-                                          cached_tokens=cached_tokens)
-            self._join(free, request)
+                self._queue_wait_hist.observe(joined_ts
+                                              - request.submitted_ts)
+            try:
+                if self._host_store is not None:
+                    # evict() above may have queued spills of the pages it
+                    # reclaimed: gather them NOW, before this join's chunks
+                    # (or a later join's) can be dispatched at those pages
+                    self._dispatch_demotions()
+            finally:
+                # the slot is granted: join it even when the gather fails,
+                # or it would hold its pages unarmed forever. A chunked
+                # join dispatches nothing, and the next tick gathers the
+                # requeued demotions before any chunk
+                self._join(free, request)
             joined += 1
 
     def _drop_cancelled_pending_locked(self) -> None:
+        """Cancelled requests leave the queue, and so do those past their
+        deadline (a head-of-line request waiting for pages times out
+        instead of waiting forever)."""
+        now = self.clock()
         kept: Deque[_Request] = collections.deque()
         for request in self._pending:
             if request.cancelled:
                 self._finish_locked(request, outcome="cancelled")
+            elif (request.deadline_ts is not None
+                    and now >= request.deadline_ts):
+                self._finish_locked(request, outcome="timeout")
             else:
                 kept.append(request)
         self._pending = kept
@@ -916,7 +1516,9 @@ class SlotEngine:
         operand) at the first uncached position, and
         :meth:`_advance_prefills` — in this same tick — dispatches one
         chunk per tick until the slot arms. A full-prefix hit arms at once,
-        with zero chunks."""
+        with zero chunks. A host-tier hit parks the slot the same way and
+        hands the promotion to the copy lane; the pump resumes the prefill
+        past the promoted run once the copy has landed."""
         prompt = request.prompt
         prompt_len = len(prompt)
         if self._use_chunk_prefill:
@@ -925,7 +1527,15 @@ class SlotEngine:
             state.prefill_next = min(state.cached_tokens,
                                      state.prefill_target)
             state.prefill_done = False
-            state.prefill_started_ts = time.monotonic()
+            state.prefill_started_ts = self.clock()
+            if state.promote_entries:
+                state.promote_started_ts = self.clock()
+                # urgent: a request waits on it, a demotion waits on no one
+                state.promote_job = self._host_lane.submit(
+                    functools.partial(self._stage_promotion,
+                                      list(state.promote_entries)),
+                    urgent=True)
+                return
             if state.prefill_next >= state.prefill_target:
                 self._finish_prefill(slot, state)
             return
@@ -957,8 +1567,9 @@ class SlotEngine:
 
     def _advance_prefills(self) -> int:
         """Dispatch ONE prefill chunk for every slot still mid-prefill. A
-        cancel is honored here too, so a cancel mid-chunk frees the slot
-        (and its net-releasable pages) without arming it. Returns the
+        cancel or a passed deadline is honored here too, before the chunk,
+        so either frees the slot (and its net-releasable pages) without
+        arming it — a slot parked on a promotion included. Returns the
         chunks dispatched."""
         if not self._use_chunk_prefill:
             return 0    # whole prompts are prefilled inside _join
@@ -974,6 +1585,16 @@ class SlotEngine:
                         self._finish_locked(state.request,
                                             outcome="cancelled")
                 continue
+            deadline = state.request.deadline_ts
+            if deadline is not None and self.clock() >= deadline:
+                with self._lock:
+                    if self._slots[index] is state:
+                        self._free_slot_locked(index)
+                        self._finish_locked(state.request,
+                                            outcome="timeout")
+                continue
+            if state.promote_job is not None:
+                continue        # parked: the copy lane owns the resume
             self._advance_prefill_slot(index, state)
             chunks += 1
         return chunks
@@ -991,13 +1612,13 @@ class SlotEngine:
         width = _prefill_bucket(length, self.max_len - 1)
         head = np.zeros((1, width), np.int32)
         head[0, :length] = prompt[start:start + length]
-        started = time.monotonic()
+        started = self.clock()
         self._dispatch_chunk_prefill(head, index, start, length)
         if self._spec is not None:
             # into the draft lane BEFORE the radix tree adopts the chunk's
             # pages: a cached page carries both lanes' K/V
             self._spec.chunk_prefill(head, index, start, length)
-        state.prefill_ms += (time.monotonic() - started) * 1e3
+        state.prefill_ms += (self.clock() - started) * 1e3
         state.prefill_chunks += 1
         state.prefill_next = start + length
         with self._lock:
@@ -1011,6 +1632,11 @@ class SlotEngine:
         """Arm a slot whose prefill (possibly zero chunks — a full-prefix
         hit) is dispatched: the next decode step emits its first token."""
         request = state.request
+        if self._host_store is not None:
+            # the copy's share of TTFT, apart from the prefill's
+            request.host_hit_pages = state.host_hit_pages
+            if state.host_hit_pages:
+                request.promote_ms = round(state.promote_ms, 3)
         with self._lock:
             if self._slots[index] is not state:
                 return                       # cancelled and freed meanwhile
@@ -1055,6 +1681,7 @@ class SlotEngine:
         """The batched target verify over ``[S, k+1]`` window tokens
         (current token + proposals): ``(greedy [S, k+1], chosen [S])`` on
         the device."""
+        self._fault_point("verify")
         self.step_dispatches += 1
         operands = (self._operand(verify_window),
                     self._operand(self._positions),
@@ -1083,6 +1710,9 @@ class SlotEngine:
             if not stepped:
                 return 0
             window, lens, limits, page_table = self._spec_operands_locked()
+        # the "step" point covers the propose half of the tick (the verify
+        # has its own), outside the lock like every dispatch
+        self._fault_point("step")
         proposals = np.asarray(self._spec.propose(
             window, lens, self._positions, limits, page_table).cpu())
         verify_window = np.concatenate([self._tokens[:, None], proposals],
@@ -1090,7 +1720,7 @@ class SlotEngine:
         greedy, chosen = self._run_spec_verify(verify_window, limits,
                                                page_table)
         greedy, chosen = greedy.cpu().numpy(), chosen.cpu().numpy()
-        now = time.monotonic()
+        now = self.clock()
         with self._lock:
             self.steps += 1
             for index, request in stepped:
@@ -1140,7 +1770,7 @@ class SlotEngine:
         if not stepped:
             return 0
         emitted = self._run_step().cpu().numpy()
-        now = time.monotonic()
+        now = self.clock()
         with self._lock:
             self.steps += 1
             for index, request in stepped:
@@ -1163,6 +1793,10 @@ class SlotEngine:
         self.emitted_tokens += 1
         if request.first_token_ts is None:
             request.first_token_ts = now
+            self._ttft_hist.observe(now - request.submitted_ts)
+        else:
+            self._intertoken_hist.observe(
+                now - (request.last_token_ts or now))
         request.last_token_ts = now
         if request.handle is not None:
             request.handle._push(TOKEN, token)
@@ -1170,6 +1804,11 @@ class SlotEngine:
         if hit_eos or len(request.generated) >= request.max_new_tokens:
             self._free_slot_locked(index)
             self._finish_locked(request, outcome="completed")
+        elif (request.deadline_ts is not None
+                and now >= request.deadline_ts):
+            # mid-decode deadline: truncate AFTER delivering this token
+            self._free_slot_locked(index)
+            self._finish_locked(request, outcome="timeout")
 
     def _free_slot_locked(self, index: int) -> None:
         """Free the slot. Paged: release its grant NOW through the
@@ -1178,7 +1817,12 @@ class SlotEngine:
         admission), so the row points back at the trash page and the
         position resets to 0 — the parked slot's writes land at (trash,
         0). Contiguous: the position stays frozen, so the parked slot's
-        writes keep landing on one consumed cell of its own row."""
+        writes keep landing on one consumed cell of its own row. With the
+        host tier, the slot's prefix pages that no one else holds are
+        queued for demotion first."""
+        state = self._slots[index]
+        if self._host_store is not None and state is not None:
+            self._queue_slot_demotions_locked(index, state)
         self._slots[index] = None
         self._active[index] = False
         self._spec_windows[index] = []
@@ -1189,12 +1833,16 @@ class SlotEngine:
             self._pool.release(index)
             self._positions[index] = 0
 
-    def _finish_locked(self, request: _Request, outcome: str) -> None:
-        """Terminal bookkeeping, exactly once per request."""
+    def _finish_locked(self, request: _Request, outcome: str,
+                       error: Optional[str] = None) -> None:
+        """Terminal bookkeeping, exactly once per request. With ``error``
+        the handle gets an ERROR event (the stream's terminal error);
+        otherwise a DONE summary carrying ``outcome`` (completed,
+        cancelled, timeout)."""
         if request.finished:
             return
         request.finished = True
-        now = time.monotonic()
+        now = self.clock()
         if outcome == "completed":
             self.completed_requests += 1
         if request.user_key:
@@ -1205,6 +1853,9 @@ class SlotEngine:
                 self._user_active[request.user_key] = remaining
         if request.handle is None:
             return
+        if error is not None:
+            request.handle._push(ERROR, error)
+            return
         request.handle._push(DONE, {
             "requestId": request.request_id,
             "tokens": list(request.generated),
@@ -1214,18 +1865,40 @@ class SlotEngine:
             "durationS": round(now - request.submitted_ts, 6),
         })
 
+    def fail_all_inflight(self, message: str) -> int:
+        """Fail every queued and running request with a terminal error
+        event — what a supervisor calls when a failure is fatal, before
+        rebuilding the engine, so no stream waits on a dead device. Returns
+        how many requests were failed. Touches only host bookkeeping."""
+        with self._lock:
+            failed = 0
+            for request in list(self._pending):
+                self._finish_locked(request, outcome="failed", error=message)
+                failed += 1
+            self._pending.clear()
+            for index, slot in enumerate(self._slots):
+                if slot is None:
+                    continue
+                self._free_slot_locked(index)
+                self._finish_locked(slot.request, outcome="failed",
+                                    error=message)
+                failed += 1
+            return failed
+
     # -- introspection ----------------------------------------------------
     def _busy_locked(self) -> int:
         return sum(1 for slot in self._slots if slot is not None)
 
     def stats(self) -> Dict:
-        """Engine snapshot: a subset of the JAX engine's ``stats``, under
-        the same key names. Not here yet: the mesh keys (``meshShape``,
-        ``numDevices``), the host tier's (``hostKvBytes``,
-        ``hostPagesResident``, ``hostBytesUsed``, ``hostHitRate``),
-        ``busySlotSeconds`` and the latency quantiles (``ttftP50Ms``,
-        ``ttftP95Ms``, ``intertokenP50Ms``, ``intertokenP95Ms``). ``device``,
-        ``stepDispatches`` and ``prefills`` are the port's own."""
+        """Engine snapshot: the JAX engine's ``stats`` under the same key
+        names, less the mesh keys (``meshShape``, ``numDevices``) and
+        ``busySlotSeconds`` (the tenant meter's), not ported yet.
+        ``device``, ``stepDispatches`` and ``prefills`` are the port's
+        own."""
+        def ms(value: Optional[float]) -> Optional[float]:
+            return None if value is None else round(value * 1e3, 3)
+
+        store = self._host_store
         with self._lock:
             lookups = self.prefix_hits + self.prefix_misses
             return {
@@ -1256,6 +1929,17 @@ class SlotEngine:
                                 if self._prefix is not None else None),
                 "prefillChunkTokens": (self.prefill_chunk_tokens
                                        if self._use_chunk_prefill else None),
+                "hostKvBytes": (self.host_kv_bytes if store is not None
+                                else None),
+                "hostPagesResident": (store.resident_pages
+                                      if store is not None else None),
+                "hostBytesUsed": (store.bytes_used if store is not None
+                                  else None),
+                "hostHitRate": (
+                    round(self.host_kv_hits
+                          / (self.host_kv_hits + self.host_kv_misses), 4)
+                    if store is not None
+                    and self.host_kv_hits + self.host_kv_misses else None),
                 "speculative": self.speculative,
                 "specTokens": (self.spec_tokens if self._spec is not None
                                else None),
@@ -1269,7 +1953,22 @@ class SlotEngine:
                 "steps": self.steps,
                 "stepDispatches": self.step_dispatches,
                 "prefills": self.prefills,
+                "ttftP50Ms": ms(self._ttft_hist.quantile(0.5)),
+                "ttftP95Ms": ms(self._ttft_hist.quantile(0.95)),
+                "intertokenP50Ms": ms(self._intertoken_hist.quantile(0.5)),
+                "intertokenP95Ms": ms(self._intertoken_hist.quantile(0.95)),
             }
+
+    def ttft_p95_s(self) -> Optional[float]:
+        return self._ttft_hist.quantile(0.95)
+
+    def queue_wait_p95_s(self) -> Optional[float]:
+        """p95 admission-queue wait (None before the first join)."""
+        return self._queue_wait_hist.quantile(0.95)
+
+    def queue_saturation(self) -> float:
+        with self._lock:
+            return len(self._pending) / self.queue_depth
 
     def spec_acceptance_rate(self,
                              min_proposed: int = 64) -> Optional[float]:

@@ -1,7 +1,8 @@
 """Block-paged KV cache bookkeeping, host side — a copy of the page
 allocator of ``tensorhive_tpu/serving/paging.py`` (``PagePool`` with its
-refcounts and prefix-cache references, and ``page_content_key``; the host
-tier's ``HostPageStore``/``HostCopyLane`` are not ported yet).
+refcounts and prefix-cache references, ``page_content_key``) and of its
+host tier (``HostPageEntry``, ``HostPageStore``, ``LaneJob``,
+``HostCopyLane``).
 
 The cache is a pool of fixed-size pages of ``page_size`` token positions; a
 slot owns only the pages its request needs, handed out from a host-side
@@ -21,7 +22,9 @@ no live sequence reads.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+import collections
+import threading
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -216,3 +219,148 @@ def page_content_key(prompt: Sequence[int], page_index: int,
     position depends on every earlier token)."""
     end = (page_index + 1) * page_size
     return np.asarray(prompt[:end], np.int32).tobytes()
+
+
+# -- host tier ----------------------------------------------------------------
+
+class HostPageEntry:
+    """One demoted page: int8 K/V payload ``[layers, page_size, kv_heads,
+    d_head]`` plus the per-(page, kv_head) f32 scale rows ``[layers,
+    kv_heads]`` that travelled with it. Immutable once stored: a promotion
+    reads it, never edits it, so the store can hand one entry to several
+    promote jobs without copying."""
+
+    __slots__ = ("k", "v", "k_scale", "v_scale", "nbytes", "last_used")
+
+    def __init__(self, k: np.ndarray, v: np.ndarray, k_scale: np.ndarray,
+                 v_scale: np.ndarray, last_used: int) -> None:
+        self.k = k
+        self.v = v
+        self.k_scale = k_scale
+        self.v_scale = v_scale
+        self.nbytes = int(k.nbytes + v.nbytes + k_scale.nbytes
+                          + v_scale.nbytes)
+        self.last_used = last_used
+
+
+class HostPageStore:
+    """Bounded host-RAM store of demoted int8 pages, LRU inside a byte
+    budget (``host_kv_bytes``).
+
+    Keys are radix content keys (:func:`page_content_key`). ``put`` admits
+    an entry and LRU-evicts past the budget; ``get`` returns the entry and
+    touches its LRU stamp. An entry larger than the whole budget is
+    refused. Not locked: the engine touches it only from its pump thread,
+    like :class:`PagePool`."""
+
+    def __init__(self, capacity_bytes: int) -> None:
+        if capacity_bytes < 1:
+            raise ValueError(
+                f"capacity_bytes must be >= 1, got {capacity_bytes}")
+        self.capacity_bytes = int(capacity_bytes)
+        self._entries: Dict[bytes, HostPageEntry] = {}
+        self._tick = 0
+        self.bytes_used = 0
+        #: lifetime pages the budget pushed back out
+        self.evictions = 0
+
+    @property
+    def resident_pages(self) -> int:
+        return len(self._entries)
+
+    def __contains__(self, key: bytes) -> bool:
+        return key in self._entries
+
+    def put(self, key: bytes, k: np.ndarray, v: np.ndarray,
+            k_scale: np.ndarray, v_scale: np.ndarray) -> bool:
+        """Adopt one demoted page; returns False when it can never fit.
+        Re-demoting a resident key refreshes its bytes and LRU stamp (the
+        payload is the same by construction: content-keyed)."""
+        self._tick += 1
+        entry = HostPageEntry(k, v, k_scale, v_scale, self._tick)
+        if entry.nbytes > self.capacity_bytes:
+            return False
+        old = self._entries.pop(key, None)
+        if old is not None:
+            self.bytes_used -= old.nbytes
+        self._entries[key] = entry
+        self.bytes_used += entry.nbytes
+        while self.bytes_used > self.capacity_bytes:
+            victim = min(self._entries,
+                         key=lambda k_: self._entries[k_].last_used)
+            self.bytes_used -= self._entries.pop(victim).nbytes
+            self.evictions += 1
+        return True
+
+    def get(self, key: bytes) -> Optional[HostPageEntry]:
+        entry = self._entries.get(key)
+        if entry is not None:
+            self._tick += 1
+            entry.last_used = self._tick
+        return entry
+
+    def clear(self) -> int:
+        dropped = len(self._entries)
+        self._entries.clear()
+        self.bytes_used = 0
+        return dropped
+
+
+class LaneJob:
+    """One unit of copy-lane work. ``done`` flips True (a plain attribute
+    write, atomic under the GIL) only AFTER ``result``/``error`` are set,
+    so a pump-thread poll that sees ``done`` sees the whole outcome."""
+
+    __slots__ = ("fn", "result", "error", "done")
+
+    def __init__(self, fn: Callable[[], object]) -> None:
+        self.fn = fn
+        self.result: object = None
+        self.error: Optional[BaseException] = None
+        self.done = False
+
+    def run(self) -> None:
+        try:
+            self.result = self.fn()
+        except Exception as exc:            # reported through the poll
+            self.error = exc
+        self.done = True
+
+
+class HostCopyLane:
+    """The promote/demote copy lane: one background worker that runs the
+    waits and host-side assembly of the tier's copies OFF the pump thread,
+    so a promotion or a demotion never holds up the decode step.
+
+    The pump thread ``submit``s a closure and polls ``job.done`` each tick;
+    it never joins or waits. An ``urgent`` job (a promotion, which a
+    request waits on) runs ahead of the queued others (demotions, whose
+    pages were gathered already and wait on no one). The worker starts at
+    the first submit and is a daemon. Tests substitute a synchronous or
+    manually released lane through the same ``submit(fn, urgent)``."""
+
+    def __init__(self) -> None:
+        self._ready = threading.Condition()
+        self._urgent: "collections.deque[LaneJob]" = collections.deque()
+        self._queued: "collections.deque[LaneJob]" = collections.deque()
+        self._worker: Optional[threading.Thread] = None
+
+    def submit(self, fn: Callable[[], object],
+               urgent: bool = False) -> LaneJob:
+        job = LaneJob(fn)
+        with self._ready:
+            if self._worker is None:
+                self._worker = threading.Thread(
+                    target=self._run, name="host-kv-copy-lane", daemon=True)
+                self._worker.start()
+            (self._urgent if urgent else self._queued).append(job)
+            self._ready.notify()
+        return job
+
+    def _run(self) -> None:
+        while True:
+            with self._ready:
+                while not (self._urgent or self._queued):
+                    self._ready.wait()
+                job = (self._urgent or self._queued).popleft()
+            job.run()

@@ -33,8 +33,11 @@ its last position was dispatched. The engine runs every device call on one
 thread, in one stream order, so any later reader sees the writer's output.
 
 Host bookkeeping only; the engine serializes every call under its lock.
-The ``spill`` hook of the JAX tree (KV tiering) stays ``None``: the host
-tier is not ported.
+With the host KV tier on, the engine wires the ``spill`` hook: ``evict``
+calls it with each victim's content key and physical page BEFORE the
+victim's reference drops, and the engine queues the page for demotion,
+gathered on the compute stream ahead of any later write to the recycled
+page. With the tier off ``spill`` stays ``None``.
 """
 from __future__ import annotations
 

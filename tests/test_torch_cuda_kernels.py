@@ -743,3 +743,119 @@ def test_tiny_engine_on_the_card_matches_the_cpu(device, kv_quant,
                             engine.spec_proposed, engine.spec_accepted,
                             engine.steps, engine.draft_dispatches))
         assert results[0] == results[1], prefix_cache
+
+
+def test_tier_copies_on_the_copy_stream_are_byte_exact(device):
+    """The host tier's copies on the card: pages gathered on the compute
+    stream go out to pinned host memory on the engine's copy stream, on the
+    lane's thread, and come back into other pages the same way, byte for
+    byte (payload and scales). Meanwhile the compute stream keeps writing:
+    other pages, and the gathered pages themselves right after the gather,
+    which the copy out must not see (stream order); the pages under
+    transfer back are not touched by it."""
+    import threading
+
+    from tensorhive_tpu_torch.models.transformer import PRESETS, TransformerLM
+    from tensorhive_tpu_torch.serving.engine import SlotEngine
+    from tensorhive_tpu_torch.serving.paging import HostPageEntry
+
+    config = dataclasses.replace(PRESETS["tiny"], dtype=torch.float32,
+                                 max_seq_len=128)
+    params = TransformerLM.init(config, device=device)
+    engine = SlotEngine(params, config, slots=2, max_len=64, page_size=4,
+                        kv_pages=48, host_kv_bytes=1 << 20,
+                        speculative="off", device=device)
+    compute = torch.cuda.current_stream()
+    assert engine._copy_stream is not None
+    assert engine._copy_stream.cuda_stream != compute.cuda_stream
+    generator = torch.Generator(device=device).manual_seed(3)
+    for tensor in engine._cache:
+        if tensor.dtype == torch.int8:
+            tensor.copy_(torch.randint(-127, 128, tensor.shape,
+                                       generator=generator, device=device))
+        else:
+            tensor.copy_(torch.rand(tensor.shape, generator=generator,
+                                    device=device))
+    source, busy, target = [3, 7, 9, 11], list(range(20, 30)), [31, 35, 40, 44]
+    before = [tensor[:, source].clone() for tensor in engine._cache]
+    filler = torch.randn(4096, 4096, device=device)
+
+    def on_lane(fn):
+        out = {}
+        thread = threading.Thread(target=lambda: out.update(result=fn()))
+        thread.start()
+        return thread, out
+
+    extracted, ready = engine._dispatch_page_extract(source)
+    thread, out = on_lane(lambda: engine._materialize_demotion(
+        [b"%d" % page for page in source], extracted, ready))
+    for step in range(20):                 # the compute stream stays busy
+        torch.matmul(filler, filler)
+        for tensor in engine._cache:
+            tensor[:, busy] = step
+            tensor[:, source] = 0
+    thread.join(timeout=60)
+    assert not thread.is_alive()
+    _, pages = out["result"]
+    for index, page in enumerate(pages):
+        for got, then in zip(page, before):
+            assert torch.equal(torch.from_numpy(got), then[:, index].cpu())
+
+    thread, out = on_lane(lambda: engine._stage_promotion(
+        [HostPageEntry(*page, last_used=0) for page in pages]))
+    for step in range(20):
+        torch.matmul(filler, filler)
+        for tensor in engine._cache:
+            tensor[:, busy] = step
+    thread.join(timeout=60)
+    assert not thread.is_alive()
+    engine._dispatch_page_inject(target, out["result"])
+    torch.cuda.synchronize()
+    for tensor, then in zip(engine._cache, before):
+        assert torch.equal(tensor[:, target], then)
+        assert bool((tensor[:, busy] == 19).all())
+        assert not tensor[:, source].any()
+
+
+def test_tiny_tiered_engine_on_the_card_matches_the_cpu(device):
+    """The tiered tiny engine (page 4, 12 pages, 1 MiB of host RAM) on the
+    card, on the real threaded copy lane, against its CPU twin: a miss, an
+    HBM hit, two requests that evict the first prompt to the host, a host
+    hit and a repeat give the same tokens and the same tier counters, with
+    no recompute fallback; on the card the four runs of the first prompt
+    give one stream. The speculative lane is off: on int8 pages its
+    rejected window writes raise page scales, so tokens there depend on
+    the proposals, and the draft lane is not tiered (ROADMAP C)."""
+    from tensorhive_tpu_torch.convert import params_from_jax, params_to_numpy
+    from tensorhive_tpu_torch.models.transformer import PRESETS, TransformerLM
+    from tensorhive_tpu_torch.serving.engine import SlotEngine
+
+    config = dataclasses.replace(PRESETS["tiny"], dtype=torch.float32,
+                                 max_seq_len=128)
+    params = TransformerLM.init(config, torch.Generator().manual_seed(0),
+                                device="cpu")
+    on_card = params_from_jax(params_to_numpy(params), config, device)
+    prompt_a = list(range(3, 27))
+    schedule = [prompt_a, prompt_a, list(range(40, 64)), list(range(70, 94)),
+                prompt_a, prompt_a]
+    results = []
+    for device_params, where in ((params, "cpu"), (on_card, device)):
+        engine = SlotEngine(device_params, config, slots=2, max_len=64,
+                            page_size=4, kv_pages=12, prefix_min_tokens=4,
+                            host_kv_bytes=1 << 20, speculative="off",
+                            device=where)
+        engine.warmup(prompt_lens=(24,))
+        tokens = []
+        for prompt in schedule:
+            handle = engine.submit(prompt, max_new_tokens=6)
+            engine.pump()
+            tokens.append(handle.result(timeout_s=30)["tokens"])
+        stats = engine.stats()
+        results.append((tokens, engine.host_kv_hits, engine.host_kv_misses,
+                        engine.host_kv_demotions, engine.host_kv_promotions,
+                        engine.host_kv_fallbacks, stats["hostPagesResident"],
+                        stats["kvPagesFree"], stats["cachedPages"]))
+    assert results[0] == results[1]
+    tokens = results[1][0]
+    assert tokens[0] == tokens[1] == tokens[4] == tokens[5]
+    assert results[1][4] == 5 and results[1][5] == 0

@@ -88,13 +88,30 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("host_kv_bytes", 1 << 20), ("mesh_dp", 2), ("mesh_tp", 2)])
+@pytest.mark.parametrize("knob,value", [("mesh_dp", 2), ("mesh_tp", 2)])
 def test_unported_knobs_are_refused(knob, value):
     generation = GenerationConfig(preset="tiny", max_len=64, **{knob: value})
     with pytest.raises(ValueError, match="not yet ported") as info:
         build_engine(generation, device="cpu")
     assert knob in str(info.value)
+
+
+def test_host_kv_tier_builds_and_serves():
+    """KV tiering, once refused, is served: ``build_engine`` builds a
+    tiered engine (store and lane, no copy stream on the CPU), warms the
+    tier's path and the engine answers a request."""
+    engine = build_engine(GenerationConfig(preset="tiny", max_len=64,
+                                           host_kv_bytes=1 << 20),
+                          device="cpu")
+    assert engine._host_store is not None and engine._copy_stream is None
+    handle = engine.submit(list(range(1, 40)), max_new_tokens=5)
+    engine.pump()
+    summary = handle.result(timeout_s=5)
+    assert summary["outcome"] == "completed" and len(summary["tokens"]) == 5
+    stats = engine.stats()
+    assert stats["hostKvBytes"] == 1 << 20 and stats["hostHitRate"] == 0.0
+    assert stats["kvPagesFree"] + stats["cachedPages"] == (
+        stats["kvPagesTotal"])
 
 
 def test_speculative_on_builds_and_serves():
