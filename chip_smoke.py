@@ -112,6 +112,34 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
               three decode steps (device busy share), three ticks that
               each run a chunk and a decode step, and three speculative
               ticks of the default engine close the phase.
+8. service  — the serving daemon: GenerationService (built from a port
+              Config: the full 7b preset, the default engine, speculative
+              off, the flight recorder and the tenant meter on, a 20 ms
+              pump tick) on its own thread, serving 8 prompts of 17-3,000
+              tokens with no shared prefix (32 new tokens each) from 4
+              client threads with their own user keys. Each stream must
+              equal a bare engine's tokens for that prompt alone; paged
+              decode launches = layers x step dispatches and no flash
+              launch; one completed ledger row per request with its phases
+              in order, and spans carrying its id; every engine family of
+              the registry (parse_rendered) equal to stats() and the
+              engine's counters; the tenants' device-seconds = the
+              engine's busySlotSeconds; the flight recorder's ticks summing
+              to the engine's counters; the telemetry drop file's bytes in
+              use = torch.cuda.memory_allocated (idle). Then decode ticks
+              with the recorder and meter on and off in turns; a fatal
+              step fault through the fault plan (every in-flight stream
+              ends with an error chunk and a failed row, one crash dump
+              holding those rows, one rebuild, the same tokens again,
+              device memory back within 1 GiB); a 1 s trace while the
+              daemon serves that must name the paged-decode kernel, with
+              a second capture refused; shutdown() draining a 3,000-token
+              request while admission answers EngineDrainingError with
+              the drain's Retry-After; and a train.save_checkpoint file at
+              7b widths, 4 layers, bf16 (about 1.9 GB) served by a daemon
+              with the in-memory params' greedy tokens, while the 32-layer
+              preset on it leaves the daemon up with no engine and the
+              reason published.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``; any failure exits non-zero without
@@ -390,14 +418,18 @@ def phase_device():
 def kernel_label(mangled):
     """``name<template ints>`` of a mangled kernel symbol (the identifier
     whose length prefix ends in ``kernel``). Matches overlap: a length may
-    follow a digit of the anonymous namespace's hash."""
+    follow a digit of the anonymous namespace's hash, and a digit run of
+    that hash (which depends on the source's path) can read as a length
+    that spans the namespace and the name, so the name is the last
+    identifier that ends in ``kernel``."""
+    label = mangled
     for match in re.finditer(r"(?=(\d+)([A-Za-z_]))", mangled):
         start = match.start(2)
         name = mangled[start:start + int(match.group(1))]
         if name.endswith("kernel"):
             dims = re.findall(r"Li(\d+)E", mangled[start + len(name):])
-            return f"{name}<{', '.join(dims)}>"
-    return mangled
+            label = f"{name}<{', '.join(dims)}>"
+    return label
 
 
 #: SASS counted per kernel: wgmma (HGMMA), TF32 mma.sync (HMMA.1688.F32.TF32),
@@ -2368,7 +2400,7 @@ def tiering_run(card):
             "before the churn")
     require(engine.host_kv_hits == 1
             and engine.host_kv_promotions == run_pages
-            and host._request.host_hit_pages == run_pages
+            and host._request.record.host_hit_pages == run_pages
             and engine.host_kv_fallbacks == 0,
             f"{label}: hits {engine.host_kv_hits}, promotions "
             f"{engine.host_kv_promotions} (schedule: {run_pages}), fallbacks "
@@ -2399,7 +2431,8 @@ def tiering_run(card):
     around = [ms for ms, chunks, flying in span if not flying and not chunks]
     log(f"  TTFT s ({card}): P + 17 miss {miss['ttftS']:.3f}, HBM hit "
         f"{hbm['ttftS']:.3f}, host hit {host_summary['ttftS']:.3f} (promote "
-        f"{host._request.promote_ms:.1f} ms, join to inject, host clock), "
+        f"{host._request.record.promote_ms:.1f} ms, join to inject, host "
+        "clock), "
         f"HBM hit after the promotion {again_summary['ttftS']:.3f}")
     log(f"  ticks with 2-4 slots decoding ({card}): {len(in_flight)} with "
         f"the promotion in flight, mean {sum(in_flight) / len(in_flight):.1f} "
@@ -2586,6 +2619,580 @@ def profile_chunk_ticks(engine, steps=3):
 
 # -- report -------------------------------------------------------------------
 
+# -- phase 8 ------------------------------------------------------------------
+
+SERVICE_PROMPT_LENS = (17, 100, 300, 600, 1000, 1500, 2200, 3000)
+
+
+def reset_launches():
+    from tensorhive_tpu_torch.ops import flash_attention as fa
+    from tensorhive_tpu_torch.ops import paged_attention as pa
+
+    for counter in (fa.launches, pa.launches):
+        for key in counter:
+            counter[key] = 0
+
+
+def service_generation(**knobs):
+    """The daemon's serving config: the full 7b preset, the default engine
+    (int8 pages, prefix cache, chunks of 256), the speculative lane off
+    (int8 pages with the lane are not token-exact), a 20 ms pump tick."""
+    from tensorhive_tpu_torch.config import GenerationConfig
+
+    base = dict(preset="7b", slots=8, max_len=4096, paged_kernel="on",
+                speculative="off", interval_s=0.02)
+    return GenerationConfig(**{**base, **knobs})
+
+
+def serve_clients(prompts, new_tokens, clients=4):
+    """``clients`` threads each submit their share of ``prompts`` to the
+    published engine under their own user key, all at once, then read the
+    streams as an API layer would; returns the threads and, per prompt,
+    (tokens, error, request id, client TTFT s, handle). A client reads its
+    streams one after the other, so its TTFT is measured on its first
+    stream only (None on the others)."""
+    import threading
+
+    from tensorhive_tpu_torch import serving
+
+    results = [None] * len(prompts)
+
+    def client(index):
+        engine = serving.get_engine()
+        submitted = {n: (time.perf_counter(), engine.submit(
+            prompts[n], max_new_tokens=new_tokens,
+            user_key=f"client{index}"))
+            for n in range(index, len(prompts), clients)}
+        for order, (n, (started, handle)) in enumerate(submitted.items()):
+            tokens, first, error = [], None, None
+            try:
+                for token in handle.tokens(timeout_s=120):
+                    if first is None and order == 0:
+                        first = time.perf_counter() - started
+                    tokens.append(token)
+            except (RuntimeError, TimeoutError) as exc:
+                error = f"{type(exc).__name__}: {exc}"
+            results[n] = (tokens, error, handle.request_id, first, handle)
+
+    threads = [threading.Thread(target=client, args=(index,))
+               for index in range(clients)]
+    for thread in threads:
+        thread.start()
+    return threads, results
+
+
+def join_all(threads, label, timeout_s=180):
+    for thread in threads:
+        thread.join(timeout=timeout_s)
+    require(not any(thread.is_alive() for thread in threads),
+            f"{label}: a client thread did not finish")
+
+
+def check_registry(engine, baseline, requests, label):
+    """Every engine family of the registry against ``stats()`` and the
+    engine's counters (``baseline``: the counters when the registry was
+    zeroed; ``requests``: the requests served since, each to its last
+    token)."""
+    from tensorhive_tpu_torch.observability import (
+        get_registry,
+        parse_rendered,
+    )
+
+    samples = parse_rendered(get_registry().render())
+    stats = engine.stats()
+
+    def sample(name):
+        return samples.get(name, 0.0)
+
+    emitted = engine.emitted_tokens
+    expected = {
+        'tpuhive_generate_requests_total{outcome="completed"}':
+            engine.completed_requests,
+        "tpuhive_generate_tokens_total": emitted,
+        "tpuhive_generate_queue_depth": stats["queueDepth"],
+        "tpuhive_generate_queue_capacity": stats["queueCapacity"],
+        "tpuhive_generate_slots_busy": stats["slotsBusy"],
+        "tpuhive_generate_slots_total": stats["slots"],
+        "tpuhive_generate_kv_pages_free": stats["kvPagesFree"],
+        "tpuhive_generate_kv_pages_total": stats["kvPagesTotal"],
+        "tpuhive_generate_kv_bytes_capacity":
+            stats["kvPagesTotal"] * engine._page_bytes,
+        "tpuhive_generate_kv_bytes_used":
+            engine._pool.used_pages * engine._page_bytes,
+        "tpuhive_generate_mesh_devices": stats["numDevices"],
+        "tpuhive_generate_prefix_hits_total": stats["prefixHits"],
+        "tpuhive_generate_prefix_misses_total": stats["prefixMisses"],
+        "tpuhive_generate_prefix_cached_pages": stats["cachedPages"],
+        "tpuhive_generate_ttft_seconds_count": requests,
+        "tpuhive_generate_queue_wait_seconds_count": requests,
+        "tpuhive_generate_intertoken_seconds_count": emitted - requests,
+        "tpuhive_generate_batch_efficiency_count":
+            engine.steps - baseline["steps"],
+        "tpuhive_generate_prefill_chunks_count": requests,
+        "tpuhive_generate_prefill_chunks_sum":
+            engine.prefill_chunks - baseline["chunks"],
+    }
+    for index in range(engine.capacity):
+        expected[f'tpuhive_generate_slot_kv_pages{{slot="{index}"}}'] = \
+            float(len(engine._pool.owned_pages(index)))
+    wrong = {name: (sample(name), value) for name, value in expected.items()
+             if sample(name) != value}
+    require(not wrong, f"{label}: registry != engine: {wrong}")
+    return len(expected)
+
+
+def service_run(card):
+    """The serving daemon on the full 7b preset: GenerationService's pump
+    thread serving client threads, with the engine's observability, then a
+    fatal fault and the rebuild, the drain, and checkpoint loading."""
+    import dataclasses
+    import json
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+
+    from tensorhive_tpu_torch import config as port_config
+    from tensorhive_tpu_torch import serving, train
+    from tensorhive_tpu_torch.config import Config
+    from tensorhive_tpu_torch.core.services.generation import (
+        GenerationService,
+        build_engine,
+    )
+    from tensorhive_tpu_torch.models.transformer import PRESETS, TransformerLM
+    from tensorhive_tpu_torch.observability import (
+        get_registry,
+        get_request_ledger,
+        get_tracer,
+        parse_rendered,
+        profiling,
+        reset_observability,
+    )
+    from tensorhive_tpu_torch.observability.accounting import \
+        get_tenant_meter
+    from tensorhive_tpu_torch.ops import flash_attention as fa
+    from tensorhive_tpu_torch.ops import paged_attention as pa
+    from tensorhive_tpu_torch.serving import EngineDrainingError, faults
+    from tensorhive_tpu_torch.serving.flight_recorder import (
+        list_crash_dumps,
+        load_crash_dump,
+    )
+    from tensorhive_tpu_torch.telemetry import TelemetryEmitter
+
+    label = "service (7b, GenerationService)"
+    started = time.perf_counter()
+    new_tokens = 32
+    workdir = REPO / "build" / "service_smoke"
+    shutil.rmtree(workdir, ignore_errors=True)
+    release_device_memory()
+    generation = service_generation()
+    rng = np.random.default_rng(4)
+    # no two prompts share a first token, so none can match another's
+    # cached prefix (prefix_min_tokens 32): no request's tokens depend on
+    # the order of arrival
+    firsts = rng.permutation(32_000)[:len(SERVICE_PROMPT_LENS)]
+    prompts = [[int(first)] + rng.integers(0, 32_000, n - 1).tolist()
+               for first, n in zip(firsts, SERVICE_PROMPT_LENS)]
+
+    # each prompt alone through a bare engine of the same config
+    bare = build_engine(generation)
+    bare_build_s = time.perf_counter() - started
+    expected = []
+    for prompt in prompts:
+        handle = bare.submit(prompt, max_new_tokens=new_tokens)
+        bare.pump()
+        expected.append(handle.result(timeout_s=120)["tokens"])
+    del bare, handle
+    release_device_memory()
+    bare_s = time.perf_counter() - started
+
+    reset_observability()
+    config = Config(config_dir=workdir)
+    config.generation = generation
+    service = GenerationService(config)
+    engine = service.engine
+    require(engine is not None and serving.get_engine() is engine
+            and engine.device.type == "cuda" and engine.kv_quant == "on"
+            and engine.prefill_chunk_tokens == 256
+            and engine.flight_recorder is not None
+            and engine.tenant_meter is get_tenant_meter() is not None,
+            f"{label}: not the published default engine with its hooks")
+    layers = engine.config.n_layers
+    # warmup's dispatches; the engine's request counters start at 0
+    baseline = {"steps": engine.steps, "chunks": engine.prefill_chunks}
+    dispatches = engine.step_dispatches
+    torch.cuda.synchronize()
+    reset_launches()
+    service.start()
+    served = time.perf_counter()
+    threads, results = serve_clients(prompts, new_tokens)
+    emitter = TelemetryEmitter(name="chip-smoke",
+                               metrics_dir=str(workdir / "metrics"),
+                               min_write_interval_s=0.0)
+    time.sleep(0.5)
+    before = torch.cuda.memory_allocated()
+    busy_sample = emitter.sample(step_time_s=0.5)
+    after = torch.cuda.memory_allocated()
+    join_all(threads, label)
+    wall_s = time.perf_counter() - served
+    deadline = time.monotonic() + 60
+    while engine.has_work() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    require(service.is_alive() and not engine.has_work(),
+            f"{label}: the pump thread died or left work behind")
+    ticks = service.tick_latency_stats()
+    duty = service._tick_hist.sum / (time.perf_counter() - served)
+    launches = (dict(fa.launches), dict(pa.launches))
+    step_dispatches = engine.step_dispatches - dispatches
+    for n, (tokens, error, rid, _, _) in enumerate(results):
+        require(error is None and tokens == expected[n],
+                f"{label}: request {n} ({len(prompts[n])} tokens) gave "
+                f"{tokens} / {error}, alone {expected[n]}")
+    require(sum(launches[0].values()) == 0
+            and launches[1]["int8"] == layers * step_dispatches
+            and sum(launches[1].values()) == launches[1]["int8"],
+            f"{label}: launches flash {launches[0]}, paged {launches[1]} != "
+            f"{layers} x {step_dispatches} step dispatches")
+    rows = {row["requestId"]: row for row in get_request_ledger().recent()}
+    require(len(rows) == len(prompts)
+            and all(rows[r[2]]["outcome"] == "completed" for r in results),
+            f"{label}: ledger rows {[(k, v['outcome']) for k, v in rows.items()]}")
+    for rid, row in rows.items():
+        require(row["queueMs"] <= row["ttftMs"] <= row["totalMs"]
+                and row["prefillMs"] >= 0 and row["decodeMs"] >= 0
+                and row["prefillCompile"] == "hit"
+                and row["tokens"] == new_tokens,
+                f"{label}: row {rid} phases out of order: {row}")
+    spans = get_tracer().recent(kind="generate")
+    for rid in rows:
+        names = [s["name"] for s in spans if s["attrs"]["request_id"] == rid]
+        require(names[:1] == ["generate.queue"]
+                and "generate.decode" in names
+                and ("generate.prefill" in names),
+                f"{label}: spans of {rid}: {names}")
+    checked = check_registry(engine, baseline, len(prompts), label)
+    stats = engine.stats()
+    totals = engine.tenant_meter.totals()
+    device_s = sum(usage.device_seconds for usage in totals.values())
+    require(stats["busySlotSeconds"] > 0 and abs(
+        device_s - engine.busy_slot_seconds) <= 1e-6 * device_s
+            and set(totals) == {f"client{i}" for i in range(4)},
+            f"{label}: tenants' device-seconds {device_s} != busy "
+            f"slot-seconds {engine.busy_slot_seconds}: {totals}")
+    recorder = engine.flight_recorder
+    ring = recorder.snapshot()
+    require(recorder.recorded == len(ring)
+            and sum(t["admitted"] for t in ring) == len(prompts)
+            and sum(t["prefillChunks"] for t in ring)
+            == engine.prefill_chunks - baseline["chunks"]
+            and sum(t["decodeSlots"] for t in ring) == engine.emitted_tokens
+            and sum(t["compiles"] + t["faults"] for t in ring) == 0,
+            f"{label}: the recorder's {recorder.recorded} ticks do not sum "
+            "to the engine's counters")
+    used = busy_sample["0"]["hbm_used_bytes"]
+    require(min(before, after) - (1 << 30) <= used <= max(before, after)
+            + (1 << 30) and busy_sample["0"]["hbm_total_bytes"]
+            == torch.cuda.get_device_properties(0).total_memory,
+            f"{label}: telemetry under load {used} B, memory_allocated "
+            f"{before}..{after}")
+    idle_sample = emitter.sample(step_time_s=0.0)
+    idle_bytes = torch.cuda.memory_allocated()
+    with open(emitter.path) as handle:
+        drop = json.load(handle)
+    require(idle_sample["0"]["hbm_used_bytes"] == idle_bytes
+            and drop == idle_sample and set(drop["0"]) == {
+                "hbm_used_bytes", "hbm_total_bytes", "duty_cycle_pct"},
+            f"{label}: idle drop file {drop}, memory_allocated {idle_bytes}")
+    emitter.close()
+    # the live-bytes gauge, refreshed at scrape time while profiling is on
+    config.profiling.enabled = True
+    port_config.set_config(config)
+    summary = profiling.device_memory_summary(get_registry())
+    live = parse_rendered(get_registry().render()).get(
+        'tpuhive_device_hbm_live_bytes{device="cuda:0"}')
+    require(summary["totalLiveBytes"] == live == idle_bytes
+            == torch.cuda.memory_allocated(),
+            f"{label}: device memory summary {summary}, gauge {live}, "
+            f"memory_allocated {idle_bytes}")
+    port_config.reset_config()
+    ledger_ttft = [rows[r[2]]["ttftMs"] for r in results]
+    handle_ttft = [r[4].result(timeout_s=5)["ttftS"] * 1e3 for r in results]
+    client_ttft = [f"{r[3] * 1e3:.1f}" if r[3] is not None else "-"
+                   for r in results]
+    log(f"service {card}: bare engine built in {bare_build_s:.1f} s, each "
+        f"prompt alone {bare_s - bare_build_s:.1f} s; "
+        f"daemon: {len(prompts)} requests x {new_tokens} tokens from 4 "
+        f"client threads in {wall_s:.3f} s; launches paged "
+        f"{launches[1]['int8']} = {layers} x {step_dispatches}, flash 0; "
+        f"{len(rows)} ledger rows, {len(spans)} spans, {checked} registry "
+        f"samples = stats/counters; tenants' device-seconds {device_s:.6f} = "
+        f"busySlotSeconds {stats['busySlotSeconds']}; {recorder.recorded} "
+        f"recorder ticks")
+    log(f"  pump: {service.ticks_completed} ticks, p50 "
+        f"{ticks['p50'] * 1e3:.1f} ms, max {ticks['max'] * 1e3:.1f} ms, "
+        f"{service.tick_overruns} overruns; duty cycle {100 * duty:.1f}% "
+        f"(tick time over wall time since start)")
+    log("  TTFT ms by prompt length, ledger row / handle summary / client "
+        "thread: " + ", ".join(
+            f"{len(p)}->{a:.1f}/{b:.1f}/{c}" for p, a, b, c in zip(
+                prompts, ledger_ttft, handle_ttft, client_ttft)))
+    log(f"  telemetry drop file: under load {used} B in use (memory_allocated "
+        f"{before}..{after}); idle {idle_bytes} B = memory_allocated = "
+        "tpuhive_device_hbm_live_bytes")
+
+    # hooks on against off, in turns, on the daemon's engine stopped
+    service.shutdown()
+    service.join(timeout=60)
+    require(not service.is_alive(), f"{label}: the pump did not stop")
+    engine.resume()
+    short = [[int(first)] + rng.integers(0, 32_000, 16).tolist()
+             for first in firsts]
+    hooks = (engine.flight_recorder, engine.tenant_meter)
+    # the hooks' own host time, apart from the tick's: their entry points
+    # timed through instance attributes, removed after the turns
+    hook_s = [0.0]
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            began = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                hook_s[0] += time.perf_counter() - began
+        return run
+
+    recorder, meter = hooks
+    timed_hooks = ((engine, "_meter_tick"), (recorder, "record"),
+                   (meter, "count_tokens"), (meter, "charge_queue"))
+    for owner, name in timed_hooks:
+        setattr(owner, name, timed(getattr(owner, name)))
+    turns = []                              # (hooks, tick ms of the turn)
+    for turn in ("on", "off", "off", "on"):
+        engine.flight_recorder, engine.tenant_meter = (
+            hooks if turn == "on" else (None, None))
+        for prompt in short:
+            engine.submit(prompt, max_new_tokens=24)
+        engine.step()                       # the joins and their chunks
+        ticks_ms = []
+        while engine.has_work():
+            before_tick = time.perf_counter()
+            engine.step()
+            ticks_ms.append((time.perf_counter() - before_tick) * 1e3)
+        turns.append((turn, sum(ticks_ms) / len(ticks_ms), len(ticks_ms)))
+    engine.flight_recorder, engine.tenant_meter = hooks
+    for owner, name in timed_hooks:
+        delattr(owner, name)
+    mean = {side: sum(ms for turn, ms, _ in turns if turn == side) / 2
+            for side in ("on", "off")}
+    on_ticks = sum(count + 1 for turn, _, count in turns if turn == "on")
+    log(f"  decode tick, 8 slots, hooks (recorder + meter; ledger and "
+        f"registry always on) on {mean['on']:.2f} ms vs off "
+        f"{mean['off']:.2f} ms; turns " + ", ".join(
+            f"{turn} {ms:.2f}" for turn, ms, _ in turns)
+        + f" ({turns[0][2]} ticks each); the hooks' own host time "
+        f"{hook_s[0] / on_ticks * 1e6:.1f} us a tick ({card})")
+
+    # the fatal fault: the daemon again, a fault plan on its engine
+    service = GenerationService(config, engine=engine,
+                                engine_factory=service._engine_factory)
+    service.start()
+    plan = faults.ServingFaultPlan()
+    engine.fault_plan = plan
+    threads, doomed = serve_clients(prompts, new_tokens)
+    deadline = time.monotonic() + 120
+    while (sum(1 for slot in engine._slots if slot is not None)
+           < engine.capacity and time.monotonic() < deadline):
+        time.sleep(0.01)
+    torch.cuda.synchronize()
+    memory_before = torch.cuda.memory_allocated()
+    fault_at = time.perf_counter()
+    plan.fail_next("step")
+    while serving.get_engine() in (None, engine):
+        require(time.monotonic() < deadline + 120,
+                f"{label}: no rebuilt engine published")
+        time.sleep(0.005)
+    rebuilt_s = time.perf_counter() - fault_at
+    join_all(threads, label)
+    rebuilt = serving.get_engine()
+    probe = rebuilt.submit(prompts[0], max_new_tokens=new_tokens)
+    probe_tokens = list(probe.tokens(timeout_s=120))
+    serves_s = time.perf_counter() - fault_at
+    release_device_memory()
+    torch.cuda.synchronize()
+    memory_after = torch.cuda.memory_allocated()
+    dumps = list_crash_dumps(str(config.flightrec_dir))
+    dump = (load_crash_dump(str(config.flightrec_dir), dumps[0]["file"])
+            if dumps else {"inFlight": []})
+    failed_ids = {r[2] for r in doomed}
+    in_dump = {row["requestId"] for row in dump["inFlight"]}
+    rows = {row["requestId"]: row for row in get_request_ledger().recent()}
+    restarts = parse_rendered(get_registry().render()).get(
+        "tpuhive_generate_engine_restarts_total")
+    require(all(r[1] is not None and "engine fault" in r[1] for r in doomed)
+            and all(rows[rid]["outcome"] == "failed" for rid in failed_ids),
+            f"{label}: in-flight streams after the fault: "
+            f"{[(len(r[0]), r[1]) for r in doomed]}")
+    require(len(dumps) == 1 and failed_ids <= in_dump
+            and "DeviceLostError" in dump["reason"]
+            and dump["ticks"][-1]["faults"] == 1
+            and "firingAlerts" not in dump,
+            f"{label}: crash dumps {dumps}")
+    require(serving.get_serving_state()["restarts"] == 1 and restarts == 1
+            and rebuilt is not engine and engine.params is None,
+            f"{label}: restarts {serving.get_serving_state()} / {restarts}")
+    require(probe_tokens == expected[0],
+            f"{label}: the rebuilt engine gave {probe_tokens}, "
+            f"{expected[0]} before the fault")
+    require(abs(memory_after - memory_before) <= 1 << 30,
+            f"{label}: device memory {memory_before} B before the fault, "
+            f"{memory_after} B after the rebuild")
+    threads, again = serve_clients(prompts, new_tokens)
+    join_all(threads, label)
+    require([r[0] for r in again] == expected,
+            f"{label}: the rebuilt engine's tokens differ from the bare "
+            "engine's")
+    log(f"  fatal step fault with {len(failed_ids)} requests in flight: "
+        f"{len(failed_ids)} error chunks and failed rows, 1 crash dump "
+        f"({len(in_dump)} in-flight rows, {len(dump['ticks'])} ticks), "
+        f"restarts 1; rebuilt and published {rebuilt_s:.2f} s after the "
+        f"fault, first request served {serves_s:.2f} s after it; device "
+        f"memory {memory_before / 2**30:.3f} GiB before, "
+        f"{memory_after / 2**30:.3f} GiB after ({card}); the same prompts "
+        "gave the same tokens")
+
+    # the trace while the daemon decodes; a second capture is refused
+    engine = serving.get_engine()
+    steps = engine.steps
+    threads, traced = serve_clients(prompts[:4], 2 * new_tokens)
+    deadline = time.monotonic() + 60
+    while engine.steps < steps + 2 and time.monotonic() < deadline:
+        time.sleep(0.005)
+    refused = []
+
+    def second():
+        time.sleep(0.3)
+        try:
+            profiling.capture_trace(str(workdir / "profile-b"), 0.1)
+        except profiling.ProfileInFlightError:
+            refused.append(True)
+
+    racer = threading.Thread(target=second)
+    racer.start()
+    traced_steps = engine.steps
+    capture = profiling.capture_trace(str(workdir / "profile"), 1.0,
+                                      tracer=get_tracer())
+    traced_steps = engine.steps - traced_steps
+    racer.join(timeout=30)
+    join_all(threads, label)
+    trace = json.loads((workdir / "profile" / capture["files"][0])
+                       .read_text())
+    kernels = {event.get("name", "") for event in trace["traceEvents"]
+               if event.get("cat") == "kernel"}
+    paged = sorted(name for name in kernels if "paged_decode" in name)
+    require(refused == [True] and paged
+            and all(r[1] is None for r in traced),
+            f"{label}: trace of {capture['bytes']} B over {traced_steps} "
+            f"decode steps, {len(kernels)} kernel names, paged decode "
+            f"{paged[:1]}; second capture refused: {refused}; streams "
+            f"{[r[1] for r in traced]}")
+    log(f"  trace capture 1 s while serving: {capture['bytes']} B, "
+        f"{traced_steps} decode steps, {len(kernels)} kernel names incl. "
+        f"{paged[0][:60]}; a second capture refused")
+
+    # the drain: shutdown with a long request in flight
+    engine = serving.get_engine()
+    long_request = engine.submit(prompts[-1], max_new_tokens=new_tokens)
+    deadline = time.monotonic() + 60
+    while (not any(slot is not None for slot in engine._slots)
+           and time.monotonic() < deadline):
+        time.sleep(0.005)
+    stopper = threading.Thread(target=service.shutdown)
+    stopper.start()
+    while not engine.draining and time.monotonic() < deadline:
+        time.sleep(0.001)
+    estimate = engine.drain_retry_after()
+    try:
+        engine.submit(prompts[0], max_new_tokens=4)
+        refused_with = None
+    except EngineDrainingError as exc:
+        refused_with = exc.retry_after_s
+    after_estimate = engine.drain_retry_after()
+    stopper.join(timeout=60)
+    service.join(timeout=60)
+    summary = long_request.result(timeout_s=60)
+    # a prefix hit now (the prompt's pages are cached): on int8 pages its
+    # tokens need not be a miss's, so only the completion is checked
+    require(summary["outcome"] == "completed"
+            and len(summary["tokens"]) == new_tokens
+            and refused_with is not None
+            and min(estimate, after_estimate) <= refused_with
+            <= max(estimate, after_estimate)
+            and serving.get_engine() is None and not service.is_alive(),
+            f"{label}: drain: {summary['outcome']} with "
+            f"{len(summary['tokens'])} tokens, refused with Retry-After "
+            f"{refused_with} (estimates {estimate}, {after_estimate}), "
+            f"published {serving.get_engine()}, pump alive "
+            f"{service.is_alive()}")
+    log(f"  drain: shutdown with a {len(prompts[-1])}-token request in "
+        f"flight completed it; admission refused with Retry-After "
+        f"{refused_with} s")
+    del engine, rebuilt, service, long_request, probe
+    del doomed, again, traced, results
+    release_device_memory()
+
+    # checkpoint load at 7b widths, 4 layers (the disk write ~2 GB)
+    PRESETS["7b-4-layers"] = dataclasses.replace(PRESETS["7b"], n_layers=4)
+    small = service_generation(preset="7b-4-layers", max_len=4096)
+    params = TransformerLM.init(PRESETS["7b-4-layers"], device="cuda")
+    in_memory = build_engine(small, params=params)
+    handle = in_memory.submit(prompts[3], max_new_tokens=new_tokens)
+    in_memory.pump()
+    reference = handle.result(timeout_s=120)["tokens"]
+    del in_memory, handle
+    on_host = train.tree_map(lambda t: t.cpu(), params)
+    del params
+    release_device_memory()
+    checkpoint = workdir / "checkpoint"
+    saved = time.perf_counter()
+    train.save_checkpoint(str(checkpoint), 7, on_host,
+                          {"count": 0, "mu": {}, "nu": {}})
+    nbytes = sum(path.stat().st_size for path in checkpoint.iterdir())
+    save_s = time.perf_counter() - saved
+    config.generation = dataclasses.replace(
+        small, checkpoint_path=str(checkpoint))
+    loaded = time.perf_counter()
+    service = GenerationService(config)
+    load_s = time.perf_counter() - loaded
+    handle = service.engine.submit(prompts[3], max_new_tokens=new_tokens)
+    service.engine.pump()
+    from_disk = handle.result(timeout_s=120)["tokens"]
+    service.shutdown()
+    require(from_disk == reference,
+            f"{label}: the checkpoint served {from_disk}, the in-memory "
+            f"params {reference}")
+    config.generation = dataclasses.replace(
+        service_generation(), checkpoint_path=str(checkpoint))
+    wrong = GenerationService(config)
+    reason = serving.get_unavailable_reason()
+    require(wrong.engine is None and serving.get_engine() is None
+            and "does not fit preset params" in reason,
+            f"{label}: the 7b daemon on a 4-layer checkpoint: engine "
+            f"{wrong.engine}, reason {reason}")
+    wrong.shutdown()
+    log(f"  checkpoint: train.save_checkpoint wrote {nbytes} B (7b widths, "
+        f"4 layers, bf16) in {save_s:.1f} s; a daemon on it built in "
+        f"{load_s:.1f} s and served the in-memory params' greedy tokens; "
+        f"the 32-layer 7b daemon on it stayed up with no engine: "
+        f"{reason[:100]}")
+    del service, wrong, handle, on_host
+    del PRESETS["7b-4-layers"]
+    shutil.rmtree(workdir, ignore_errors=True)
+    release_device_memory()
+    log(f"  service section {time.perf_counter() - started:.1f} s ({card})")
+    return {"flash": ("bf16", 0), "paged": ("int8", launches[1]["int8"])}
+
+
 def kernel_report(kernels, runs, path_launches):
     flash_src = "tensorhive_tpu_torch/csrc/flash_fwd.cu"
     paged_src = "tensorhive_tpu_torch/csrc/paged_decode.cu"
@@ -2688,6 +3295,9 @@ def main() -> int:
         phase = "serving"
         log("== serving")
         runs = phase_serving(card)
+        phase = "service"
+        log("== service")
+        runs["service"] = service_run(card)
     except Exception:                       # every phase failure is fatal
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} FAILED", file=sys.stderr)

@@ -30,4 +30,7 @@ a CUDA device (``device.resolve_device``).
 """
 from .device import resolve_device
 
-__all__ = ["resolve_device"]
+#: the release this port tracks (the JAX package's ``__version__``)
+__version__ = "0.1.0"
+
+__all__ = ["__version__", "resolve_device"]

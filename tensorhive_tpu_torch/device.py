@@ -3,7 +3,9 @@
 The port runs on an NVIDIA GPU. ``device=None`` means ``cuda``; without a
 CUDA device that raises instead of quietly running on the CPU, so a
 measurement or a server can never mistake a CPU run for a GPU one. The CPU
-is used only when a caller asks for it by name, as the tests do.
+is used only when a caller asks for it by name, as the tests do. ``meta``
+builds tensors that have a shape and a dtype but no memory (checkpoint
+loading checks a file against the preset's params that way).
 """
 from __future__ import annotations
 
@@ -21,6 +23,6 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "tensorhive_tpu_torch needs a CUDA device (none is available); "
             "pass device='cpu' to run the plain PyTorch path explicitly")
-    if resolved.type not in ("cuda", "cpu"):
+    if resolved.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {resolved}")
     return resolved

@@ -241,9 +241,10 @@ class TransformerLM(nn.Module):
         (default: seed 0 on the device), so they are NOT the JAX draws —
         parity tests carry JAX-made weights across with ``convert``.
         Matmul weights and the embedding are stored in ``param_dtype``
-        (default ``config.dtype``; training passes f32 masters)."""
+        (default ``config.dtype``; training passes f32 masters). On the
+        ``meta`` device the tree has shapes and dtypes and no values."""
         device = resolve_device(device)
-        if generator is None:
+        if generator is None and device.type != "meta":
             generator = torch.Generator(device=device).manual_seed(0)
         dtype = config.dtype if param_dtype is None else param_dtype
 

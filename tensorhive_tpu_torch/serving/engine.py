@@ -60,17 +60,25 @@ device side is eager PyTorch:
   :class:`~.faults.ServingFaultPlan` is consulted before every dispatch,
   ahead of its first write to the cache. Every bookkeeping timestamp reads
   the injectable ``clock``.
+* **Observability**, as in JAX: the ``tpuhive_generate_*`` families of the
+  process-wide registry, a request-ledger row per request (rejections
+  included) stamped phase by phase, queue/prefill/decode spans keyed by
+  the row's request id, and, where installed, the tenant meter (charged
+  each tick from one clock sample) and the flight recorder (each
+  ``step()`` stamped in a ``finally``). With ``flight_recorder=None`` and
+  ``tenant_meter=None`` the tick does the same device work as without
+  them. The port compiles nothing per shape and builds its kernels once,
+  so the rows' ``prefillCompile`` read ``"hit"`` and the ticks'
+  ``compiles`` 0 — what a warm JAX engine records.
 
 Not ported yet, and refused with "not yet ported" where a knob asks for
-it: the serving mesh. The request ledger, tracer, tenant meter, flight
-recorder and metrics registry also wait for later work.
+it: the serving mesh (``tpuhive_generate_mesh_devices`` reads 1).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import functools
-import itertools
 import logging
 import queue as queue_module
 import threading
@@ -101,7 +109,13 @@ from ..ops.paged_attention import (
     paged_attention,
     resolve_paged_kernel,
 )
-from ..observability.metrics import Histogram
+from ..observability import (
+    Histogram,
+    get_registry,
+    get_request_ledger,
+    get_tracer,
+)
+from ..observability.accounting import ANONYMOUS_TENANT
 from . import EngineDrainingError, QueueFullError, RateLimitError
 from .faults import ServingFaultPlan
 from .paging import (
@@ -122,7 +136,141 @@ from .speculative import (
     resolve_speculative,
 )
 
+# -- metrics (registered once at import; one exposition surface) -------------
+_REQUESTS = get_registry().counter(
+    "tpuhive_generate_requests_total",
+    "Generation requests by outcome: completed, rejected_queue, "
+    "rejected_ratelimit, cancelled, timeout, failed.",
+    labels=("outcome",))
+_TOKENS = get_registry().counter(
+    "tpuhive_generate_tokens_total",
+    "Tokens emitted by the serving engine across all requests.")
+_QUEUE_DEPTH = get_registry().gauge(
+    "tpuhive_generate_queue_depth",
+    "Requests waiting for a slot (admission queue occupancy).")
+_QUEUE_CAPACITY = get_registry().gauge(
+    "tpuhive_generate_queue_capacity",
+    "Bound of the admission queue — depth/capacity == 1 is saturation.")
+_SLOTS_BUSY = get_registry().gauge(
+    "tpuhive_generate_slots_busy",
+    "Slots currently occupied by a running sequence.")
+_SLOTS_TOTAL = get_registry().gauge(
+    "tpuhive_generate_slots_total",
+    "Slot-pool capacity (the fixed decode batch size).")
+_TTFT_SECONDS = get_registry().histogram(
+    "tpuhive_generate_ttft_seconds",
+    "Submit-to-first-token latency (queue wait + prefill + first step).")
+_QUEUE_WAIT_SECONDS = get_registry().histogram(
+    "tpuhive_generate_queue_wait_seconds",
+    "Submit-to-slot-join latency: the admission-queue share of TTFT, "
+    "separated so queue pressure and prefill cost are tunable apart "
+    "(docs/OBSERVABILITY.md 'Request tracing & profiling').")
+_INTERTOKEN_SECONDS = get_registry().histogram(
+    "tpuhive_generate_intertoken_seconds",
+    "Gap between consecutive emitted tokens of one sequence.")
+_BATCH_EFFICIENCY = get_registry().histogram(
+    "tpuhive_generate_batch_efficiency",
+    "Active slots / capacity per decode step (1.0 = perfectly packed).",
+    buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0))
+_KV_PAGES_FREE = get_registry().gauge(
+    "tpuhive_generate_kv_pages_free",
+    "Free KV-cache pages in the paged engine's pool (0 = admission is "
+    "page-bound; the kv_pages_exhausted alert signal).")
+_KV_PAGES_TOTAL = get_registry().gauge(
+    "tpuhive_generate_kv_pages_total",
+    "Usable KV-cache pages in the paged engine's pool (excludes the trash "
+    "page parked slots write into).")
+_SLOT_PAGES = get_registry().gauge(
+    "tpuhive_generate_slot_kv_pages",
+    "KV pages currently owned by each slot (0 when free or contiguous).",
+    labels=("slot",))
+_KV_BYTES_CAPACITY = get_registry().gauge(
+    "tpuhive_generate_kv_bytes_capacity",
+    "KV-cache HBM the paged pool can hold across all layers (payload + "
+    "int8 scale side-arrays when kv_quant is on) — with _used, the "
+    "bytes-level view of the int8 capacity doubling (docs/SERVING.md "
+    "'Quantized KV pages').")
+_KV_BYTES_USED = get_registry().gauge(
+    "tpuhive_generate_kv_bytes_used",
+    "KV-cache HBM currently backing granted pages across all layers — "
+    "used/capacity is the byte-level pool fill the kv_quant sizing "
+    "story is measured in.")
+_MESH_DEVICES = get_registry().gauge(
+    "tpuhive_generate_mesh_devices",
+    "Devices in the serving mesh (dp x tp; 1 = single-chip engine).")
+_PREFIX_HITS = get_registry().counter(
+    "tpuhive_generate_prefix_hits_total",
+    "Admitted requests whose prompt matched cached prefix pages (>= "
+    "prefix_min_tokens skipped at prefill; docs/SERVING.md 'Prefix "
+    "cache & chunked prefill').")
+_PREFIX_MISSES = get_registry().counter(
+    "tpuhive_generate_prefix_misses_total",
+    "Admitted requests that paid a full private prefill (no usable "
+    "cached prefix).")
+_PREFIX_CACHED_PAGES = get_registry().gauge(
+    "tpuhive_generate_prefix_cached_pages",
+    "KV pages currently retained by the radix prefix cache (evictable "
+    "under pool pressure once no slot shares them).")
+_PREFIX_EVICTIONS = get_registry().counter(
+    "tpuhive_generate_prefix_evictions_total",
+    "Prefix-cache pages evicted under pool pressure — fast growth is the "
+    "prefix_cache_thrash alert signal (docs/OBSERVABILITY.md).")
+_PREFILL_CHUNKS = get_registry().histogram(
+    "tpuhive_generate_prefill_chunks",
+    "Prefill chunks dispatched per admitted request (0 = full prefix hit; "
+    "long prompts split across scheduler ticks so decode latency stays "
+    "flat — docs/SERVING.md 'Prefix cache & chunked prefill').",
+    buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0))
+_SPEC_PROPOSED = get_registry().counter(
+    "tpuhive_generate_spec_proposed_total",
+    "Draft tokens proposed to the speculative verify pass (greedy slots "
+    "only; docs/SERVING.md 'Speculative decoding').")
+_SPEC_ACCEPTED = get_registry().counter(
+    "tpuhive_generate_spec_accepted_total",
+    "Draft tokens the target's batched verify accepted — "
+    "accepted/proposed is the acceptance rate the spec_acceptance_low "
+    "alert watches.")
+_DEADLINE_TIMEOUTS = get_registry().counter(
+    "tpuhive_generate_deadline_timeouts_total",
+    "Requests whose per-request deadline expired, by phase: queue (never "
+    "reached a slot), prefill (mid-chunk), decode (truncated mid-"
+    "generation). Every timeout still ends its stream with a terminal "
+    "chunk (docs/ROBUSTNESS.md 'Serving data plane').",
+    labels=("phase",))
+_HOST_KV_HITS = get_registry().counter(
+    "tpuhive_generate_host_kv_hits_total",
+    "Admitted requests whose prompt extended past the device-cached "
+    "prefix into host-resident pages (>= 1 page promoted by DMA instead "
+    "of recomputed; docs/SERVING.md 'KV-page tiering').")
+_HOST_KV_MISSES = get_registry().counter(
+    "tpuhive_generate_host_kv_misses_total",
+    "Tier-on admissions the host store could not extend (no resident "
+    "continuation past the device match) — hits/(hits+misses) is the "
+    "host hit rate.")
+_HOST_KV_DEMOTIONS = get_registry().counter(
+    "tpuhive_generate_host_kv_demotions_total",
+    "KV pages demoted (spilled) to the host-RAM store when the radix "
+    "tree evicted them or their slot drained — sustained fast growth is "
+    "the host_kv_thrash alert signal (docs/OBSERVABILITY.md).")
+_HOST_KV_PROMOTIONS = get_registry().counter(
+    "tpuhive_generate_host_kv_promotions_total",
+    "KV pages promoted from the host store back into fresh device pages "
+    "on a radix continuation hit (async copy lane; never blocks the "
+    "pump).")
+_HOST_KV_BYTES_USED = get_registry().gauge(
+    "tpuhive_generate_host_kv_bytes_used",
+    "Host RAM currently held by demoted int8 page payloads + scales.")
+_HOST_KV_BYTES_CAPACITY = get_registry().gauge(
+    "tpuhive_generate_host_kv_bytes_capacity",
+    "Byte budget of the host page store ([generation_service] "
+    "host_kv_bytes; 0 = tiering off).")
+
 log = logging.getLogger(__name__)
+
+#: the ledger's compile event for every prefill: the port compiles nothing
+#: per shape and builds its kernels once, which a warm JAX engine records as
+#: a "hit"
+_COMPILE_EVENT = "hit"
 
 
 def _not_yet_ported(knob: str, value) -> ValueError:
@@ -400,9 +548,6 @@ def _page_inject_body(cache: QuantKVCache, page_ids: torch.Tensor,
 #: handle event kinds
 TOKEN, DONE, ERROR = "token", "done", "error"
 
-_request_ids = itertools.count(1)
-
-
 class GenerationHandle:
     """Consumer side of one request: a bounded event stream plus final
     summary. ``tokens()`` is what a streaming endpoint iterates."""
@@ -466,6 +611,11 @@ class _Request:
     user_key: Optional[str]
     submitted_ts: float
     request_id: str = ""
+    #: wall-clock anchor of the submitted_ts engine-clock stamp: spans and
+    #: ledger rows translate engine-clock offsets onto it, so fake clocks
+    #: stay exact while readers still get unix timestamps
+    submitted_wall: float = 0.0
+    record: Optional[object] = None          # observability RequestRecord
     handle: Optional[GenerationHandle] = None
     generated: List[int] = dataclasses.field(default_factory=list)
     first_token_ts: Optional[float] = None
@@ -475,11 +625,14 @@ class _Request:
     deadline_ts: Optional[float] = None
     cancelled: bool = False
     finished: bool = False
-    #: pages the host tier promoted for this request (None with the tier
-    #: off) and the promotion's ms (None without a host hit): JAX keeps
-    #: both on its ledger row
-    host_hit_pages: Optional[int] = None
-    promote_ms: Optional[float] = None
+    #: the tenant meter's resource-time integrals for this request,
+    #: finalized onto the ledger row at finish (0.0 without a meter)
+    device_seconds: float = 0.0
+    kv_byte_seconds: float = 0.0
+
+    def wall(self, clock_ts: float) -> float:
+        """Translate an engine-clock stamp to wall-clock seconds."""
+        return self.submitted_wall + (clock_ts - self.submitted_ts)
 
 
 @dataclasses.dataclass
@@ -498,6 +651,7 @@ class _Slot:
     prefill_done: bool = True
     prefill_chunks: int = 0
     prefill_ms: float = 0.0
+    prefill_compile: Optional[str] = None
     prefill_started_ts: float = 0.0
     # -- host tier ---------------------------------------------------------
     #: pages granted from the host store at admission (0 = no host hit)
@@ -556,6 +710,8 @@ class SlotEngine:
         max_deadline_s: float = 600.0,
         fault_plan: Optional[ServingFaultPlan] = None,
         clock: Callable[[], float] = time.monotonic,
+        flight_recorder=None,
+        tenant_meter=None,
         device: DeviceLike = None,
     ) -> None:
         self.device = resolve_device(device)
@@ -621,6 +777,15 @@ class SlotEngine:
         #: fault-injection seam consulted before every dispatch; None in
         #: production
         self.fault_plan = fault_plan
+        #: per-tick black box (serving/flight_recorder.py); None leaves
+        #: step() unrecorded
+        self.flight_recorder = flight_recorder
+        #: per-tenant resource-time attribution (observability/
+        #: accounting.py), stamped from the pump thread; None keeps every
+        #: hook a single attribute check
+        self.tenant_meter = tenant_meter
+        #: no serving mesh yet: one device
+        self.mesh_dp = self.mesh_tp = 1
 
         self._lock = threading.Lock()
         self._pending: Deque[_Request] = collections.deque()
@@ -630,6 +795,11 @@ class SlotEngine:
         self.completed_requests = 0
         self.emitted_tokens = 0
         self.steps = 0
+        #: busy slot-second integral, accumulated from the same dt samples
+        #: the tenant meter charges from, so sum(tenant device-seconds) ==
+        #: busy_slot_seconds x num_devices exactly; 0.0 without a meter
+        self.busy_slot_seconds = 0.0
+        self._last_meter_ts: Optional[float] = None
         #: device dispatches (warmup's included): each paged decode step
         #: launches the paged-attention kernel once per layer; each
         #: whole-prompt prefill (``prefills``) the flash kernel once per
@@ -684,6 +854,13 @@ class SlotEngine:
             self.paged_kernel = None
             self._page_bytes = None
             self._pool = None
+            #: one slot's reserved contiguous KV bytes (the whole max_len
+            #: row, K+V, all layers): what the tenant meter charges for a
+            #: slot's residency when there is no page pool to count
+            self._slot_kv_bytes = (
+                2 * config.n_layers * self.max_len * config.kv_heads
+                * config.d_head
+                * torch.empty((), dtype=config.dtype).element_size())
             shape = (config.n_layers, self.capacity, self.max_len,
                      config.kv_heads, config.d_head)
         if self._quant:
@@ -792,6 +969,34 @@ class SlotEngine:
         #: for free slots, so speculative writes to them never land
         self._pos_limits = np.full(self.capacity, -1, np.int32)
 
+        _QUEUE_CAPACITY.set(self.queue_depth)
+        _SLOTS_TOTAL.set(self.capacity)
+        _QUEUE_DEPTH.set(0)
+        _SLOTS_BUSY.set(0)
+        _MESH_DEVICES.set(self.num_devices)
+        if self.paged:
+            _KV_PAGES_TOTAL.set(self._pool.num_pages)
+            _KV_PAGES_FREE.set(self._pool.free_pages)
+            _KV_BYTES_CAPACITY.set(self._pool.num_pages * self._page_bytes)
+            _KV_BYTES_USED.set(self._pool.used_pages * self._page_bytes)
+            for index in range(self.capacity):
+                _SLOT_PAGES.labels(slot=str(index)).set(0)
+        if self._prefix is not None:
+            _PREFIX_CACHED_PAGES.set(0)
+        if self._host_store is not None:
+            _HOST_KV_BYTES_CAPACITY.set(self.host_kv_bytes)
+            _HOST_KV_BYTES_USED.set(0)
+
+    @property
+    def num_devices(self) -> int:
+        """Devices the engine spans (1 until the serving mesh is ported)."""
+        return self.mesh_dp * self.mesh_tp
+
+    @property
+    def mesh_shape(self) -> str:
+        """The mesh layout for stats: ``"dp x tp"``."""
+        return f"{self.mesh_dp}x{self.mesh_tp}"
+
     @property
     def kv_cache_bytes(self) -> int:
         """Device bytes of the KV cache (payload + scales)."""
@@ -851,26 +1056,37 @@ class SlotEngine:
                     f"request needs {needed} KV pages but the pool only "
                     f"has {self._pool.num_pages}; shorten the prompt or "
                     "max_new_tokens")
+        ledger = get_request_ledger()
         submitted_ts = self.clock()
         request = _Request(prompt=prompt, max_new_tokens=int(max_new_tokens),
                            temperature=float(temperature),
                            user_key=str(user_key) if user_key else None,
                            submitted_ts=submitted_ts,
-                           request_id=f"req-{next(_request_ids)}",
+                           request_id=ledger.new_request_id(),
+                           submitted_wall=time.time(),
                            deadline_ts=(submitted_ts + deadline_s
                                         if deadline_s else None))
+        request.record = ledger.begin(
+            request.request_id, prompt_tokens=len(prompt),
+            max_new_tokens=request.max_new_tokens,
+            temperature=request.temperature, user_key=request.user_key,
+            submitted_ts=request.submitted_wall)
         handle = GenerationHandle(self, request)
         request.handle = handle
         with self._lock:
             if (self.max_concurrent_per_user > 0 and request.user_key
                     and self._user_active.get(request.user_key, 0)
                     >= self.max_concurrent_per_user):
+                _REQUESTS.labels(outcome="rejected_ratelimit").inc()
+                self._record_rejection_locked(request, "rejected_ratelimit")
                 raise RateLimitError(
                     f"user has {self.max_concurrent_per_user} generation "
                     "requests in flight; retry when one completes",
                     retry_after_s=self._retry_after_locked(),
                     request_id=request.request_id)
             if len(self._pending) >= self.queue_depth:
+                _REQUESTS.labels(outcome="rejected_queue").inc()
+                self._record_rejection_locked(request, "rejected_queue")
                 raise QueueFullError(
                     f"admission queue is full ({self.queue_depth} waiting); "
                     "retry shortly",
@@ -884,6 +1100,7 @@ class SlotEngine:
                 self._user_active[request.user_key] = (
                     self._user_active.get(request.user_key, 0) + 1)
             self._pending.append(request)
+            _QUEUE_DEPTH.set(len(self._pending))
         return handle
 
     def _retry_after_locked(self, needed_pages: Optional[int] = None,
@@ -970,6 +1187,15 @@ class SlotEngine:
                 queued / max(1, self.capacity))
             return max(1.0, round(tokens_left * per_token, 1))
 
+    def _record_rejection_locked(self, request: _Request,
+                                 outcome: str) -> None:
+        """Ledger a shed request: a row with its outcome, though no phase
+        past the submit ran."""
+        record = request.record
+        if record is not None:
+            get_request_ledger().finish(
+                record, outcome, finished_ts=request.wall(self.clock()))
+
     # -- scheduler --------------------------------------------------------
     def has_work(self) -> bool:
         with self._lock:
@@ -980,6 +1206,53 @@ class SlotEngine:
                     or bool(self._pending_demotes)
                     or bool(self._demote_jobs))
 
+    def _meter_tick(self) -> None:
+        """Integrate one tick's resource-time products into the tenant
+        meter: every busy slot is charged from ONE dt sample, and
+        ``busy_slot_seconds`` accumulates from the same samples, so the
+        conservation ``sum(tenant device-seconds) == busy_slot_seconds x
+        num_devices`` is exact. The meter's lock is a leaf, taken after the
+        engine lock is released."""
+        meter = self.tenant_meter
+        now = self.clock()
+        last = self._last_meter_ts
+        self._last_meter_ts = now
+        if last is None:
+            return
+        dt = now - last
+        if dt <= 0:
+            return
+        devices = self.num_devices
+        charges: Dict[str, List[float]] = {}
+        with self._lock:
+            for index, slot in enumerate(self._slots):
+                if slot is None:
+                    continue
+                request = slot.request
+                tenant = request.user_key or ANONYMOUS_TENANT
+                self.busy_slot_seconds += dt
+                entry = charges.get(tenant)
+                if entry is None:
+                    entry = charges[tenant] = [0.0, 0.0, 0.0]
+                device_s = dt * devices
+                if self.paged:
+                    kv_byte_s = (self._pool.owned_count(index)
+                                 * self._page_bytes * dt)
+                else:
+                    kv_byte_s = self._slot_kv_bytes * dt
+                entry[0] += device_s
+                entry[1] += kv_byte_s
+                request.device_seconds += device_s
+                request.kv_byte_seconds += kv_byte_s
+                if slot.promote_entries:
+                    # host-tier residency: pages this request's promotion
+                    # still holds in the host store
+                    entry[2] += sum(e.nbytes
+                                    for e in slot.promote_entries) * dt
+        if charges:
+            meter.charge_tick({tenant: (entry[0], entry[1], entry[2])
+                               for tenant, entry in charges.items()})
+
     def step(self) -> int:
         """One scheduler iteration: tick the host tier's copies (adopt what
         landed, gather queued demotions ahead of anything that could
@@ -987,12 +1260,57 @@ class SlotEngine:
         progress by ONE chunk (``prefill_chunk_tokens`` bounds the prefill
         work a tick inserts between two decode steps), then advance the
         running batch one token. Returns the number of active slots
-        stepped."""
-        if self._host_store is not None:
-            self._pump_host_lane()
-        self._admit()
-        self._advance_prefills()
-        return self._decode_step()
+        stepped.
+
+        With a tenant meter the tick is charged first; with a flight
+        recorder it is stamped into the ring in a ``finally``, so the tick
+        that raises is recorded too. Both are host bookkeeping only."""
+        if self.tenant_meter is not None:
+            self._meter_tick()
+        recorder = self.flight_recorder
+        if recorder is None:
+            if self._host_store is not None:
+                self._pump_host_lane()
+            self._admit()
+            self._advance_prefills()
+            return self._decode_step()
+        started = self.clock()
+        faults_before = self._faults_injected()
+        demotions_before = self.host_kv_demotions
+        promotions_before = self.host_kv_promotions
+        admitted = chunks = stepped = 0
+        try:
+            if self._host_store is not None:
+                self._pump_host_lane()
+            admitted = self._admit()
+            chunks = self._advance_prefills()
+            stepped = self._decode_step()
+            return stepped
+        finally:
+            with self._lock:
+                busy = self._busy_locked()
+                depth = len(self._pending)
+            recorder.record(
+                duration_s=self.clock() - started,
+                admitted=admitted,
+                prefill_chunks=chunks,
+                decode_slots=stepped,
+                slots_busy=busy,
+                queue_depth=depth,
+                pages_free=self._pool.free_pages if self.paged else 0,
+                compiles=0,
+                faults=self._faults_injected() - faults_before,
+                host_demotions=self.host_kv_demotions - demotions_before,
+                host_promotions=self.host_kv_promotions - promotions_before,
+            )
+
+    def _faults_injected(self) -> int:
+        """Injections the fault plan has made (0 without a plan): the
+        recorder diffs this per tick."""
+        plan = self.fault_plan
+        if plan is None:
+            return 0
+        return sum(plan.faults_injected.values())
 
     def pump(self, budget_s: Optional[float] = None,
              should_stop: Optional[Callable[[], bool]] = None) -> int:
@@ -1299,8 +1617,10 @@ class SlotEngine:
             entries = []
         if entries:
             self.host_kv_hits += 1
+            _HOST_KV_HITS.inc()
         else:
             self.host_kv_misses += 1
+            _HOST_KV_MISSES.inc()
         return entries
 
     def _pump_host_lane(self) -> None:
@@ -1352,6 +1672,8 @@ class SlotEngine:
             if adopted:
                 with self._lock:
                     self.host_kv_demotions += adopted
+                _HOST_KV_DEMOTIONS.inc(adopted)
+            _HOST_KV_BYTES_USED.set(self._host_store.bytes_used)
         self._demote_jobs = still_running
 
     def _adopt_promotions(self) -> None:
@@ -1402,7 +1724,9 @@ class SlotEngine:
                 self._prefix.insert(state.request.prompt,
                                     self._pool.page_table[index],
                                     state.promote_boundary)
+                _PREFIX_CACHED_PAGES.set(self._prefix.cached_pages)
                 finish = state.prefill_next >= state.prefill_target
+            _HOST_KV_PROMOTIONS.inc(promoted)
             if finish:
                 self._finish_prefill(index, state)
 
@@ -1419,6 +1743,7 @@ class SlotEngine:
                 free = next((index for index, slot
                              in enumerate(self._slots) if slot is None), None)
                 if free is None or not self._pending:
+                    _QUEUE_DEPTH.set(len(self._pending))
                     return joined
                 request = self._pending[0]
                 cached_tokens = 0
@@ -1431,7 +1756,11 @@ class SlotEngine:
                         fresh = needed - len(shared)
                         shortfall = fresh - self._pool.free_pages
                         if shortfall > 0:
-                            self._prefix.evict(shortfall)
+                            evicted = self._prefix.evict(shortfall)
+                            if evicted:
+                                _PREFIX_EVICTIONS.inc(evicted)
+                                _PREFIX_CACHED_PAGES.set(
+                                    self._prefix.cached_pages)
                         granted = self._pool.assign_shared(free, shared,
                                                            fresh)
                     else:
@@ -1440,13 +1769,16 @@ class SlotEngine:
                         # strict FIFO: smaller requests never overtake, so
                         # long ones cannot starve (submit() rejected the
                         # impossible)
+                        _QUEUE_DEPTH.set(len(self._pending))
                         return joined
                     host_entries: List[HostPageEntry] = []
                     if self._prefix is not None:
                         if cached_tokens > 0:
                             self.prefix_hits += 1
+                            _PREFIX_HITS.inc()
                         else:
                             self.prefix_misses += 1
+                            _PREFIX_MISSES.inc()
                         if self._host_store is not None:
                             # the host tier can only EXTEND the device
                             # match: resident content keys past the shared
@@ -1454,6 +1786,10 @@ class SlotEngine:
                             # fresh pages instead of recomputed
                             host_entries = self._probe_host_locked(
                                 request.prompt, len(shared))
+                    _KV_PAGES_FREE.set(self._pool.free_pages)
+                    _KV_BYTES_USED.set(self._pool.used_pages
+                                       * self._page_bytes)
+                    _SLOT_PAGES.labels(slot=str(free)).set(needed)
                 self._pending.popleft()
                 joined_ts = self.clock()
                 self._slots[free] = _Slot(request=request,
@@ -1474,8 +1810,34 @@ class SlotEngine:
                 # last legal write position of the speculative windows
                 self._pos_limits[free] = (len(request.prompt)
                                           + request.max_new_tokens - 1)
-                self._queue_wait_hist.observe(joined_ts
-                                              - request.submitted_ts)
+                # the queue phase closes here, apart from TTFT
+                queue_wait_s = joined_ts - request.submitted_ts
+                _QUEUE_WAIT_SECONDS.observe(queue_wait_s)
+                self._queue_wait_hist.observe(queue_wait_s)
+                meter = self.tenant_meter
+                if meter is not None:
+                    # prompt tokens split into what the cache served and
+                    # what prefill will compute
+                    tenant = request.user_key or ANONYMOUS_TENANT
+                    meter.charge_queue(tenant, queue_wait_s)
+                    meter.count_tokens(tenant, "cached", cached_tokens)
+                    meter.count_tokens(tenant, "prefill",
+                                       len(request.prompt) - cached_tokens)
+                record = request.record
+                if record is not None:
+                    record.queue_ms = queue_wait_s * 1e3
+                    record.slot = free
+                    if self.paged:
+                        record.kv_pages = needed
+                    if self._prefix is not None:
+                        record.cached_tokens = cached_tokens
+                get_tracer().record_span(
+                    "generate.queue", kind="generate",
+                    start_ts=request.submitted_wall,
+                    duration_s=queue_wait_s,
+                    request_id=request.request_id, slot=free)
+                _QUEUE_DEPTH.set(len(self._pending))
+                _SLOTS_BUSY.set(self._busy_locked())
             try:
                 if self._host_store is not None:
                     # evict() above may have queued spills of the pages it
@@ -1501,6 +1863,7 @@ class SlotEngine:
                 self._finish_locked(request, outcome="cancelled")
             elif (request.deadline_ts is not None
                     and now >= request.deadline_ts):
+                _DEADLINE_TIMEOUTS.labels(phase="queue").inc()
                 self._finish_locked(request, outcome="timeout")
             else:
                 kept.append(request)
@@ -1521,6 +1884,7 @@ class SlotEngine:
         past the promoted run once the copy has landed."""
         prompt = request.prompt
         prompt_len = len(prompt)
+        record = request.record
         if self._use_chunk_prefill:
             state = self._slots[slot]
             state.prefill_target = prompt_len - 1
@@ -1543,6 +1907,7 @@ class SlotEngine:
             width = _prefill_bucket(prompt_len - 1, self.max_len - 1)
             head = np.zeros((1, width), np.int32)
             head[0, :prompt_len - 1] = prompt[:-1]
+            started = self.clock()
             try:
                 self._dispatch_prefill(head, slot, prompt_len - 1)
                 if self._spec is not None:
@@ -1556,7 +1921,24 @@ class SlotEngine:
                             and self._slots[slot].request is request):
                         self._free_slot_locked(slot)
                     self._pending.appendleft(request)
+                    _QUEUE_DEPTH.set(len(self._pending))
+                    _SLOTS_BUSY.set(self._busy_locked())
                 raise
+            # host dispatch time: the device finishes the work inside the
+            # first decode step, which TTFT captures
+            prefill_s = self.clock() - started
+            if record is not None:
+                record.prefill_bucket = width
+                record.prefill_compile = _COMPILE_EVENT
+                record.prefill_ms = prefill_s * 1e3
+            get_tracer().record_span(
+                "generate.prefill", kind="generate",
+                start_ts=request.wall(started), duration_s=prefill_s,
+                request_id=request.request_id, slot=slot, bucket=width,
+                compile=_COMPILE_EVENT)
+        elif record is not None:
+            # single-token prompt: nothing to prefill, the phase is 0
+            record.prefill_ms = 0.0
         with self._lock:
             self._tokens[slot] = prompt[-1]
             self._positions[slot] = prompt_len - 1
@@ -1589,6 +1971,7 @@ class SlotEngine:
             if deadline is not None and self.clock() >= deadline:
                 with self._lock:
                     if self._slots[index] is state:
+                        _DEADLINE_TIMEOUTS.labels(phase="prefill").inc()
                         self._free_slot_locked(index)
                         self._finish_locked(state.request,
                                             outcome="timeout")
@@ -1620,23 +2003,47 @@ class SlotEngine:
             self._spec.chunk_prefill(head, index, start, length)
         state.prefill_ms += (self.clock() - started) * 1e3
         state.prefill_chunks += 1
+        state.prefill_compile = _COMPILE_EVENT
+        record = request.record
+        if record is not None and record.prefill_bucket is None:
+            record.prefill_bucket = width
         state.prefill_next = start + length
         with self._lock:
             if self._slots[index] is state:
                 self._prefix.insert(prompt, self._pool.page_table[index],
                                     state.prefill_next)
+                _PREFIX_CACHED_PAGES.set(self._prefix.cached_pages)
         if state.prefill_next >= state.prefill_target:
             self._finish_prefill(index, state)
 
     def _finish_prefill(self, index: int, state: _Slot) -> None:
         """Arm a slot whose prefill (possibly zero chunks — a full-prefix
-        hit) is dispatched: the next decode step emits its first token."""
+        hit) is dispatched: the next decode step emits its first token.
+        Closes the ledger's prefill phase and the prefill span."""
         request = state.request
-        if self._host_store is not None:
-            # the copy's share of TTFT, apart from the prefill's
-            request.host_hit_pages = state.host_hit_pages
-            if state.host_hit_pages:
-                request.promote_ms = round(state.promote_ms, 3)
+        record = request.record
+        now = self.clock()
+        if record is not None:
+            record.prefill_ms = state.prefill_ms
+            record.prefill_compile = state.prefill_compile
+            record.prefill_chunks = state.prefill_chunks
+            if self._host_store is not None:
+                # the copy's share of TTFT, apart from the prefill's
+                record.host_hit_pages = state.host_hit_pages
+                if state.host_hit_pages:
+                    record.promote_ms = round(state.promote_ms, 3)
+        _PREFILL_CHUNKS.observe(state.prefill_chunks)
+        if state.prefill_chunks > 0:
+            get_tracer().record_span(
+                "generate.prefill", kind="generate",
+                start_ts=request.wall(state.prefill_started_ts),
+                duration_s=now - state.prefill_started_ts,
+                request_id=request.request_id, slot=index,
+                bucket=(record.prefill_bucket if record is not None
+                        else None),
+                compile=state.prefill_compile,
+                chunks=state.prefill_chunks,
+                cached_tokens=state.cached_tokens)
         with self._lock:
             if self._slots[index] is not state:
                 return                       # cancelled and freed meanwhile
@@ -1723,6 +2130,7 @@ class SlotEngine:
         now = self.clock()
         with self._lock:
             self.steps += 1
+            _BATCH_EFFICIENCY.observe(len(stepped) / self.capacity)
             for index, request in stepped:
                 if (self._slots[index] is None
                         or self._slots[index].request is not request):
@@ -1741,6 +2149,19 @@ class SlotEngine:
                                for j in range(matched + 1)]
                     self.spec_proposed += self.spec_tokens
                     self.spec_accepted += matched
+                    if self.tenant_meter is not None:
+                        self.tenant_meter.count_tokens(
+                            request.user_key or ANONYMOUS_TENANT,
+                            "spec_accepted", matched)
+                    _SPEC_PROPOSED.inc(self.spec_tokens)
+                    # inc(0) still creates the series
+                    _SPEC_ACCEPTED.inc(matched)
+                    record = request.record
+                    if record is not None:
+                        record.draft_tokens = ((record.draft_tokens or 0)
+                                               + self.spec_tokens)
+                        record.accepted_tokens = (
+                            (record.accepted_tokens or 0) + matched)
                 consumed: List[int] = []
                 for token in emitted:
                     # EOS inside the accepted run, the budget and a pending
@@ -1756,6 +2177,7 @@ class SlotEngine:
                         and self._slots[index].request is request):
                     # next tick's catch-up window = what was accepted
                     self._spec_windows[index] = consumed
+            _SLOTS_BUSY.set(self._busy_locked())
         return len(stepped)
 
     def _decode_step(self) -> int:
@@ -1773,6 +2195,7 @@ class SlotEngine:
         now = self.clock()
         with self._lock:
             self.steps += 1
+            _BATCH_EFFICIENCY.observe(len(stepped) / self.capacity)
             for index, request in stepped:
                 if (self._slots[index] is None
                         or self._slots[index].request is not request):
@@ -1781,6 +2204,7 @@ class SlotEngine:
                 self._tokens[index] = token
                 self._positions[index] += 1
                 self._apply_token_locked(index, request, token, now)
+            _SLOTS_BUSY.set(self._busy_locked())
         return len(stepped)
 
     def _apply_token_locked(self, index: int, request: _Request,
@@ -1791,13 +2215,27 @@ class SlotEngine:
             return
         request.generated.append(token)
         self.emitted_tokens += 1
+        _TOKENS.inc()
+        if self.tenant_meter is not None:
+            self.tenant_meter.count_tokens(
+                request.user_key or ANONYMOUS_TENANT, "decode", 1)
+        record = request.record
         if request.first_token_ts is None:
             request.first_token_ts = now
-            self._ttft_hist.observe(now - request.submitted_ts)
+            ttft = now - request.submitted_ts
+            _TTFT_SECONDS.observe(ttft)
+            self._ttft_hist.observe(ttft)
+            if record is not None:
+                record.ttft_ms = ttft * 1e3
         else:
-            self._intertoken_hist.observe(
-                now - (request.last_token_ts or now))
+            gap = now - (request.last_token_ts or now)
+            _INTERTOKEN_SECONDS.observe(gap)
+            self._intertoken_hist.observe(gap)
+            if record is not None:
+                record._gaps_ms.append(gap * 1e3)
         request.last_token_ts = now
+        if record is not None:
+            record.tokens = len(request.generated)
         if request.handle is not None:
             request.handle._push(TOKEN, token)
         hit_eos = self.eos_token is not None and token == self.eos_token
@@ -1807,6 +2245,7 @@ class SlotEngine:
         elif (request.deadline_ts is not None
                 and now >= request.deadline_ts):
             # mid-decode deadline: truncate AFTER delivering this token
+            _DEADLINE_TIMEOUTS.labels(phase="decode").inc()
             self._free_slot_locked(index)
             self._finish_locked(request, outcome="timeout")
 
@@ -1832,6 +2271,9 @@ class SlotEngine:
         if self.paged:
             self._pool.release(index)
             self._positions[index] = 0
+            _KV_PAGES_FREE.set(self._pool.free_pages)
+            _KV_BYTES_USED.set(self._pool.used_pages * self._page_bytes)
+            _SLOT_PAGES.labels(slot=str(index)).set(0)
 
     def _finish_locked(self, request: _Request, outcome: str,
                        error: Optional[str] = None) -> None:
@@ -1843,6 +2285,7 @@ class SlotEngine:
             return
         request.finished = True
         now = self.clock()
+        _REQUESTS.labels(outcome=outcome).inc()
         if outcome == "completed":
             self.completed_requests += 1
         if request.user_key:
@@ -1851,6 +2294,29 @@ class SlotEngine:
                 self._user_active.pop(request.user_key, None)
             else:
                 self._user_active[request.user_key] = remaining
+        record = request.record
+        if record is not None:
+            if (request.first_token_ts is not None
+                    and request.last_token_ts is not None):
+                record.decode_ms = (request.last_token_ts
+                                    - request.first_token_ts) * 1e3
+            record.total_ms = (now - request.submitted_ts) * 1e3
+            if self.tenant_meter is not None:
+                # the meter's per-request integrals onto the row
+                record.device_seconds = request.device_seconds
+                record.kv_byte_seconds = request.kv_byte_seconds
+            get_request_ledger().finish(record, outcome,
+                                        finished_ts=request.wall(now))
+        if request.first_token_ts is not None:
+            # the decode span closes with the request (a request that never
+            # produced a token has nothing its row does not carry)
+            get_tracer().record_span(
+                "generate.decode", kind="generate",
+                start_ts=request.wall(request.first_token_ts),
+                duration_s=(request.last_token_ts
+                            - request.first_token_ts),
+                request_id=request.request_id,
+                tokens=len(request.generated), outcome=outcome)
         if request.handle is None:
             return
         if error is not None:
@@ -1883,7 +2349,23 @@ class SlotEngine:
                 self._finish_locked(slot.request, outcome="failed",
                                     error=message)
                 failed += 1
+            _QUEUE_DEPTH.set(0)
+            _SLOTS_BUSY.set(0)
             return failed
+
+    def release(self) -> None:
+        """Drop the device state (weights, KV cache, the draft lane, the
+        copy stream and its pinned staging) of an engine that will not run
+        again — what a supervisor calls after failing it fast. Handles that
+        clients still hold, and the fault's traceback, keep the engine
+        object alive, but no longer its device memory. Host bookkeeping
+        (stats, the ledger rows) stays readable."""
+        with self._lock:
+            self.params = None
+            self._cache = None
+            self._spec = None
+            self._copy_stream = None
+            self._staging = ()
 
     # -- introspection ----------------------------------------------------
     def _busy_locked(self) -> int:
@@ -1891,8 +2373,8 @@ class SlotEngine:
 
     def stats(self) -> Dict:
         """Engine snapshot: the JAX engine's ``stats`` under the same key
-        names, less the mesh keys (``meshShape``, ``numDevices``) and
-        ``busySlotSeconds`` (the tenant meter's), not ported yet.
+        names (``meshShape`` "1x1" and ``numDevices`` 1 until the serving
+        mesh is ported; ``busySlotSeconds`` null without a tenant meter).
         ``device``, ``stepDispatches`` and ``prefills`` are the port's
         own."""
         def ms(value: Optional[float]) -> Optional[float]:
@@ -1908,6 +2390,8 @@ class SlotEngine:
                 "queueCapacity": self.queue_depth,
                 "draining": self._draining,
                 "maxSeqLen": self.max_len,
+                "meshShape": self.mesh_shape,
+                "numDevices": self.num_devices,
                 "device": str(self.device),
                 "paged": self.paged,
                 "pageSize": self.page_size,
@@ -1951,6 +2435,9 @@ class SlotEngine:
                 "requestsCompleted": self.completed_requests,
                 "tokensEmitted": self.emitted_tokens,
                 "steps": self.steps,
+                "busySlotSeconds": (round(self.busy_slot_seconds, 6)
+                                    if self.tenant_meter is not None
+                                    else None),
                 "stepDispatches": self.step_dispatches,
                 "prefills": self.prefills,
                 "ttftP50Ms": ms(self._ttft_hist.quantile(0.5)),

@@ -267,7 +267,10 @@ def synthetic_batch(generator: torch.Generator, train_config: TrainConfig,
 _CHECKPOINT = re.compile(r"^step_(\d+)\.pt$")
 
 
-def _checkpoint_steps(path: Path) -> List[int]:
+def checkpoint_steps(path) -> List[int]:
+    """Steps of the ``step_<n>.pt`` files under ``path``, ascending (none
+    for a missing directory)."""
+    path = Path(path)
     if not path.is_dir():
         return []
     return sorted(int(match.group(1)) for match in
@@ -285,7 +288,7 @@ def save_checkpoint(path: str, step: int, params: Params, opt_state: OptState,
     torch.save({"step": step, "params": params, "opt_state": opt_state},
                partial)
     os.replace(partial, target)
-    for old in _checkpoint_steps(directory)[:-max_to_keep]:
+    for old in checkpoint_steps(directory)[:-max_to_keep]:
         (directory / f"step_{old:010d}.pt").unlink()
 
 
@@ -295,7 +298,7 @@ def restore_checkpoint(path: str, params_like: Params,
     """The newest step under ``path``: ``(step, params, opt_state)`` placed
     like the templates (device and dtype of each leaf); a leaf whose shape
     differs from its template raises."""
-    steps = _checkpoint_steps(Path(path))
+    steps = checkpoint_steps(Path(path))
     if not steps:
         raise FileNotFoundError(f"no checkpoint under {path}")
     saved = torch.load(Path(path) / f"step_{steps[-1]:010d}.pt",

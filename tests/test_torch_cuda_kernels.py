@@ -859,3 +859,58 @@ def test_tiny_tiered_engine_on_the_card_matches_the_cpu(device):
     tokens = results[1][0]
     assert tokens[0] == tokens[1] == tokens[4] == tokens[5]
     assert results[1][4] == 5 and results[1][5] == 0
+
+
+def test_tiered_engine_under_the_daemon_thread(device, tmp_path):
+    """The same tiered tiny engine pumped by ``GenerationService`` on its
+    own thread (CUDA's current device and stream are per thread: the
+    engine records its events on the pump thread's current stream, which
+    the copy lane waits on). The host hit promotes A's 5 pages and gives
+    the HBM hit's tokens, and the crash-free run leaves the ledger one
+    completed row per request."""
+    from tensorhive_tpu_torch.config import Config, GenerationConfig
+    from tensorhive_tpu_torch.core.services.generation import (
+        GenerationService,
+    )
+    from tensorhive_tpu_torch.models.transformer import PRESETS, TransformerLM
+    from tensorhive_tpu_torch.observability import get_request_ledger
+    from tensorhive_tpu_torch.serving.engine import SlotEngine
+
+    model = dataclasses.replace(PRESETS["tiny"], dtype=torch.float32,
+                                max_seq_len=128)
+    params = TransformerLM.init(model, device=device)
+
+    def factory():
+        engine = SlotEngine(params, model, slots=2, max_len=64, page_size=4,
+                            kv_pages=12, prefix_min_tokens=4,
+                            host_kv_bytes=1 << 20, speculative="off",
+                            device=device)
+        engine.warmup(prompt_lens=(24,))
+        return engine
+
+    config = Config(config_dir=tmp_path)
+    config.generation = GenerationConfig(interval_s=0.02)
+    service = GenerationService(config, engine=factory(),
+                                engine_factory=factory)
+    ledger = get_request_ledger()
+    ledger.clear()
+    prompt_a = list(range(3, 27))
+    schedule = [prompt_a, prompt_a, list(range(40, 64)),
+                list(range(70, 94)), prompt_a]
+    service.start()
+    try:
+        tokens = []
+        for prompt in schedule:
+            handle = service.engine.submit(prompt, max_new_tokens=6)
+            tokens.append(handle.result(timeout_s=60)["tokens"])
+    finally:
+        service.shutdown()
+        service.join(timeout=30)
+    assert not service.is_alive()
+    engine = service.engine
+    assert tokens[4] == tokens[1] == tokens[0]
+    assert engine.host_kv_hits >= 1 and engine.host_kv_promotions >= 5
+    assert engine.host_kv_fallbacks == 0
+    rows = ledger.recent()
+    assert [row["outcome"] for row in rows] == ["completed"] * 5
+    assert rows[0]["hostHitPages"] == 5

@@ -1,7 +1,9 @@
 """Package rules of the port: it imports neither JAX nor anything of the
-JAX package, its entry points refuse to run without CUDA unless the CPU
-is asked for by name, serving knobs it cannot serve yet are refused with
-"not yet ported", and ``auto`` knobs resolve as in JAX."""
+JAX package (the serving daemon and its observability included), its entry
+points — the daemon and the telemetry emitter among them — refuse to run
+without CUDA unless the CPU is asked for by name, serving knobs it cannot
+serve yet are refused with "not yet ported", and ``auto`` knobs resolve as
+in JAX."""
 import ast
 import dataclasses
 import subprocess
@@ -12,11 +14,15 @@ import pytest
 import torch
 
 from tensorhive_tpu_torch import resolve_device, train
-from tensorhive_tpu_torch.config import GenerationConfig
-from tensorhive_tpu_torch.core.services.generation import build_engine
+from tensorhive_tpu_torch.config import Config, GenerationConfig
+from tensorhive_tpu_torch.core.services.generation import (
+    GenerationService,
+    build_engine,
+)
 from tensorhive_tpu_torch.models import decode, encoder
 from tensorhive_tpu_torch.models.transformer import PRESETS, TransformerLM
 from tensorhive_tpu_torch.serving.engine import SlotEngine
+from tensorhive_tpu_torch.telemetry import TelemetryEmitter
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "tensorhive_tpu_torch"
@@ -53,6 +59,14 @@ def test_imports_with_jax_blocked():
             "import tensorhive_tpu_torch.data\n"
             "import tensorhive_tpu_torch.models.encoder\n"
             "import tensorhive_tpu_torch.models.lora\n"
+            "import tensorhive_tpu_torch.core.services.base\n"
+            "import tensorhive_tpu_torch.observability.accounting\n"
+            "import tensorhive_tpu_torch.observability.profiling\n"
+            "import tensorhive_tpu_torch.observability.requests\n"
+            "import tensorhive_tpu_torch.observability.tracing\n"
+            "import tensorhive_tpu_torch.serving.flight_recorder\n"
+            "import tensorhive_tpu_torch.telemetry\n"
+            "import tensorhive_tpu_torch.utils.threading\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -86,6 +100,34 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     with pytest.raises(RuntimeError, match="CUDA"):
         encoder.init_encoder(preset="tiny")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_daemon_and_emitter_need_cuda_unless_cpu_is_asked(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None resolves to it")
+    config = Config(config_dir=tmp_path)
+    config.generation = GenerationConfig(max_len=64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GenerationService(config)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TelemetryEmitter(metrics_dir=str(tmp_path))
+    service = GenerationService(config, device="cpu")
+    try:
+        assert service.engine.device == torch.device("cpu")
+    finally:
+        service.shutdown()
+    emitter = TelemetryEmitter(metrics_dir=str(tmp_path), device="cpu")
+    assert emitter.devices == [torch.device("cpu")]
+
+
+@pytest.mark.parametrize("knob", ["mesh_dp", "mesh_tp"])
+def test_daemon_refuses_the_serving_mesh(knob, tmp_path):
+    """The daemon builds through ``build_engine``: the mesh knobs are
+    refused there too, not swallowed as a checkpoint failure."""
+    config = Config(config_dir=tmp_path)
+    config.generation = GenerationConfig(max_len=64, **{knob: 2})
+    with pytest.raises(ValueError, match="not yet ported"):
+        GenerationService(config, device="cpu")
 
 
 @pytest.mark.parametrize("knob,value", [("mesh_dp", 2), ("mesh_tp", 2)])

@@ -446,14 +446,14 @@ def test_tiered_engine_matches_jax_engine(kv_heads):
 def test_miss_hbm_hit_host_hit_token_identity():
     """The same prompt through a cold miss, a device prefix hit and a
     host-tier promotion after eviction, on the real threaded copy lane,
-    emits identical tokens, and the request carries its promotion."""
+    emits identical tokens, and the ledger row carries its promotion."""
     engine = make_tiered()
     assert isinstance(engine._host_lane, HostCopyLane)
     miss = run_one(engine, PROMPT_A)
     tokens = miss.result(timeout_s=30)["tokens"]
     assert engine.host_kv_hits == 0 and engine.host_kv_misses == 1
-    assert miss._request.host_hit_pages == 0
-    assert miss._request.promote_ms is None
+    assert miss._request.record.host_hit_pages == 0
+    assert miss._request.record.promote_ms is None
     assert run_one(engine, PROMPT_A).result(timeout_s=30)["tokens"] == tokens
     assert engine.host_kv_hits == 0
     churn_out_prompt_a(engine)
@@ -462,8 +462,8 @@ def test_miss_hbm_hit_host_hit_token_identity():
     host_hit = run_one(engine, PROMPT_A)
     assert host_hit.result(timeout_s=30)["tokens"] == tokens
     assert engine.host_kv_hits == 1 and engine.host_kv_promotions == 5
-    assert host_hit._request.host_hit_pages == 5
-    assert host_hit._request.promote_ms >= 0
+    assert host_hit._request.record.host_hit_pages == 5
+    assert host_hit._request.record.promote_ms >= 0
     # a promotion reseeds the radix tree: the next identical prompt hits on
     # the device without touching the store
     assert run_one(engine, PROMPT_A).result(timeout_s=30)["tokens"] == tokens
@@ -485,7 +485,7 @@ def test_tier_off_builds_no_store_lane_or_stream():
     engine.warmup(prompt_lens=(len(PROMPT_A),))
     handle = run_one(engine, PROMPT_A)
     assert handle.result(timeout_s=30)["outcome"] == "completed"
-    assert handle._request.host_hit_pages is None
+    assert handle._request.record.host_hit_pages is None
     stats = engine.stats()
     for key in ("hostKvBytes", "hostPagesResident", "hostBytesUsed",
                 "hostHitRate"):
@@ -542,7 +542,8 @@ def test_slow_promotion_never_stalls_decode():
     clock.advance(0.01)
     drain(engine)
     assert engine.host_kv_promotions == 5
-    assert parked._request.promote_ms == pytest.approx(0.11 * 1e3, abs=30.0)
+    assert parked._request.record.promote_ms == pytest.approx(0.11 * 1e3,
+                                                              abs=30.0)
     assert parked.result(timeout_s=30)["tokens"] == expected
     assert runner.result(timeout_s=30)["outcome"] == "completed"
 
@@ -573,8 +574,8 @@ def test_lane_error_falls_back_to_recompute():
     drain(engine)
     assert retry.result(timeout_s=30)["tokens"] == expected
     assert engine.host_kv_promotions == 0 and engine.host_kv_fallbacks == 1
-    assert retry._request.host_hit_pages == 0
-    assert retry._request.promote_ms is None
+    assert retry._request.record.host_hit_pages == 0
+    assert retry._request.record.promote_ms is None
 
 
 @pytest.mark.parametrize("knobs", [
