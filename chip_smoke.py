@@ -140,6 +140,27 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
               with the in-memory params' greedy tokens, while the 32-layer
               preset on it leaves the daemon up with no engine and the
               reason published.
+9. mesh     — the serving mesh, every rank a process of its own on this
+              card (this script again, run with --mesh-rank), over gloo:
+              each single-card reference first (then released), then a
+              group of 2 ranks — (a) tp 2, f32, 7b widths at 4 layers,
+              prompts of 17/300/1,500 tokens whole-prompt and chunked,
+              tokens identical to the single card; (b) tp 2 on the full 7b
+              preset, the default engine on chat traffic (a 2,048-token
+              system prompt P, P + 17, P + 300, a 3,000-token miss), no
+              leaked page, the first-step logits of P no further from the
+              single card's than the single card's are from an f32
+              evaluation of the same weights, per-rank bytes; (d) dp 2
+              through build_engine, twice the slots and pages, tokens
+              identical — and a group of 8 ranks: (c) the GQA guard, tp 8
+              over 4 KV heads at 7b widths, 2 layers, f32, tokens
+              identical. On every rank K1 and K8/K9 launch exactly layers x
+              prefills and layers x step dispatches at its local head
+              counts (all heads under the guard). Tick times over gloo are
+              printed as such: collectives stage through host memory and
+              measure no multi-card serving. The phase starts with the
+              device memory still allocated and, above 1 GiB, the largest
+              live tensors and what holds them.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``; any failure exits non-zero without
@@ -3093,12 +3114,14 @@ def service_run(card):
     require(refused == [True] and paged
             and all(r[1] is None for r in traced),
             f"{label}: trace of {capture['bytes']} B over {traced_steps} "
-            f"decode steps, {len(kernels)} kernel names, paged decode "
+            f"decode steps in {capture['attempts']} attempt(s), "
+            f"{len(kernels)} kernel names, paged decode "
             f"{paged[:1]}; second capture refused: {refused}; streams "
             f"{[r[1] for r in traced]}")
     log(f"  trace capture 1 s while serving: {capture['bytes']} B, "
-        f"{traced_steps} decode steps, {len(kernels)} kernel names incl. "
-        f"{paged[0][:60]}; a second capture refused")
+        f"{traced_steps} decode steps, {capture['deviceEvents']} device "
+        f"events, {len(kernels)} kernel names incl. {paged[0][:60]}; "
+        f"{capture['attempts']} attempt(s); a second capture refused")
 
     # the drain: shutdown with a long request in flight
     engine = serving.get_engine()
@@ -3193,6 +3216,513 @@ def service_run(card):
     return {"flash": ("bf16", 0), "paged": ("int8", launches[1]["int8"])}
 
 
+# -- phase 9 ------------------------------------------------------------------
+#
+# The serving mesh: every rank a process of its own (this script again,
+# with --mesh-rank), all on this one card, over gloo — the one backend that
+# runs several ranks on one card; its collectives on CUDA tensors stage
+# through host memory, so the ticks below measure that staging, not
+# multi-card serving. The parent runs each single-card reference first and
+# releases it; ranks report through JSON files in a run directory.
+
+MESH_NEW_TOKENS = 32
+MESH_TICK_LABEL = ("tick ms over gloo on one card (collectives staged "
+                   "through host memory; no measure of multi-card serving)")
+MESH_TIMEOUT_S = {2: 420, 8: 240}
+
+
+def mesh_presets():
+    """The cut configurations of the mesh phase, registered as presets in
+    the parent and in every rank so that build_engine can build them: 7b
+    widths at 4 layers in f32, and 7b widths at 2 layers in f32 with 4 KV
+    heads (the GQA guard at tp 8: 8 does not divide 4; the paged-decode
+    kernel takes at most 8 query heads per KV head, so 2 KV heads under 32
+    query heads would be refused on one card as well)."""
+    import dataclasses
+
+    import torch
+
+    from tensorhive_tpu_torch.models.transformer import PRESETS
+
+    PRESETS["mesh-7b4-f32"] = dataclasses.replace(
+        PRESETS["7b"], n_layers=4, dtype=torch.float32)
+    PRESETS["mesh-7b2-kv4-f32"] = dataclasses.replace(
+        PRESETS["7b"], n_layers=2, n_kv_heads=4, dtype=torch.float32)
+    return PRESETS
+
+
+def mesh_prompts():
+    """Seeded prompts: (a)/(d) 17, 300, 1500 tokens; (b) the chat traffic
+    subset: a 2,048-token system prompt P, P + 17, P + 300, a 3,000-token
+    miss; (c) 17 and 300."""
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    short = [rng.integers(0, 32_000, n).tolist() for n in (17, 300, 1500)]
+    system = rng.integers(0, 32_000, 2048).tolist()
+    chat = [system, system + rng.integers(0, 32_000, 17).tolist(),
+            system + rng.integers(0, 32_000, 300).tolist(),
+            rng.integers(0, 32_000, 3000).tolist()]
+    return {"short": short, "chat": chat, "guard": short[:2]}
+
+
+#: the mesh phase's jobs, in the order the ranks of a group build them:
+#: name -> (dp, tp, generation knobs, prompts)
+MESH_JOBS = {
+    2: [("a_whole", 1, 2, dict(preset="mesh-7b4-f32", max_len=2048,
+                               kv_quant="off", prefix_cache="off"), "short"),
+        ("a_chunked", 1, 2, dict(preset="mesh-7b4-f32", max_len=2048,
+                                 kv_quant="off"), "short"),
+        ("b_7b", 1, 2, dict(preset="7b", max_len=4096), "chat"),
+        ("d_dp2", 2, 1, dict(preset="mesh-7b4-f32", max_len=2048), "short")],
+    8: [("c_guard", 1, 8, dict(preset="mesh-7b2-kv4-f32", max_len=2048,
+                               kv_quant="off", prefix_cache="off"), "guard")],
+}
+
+
+def mesh_generation(knobs, dp=1, tp=1):
+    from tensorhive_tpu_torch.config import GenerationConfig
+
+    return GenerationConfig(**{"slots": 8, "paged_kernel": "on",
+                               "speculative": "off", **knobs,
+                               "mesh_dp": dp, "mesh_tp": tp})
+
+
+def install_logits_spy(engine):
+    """Keep the f32 logits of each decode step (assembled over tp on a
+    mesh) in the returned dict, for the first-step comparison; returns the
+    undo."""
+    from tensorhive_tpu_torch.serving import engine as engine_module
+
+    capture = {}
+    if engine._tp is not None:
+        assemble = engine._tp.logits
+
+        def spy(local):
+            capture["logits"] = assemble(local)
+            return capture["logits"]
+
+        engine._tp.logits = spy
+        return capture, lambda: None
+    head = engine_module._lm_head
+
+    def spy(*args, **kwargs):
+        capture["logits"] = head(*args, **kwargs)
+        return capture["logits"]
+
+    engine_module._lm_head = spy
+    return capture, lambda: setattr(engine_module, "_lm_head", head)
+
+
+def mesh_drive(engine, prompts):
+    """Serve ``prompts`` one join per tick; returns tokens per request, the
+    f32 logits row of each request's first generated token, and the tick
+    times in ms."""
+    import torch
+
+    capture, undo = install_logits_spy(engine)
+    handles, first, ticks = [], [None] * len(prompts), []
+
+    def tick():
+        torch.cuda.synchronize()
+        before = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        ticks.append((time.perf_counter() - before) * 1e3)
+        for index, handle in enumerate(handles):
+            request = handle._request
+            if first[index] is None and request.generated:
+                first[index] = capture["logits"][
+                    request.record.slot].float().cpu()
+
+    try:
+        for prompt in prompts:
+            handles.append(engine.submit(prompt,
+                                         max_new_tokens=MESH_NEW_TOKENS))
+            tick()
+        while engine.has_work():
+            tick()
+    finally:
+        undo()
+    tokens = [h.result(timeout_s=300)["tokens"] for h in handles]
+    return tokens, first, ticks
+
+
+def mesh_reset_launches():
+    from tensorhive_tpu_torch.ops import flash_attention as fa
+    from tensorhive_tpu_torch.ops import paged_attention as pa
+
+    reset_launches()
+    fa.launch_heads.clear()
+    pa.launch_heads.clear()
+
+
+def mesh_launch_heads():
+    """This process's kernel launches since the reset: ``{"flash|f32|16|4":
+    n, "paged|int8|16|4": n, ...}``."""
+    from tensorhive_tpu_torch.ops import flash_attention as fa
+    from tensorhive_tpu_torch.ops import paged_attention as pa
+
+    out = {}
+    for kind, counter in (("flash", fa.launch_heads),
+                          ("paged", pa.launch_heads)):
+        for (variant, heads, kv_heads), count in counter.items():
+            out[f"{kind}|{variant}|{heads}|{kv_heads}"] = count
+    return out
+
+
+def mesh_expected_heads(engine):
+    """Every rank's launches of one job: layers x prefills of K1 and
+    layers x step dispatches of K8/K9, at this rank's head counts — its
+    slice of both where both split over tp, every head otherwise (the GQA
+    guard)."""
+    import torch
+
+    config = engine.config
+    heads, kv_heads = config.n_heads, config.kv_heads
+    if engine._kernel_shard_heads:
+        heads //= engine.mesh_tp
+        kv_heads //= engine.mesh_tp
+    dtype = "f32" if config.dtype == torch.float32 else "bf16"
+    paged = "int8" if engine.kv_quant == "on" else dtype
+    layers = config.n_layers
+    out = {}
+    if engine.prefills:
+        out[f"flash|{dtype}|{heads}|{kv_heads}"] = layers * engine.prefills
+    if engine.step_dispatches:
+        out[f"paged|{paged}|{heads}|{kv_heads}"] = (layers
+                                                    * engine.step_dispatches)
+    return out
+
+
+def mesh_rank_main(rank: int, world: int, rundir: str) -> int:
+    """One rank of a mesh group (this script run with --mesh-rank): build
+    every mesh of the group's jobs, then serve them — rank 0 drives each
+    job's engine, the others run serve_worker — counting kernel launches
+    per job, and write what it saw to ``rank<r>.json``."""
+    import torch
+
+    from tensorhive_tpu_torch.core.services.generation import build_engine
+    import datetime
+
+    import torch.distributed as dist
+
+    from tensorhive_tpu_torch.parallel import serving_mesh
+    from tensorhive_tpu_torch.serving.mesh_worker import (
+        serve_worker,
+        stop_workers,
+    )
+
+    mesh_presets()
+    jobs = MESH_JOBS[world]
+    dist.init_process_group("gloo", init_method=f"file://{rundir}/store",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    shapes = sorted({(dp, tp) for _, dp, tp, _, _ in jobs})
+    meshes = {shape: serving_mesh(*shape) for shape in shapes}
+    out = {"rank": rank, "jobs": {}}
+    path = Path(rundir) / f"rank{rank}.json"
+    if rank:
+        built = []
+
+        def factory():
+            # a BUILD ends the previous job: its launches are complete
+            if built:
+                out["jobs"][built[-1]]["launches"] = mesh_launch_heads()
+            name, dp, tp, knobs, _ = jobs[len(built)]
+            mesh_reset_launches()
+            engine = build_engine(mesh_generation(knobs, dp, tp))
+            built.append(name)
+            out["jobs"][name] = {"param_bytes": engine.param_bytes,
+                                 "kv_bytes": engine.kv_cache_bytes}
+            return engine
+
+        serve_worker(meshes[shapes[0]], factory)
+        out["jobs"][built[-1]]["launches"] = mesh_launch_heads()
+        path.write_text(json.dumps(out))
+        return 0
+    prompts = mesh_prompts()
+    for name, dp, tp, knobs, traffic in jobs:
+        mesh_reset_launches()
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        engine = build_engine(mesh_generation(knobs, dp, tp))
+        build_s = time.perf_counter() - started
+        tokens, first, ticks = mesh_drive(engine, prompts[traffic])
+        stats = engine.stats()
+        out["jobs"][name] = {
+            "tokens": tokens, "first": [row.tolist() for row in first],
+            "ticks": ticks, "build_s": build_s, "stats": stats,
+            "capacity": engine.capacity, "param_bytes": engine.param_bytes,
+            "kv_bytes": engine.kv_cache_bytes,
+            "rules_kv_heads": engine._rules.kv_heads,
+            "shard_heads": engine._kernel_shard_heads,
+            "launches": mesh_launch_heads(),
+            "expected": mesh_expected_heads(engine)}
+        engine.release()
+        del engine
+        release_device_memory()
+    stop_workers(meshes[shapes[0]])
+    path.write_text(json.dumps(out))
+    return 0
+
+
+def mesh_group(world: int, rundir: Path):
+    """Run one group of ``world`` ranks (this script, --mesh-rank r) to its
+    end under a timeout; returns every rank's report."""
+    import os
+    import shutil
+
+    shutil.rmtree(rundir, ignore_errors=True)
+    rundir.mkdir(parents=True)
+    processes = []
+    for rank in range(world):
+        env = dict(os.environ, LOCAL_RANK=str(rank))
+        log_file = open(rundir / f"rank{rank}.log", "w")
+        processes.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+             str(rank), "--mesh-world", str(world), "--mesh-dir",
+             str(rundir)], stdout=log_file, stderr=subprocess.STDOUT,
+            env=env, cwd=str(REPO)), log_file))
+    deadline = time.monotonic() + MESH_TIMEOUT_S[world]
+    failed = []
+    for rank, (process, log_file) in enumerate(processes):
+        try:
+            process.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            failed.append(f"rank {rank} timed out")
+        if process.returncode not in (0, None):
+            failed.append(f"rank {rank} exit {process.returncode}")
+    for process, log_file in processes:
+        if process.poll() is None:
+            process.kill()
+            process.wait(30)
+        log_file.close()
+    if failed:
+        for rank in range(world):
+            tail = (rundir / f"rank{rank}.log").read_text()[-3000:]
+            log(f"  --- rank {rank} log tail ---\n{tail}")
+        raise PhaseFailure(f"mesh group of {world} ranks: "
+                           + "; ".join(failed))
+    return [json.loads((rundir / f"rank{rank}.json").read_text())
+            for rank in range(world)]
+
+
+def mesh_reference(name, knobs, prompts):
+    """The single-card engine of a job (build_engine, no mesh): tokens,
+    first-step logits rows, ticks, bytes; released before it returns."""
+    from tensorhive_tpu_torch.core.services.generation import build_engine
+
+    engine = build_engine(mesh_generation(knobs))
+    tokens, first, ticks = mesh_drive(engine, prompts)
+    out = {"tokens": tokens, "first": first, "ticks": ticks,
+           "capacity": engine.capacity, "stats": engine.stats(),
+           "param_bytes": engine.param_bytes,
+           "kv_bytes": engine.kv_cache_bytes}
+    f32_logits = None
+    if name == "b_7b":
+        f32_logits = mesh_f32_evaluation(engine, prompts[0])
+    del engine
+    release_device_memory()
+    return out, f32_logits
+
+
+def mesh_f32_evaluation(engine, prompt):
+    """The last position's logits of an f32 evaluation of the engine's own
+    (bf16) weights on ``prompt``: each weight widened to f32 at use."""
+    import dataclasses
+
+    import torch
+
+    from tensorhive_tpu_torch.models.transformer import TransformerLM
+
+    config = dataclasses.replace(engine.config, dtype=torch.float32)
+    with torch.no_grad():
+        tokens = torch.tensor([prompt], dtype=torch.int64, device="cuda")
+        logits = TransformerLM.apply(engine.params, tokens, config)
+    return logits[0, -1].float().cpu()
+
+
+def rel(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+def check_mesh_launches(label, reports, job):
+    """Every rank launched K1 and K8/K9 exactly as its engine's dispatches
+    say, at the rank's head counts, and nothing else."""
+    expected = reports[0]["jobs"][job]["expected"]
+    for report in reports:
+        got = report["jobs"][job]["launches"]
+        require(got == expected,
+                f"{label}: rank {report['rank']} launches {got} != "
+                f"{expected}")
+    return expected
+
+
+def phase_mesh(card):
+    """The serving mesh on this card, groups of 2 and 8 ranks over gloo:
+    (a) tp 2, f32, 7b widths at 4 layers, whole-prompt and chunked, tokens
+    identical to the single card; (b) tp 2 on the full 7b preset, the
+    default engine on chat traffic, no leaked page, first-step logits
+    within the single card's own bf16 error; (c) the GQA guard at tp 8
+    over 4 KV heads, tokens identical; (d) dp 2 through build_engine,
+    capacity and pages doubled, tokens identical. K1 and K8/K9 launched on
+    every rank at its local head counts. Returns the launches per kernel
+    name summed over ranks."""
+    import torch
+
+    started = time.perf_counter()
+    release_device_memory()
+    log(f"  device memory at the phase's start: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved ({card})")
+    memory_census("mesh")
+    mesh_presets()
+    prompts = mesh_prompts()
+    references, f32_logits = {}, None
+    for world, jobs in MESH_JOBS.items():
+        for name, dp, tp, knobs, traffic in jobs:
+            references[name], logits = mesh_reference(name, knobs,
+                                                      prompts[traffic])
+            f32_logits = logits if logits is not None else f32_logits
+    log(f"  single-card references {time.perf_counter() - started:.1f} s")
+    reports = {}
+    for world in MESH_JOBS:
+        group_started = time.perf_counter()
+        reports[world] = mesh_group(world, REPO / "build" / "mesh_smoke"
+                                    / f"world{world}")
+        log(f"  group of {world} ranks: "
+            f"{time.perf_counter() - group_started:.1f} s")
+    launches = {}
+    for world, jobs in MESH_JOBS.items():
+        for name, dp, tp, knobs, traffic in jobs:
+            label = f"mesh {name} ({dp}x{tp}, {knobs['preset']})"
+            ours = reports[world][0]["jobs"][name]
+            ref = references[name]
+            expected = check_mesh_launches(label, reports[world], name)
+            for key, count in expected.items():
+                kind, variant = key.split("|")[:2]
+                kernel = ("flash_fwd_" if kind == "flash"
+                          else "paged_decode_") + variant
+                launches[kernel] = launches.get(kernel, 0) + count * world
+            stats = ours["stats"]
+            require(stats["meshShape"] == f"{dp}x{tp}"
+                    and stats["numDevices"] == dp * tp,
+                    f"{label}: stats say {stats['meshShape']}, "
+                    f"{stats['numDevices']} devices")
+            if stats["paged"]:
+                require(stats["kvPagesFree"] + (stats["cachedPages"] or 0)
+                        == stats["kvPagesTotal"],
+                        f"{label}: pages leaked: {stats}")
+            diffs = [float((torch.tensor(a) - b).abs().max())
+                     for a, b in zip(ours["first"], ref["first"])]
+            agree = [x == y for t, r in zip(ours["tokens"], ref["tokens"])
+                     for x, y in zip(t, r)]
+            log(f"{label}: build {ours['build_s']:.1f} s; greedy agreement "
+                f"with the single card {sum(agree) / len(agree):.4f}; "
+                f"largest first-step |logit difference| {max(diffs):.3e}; "
+                f"launches per rank {expected}")
+            log(f"  {MESH_TICK_LABEL}: median "
+                f"{sorted(ours['ticks'])[len(ours['ticks']) // 2]:.1f}, max "
+                f"{max(ours['ticks']):.1f} (single card: median "
+                f"{sorted(ref['ticks'])[len(ref['ticks']) // 2]:.1f}, max "
+                f"{max(ref['ticks']):.1f})")
+            if name != "b_7b":
+                require(ours["tokens"] == ref["tokens"],
+                        f"{label}: tokens differ from the single card's")
+            if name == "c_guard":
+                require(ours["rules_kv_heads"] is None
+                        and not ours["shard_heads"],
+                        f"{label}: not the GQA guard's layout")
+            if name == "d_dp2":
+                require(ours["capacity"] == 2 * ref["capacity"]
+                        and stats["kvPagesTotal"]
+                        == 2 * ref["stats"]["kvPagesTotal"],
+                        f"{label}: capacity {ours['capacity']} / pages "
+                        f"{stats['kvPagesTotal']} are not twice the single "
+                        f"card's {ref['capacity']} / "
+                        f"{ref['stats']['kvPagesTotal']}")
+                log(f"  capacity {ours['capacity']} slots, "
+                    f"{stats['kvPagesTotal']} pages (single card "
+                    f"{ref['capacity']}, {ref['stats']['kvPagesTotal']})")
+            if name == "b_7b":
+                tp_err = rel(torch.tensor(ours["first"][0]), ref["first"][0])
+                single_err = rel(ref["first"][0], f32_logits)
+                log(f"  first-step logits of P: relative error tp 2 vs the "
+                    f"single card {tp_err:.3e}; the single card's bf16 "
+                    f"error vs an f32 evaluation {single_err:.3e}")
+                require(tp_err <= single_err,
+                        f"{label}: tp 2 logits error {tp_err:.3e} exceeds the "
+                        f"single card's own bf16 error {single_err:.3e}")
+                per_rank = [(r["jobs"][name]["param_bytes"],
+                             r["jobs"][name]["kv_bytes"])
+                            for r in reports[world]]
+                log(f"  per-rank bytes (weights, KV): " + ", ".join(
+                    f"rank {i} {w / 1e9:.3f} GB + {k / 1e9:.3f} GB"
+                    for i, (w, k) in enumerate(per_rank))
+                    + f"; single card {ref['param_bytes'] / 1e9:.3f} GB + "
+                    f"{ref['kv_bytes'] / 1e9:.3f} GB")
+    log(f"  mesh phase {time.perf_counter() - started:.1f} s ({card})")
+    return launches
+
+
+def memory_census(label, top=4, depth=6):
+    """Where leftover device memory lives: when more than 1 GiB is still
+    allocated, log the largest live CUDA tensors (by storage) and, for
+    each, the chain of objects that hold it, outward."""
+    import gc
+    import types
+
+    import torch
+
+    allocated = torch.cuda.memory_allocated()
+    if allocated < 2**30:
+        return
+    gc.collect()
+    storages = {}
+    for obj in gc.get_objects():
+        try:
+            if not (torch.is_tensor(obj) and obj.is_cuda):
+                continue
+        except Exception:        # noqa: BLE001 - exotic objects
+            continue
+        key = obj.untyped_storage().data_ptr()
+        if key not in storages or obj.numel() > storages[key].numel():
+            storages[key] = obj
+    found = sum(t.untyped_storage().nbytes() for t in storages.values())
+    log(f"  census ({label}): {len(storages)} live CUDA storages, "
+        f"{found / 2**30:.3f} GiB of {allocated / 2**30:.3f} GiB allocated")
+
+    def describe(obj):
+        if isinstance(obj, dict):
+            return f"dict{list(obj)[:4]}"
+        if isinstance(obj, (list, tuple)):
+            return f"{type(obj).__name__}[{len(obj)}]"
+        if isinstance(obj, types.FrameType):
+            return f"frame {obj.f_code.co_name}:{obj.f_lineno}"
+        if isinstance(obj, types.FunctionType):
+            return f"function {obj.__qualname__}"
+        return type(obj).__name__
+
+    largest = sorted(storages.values(),
+                     key=lambda t: -t.untyped_storage().nbytes())[:top]
+    here = sys._getframe()
+    for tensor in largest:
+        chain, obj = [], tensor
+        skip = {id(storages), id(largest), id(chain), id(here)}
+        for _ in range(depth):
+            holders = [h for h in gc.get_referrers(obj) if id(h) not in skip
+                       and h is not storages]
+            if not holders:
+                break
+            obj = holders[0]
+            skip.add(id(obj))
+            chain.append(describe(obj))
+        log(f"    {tuple(tensor.shape)} {tensor.dtype} "
+            f"{tensor.untyped_storage().nbytes() / 2**20:.1f} MiB <- "
+            + " <- ".join(chain))
+
+
 def kernel_report(kernels, runs, path_launches):
     flash_src = "tensorhive_tpu_torch/csrc/flash_fwd.cu"
     paged_src = "tensorhive_tpu_torch/csrc/paged_decode.cu"
@@ -3274,8 +3804,18 @@ def main() -> int:
               f"({REPO} has no tensorhive_tpu_torch/)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    if "--mesh-rank" in sys.argv:
+        # a rank of the mesh phase's group (run by phase_mesh, not by hand)
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        return mesh_rank_main(int(args["--mesh-rank"]),
+                              int(args["--mesh-world"]), args["--mesh-dir"])
     started = time.perf_counter()
     phase = "device"
+
+    def memory(after):
+        log(f"  device memory after {after}: "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+
     try:
         card = phase_device()
         phase = "build"
@@ -3289,22 +3829,30 @@ def main() -> int:
         phase = "training"
         log("== training")
         training = phase_training()
+        memory("training")
         phase = "families"
         log("== families")
         families = phase_families()
+        memory("families")
         phase = "serving"
         log("== serving")
         runs = phase_serving(card)
+        memory("serving")
         phase = "service"
         log("== service")
         runs["service"] = service_run(card)
+        memory("service")
+        phase = "mesh"
+        log("== mesh")
+        mesh_launches = phase_mesh(card)
     except Exception:                       # every phase failure is fatal
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} FAILED", file=sys.stderr)
         return 1
     log(f"total {time.perf_counter() - started:.1f} s")
     launches = dict(training["launches"])
-    for name, count in families["launches"].items():
+    for name, count in (list(families["launches"].items())
+                        + list(mesh_launches.items())):
         launches[name] = launches.get(name, 0) + count
     print(json.dumps({"kernels": kernel_report(kernels, runs, launches)}))
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,9 @@ What runs so far:
   flash-forward kernel (``csrc/flash_fwd.cu``) and decode through the
   hand-written paged-attention kernel (``csrc/paged_decode.cu``), with the
   prefix cache, the speculative lane, host KV-page tiering, deadlines,
-  Retry-After estimates and a fault-injection plan;
+  Retry-After estimates and a fault-injection plan; and the serving mesh
+  (``parallel/``: dp x tp over ``torch.distributed``, rank 0 the
+  controller, the kernels on each rank's head shard);
 * training on one device: ``TransformerLM.loss`` -> ``train.make_train_step``
   -> ``train.train_loop``, attention differentiated through the
   hand-written flash-backward kernels (``csrc/flash_bwd.cu``);

@@ -11,12 +11,14 @@ for the paged layout), the contiguous layout (``paged=False``), the
 speculative lane (``speculative``; ``auto`` = on where the engine runs on
 the card, off on the CPU), host KV tiering (``host_kv_bytes`` > 0, paged
 int8 with the prefix cache) and per-request deadlines
-(``default_deadline_s``, ``max_deadline_s``) are served. The serving mesh
-(``mesh_dp``/``mesh_tp`` > 1) is accepted here and refused by
-``build_engine`` with a "not yet ported" error. ``checkpoint_path`` names
-the directory of the port's own ``train.save_checkpoint`` files
-(``step_<n>.pt``); ``tools/torch_convert_checkpoint.py`` writes them from
-an orbax directory of the JAX package.
+(``default_deadline_s``, ``max_deadline_s``) are served, and so is the
+serving mesh (``mesh_dp``/``mesh_tp`` > 1: ``slots`` and ``kv_pages`` per
+dp replica, ranks over an initialised ``torch.distributed`` process group;
+the speculative lane and tiering are refused under it).
+``checkpoint_path`` names the directory of the port's own
+``train.save_checkpoint`` files (``step_<n>.pt``);
+``tools/torch_convert_checkpoint.py`` writes them from an orbax directory
+of the JAX package.
 """
 from __future__ import annotations
 

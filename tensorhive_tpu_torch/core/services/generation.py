@@ -30,6 +30,11 @@ and cooldown run on an injectable ``clock``. ``shutdown()`` drains:
 admission stops with a Retry-After, in-flight requests get
 ``drain_timeout_s`` to finish, stragglers are failed fast.
 
+On a serving mesh (``mesh_dp``/``mesh_tp`` > 1) the daemon runs on rank 0
+only: the rebuilt engine's ``BUILD`` command rebuilds the workers' shards,
+the release before it (``RELEASE``) drops them, and ``shutdown()`` ends the
+workers' loops (``STOP``) once the pump thread has stopped.
+
 Beyond JAX, the dead engine's device state (weights, KV cache, draft lane)
 is released before the rebuild: a client still holding a handle, or the
 fault's traceback, keeps the engine object alive, and on a card a second
@@ -40,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import logging
+import threading
 import time
 from pathlib import Path
 from typing import Callable, List, Optional, Tuple
@@ -54,6 +60,7 @@ from ...models.transformer import PRESETS, Params, TransformerConfig, \
     TransformerLM
 from ...observability import get_registry, get_request_ledger
 from ...observability.accounting import get_tenant_meter
+from ...parallel.mesh import serving_mesh
 from ...serving import CheckpointLoadError
 from ...serving.engine import SlotEngine
 from ...serving.faults import TRANSIENT, classify_failure
@@ -309,6 +316,16 @@ class GenerationService(Service):
         serving.update_serving_state(supervisor_active=False,
                                      crash_loop=False, retry_after_s=None)
         super().shutdown()
+        if engine is not None and engine.mesh is not None:
+            # the pump thread issues the mesh's commands: it ends its tick
+            # before the controller ends the workers' loops
+            if self.is_alive() and threading.current_thread() is not self:
+                self.join(timeout=max(10.0, 2 * self.interval_s))
+            if self.is_alive():
+                log.warning("pump thread still running; serving-mesh "
+                            "workers not stopped")
+            else:
+                engine.stop_workers()
 
 
 # -- checkpoints ----------------------------------------------------------------
@@ -416,8 +433,19 @@ def build_engine(generation: GenerationConfig, device: DeviceLike = None,
     ``params`` (already on the device, in the preset's dtype), else the
     checkpoint under ``checkpoint_path`` (``CheckpointLoadError`` when it
     cannot be served), else random weights from ``TransformerLM.init``
-    (seed 0). ``device`` None means ``cuda`` and raises without one."""
-    device = resolve_device(device)
+    (seed 0). ``device`` None means ``cuda`` and raises without one.
+
+    Serving mesh (``mesh_dp``/``mesh_tp`` > 1): the engine spans the
+    initialised process group's dp x tp ranks (``parallel.serving_mesh``;
+    ``device`` None = ``cuda:{LOCAL_RANK}``), with ``slots`` and
+    ``kv_pages`` counted per dp replica, as in JAX — the engine holds
+    ``slots * mesh_dp`` slots and ``kv_pages * mesh_dp`` pages. Every rank
+    calls this with the same config: the full weights (checkpoint or seed)
+    are loaded, then sharded by the engine. Rank 0 warms the engine, which
+    warms every rank; a worker's call is its ``serve_worker`` factory and
+    warms nothing itself."""
+    if generation.mesh_dp * generation.mesh_tp <= 1:
+        device = resolve_device(device)
     if generation.preset not in PRESETS:
         raise ValueError(
             f"[generation_service] preset {generation.preset!r} unknown; "
@@ -426,16 +454,19 @@ def build_engine(generation: GenerationConfig, device: DeviceLike = None,
         raise ValueError(
             f"[generation_service] request_ledger_size must be >= 1, got "
             f"{generation.request_ledger_size}")
-    if generation.mesh_dp < 1 or generation.mesh_tp < 1:
+    mesh_dp, mesh_tp = int(generation.mesh_dp), int(generation.mesh_tp)
+    if mesh_dp < 1 or mesh_tp < 1:
         raise ValueError(
             f"[generation_service] mesh_dp/mesh_tp must be >= 1, got "
-            f"{generation.mesh_dp}/{generation.mesh_tp}")
-    for knob in ("mesh_dp", "mesh_tp"):
-        if getattr(generation, knob) > 1:
-            raise ValueError(f"{knob}={getattr(generation, knob)} is not yet "
-                             "ported to tensorhive_tpu_torch")
+            f"{mesh_dp}/{mesh_tp}")
     if params is not None and generation.checkpoint_path:
         raise ValueError("pass params or set checkpoint_path, not both")
+    mesh = None
+    if mesh_dp * mesh_tp > 1:
+        # raises without a process group of dp x tp ranks: never fewer
+        # ranks than the config was sized for
+        mesh = serving_mesh(dp=mesh_dp, tp=mesh_tp, device=device)
+        device = mesh.device
     get_request_ledger().set_capacity(generation.request_ledger_size)
     model_config = PRESETS[generation.preset]
     max_len = generation.max_len or model_config.max_seq_len
@@ -450,11 +481,11 @@ def build_engine(generation: GenerationConfig, device: DeviceLike = None,
         params = TransformerLM.init(model_config, device=device)
     engine = SlotEngine(
         params, model_config,
-        slots=generation.slots,
+        slots=generation.slots * mesh_dp,
         max_len=max_len,
         paged=generation.paged,
         page_size=generation.page_size,
-        kv_pages=generation.kv_pages,
+        kv_pages=generation.kv_pages * mesh_dp,
         paged_kernel=generation.paged_kernel,
         kv_quant=generation.kv_quant,
         prefix_cache=generation.prefix_cache,
@@ -474,10 +505,14 @@ def build_engine(generation: GenerationConfig, device: DeviceLike = None,
         max_concurrent_per_user=generation.max_concurrent_per_user,
         flight_recorder=build_flight_recorder(generation),
         tenant_meter=get_tenant_meter(),
+        mesh=mesh,
         device=device,
     )
+    if engine.is_mesh_worker:
+        return engine
     engine.warmup(prompt_lens=(16, max_len // 2))
     log.info("generation engine ready: preset=%s slots=%d max_len=%d "
-             "queue_depth=%d device=%s", generation.preset, engine.capacity,
-             max_len, generation.queue_depth, engine.device)
+             "queue_depth=%d mesh=%s devices=%d device=%s", generation.preset,
+             engine.capacity, max_len, generation.queue_depth,
+             engine.mesh_shape, engine.num_devices, engine.device)
     return engine

@@ -24,8 +24,10 @@ Training: ``loss`` (full or chunked cross entropy; ``_chunked_ce`` takes
 per-token weights, which the MLM loss of ``models/encoder`` passes), the
 ``remat`` policies
 ("block" checkpoints whole blocks, "mlp" only the MLP half) through
-``torch.utils.checkpoint``, and ``train_flops_per_token``. The mesh and
-pipeline paths are not ported yet.
+``torch.utils.checkpoint``, and ``train_flops_per_token``. Serving under a
+tensor-parallel mesh runs the block functions on a rank's weight shard,
+with ``reduce`` hooks for the row-parallel sums (``parallel/mesh.py``);
+sharded training and the pipeline are not ported yet.
 """
 from __future__ import annotations
 
@@ -204,6 +206,8 @@ def _chunked_ce(x_flat: torch.Tensor, targets_flat: torch.Tensor,
 
 
 Attend = Callable[..., torch.Tensor]
+#: a row-parallel partial sum -> the sum over the tensor-parallel ranks
+Reduce = Callable[[torch.Tensor], torch.Tensor]
 
 
 class TransformerLM(nn.Module):
@@ -297,44 +301,57 @@ class TransformerLM(nn.Module):
     @staticmethod
     def block_attn_half(x, block, config: TransformerConfig, positions,
                         attend: Attend,
-                        layer_index: Optional[int] = None) -> torch.Tensor:
+                        layer_index: Optional[int] = None,
+                        reduce: Optional[Reduce] = None) -> torch.Tensor:
         """Pre-norm QKV + rope + ``attend`` + output projection, residual
         added. ``attend(q, k, v)`` — or ``attend(q, k, v, layer_index)``
-        when the caller passes ``layer_index`` (cache-writing strategies)."""
+        when the caller passes ``layer_index`` (cache-writing strategies).
+        Head counts come from the weights, so a tensor-parallel rank's
+        shard (``wq``/``wk``/``wv`` columns of its heads) runs its local
+        heads; ``reduce`` then sums its row-parallel ``attn @ wo`` over the
+        ranks before the residual add."""
         dtype = config.dtype
         h = _rmsnorm(x, block["attn_norm"]["scale"])
         b, length, _ = h.shape
-        q = (h @ block["wq"].to(dtype)).reshape(b, length, config.n_heads,
-                                                config.d_head)
-        k = (h @ block["wk"].to(dtype)).reshape(b, length, config.kv_heads,
-                                                config.d_head)
-        v = (h @ block["wv"].to(dtype)).reshape(b, length, config.kv_heads,
-                                                config.d_head)
+        d_head = config.d_head
+        heads = block["wq"].shape[-1] // d_head
+        kv_heads = block["wk"].shape[-1] // d_head
+        q = (h @ block["wq"].to(dtype)).reshape(b, length, heads, d_head)
+        k = (h @ block["wk"].to(dtype)).reshape(b, length, kv_heads, d_head)
+        v = (h @ block["wv"].to(dtype)).reshape(b, length, kv_heads, d_head)
         q = _rope(q, positions, config.rope_theta)
         k = _rope(k, positions, config.rope_theta)
         attn = (attend(q, k, v) if layer_index is None
                 else attend(q, k, v, layer_index))
-        attn = attn.reshape(b, length, config.n_heads * config.d_head)
-        return x + attn @ block["wo"].to(dtype)
+        attn = attn.reshape(b, length, heads * d_head)
+        out = attn @ block["wo"].to(dtype)
+        return x + (out if reduce is None else reduce(out))
 
     @staticmethod
-    def block_mlp_half(x, block, config: TransformerConfig) -> torch.Tensor:
-        """SwiGLU MLP half of a block, residual added."""
+    def block_mlp_half(x, block, config: TransformerConfig,
+                       reduce: Optional[Reduce] = None) -> torch.Tensor:
+        """SwiGLU MLP half of a block, residual added; ``reduce`` sums a
+        tensor-parallel rank's row-parallel ``gated @ w_out``."""
         dtype = config.dtype
         h = _rmsnorm(x, block["mlp_norm"]["scale"])
         gated = (F.silu(h @ block["w_gate"].to(dtype))
                  * (h @ block["w_in"].to(dtype)))
-        return x + gated @ block["w_out"].to(dtype)
+        out = gated @ block["w_out"].to(dtype)
+        return x + (out if reduce is None else reduce(out))
 
     @staticmethod
     def block_forward(x, block, config: TransformerConfig, positions,
                       attend: Attend,
-                      layer_index: Optional[int] = None) -> torch.Tensor:
+                      layer_index: Optional[int] = None,
+                      reduce_attn: Optional[Reduce] = None,
+                      reduce_mlp: Optional[Reduce] = None) -> torch.Tensor:
         """One block — the single copy of the block math that prefill,
         decode and ``apply`` share, each with its own ``attend``."""
         x = TransformerLM.block_attn_half(x, block, config, positions, attend,
-                                          layer_index=layer_index)
-        return TransformerLM.block_mlp_half(x, block, config)
+                                          layer_index=layer_index,
+                                          reduce=reduce_attn)
+        return TransformerLM.block_mlp_half(x, block, config,
+                                            reduce=reduce_mlp)
 
     @staticmethod
     def apply_trunk(params: Params, tokens: torch.Tensor,

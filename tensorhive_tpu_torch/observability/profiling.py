@@ -13,6 +13,17 @@ device-memory snapshots — the counterpart of
   that had run the pump recorded no device activity at all.)
   **Single-flight**: the device profiler is process-wide, so a second
   concurrent capture is refused (:class:`ProfileInFlightError`).
+  Late in a long process (an H100 serving the 7b preset after minutes of
+  earlier profiler sessions), sessions came back with every runtime
+  record and not one kernel record, for up to 38 captures in a row, or
+  with no record of the card at all; earlier in the same process kineto
+  had warned of kernels timed 0.27 ms before their launches (the card's
+  timestamps skewed against the host's). With ``TEARDOWN_CUPTI=1`` kineto
+  finalizes CUPTI after every session and the next one starts afresh: a
+  capture sets it unless the environment already chose, and takes itself
+  again (up to ``CAPTURE_ATTEMPTS`` in all) when its device side came back
+  broken. The metadata says how many attempts it took and how many device
+  events the trace holds.
 * :func:`device_memory_summary` reads ``torch.cuda.memory_stats`` per
   device — live bytes and live allocations of the caching allocator —
   and exports them as ``tpuhive_device_hbm_live_bytes{device}``.
@@ -35,6 +46,7 @@ from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.autograd import DeviceType
 
 from .metrics import MetricsRegistry
 
@@ -57,12 +69,35 @@ class ProfileUnavailableError(Exception):
 
 _capture_lock = threading.Lock()
 
+#: captures taken before one whose device records came back is given up
+CAPTURE_ATTEMPTS = 3
+
 
 def _activities() -> List[torch.profiler.ProfilerActivity]:
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
+        # kineto finalizes CUPTI after each session: the next one starts
+        # with the card's clock synchronized afresh
+        os.environ.setdefault("TEARDOWN_CUPTI", "1")
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     return activities
+
+
+def _device_records(profiler) -> Optional[int]:
+    """Device records (kernels, copies, sets) in a stopped capture, or None
+    when its device side came back broken: kernels launched and not one
+    device record, or not one CUDA API record (the capture's own
+    synchronize makes one). 0 without a card."""
+    if not torch.cuda.is_available():
+        return 0
+    calls = launched = recorded = 0
+    for event in profiler.profiler.kineto_results.events():
+        if event.device_type() == DeviceType.CUDA:
+            recorded += 1
+        elif event.name().startswith("cu"):     # cudaX and cuX API calls
+            calls += 1
+            launched += "Launch" in event.name()
+    return None if not recorded and (launched or not calls) else recorded
 
 
 def capture_trace(artifact_dir: str, duration_s: float,
@@ -92,19 +127,27 @@ def capture_trace(artifact_dir: str, duration_s: float,
         target.mkdir(parents=True, exist_ok=True)
         started_ts = time.time()
         started = time.perf_counter()
-        profiler = torch.profiler.profile(activities=_activities())
-        try:
-            profiler.start()
-        except Exception as exc:
-            raise ProfileUnavailableError(
-                f"cannot start the device profiler: "
-                f"{type(exc).__name__}: {exc}") from exc
-        try:
-            sleep(duration_s)
-        finally:
-            if torch.cuda.is_available() and torch.cuda.is_initialized():
-                torch.cuda.synchronize()
-            profiler.stop()
+        for attempt in range(1, CAPTURE_ATTEMPTS + 1):
+            profiler = torch.profiler.profile(activities=_activities())
+            try:
+                profiler.start()
+            except Exception as exc:
+                raise ProfileUnavailableError(
+                    f"cannot start the device profiler: "
+                    f"{type(exc).__name__}: {exc}") from exc
+            try:
+                sleep(duration_s)
+            finally:
+                if torch.cuda.is_available() and torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
+                profiler.stop()
+            recorded = _device_records(profiler)
+            if recorded is not None:
+                break
+            log.warning("profile capture %d of %d: the card's records did "
+                        "not come back%s", attempt, CAPTURE_ATTEMPTS,
+                        "; capturing again" if attempt < CAPTURE_ATTEMPTS
+                        else "")
         elapsed_s = time.perf_counter() - started
         stamp = time.strftime("%Y%m%dT%H%M%S", time.gmtime(started_ts))
         path = target / f"trace-{stamp}-{os.getpid()}.json"
@@ -117,6 +160,8 @@ def capture_trace(artifact_dir: str, duration_s: float,
             "startedTs": round(started_ts, 3),
             "files": [name for name, _ in files],
             "bytes": total_bytes,
+            "attempts": attempt,
+            "deviceEvents": recorded or 0,
         }
         if tracer is not None:
             tracer.record_span("profile.capture", kind="profile",

@@ -45,6 +45,9 @@ NEG_INF = -1e30
 #: forward, "bwd_bf16"/"bwd_f32" the backward
 launches: Dict[str, int] = {"bf16": 0, "f32": 0, "bh_bf16": 0, "bh_f32": 0,
                             "bwd_bf16": 0, "bwd_f32": 0}
+#: the per-head forward's launches by (input type, heads, kv_heads): the
+#: head counts a serving-mesh rank launches at
+launch_heads: Dict[Tuple[str, int, int], int] = {}
 
 #: the JAX package's per-operand VMEM budget of its resident kernels, kept
 #: here only so that ``fwd_bh_block`` picks the G that JAX picks
@@ -207,6 +210,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         float(scale), stream)
     cuda_build.check(status, "flash_fwd")
     launches[variant] += 1
+    key = (variant, heads, kv_heads)
+    launch_heads[key] = launch_heads.get(key, 0) + 1
     return out, lse
 
 

@@ -24,7 +24,7 @@ checks call ``paged_attention_reference`` directly and do not count.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -35,6 +35,9 @@ NEG_INF = -1e30
 
 #: kernel launches per page element type (the main-path counters)
 launches: Dict[str, int] = {"bf16": 0, "f32": 0, "int8": 0}
+#: launches by (page type, heads, kv_heads): the head counts a
+#: serving-mesh rank launches at
+launch_heads: Dict[Tuple[str, int, int], int] = {}
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAGE_DTYPES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"),
@@ -219,4 +222,6 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         float(d_head ** -0.5), stream)
     cuda_build.check(status, "paged_decode")
     launches[variant] += 1
+    key = (variant, heads, kv_heads)
+    launch_heads[key] = launch_heads.get(key, 0) + 1
     return out

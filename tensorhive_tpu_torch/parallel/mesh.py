@@ -1,0 +1,404 @@
+"""Serving mesh of the port — the PyTorch counterpart of the serving half of
+``tensorhive_tpu/parallel/mesh.py``, over ``torch.distributed``.
+
+The JAX package shards a serving engine with one controller and GSPMD: a
+``jax.sharding.Mesh`` of ``dp x tp`` devices, a ``MeshRules`` vocabulary
+that maps each parameter's logical axes onto mesh axes, and XLA inserting
+the collectives. The port runs one process per rank instead (SPMD): rank
+``r`` of a ``dp x tp`` mesh sits at ``(dp_rank, tp_rank) = (r // tp,
+r % tp)`` — the position of device ``r`` in JAX's ``make_mesh`` layout —
+holds the contiguous ``tp_rank``-th block of every tp-sharded weight axis
+(:func:`shard_serving_params`, JAX's ``tree_shardings`` shard for that
+device byte for byte), and issues the collectives GSPMD would, by hand
+(:class:`TensorParallel`): the row-parallel partial sums of ``attn @ wo``
+and ``gated @ w_out``, the vocab-sharded embedding lookup, and the
+vocab-sharded logits.
+
+Copied in meaning from the JAX module: ``MeshRules``, ``DEFAULT_RULES``,
+``_PARAM_LOGICAL``, ``best_mesh_shape``, ``serving_rules`` (the GQA
+guard), ``normalized_spec``, ``serving_cache_spec`` and
+``serving_scale_spec``. A spec here is a plain tuple of mesh-axis names
+(``None`` = whole), not a ``PartitionSpec``; it says which axis of a
+tensor this rank holds a slice of (:func:`local_shape`).
+
+Both collectives are ``all_reduce`` — the one collective, beside
+``broadcast``, that gloo runs on CUDA tensors — so one code path serves
+gloo (every rank on one card, or the CPU) and NCCL (a card per rank):
+:func:`tp_all_reduce` sums in f32 and :func:`tp_assemble` scatters each
+rank's block into a zero-filled buffer that the sum fills. Both are the
+identity at tp 1.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from ..device import DeviceLike, resolve_device
+
+Spec = Tuple[Optional[str], ...]
+
+
+def best_mesh_shape(n_devices: int, seq_parallel: bool = False,
+                    kv_heads: Optional[int] = None) -> Dict[str, int]:
+    """Heuristic default mesh for n devices: fsdp-dominant, with a modest
+    tp factor once the slice is large, and an sp factor when long context
+    is asked for. Factors are only taken when they divide n, so the product
+    always equals ``n_devices``. ``kv_heads`` caps the chosen tp at the
+    model's K/V head count, halving it until it divides ``kv_heads`` (a
+    tp past the K/V heads forces the GQA guard of :func:`serving_rules`)."""
+    sizes = {"dp": 1, "fsdp": n_devices, "tp": 1, "sp": 1}
+    if seq_parallel:
+        sp = 4 if n_devices >= 16 and n_devices % 4 == 0 else \
+            2 if n_devices % 2 == 0 else 1
+        sizes["sp"] = sp
+        sizes["fsdp"] = n_devices // sp
+    else:
+        tp = 4 if n_devices >= 16 and n_devices % 4 == 0 else \
+            2 if n_devices >= 4 and n_devices % 2 == 0 else 1
+        if kv_heads is not None:
+            while tp > 1 and (tp > kv_heads or kv_heads % tp):
+                tp //= 2
+        sizes["tp"] = tp
+        sizes["fsdp"] = n_devices // tp
+    return sizes
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshRules:
+    """Logical-axis -> mesh-axis mapping. ``embed`` (d_model) maps to
+    fsdp, a size-1 axis in serving; ``heads``/``ffn``/``vocab`` shard over
+    tp (megatron splits); ``kv_heads`` (wk/wv and the cache's head axis) is
+    separate from ``heads`` so the GQA guard can keep K/V whole while the
+    Q-side stays sharded."""
+
+    embed: Optional[str] = "fsdp"
+    heads: Optional[str] = "tp"
+    kv_heads: Optional[str] = "tp"
+    ffn: Optional[str] = "tp"
+    vocab: Optional[str] = "tp"
+    batch: Tuple[str, ...] = ("dp", "fsdp")
+    seq: Optional[str] = "sp"
+
+    def spec(self, *logical: Optional[str]) -> Spec:
+        return tuple(getattr(self, name) if name else None
+                     for name in logical)
+
+
+DEFAULT_RULES = MeshRules()
+
+#: logical axes per parameter leaf name of the transformer LM; the order
+#: matches the weight's shape
+_PARAM_LOGICAL: Dict[str, Tuple[Optional[str], ...]] = {
+    "tok_embed": ("vocab", "embed"),
+    "pos_embed": (None, "embed"),
+    "wq": ("embed", "heads"),
+    "wk": ("embed", "kv_heads"),
+    "wv": ("embed", "kv_heads"),
+    "wo": ("heads", "embed"),
+    "w_in": ("embed", "ffn"),
+    "w_gate": ("embed", "ffn"),
+    "w_out": ("ffn", "embed"),
+    "w_lm_head": ("embed", "vocab"),
+    "scale": ("embed",),
+    "bias": ("embed",),
+}
+
+
+def serving_rules(config, tp: int) -> MeshRules:
+    """Sharding rules for a serving engine at tensor-parallel degree
+    ``tp``: every tp-sharded axis that ``tp`` does not divide is demoted to
+    whole — above all the **GQA guard**: when tp does not divide
+    ``kv_heads``, wk/wv and the KV cache stay whole on every rank and only
+    the Q side (wq/wo, and ffn/vocab where they divide) is sharded."""
+    def axis_or_none(size: int) -> Optional[str]:
+        return "tp" if tp > 1 and size % tp == 0 else None
+
+    return MeshRules(
+        heads=axis_or_none(config.n_heads),
+        kv_heads=axis_or_none(config.kv_heads),
+        ffn=axis_or_none(config.d_ff),
+        vocab=axis_or_none(config.vocab_size),
+    )
+
+
+def normalized_spec(*entries: Optional[str]) -> Spec:
+    """A spec with its trailing ``None`` entries trimmed (JAX's
+    normalized ``PartitionSpec`` spelling)."""
+    trimmed = list(entries)
+    while trimmed and trimmed[-1] is None:
+        trimmed.pop()
+    return tuple(trimmed)
+
+
+def serving_cache_spec(rules: MeshRules) -> Spec:
+    """JAX's spec of the serving KV cache ``[layers, slots | pages,
+    positions, kv_heads, d_head]``: the pool axis over dp, the kv-head axis
+    by the GQA-guarded rule. The port's engine keeps the pool whole on
+    every rank (:func:`kernel_cache_spec`)."""
+    return normalized_spec(None, "dp", None, rules.kv_heads, None)
+
+
+def serving_scale_spec(rules: MeshRules) -> Spec:
+    """JAX's spec of the int8 cache's scales ``[layers, pages,
+    kv_heads]``: sharded exactly like the pages they describe."""
+    return normalized_spec(None, "dp", rules.kv_heads)
+
+
+def kernel_cache_spec(rules: MeshRules) -> Spec:
+    """The cache layout of JAX's kernel route, the port's only one: page
+    tables hold global page ids, so every rank holds the whole pool (no dp
+    axis) and the kv-head axis is split over tp only where both head counts
+    split (the kernel's ``h // group`` map stays aligned per shard)."""
+    shard_heads = rules.heads == "tp" and rules.kv_heads == "tp"
+    return normalized_spec(None, None, None, "tp" if shard_heads else None,
+                           None)
+
+
+def local_shape(shape: Tuple[int, ...], spec: Spec,
+                axis_sizes: Dict[str, int]) -> Tuple[int, ...]:
+    """The shape of this rank's block of a tensor of ``shape`` laid out by
+    ``spec``: each named axis divided by its mesh size."""
+    out = list(shape)
+    for index, axis in enumerate(spec):
+        if axis is not None:
+            size = axis_sizes.get(axis, 1)
+            if out[index] % size:
+                raise ValueError(f"axis {index} of {tuple(shape)} does not "
+                                 f"split over {axis}={size}")
+            out[index] //= size
+    return tuple(out)
+
+
+# -- the process mesh ---------------------------------------------------------
+
+class ServingMesh:
+    """One rank's view of a ``dp x tp`` serving mesh over the default
+    process group: its coordinates, the process group of its tp replica,
+    the backend and the device it computes on. Rank 0 is the controller
+    (it owns every piece of host state and samples); the other ranks are
+    workers (``serving/mesh_worker.py``). ``broken`` carries the reason
+    once a dispatch failed part way: collectives may then be out of step
+    between ranks, and the mesh refuses further use."""
+
+    def __init__(self, dp: int, tp: int, rank: int, device: torch.device,
+                 backend: str, tp_group: Any) -> None:
+        self.dp = int(dp)
+        self.tp = int(tp)
+        self.rank = int(rank)
+        self.device = device
+        self.backend = backend
+        #: process group of this rank's tp replica (None at tp 1)
+        self.tp_group = tp_group
+        self.broken: Optional[str] = None
+        #: engines built on this mesh so far (the controller's BUILD
+        #: commands): only the newest may dispatch
+        self.builds = 0
+        #: an idle controller sends a heartbeat this often, well inside the
+        #: process group's timeout, so waiting workers never time out
+        self.heartbeat_s = 10.0
+
+    @property
+    def tp_rank(self) -> int:
+        return self.rank % self.tp
+
+    @property
+    def is_controller(self) -> bool:
+        return self.rank == 0
+
+    @property
+    def axis_sizes(self) -> Dict[str, int]:
+        return {"dp": self.dp, "tp": self.tp}
+
+    @property
+    def control_device(self) -> torch.device:
+        """Where the controller's headers travel: host memory under gloo,
+        the rank's card under NCCL (which moves only CUDA tensors)."""
+        return self.device if self.backend == "nccl" else torch.device("cpu")
+
+
+#: meshes already built in this process, per (process group, dp, tp,
+#: device): building a mesh creates its tp process groups, a collective
+#: call every rank must make in the same order, so a rebuilt engine reuses
+#: its mesh instead of making new groups behind the workers' backs
+_MESHES: Dict[Tuple[int, int, int, str], ServingMesh] = {}
+
+
+def serving_mesh(dp: int = 1, tp: int = 1,
+                 device: DeviceLike = None) -> ServingMesh:
+    """This rank's ``dp x tp`` serving mesh over the initialised default
+    process group. Raises when no process group is initialised or its size
+    is not ``dp * tp`` — a serving config never silently falls back to
+    fewer ranks than it was sized for (initialise the group with a bounded
+    ``timeout``: a collective waiting on a dead peer then raises). ``device``
+    None means
+    ``cuda:{LOCAL_RANK % device_count}`` (and raises without CUDA); the CPU
+    is used only when asked for by name, as the tests do. Every rank must
+    call this in the same order: the first call for a shape creates the tp
+    process groups."""
+    if dp < 1 or tp < 1:
+        raise ValueError(f"mesh axes must be >= 1, got dp={dp} tp={tp}")
+    if not dist.is_available() or not dist.is_initialized():
+        raise ValueError(
+            f"serving mesh dp={dp} x tp={tp} needs an initialised "
+            f"torch.distributed process group of {dp * tp} ranks (rank 0 "
+            "serves, the others run serving.mesh_worker.serve_worker); "
+            "none is initialised")
+    world = dist.get_world_size()
+    if world != dp * tp:
+        raise ValueError(
+            f"serving mesh dp={dp} x tp={tp} needs {dp * tp} ranks, the "
+            f"process group has {world}")
+    if device is None:
+        resolved = resolve_device(None)
+        local_rank = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        resolved = torch.device("cuda",
+                                local_rank % torch.cuda.device_count())
+    else:
+        resolved = resolve_device(device)
+    key = (id(dist.group.WORLD), dp, tp, str(resolved))
+    mesh = _MESHES.get(key)
+    if mesh is not None:
+        return mesh
+    rank = dist.get_rank()
+    tp_group = None
+    if tp > 1:
+        # one group per tp replica, made by every rank in the same order;
+        # never the default group, so a controller header can never pair
+        # with a tp collective left pending by a failed dispatch
+        for replica in range(dp):
+            group = dist.new_group(list(range(replica * tp,
+                                              (replica + 1) * tp)))
+            if replica == rank // tp:
+                tp_group = group
+    mesh = ServingMesh(dp, tp, rank, resolved, dist.get_backend(), tp_group)
+    _MESHES[key] = mesh
+    return mesh
+
+
+# -- parameters ---------------------------------------------------------------
+
+def shard_serving_params(params, rules: MeshRules, tp_rank: int, tp: int):
+    """This rank's shard of a transformer param tree: each leaf named in
+    ``_PARAM_LOGICAL`` keeps the contiguous ``tp_rank``-th of ``tp``
+    blocks along every axis its rules map to tp — columns of
+    ``wq``/``wk``/``wv``/``w_in``/``w_gate``/``w_lm_head``, rows of
+    ``wo``/``w_out``/``tok_embed`` — and an axis the rules demote stays
+    whole. Sliced leaves are copies, so the full tree can be freed."""
+    def shard(leaf, name):
+        logical = _PARAM_LOGICAL.get(name)
+        if logical is None or len(logical) != leaf.dim() or tp == 1:
+            return leaf
+        out = leaf
+        for axis, logical_axis in enumerate(logical):
+            if logical_axis is None or getattr(rules, logical_axis) != "tp":
+                continue
+            size = leaf.shape[axis]
+            if size % tp:
+                raise ValueError(f"{name} axis {axis} ({size}) does not "
+                                 f"split over tp={tp}")
+            block = size // tp
+            out = out.narrow(axis, tp_rank * block, block)
+        return out if out is leaf else out.clone()
+
+    def walk(node, name=None):
+        if isinstance(node, dict):
+            return {key: walk(value, key) for key, value in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(item, name) for item in node]
+        return shard(node, name)
+
+    return walk(params)
+
+
+# -- collectives --------------------------------------------------------------
+
+def tp_all_reduce(tensor: torch.Tensor, mesh: ServingMesh) -> torch.Tensor:
+    """Sum of ``tensor`` over this rank's tp replica, in f32 (bf16 partial
+    sums are added unrounded and rounded once), returned in the input's
+    dtype; the identity at tp 1. Every rank of the replica gets the same
+    bits."""
+    if mesh.tp == 1:
+        return tensor
+    total = tensor.to(torch.float32, copy=True)
+    dist.all_reduce(total, group=mesh.tp_group)
+    return total.to(tensor.dtype)
+
+
+def tp_assemble(local: torch.Tensor, dim: int,
+                mesh: ServingMesh) -> torch.Tensor:
+    """The whole of a tensor sharded in ``tp`` contiguous blocks along
+    ``dim``, from this rank's block: each rank writes its block into a
+    zero-filled buffer and one f32 sum over the replica fills it (adding
+    zeros is exact). The identity at tp 1."""
+    if mesh.tp == 1:
+        return local
+    dim = dim % local.dim()
+    block = local.shape[dim]
+    shape = list(local.shape)
+    shape[dim] = block * mesh.tp
+    full = torch.zeros(shape, dtype=torch.float32, device=local.device)
+    full.narrow(dim, mesh.tp_rank * block, block).copy_(local)
+    dist.all_reduce(full, group=mesh.tp_group)
+    return full.to(local.dtype)
+
+
+class TensorParallel:
+    """What a device body needs of a ``tp`` > 1 replica: the collectives
+    GSPMD inserts in JAX, placed by the rules.
+
+    * ``embed``: a vocab-sharded ``tok_embed`` is read by a masked local
+      gather (rows outside this rank's block read as zeros) and summed.
+    * ``reduce_attn``/``reduce_mlp``: the row-parallel partial sums of
+      ``attn @ wo`` and ``gated @ w_out``, summed where heads/ffn split
+      (None where they do not: the product is already whole).
+    * ``logits``: the vocab-sharded LM head's columns, assembled.
+    * ``all_heads``/``own_heads``: under the GQA guard (q heads split, K/V
+      whole) the attention kernels run on every head, as JAX's
+      ``shard_map`` with replicated specs does — q assembled over tp, the
+      output cut back to this rank's heads — since the kernels' ``h //
+      group`` map is only aligned per shard when both head counts split."""
+
+    def __init__(self, mesh: ServingMesh, rules: MeshRules, config) -> None:
+        self.mesh = mesh
+        self.vocab_block = (config.vocab_size // mesh.tp
+                            if rules.vocab == "tp" else None)
+        self.reduce_attn = self._reduce if rules.heads == "tp" else None
+        self.reduce_mlp = self._reduce if rules.ffn == "tp" else None
+        #: the GQA guard's attention: on all heads, q assembled
+        self.gather_heads = rules.heads == "tp" and rules.kv_heads is None
+
+    def _reduce(self, partial: torch.Tensor) -> torch.Tensor:
+        return tp_all_reduce(partial, self.mesh)
+
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor
+              ) -> torch.Tensor:
+        if self.vocab_block is None:
+            return table[tokens.long()]
+        local = tokens.long() - self.mesh.tp_rank * self.vocab_block
+        inside = (local >= 0) & (local < self.vocab_block)
+        rows = table[torch.where(inside, local, 0)]
+        rows = torch.where(inside[..., None], rows, 0)
+        return tp_all_reduce(rows, self.mesh)
+
+    def logits(self, local: torch.Tensor) -> torch.Tensor:
+        if self.vocab_block is None:
+            return local
+        return tp_assemble(local, -1, self.mesh)
+
+    def all_heads(self, q: torch.Tensor) -> torch.Tensor:
+        return tp_assemble(q, 2, self.mesh)
+
+    def own_heads(self, out: torch.Tensor) -> torch.Tensor:
+        block = out.shape[2] // self.mesh.tp
+        return out.narrow(2, self.mesh.tp_rank * block, block).contiguous()
+
+    def attend(self, q: torch.Tensor, fn) -> torch.Tensor:
+        """``fn(q)`` on this rank's heads, or on all heads under the
+        guard (output cut back to this rank's heads)."""
+        if not self.gather_heads:
+            return fn(q)
+        return self.own_heads(fn(self.all_heads(q)))

@@ -71,8 +71,23 @@ device side is eager PyTorch:
   so the rows' ``prefillCompile`` read ``"hit"`` and the ticks'
   ``compiles`` 0 — what a warm JAX engine records.
 
-Not ported yet, and refused with "not yet ported" where a knob asks for
-it: the serving mesh (``tpuhive_generate_mesh_devices`` reads 1).
+* **The serving mesh** (``mesh``: a ``parallel.mesh.ServingMesh`` of dp x
+  tp ranks over ``torch.distributed``). JAX shards one controller's arrays
+  with GSPMD; here every rank is a process. Rank 0 runs this engine as
+  always — queue, pool, prefix cache, ledger, sampling — and, before each
+  device body, broadcasts the body's operands; the workers
+  (``mesh_worker.serve_worker``) run the same body on their shards. Each
+  rank holds the tp_rank-th block of every tp-sharded weight axis
+  (``shard_serving_params``), computes its local heads — K1 and K8/K9
+  launch at the local head counts — and sums the row-parallel products
+  over its tp replica (``TensorParallel``); under the GQA guard (tp not
+  dividing the K/V heads) K/V and the cache stay whole and the attention
+  kernels run on every head. Pages are whole on every rank (JAX's kernel
+  route: page tables hold global ids), so a dp replica computes what the
+  others do; ``slots`` and ``kv_pages`` count per engine (``build_engine``
+  multiplies the per-replica knobs by dp). The speculative lane and KV
+  tiering are not served under a mesh yet: ``speculative="on"`` and
+  ``host_kv_bytes`` > 0 are refused, and ``auto`` resolves off.
 """
 from __future__ import annotations
 
@@ -89,6 +104,14 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..parallel.mesh import (
+    ServingMesh,
+    TensorParallel,
+    kernel_cache_spec,
+    local_shape,
+    serving_rules,
+    shard_serving_params,
+)
 from ..models.decode import (
     KVCache,
     QuantKVCache,
@@ -118,6 +141,18 @@ from ..observability import (
 from ..observability.accounting import ANONYMOUS_TENANT
 from . import EngineDrainingError, QueueFullError, RateLimitError
 from .faults import ServingFaultPlan
+from .mesh_worker import (
+    OP_BUILD,
+    OP_CHUNK,
+    OP_PING,
+    OP_PREFILL,
+    OP_RELEASE,
+    OP_STEP,
+    MeshWorkerError,
+    finish_command,
+    send_command,
+    stop_workers,
+)
 from .paging import (
     TRASH_PAGE,
     HostCopyLane,
@@ -273,22 +308,49 @@ log = logging.getLogger(__name__)
 _COMPILE_EVENT = "hit"
 
 
-def _not_yet_ported(knob: str, value) -> ValueError:
-    return ValueError(f"{knob}={value!r} is not yet ported to "
-                      "tensorhive_tpu_torch")
-
-
 # -- device functions ---------------------------------------------------------
+
+def _embed(params: Params, tokens: torch.Tensor,
+           tp: Optional[TensorParallel]) -> torch.Tensor:
+    """Embedding rows of ``tokens``; a vocab-sharded table is read by the
+    mesh's masked gather and sum."""
+    if tp is None:
+        return params["tok_embed"][tokens.long()]
+    return tp.embed(params["tok_embed"], tokens)
+
+
+def _reducers(tp: Optional[TensorParallel]) -> Dict[str, object]:
+    """``block_forward``'s row-parallel sums (none without a mesh)."""
+    if tp is None:
+        return {}
+    return {"reduce_attn": tp.reduce_attn, "reduce_mlp": tp.reduce_mlp}
+
+
+def _on_heads(tp: Optional[TensorParallel], q: torch.Tensor,
+              attention: Callable[[torch.Tensor], torch.Tensor]
+              ) -> torch.Tensor:
+    """``attention(q)`` on this rank's heads (all heads under the GQA
+    guard, cut back to this rank's)."""
+    return attention(q) if tp is None else tp.attend(q, attention)
+
 
 def _choose_next(params: Params, x: torch.Tensor, tokens: torch.Tensor,
                  active: torch.Tensor, temps: torch.Tensor,
-                 generator: torch.Generator, config: TransformerConfig,
-                 top_k: Optional[int]) -> torch.Tensor:
+                 generator: Optional[torch.Generator],
+                 config: TransformerConfig, top_k: Optional[int],
+                 tp: Optional[TensorParallel] = None
+                 ) -> Optional[torch.Tensor]:
     """Shared step tail: final norm -> f32 logits -> per-slot greedy or
     sampled choice (Gumbel-max from the engine's generator). Parked slots
-    keep their token."""
+    keep their token. Under a mesh the vocab-sharded logits are assembled
+    over tp, and only the controller (the rank with a ``generator``)
+    chooses: a worker returns None."""
     x = _rmsnorm(x, params["final_norm"]["scale"])
     logits = _lm_head(x[:, 0], params["w_lm_head"], config.dtype)  # [S, V]
+    if tp is not None:
+        logits = tp.logits(logits)
+    if generator is None:
+        return None
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     safe_temps = torch.where(temps > 0.0, temps, 1.0)
     scaled = logits / safe_temps[:, None]
@@ -304,14 +366,16 @@ def _choose_next(params: Params, x: torch.Tensor, tokens: torch.Tensor,
 def _step_body(params: Params, tokens: torch.Tensor,
                positions: torch.Tensor, active: torch.Tensor,
                temps: torch.Tensor, cache: KVCache,
-               generator: torch.Generator, config: TransformerConfig,
-               top_k: Optional[int]) -> torch.Tensor:
+               generator: Optional[torch.Generator],
+               config: TransformerConfig, top_k: Optional[int],
+               tp: Optional[TensorParallel] = None
+               ) -> Optional[torch.Tensor]:
     """One decode step over the CONTIGUOUS cache for the whole slot batch:
     each slot consumes the token AT its position, writes that position's
     K/V into its own row ``(layer, slot, position)`` in place, attends its
     row masked to ``key <= position`` (the plain masked decode attention,
     positions broadcast per slot) and returns the token for position + 1."""
-    x = params["tok_embed"][tokens.long()][:, None, :]            # [S,1,D]
+    x = _embed(params, tokens, tp)[:, None, :]                    # [S,1,D]
     rope_positions = positions[:, None]                           # [S,1]
     slot_ids = torch.arange(tokens.shape[0], device=tokens.device)
     write_positions = positions.long()
@@ -319,28 +383,32 @@ def _step_body(params: Params, tokens: torch.Tensor,
     def attend(q, k, v, layer):
         cache.k[layer][slot_ids, write_positions] = k[:, 0].to(cache.k.dtype)
         cache.v[layer][slot_ids, write_positions] = v[:, 0].to(cache.v.dtype)
-        return decode_attention(q, cache.k[layer], cache.v[layer],
-                                positions[:, None, None, None, None])
+        return _on_heads(tp, q, lambda q: decode_attention(
+            q, cache.k[layer], cache.v[layer],
+            positions[:, None, None, None, None]))
 
     for layer_index, block in enumerate(params["blocks"]):
         x = TransformerLM.block_forward(x, block, config, rope_positions,
-                                        attend, layer_index=layer_index)
+                                        attend, layer_index=layer_index,
+                                        **_reducers(tp))
     return _choose_next(params, x, tokens, active, temps, generator, config,
-                        top_k)
+                        top_k, tp)
 
 
 def _paged_step_body(params: Params, tokens: torch.Tensor,
                      positions: torch.Tensor, active: torch.Tensor,
                      temps: torch.Tensor, page_tables: torch.Tensor,
-                     cache, generator: torch.Generator,
+                     cache, generator: Optional[torch.Generator],
                      config: TransformerConfig,
-                     top_k: Optional[int]) -> torch.Tensor:
+                     top_k: Optional[int],
+                     tp: Optional[TensorParallel] = None
+                     ) -> Optional[torch.Tensor]:
     """One decode step over the paged cache for the whole slot batch:
     each slot consumes the token AT its position, writes that position's
     K/V to ``(page_tables[s, pos // page_size], pos % page_size)`` in place
     (quantizing onto the page's running-max scale under int8), attends
     through the page table and returns the token for position + 1."""
-    x = params["tok_embed"][tokens.long()][:, None, :]            # [S,1,D]
+    x = _embed(params, tokens, tp)[:, None, :]                    # [S,1,D]
     rope_positions = positions[:, None]                           # [S,1]
     quant = isinstance(cache, QuantKVCache)
     page_size = cache.k.shape[2]
@@ -359,28 +427,30 @@ def _paged_step_body(params: Params, tokens: torch.Tensor,
         else:
             cache.k[layer][pages, offsets] = k[:, 0].to(cache.k.dtype)
             cache.v[layer][pages, offsets] = v[:, 0].to(cache.v.dtype)
-        return paged_attention(
+        return _on_heads(tp, q, lambda q: paged_attention(
             q, cache.k[layer], cache.v[layer], page_tables, positions,
             k_scales=cache.k_scale[layer] if quant else None,
-            v_scales=cache.v_scale[layer] if quant else None)
+            v_scales=cache.v_scale[layer] if quant else None))
 
     for layer_index, block in enumerate(params["blocks"]):
         x = TransformerLM.block_forward(x, block, config, rope_positions,
-                                        attend, layer_index=layer_index)
+                                        attend, layer_index=layer_index,
+                                        **_reducers(tp))
     return _choose_next(params, x, tokens, active, temps, generator, config,
-                        top_k)
+                        top_k, tp)
 
 
 def _paged_prefill_body(params: Params, head: torch.Tensor, cache,
                         page_table_row: torch.Tensor, real_len: int,
-                        config: TransformerConfig) -> None:
+                        config: TransformerConfig,
+                        tp: Optional[TensorParallel] = None) -> None:
     """Prefill one joining sequence's prompt head through its page table.
     ``head`` [1, W] is padded to a bucket; prompt position ``w < real_len``
     writes to ``(page_table_row[w // page_size], w % page_size)``. Padded
     positions write NOTHING — not even to the trash page — and the decode
     steps rewrite every later position before first attending it."""
     batch, width = head.shape
-    x = params["tok_embed"][head.long()]
+    x = _embed(params, head, tp)
     positions = torch.arange(width, dtype=torch.int32,
                              device=head.device).expand(batch, width)
     page_size = cache.k.shape[2]
@@ -404,22 +474,25 @@ def _paged_prefill_body(params: Params, head: torch.Tensor, cache,
         else:
             cache.k[layer][pages, offsets] = k[0, :real_len].to(cache.k.dtype)
             cache.v[layer][pages, offsets] = v[0, :real_len].to(cache.v.dtype)
-        return flash_attention(q, k, v, causal=True)
+        return _on_heads(tp, q,
+                         lambda q: flash_attention(q, k, v, causal=True))
 
     for layer_index, block in enumerate(params["blocks"]):
         x = TransformerLM.block_forward(x, block, config, positions, attend,
-                                        layer_index=layer_index)
+                                        layer_index=layer_index,
+                                        **_reducers(tp))
 
 
 def _prefill_body(params: Params, head: torch.Tensor, cache: KVCache,
                   slot: int, real_len: int,
-                  config: TransformerConfig) -> None:
+                  config: TransformerConfig,
+                  tp: Optional[TensorParallel] = None) -> None:
     """Prefill one joining sequence's prompt head into its CONTIGUOUS slot
     row: ``head`` [1, W] is padded to a bucket, positions ``w < real_len``
     write their K/V to ``(layer, slot, w)`` and padded positions write
     zeros; the prompt attends itself through the flash-forward kernel."""
     batch, width = head.shape
-    x = params["tok_embed"][head.long()]
+    x = _embed(params, head, tp)
     positions = torch.arange(width, dtype=torch.int32,
                              device=head.device).expand(batch, width)
     valid = (torch.arange(width, device=head.device)
@@ -430,11 +503,13 @@ def _prefill_body(params: Params, head: torch.Tensor, cache: KVCache,
             cache.k.dtype)
         cache.v[layer, slot, :width] = torch.where(valid, v, 0)[0].to(
             cache.v.dtype)
-        return flash_attention(q, k, v, causal=True)
+        return _on_heads(tp, q,
+                         lambda q: flash_attention(q, k, v, causal=True))
 
     for layer_index, block in enumerate(params["blocks"]):
         x = TransformerLM.block_forward(x, block, config, positions, attend,
-                                        layer_index=layer_index)
+                                        layer_index=layer_index,
+                                        **_reducers(tp))
 
 
 def _chunk_attend(q: torch.Tensor, k_ctx: torch.Tensor, v_ctx: torch.Tensor,
@@ -467,7 +542,8 @@ def _chunk_attend(q: torch.Tensor, k_ctx: torch.Tensor, v_ctx: torch.Tensor,
 def _paged_chunk_prefill_body(params: Params, head: torch.Tensor, cache,
                               page_table_row: torch.Tensor, start: int,
                               real_len: int,
-                              config: TransformerConfig) -> None:
+                              config: TransformerConfig,
+                              tp: Optional[TensorParallel] = None) -> None:
     """Prefill ONE CHUNK of a joining prompt, starting mid-sequence — the
     body of the prefix cache and of chunked prefill. ``head`` [1, W] holds
     prompt positions ``start .. start + real_len - 1`` (W a bucket, the
@@ -481,7 +557,7 @@ def _paged_chunk_prefill_body(params: Params, head: torch.Tensor, cache,
     chunk attends the DEQUANTIZED post-write context it returns — what any
     later reader (a prefix-cache hit above all) dequantizes."""
     batch, width = head.shape
-    x = params["tok_embed"][head.long()]
+    x = _embed(params, head, tp)
     chunk_offsets = torch.arange(width, dtype=torch.int32, device=head.device)
     global_positions = start + chunk_offsets                      # [W]
     positions = global_positions.expand(batch, width)
@@ -503,7 +579,8 @@ def _paged_chunk_prefill_body(params: Params, head: torch.Tensor, cache,
             _, _, ctx_v = kvq.row_merge(
                 cache.v[layer], cache.v_scale[layer], page_table_row[None],
                 v, safe_logical[None], valid[None], config.dtype)
-            return _chunk_attend(q, ctx_k[0], ctx_v[0], global_positions)
+            return _on_heads(tp, q, lambda q: _chunk_attend(
+                q, ctx_k[0], ctx_v[0], global_positions))
         cache.k[layer][pages, page_offsets] = k[0, :real_len].to(
             cache.k.dtype)
         cache.v[layer][pages, page_offsets] = v[0, :real_len].to(
@@ -512,11 +589,13 @@ def _paged_chunk_prefill_body(params: Params, head: torch.Tensor, cache,
         # positional mask, as in the decode step's write-then-attend
         ctx_k = cache.k[layer][row].reshape(window, *cache.k.shape[3:])
         ctx_v = cache.v[layer][row].reshape(window, *cache.v.shape[3:])
-        return _chunk_attend(q, ctx_k, ctx_v, global_positions)
+        return _on_heads(tp, q, lambda q: _chunk_attend(
+            q, ctx_k, ctx_v, global_positions))
 
     for layer_index, block in enumerate(params["blocks"]):
         x = TransformerLM.block_forward(x, block, config, positions, attend,
-                                        layer_index=layer_index)
+                                        layer_index=layer_index,
+                                        **_reducers(tp))
 
 
 def _page_extract_body(cache: QuantKVCache, page_ids: torch.Tensor
@@ -705,7 +784,7 @@ class SlotEngine:
         draft_layers: int = 0,
         spec_tokens: int = 4,
         host_kv_bytes: int = 0,
-        mesh=None,
+        mesh: Optional[ServingMesh] = None,
         default_deadline_s: float = 0.0,
         max_deadline_s: float = 600.0,
         fault_plan: Optional[ServingFaultPlan] = None,
@@ -714,6 +793,8 @@ class SlotEngine:
         tenant_meter=None,
         device: DeviceLike = None,
     ) -> None:
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
         if not config.causal:
             raise ValueError("serving needs an autoregressive model; this "
@@ -743,7 +824,24 @@ class SlotEngine:
                 f"default_deadline_s={default_deadline_s} exceeds "
                 f"max_deadline_s={max_deadline_s}")
         if mesh is not None:
-            raise _not_yet_ported("mesh", mesh)
+            if self.device != mesh.device:
+                raise ValueError(f"the engine runs on {self.device}, its "
+                                 f"serving mesh rank on {mesh.device}")
+            if mesh.broken:
+                raise MeshWorkerError(
+                    f"the serving mesh is broken ({mesh.broken}); restart "
+                    "its ranks")
+            # not served under a mesh yet (ROADMAP A10b): refused, never
+            # quietly dropped
+            if speculative == "on":
+                raise ValueError(
+                    "speculative='on' is not served under a serving mesh "
+                    "yet; set speculative=auto/off (auto resolves off "
+                    "under a mesh)")
+            if host_kv_bytes:
+                raise ValueError(
+                    "host_kv_bytes > 0 (KV-page tiering) is not served "
+                    "under a serving mesh yet; set host_kv_bytes=0")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if queue_depth < 1:
@@ -765,6 +863,8 @@ class SlotEngine:
         self.max_concurrent_per_user = int(max_concurrent_per_user)
         self.paged = bool(paged)
         self.speculative = resolve_speculative(speculative, self.device)
+        if mesh is not None:
+            self.speculative = "off"        # auto under a mesh
         self.spec_tokens = int(spec_tokens)
         self.kv_quant = kvq.resolve_kv_quant(kv_quant, self.paged)
         self._quant = self.kv_quant == "on"
@@ -784,8 +884,35 @@ class SlotEngine:
         #: accounting.py), stamped from the pump thread; None keeps every
         #: hook a single attribute check
         self.tenant_meter = tenant_meter
-        #: no serving mesh yet: one device
-        self.mesh_dp = self.mesh_tp = 1
+        # -- the serving mesh: mesh=None is the single-device engine. With
+        # a mesh this rank keeps its shard of the weights (tp blocks by the
+        # GQA-guarded rules) and of the cache, and every dispatch of the
+        # controller (rank 0) is mirrored on the workers
+        self.mesh = mesh
+        if mesh is not None:
+            self.mesh_dp, self.mesh_tp = mesh.dp, mesh.tp
+            self._rules = serving_rules(config, mesh.tp)
+            self.params = shard_serving_params(params, self._rules,
+                                               mesh.tp_rank, mesh.tp)
+            self._tp: Optional[TensorParallel] = (
+                TensorParallel(mesh, self._rules, config)
+                if mesh.tp > 1 else None)
+        else:
+            self.mesh_dp = self.mesh_tp = 1
+            self._rules = None
+            self._tp = None
+        #: the attention kernels run on this rank's slice of both head
+        #: counts (contiguous head blocks keep the kernels' ``h // group``
+        #: map aligned); False under the GQA guard, where K/V and the cache
+        #: stay whole and the kernels run on every head
+        self._kernel_shard_heads = (
+            mesh is not None and self._rules.heads == "tp"
+            and self._rules.kv_heads == "tp")
+        #: the mesh's BUILD count when this engine was built: a dispatch of
+        #: an engine the workers no longer hold is refused
+        self._mesh_build = None
+        #: monotonic stamp of the last command sent (the idle heartbeat)
+        self._mesh_last_command = time.monotonic()
 
         self._lock = threading.Lock()
         self._pending: Deque[_Request] = collections.deque()
@@ -841,9 +968,16 @@ class SlotEngine:
                 num_pages = self.capacity * max_pages_per_slot
                 if self._quant:
                     num_pages = num_pages * dtype_page // quant_page
+                    num_pages -= num_pages % self.mesh_dp
+            if num_pages % self.mesh_dp:
+                raise ValueError(
+                    f"kv_pages={num_pages} must be divisible by mesh "
+                    f"dp={self.mesh_dp} (the page pool shards over dp)")
+            # dp reserved trash rows, as in JAX: the same page ids
             self._pool: Optional[PagePool] = PagePool(
                 num_pages=num_pages, page_size=self.page_size,
-                slots=self.capacity, max_pages_per_slot=max_pages_per_slot)
+                slots=self.capacity, max_pages_per_slot=max_pages_per_slot,
+                trash_pages=self.mesh_dp)
             # a speculative engine's cache holds one page past the pool:
             # the drop page of speculative.drop_page
             shape = (config.n_layers,
@@ -861,10 +995,19 @@ class SlotEngine:
                 2 * config.n_layers * self.max_len * config.kv_heads
                 * config.d_head
                 * torch.empty((), dtype=config.dtype).element_size())
+            if self.capacity % self.mesh_dp:
+                raise ValueError(
+                    f"slots={self.capacity} must be divisible by mesh "
+                    f"dp={self.mesh_dp} (the slot pool shards over dp)")
             shape = (config.n_layers, self.capacity, self.max_len,
                      config.kv_heads, config.d_head)
+        if mesh is not None:
+            # this rank's block: the pool or slot axis whole (JAX's kernel
+            # route), the kv-head axis split where both head counts split
+            shape = local_shape(shape, kernel_cache_spec(self._rules),
+                                mesh.axis_sizes)
         if self._quant:
-            scale_shape = (config.n_layers, shape[1], config.kv_heads)
+            scale_shape = (config.n_layers, shape[1], shape[3])
             self._cache = QuantKVCache(
                 k=torch.zeros(shape, dtype=torch.int8, device=self.device),
                 v=torch.zeros(shape, dtype=torch.int8, device=self.device),
@@ -881,7 +1024,10 @@ class SlotEngine:
         self._positions = np.zeros(self.capacity, np.int32)
         self._active = np.zeros(self.capacity, bool)
         self._temps = np.zeros(self.capacity, np.float32)
-        self._generator = torch.Generator(device=self.device).manual_seed(0)
+        #: sampling runs on the controller only: a worker has no generator
+        self._generator = (
+            torch.Generator(device=self.device).manual_seed(0)
+            if mesh is None or mesh.is_controller else None)
 
         # radix prefix cache + chunked prefill: auto = on for the paged
         # layout, off for the contiguous one (no pages, nothing to share).
@@ -986,10 +1132,17 @@ class SlotEngine:
         if self._host_store is not None:
             _HOST_KV_BYTES_CAPACITY.set(self.host_kv_bytes)
             _HOST_KV_BYTES_USED.set(0)
+        if mesh is not None:
+            mesh.builds += 1
+            self._mesh_build = mesh.builds
+            if mesh.is_controller:
+                # the workers build their shard engines now (a
+                # supervisor's rebuild reaches them the same way)
+                self._mesh_command(OP_BUILD)
 
     @property
     def num_devices(self) -> int:
-        """Devices the engine spans (1 until the serving mesh is ported)."""
+        """Ranks the engine spans: dp x tp (1 = a single device)."""
         return self.mesh_dp * self.mesh_tp
 
     @property
@@ -999,12 +1152,138 @@ class SlotEngine:
 
     @property
     def kv_cache_bytes(self) -> int:
-        """Device bytes of the KV cache (payload + scales)."""
+        """Device bytes of this rank's KV cache (payload + scales)."""
         return sum(t.numel() * t.element_size() for t in self._cache)
+
+    @property
+    def param_bytes(self) -> int:
+        """Device bytes of this rank's weights (its shard under a mesh)."""
+        def leaves(node):
+            if isinstance(node, dict):
+                for value in node.values():
+                    yield from leaves(value)
+            elif isinstance(node, (list, tuple)):
+                for value in node:
+                    yield from leaves(value)
+            else:
+                yield node
+        return sum(t.numel() * t.element_size()
+                   for t in leaves(self.params))
 
     def _operand(self, value: np.ndarray) -> torch.Tensor:
         """Ship one per-slot host array to the engine's device."""
         return torch.from_numpy(value).to(self.device)
+
+    # -- the serving mesh ---------------------------------------------------
+    @property
+    def is_mesh_worker(self) -> bool:
+        """A worker rank's shard engine: driven by the controller's
+        commands (``mesh_worker.serve_worker``), never by itself."""
+        return self.mesh is not None and not self.mesh.is_controller
+
+    def _check_driven(self) -> None:
+        if self.is_mesh_worker:
+            raise RuntimeError(
+                "a serving-mesh worker's engine runs the controller's "
+                "dispatches (serve_worker); submit to and step the engine "
+                "on rank 0")
+
+    def _mesh_command(self, op: int, args: Sequence[int] = (),
+                      payload: Sequence[np.ndarray] = (),
+                      body: Optional[Callable[[], object]] = None):
+        """(controller) Send one command to the workers, run ``body`` (the
+        device work the command mirrors) and sum every rank's error flag.
+        A worker that failed raises :class:`MeshWorkerError` here. A
+        failure part way through a tensor-parallel body leaves the tp
+        collectives out of step between ranks: the mesh is marked broken
+        and refuses every later command."""
+        mesh = self.mesh
+        if mesh.broken:
+            raise MeshWorkerError(
+                f"the serving mesh is broken ({mesh.broken}); restart its "
+                "ranks")
+        if self._mesh_build != mesh.builds:
+            raise MeshWorkerError(
+                "a newer engine was built on this serving mesh; this one "
+                "no longer dispatches")
+        self._mesh_last_command = time.monotonic()
+        try:
+            send_command(mesh, op, args, payload)
+        except Exception as exc:
+            mesh.broken = f"{type(exc).__name__}: {exc}"
+            raise MeshWorkerError(
+                f"serving-mesh command {op} could not reach the workers: "
+                f"{exc}") from exc
+        try:
+            result = body() if body is not None else None
+        except Exception as exc:
+            if mesh.tp > 1:
+                mesh.broken = (f"command {op} failed part way on rank 0: "
+                               f"{type(exc).__name__}: {exc}")
+                raise MeshWorkerError(
+                    f"serving-mesh command {op} failed part way (a worker "
+                    f"gone, or rank 0's own body): {exc}") from exc
+            result, failure = None, exc
+        else:
+            failure = None
+        try:
+            failed = finish_command(mesh, failure is not None)
+        except Exception as exc:
+            mesh.broken = f"{type(exc).__name__}: {exc}"
+            raise MeshWorkerError(
+                f"serving-mesh command {op}: a worker rank is gone ({exc})"
+            ) from exc
+        if failure is not None:
+            raise failure
+        if failed:
+            raise MeshWorkerError(
+                f"{failed} serving-mesh worker rank(s) failed command {op}")
+        return result
+
+    def _mesh_heartbeat(self) -> None:
+        """(controller, idle) A ``PING`` once ``heartbeat_s`` passed with
+        no command, so the workers' wait never reaches the process group's
+        timeout — and a dead worker surfaces while idle too."""
+        if (time.monotonic() - self._mesh_last_command
+                >= self.mesh.heartbeat_s):
+            self._mesh_command(OP_PING)
+
+    def stop_workers(self) -> None:
+        """(controller) End the workers' ``serve_worker`` loops
+        (``mesh_worker.stop_workers``); a no-op without a mesh."""
+        if self.mesh is not None:
+            stop_workers(self.mesh)
+
+    def _serve_dispatch(self, op: int, args: Sequence[int],
+                        payload: np.ndarray) -> None:
+        """(worker) Run one of the controller's dispatches on this rank's
+        shards, with its operands: the body the controller runs, after this
+        engine's own fault point and counters."""
+        if op == OP_STEP:
+            slots = self.capacity
+            tokens, positions = payload[:slots], payload[slots:2 * slots]
+            page_table = (payload[2 * slots:].reshape(
+                slots, self._pool.max_pages_per_slot) if self.paged else None)
+            self._fault_point("step")
+            self.step_dispatches += 1
+            self._step_device(tokens, positions, None, None, page_table)
+            return
+        if op == OP_PREFILL:
+            slot, real_len, width = args[:3]
+            row = payload[width:] if self.paged else None
+            self._fault_point("prefill")
+            self.prefills += 1
+            self._prefill_device(payload[:width].reshape(1, width), slot,
+                                 real_len, row)
+            return
+        if op == OP_CHUNK:
+            start, real_len, width = args[:3]
+            self._fault_point("prefill")
+            self.prefill_chunks += 1
+            self._chunk_prefill_device(payload[:width].reshape(1, width),
+                                       start, real_len, payload[width:])
+            return
+        raise ValueError(f"not a dispatch: command {op}")
 
     # -- admission --------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int,
@@ -1020,6 +1299,7 @@ class SlotEngine:
         (capped by ``max_deadline_s``); the deadline binds in the queue,
         mid-prefill and mid-decode, where the request ends with the
         outcome ``timeout``."""
+        self._check_driven()
         if self._draining:
             raise EngineDrainingError(
                 "engine is draining: in-flight requests are finishing, no "
@@ -1265,6 +1545,7 @@ class SlotEngine:
         With a tenant meter the tick is charged first; with a flight
         recorder it is stamped into the ring in a ``finally``, so the tick
         that raises is recorded too. Both are host bookkeeping only."""
+        self._check_driven()
         if self.tenant_meter is not None:
             self._meter_tick()
         recorder = self.flight_recorder
@@ -1315,9 +1596,12 @@ class SlotEngine:
     def pump(self, budget_s: Optional[float] = None,
              should_stop: Optional[Callable[[], bool]] = None) -> int:
         """Run scheduler iterations until idle, the wall budget is spent,
-        or ``should_stop()``."""
+        or ``should_stop()``. An idle controller of a serving mesh sends
+        its workers a heartbeat."""
         deadline = None if budget_s is None else self.clock() + budget_s
         steps = 0
+        if self.mesh is not None and not self.has_work():
+            self._mesh_heartbeat()
         while self.has_work():
             if should_stop is not None and should_stop():
                 break
@@ -1339,7 +1623,9 @@ class SlotEngine:
         speculative engine also runs the draft lane's prefill mirrors, and
         one propose and one verify instead of the step. A tiered engine
         also takes the trash page through the tier's whole path: gather,
-        copy out, copy back, inject (its own bytes, to the write sink)."""
+        copy out, copy back, inject (its own bytes, to the write sink).
+        On a serving mesh the controller's warmup warms every rank."""
+        self._check_driven()
         if self._use_chunk_prefill:
             widths = {_prefill_bucket(1, self.max_len - 1)}
             for length in prompt_lens:
@@ -1397,14 +1683,26 @@ class SlotEngine:
         uses: the slot's page-table row (paged) or its cache row."""
         self._fault_point("prefill")
         self.prefills += 1
+        row = self._pool.page_table[slot].copy() if self.paged else None
+
+        def body():
+            self._prefill_device(head, slot, real_len, row)
+
+        if self.mesh is None:
+            return body()
+        self._mesh_command(
+            OP_PREFILL, (slot, real_len, head.shape[1]),
+            [head] + ([row] if self.paged else []), body)
+
+    def _prefill_device(self, head: np.ndarray, slot: int, real_len: int,
+                        row: Optional[np.ndarray]) -> None:
         if self.paged:
             _paged_prefill_body(self.params, self._operand(head),
-                                self._cache,
-                                self._operand(self._pool.page_table[slot]),
-                                int(real_len), self.config)
+                                self._cache, self._operand(row),
+                                int(real_len), self.config, self._tp)
         else:
             _prefill_body(self.params, self._operand(head), self._cache,
-                          int(slot), int(real_len), self.config)
+                          int(slot), int(real_len), self.config, self._tp)
 
     def _dispatch_chunk_prefill(self, head: np.ndarray, slot: int,
                                 start: int, real_len: int) -> None:
@@ -1412,34 +1710,67 @@ class SlotEngine:
         through the slot's page-table row."""
         self._fault_point("prefill")
         self.prefill_chunks += 1
+        row = self._pool.page_table[slot].copy()
+
+        def body():
+            self._chunk_prefill_device(head, start, real_len, row)
+
+        if self.mesh is None:
+            return body()
+        self._mesh_command(OP_CHUNK, (start, real_len, head.shape[1]),
+                           [head, row], body)
+
+    def _chunk_prefill_device(self, head: np.ndarray, start: int,
+                              real_len: int, row: np.ndarray) -> None:
         _paged_chunk_prefill_body(
             self.params, self._operand(head), self._cache,
-            self._operand(self._pool.page_table[slot]), int(start),
-            int(real_len), self.config)
+            self._operand(row), int(start), int(real_len), self.config,
+            self._tp)
 
     def _run_step(self) -> torch.Tensor:
         self._fault_point("step")
         self.step_dispatches += 1
+        page_table = None
+        if self.paged:
+            page_table = self._pool.page_table
+            if self._use_chunk_prefill:
+                # a mid-prefill slot's row already points at REAL pages
+                # (shared prefix pages above all), but the step writes K/V
+                # for every slot at its frozen position: route inactive
+                # rows to the trash page in the operand, so that write
+                # never lands on a page another sequence reads
+                page_table = page_table.copy()
+                page_table[~self._active] = TRASH_PAGE
+
+        def body():
+            return self._step_device(self._tokens, self._positions,
+                                     self._active, self._temps, page_table)
+
+        if self.mesh is None:
+            return body()
+        return self._mesh_command(
+            OP_STEP, (), [self._tokens, self._positions]
+            + ([page_table] if self.paged else []), body)
+
+    def _step_device(self, tokens: np.ndarray, positions: np.ndarray,
+                     active: Optional[np.ndarray],
+                     temps: Optional[np.ndarray],
+                     page_table: Optional[np.ndarray]
+                     ) -> Optional[torch.Tensor]:
+        """The decode step's device body; a worker passes no ``active``/
+        ``temps`` (it does not sample) and gets None back."""
+        if active is None:
+            active = np.zeros(self.capacity, bool)
+            temps = np.zeros(self.capacity, np.float32)
+        operands = (self._operand(tokens), self._operand(positions),
+                    self._operand(active), self._operand(temps))
         if not self.paged:
-            return _step_body(
-                self.params, self._operand(self._tokens),
-                self._operand(self._positions), self._operand(self._active),
-                self._operand(self._temps), self._cache, self._generator,
-                self.config, self.top_k)
-        page_table = self._pool.page_table
-        if self._use_chunk_prefill:
-            # a mid-prefill slot's row already points at REAL pages (shared
-            # prefix pages above all), but the step writes K/V for every
-            # slot at its frozen position: route inactive rows to the trash
-            # page in the operand, so that write never lands on a page
-            # another sequence reads
-            page_table = page_table.copy()
-            page_table[~self._active] = TRASH_PAGE
+            return _step_body(self.params, *operands, self._cache,
+                              self._generator, self.config, self.top_k,
+                              self._tp)
         return _paged_step_body(
-            self.params, self._operand(self._tokens),
-            self._operand(self._positions), self._operand(self._active),
-            self._operand(self._temps), self._operand(page_table),
-            self._cache, self._generator, self.config, self.top_k)
+            self.params, *operands, self._operand(page_table), self._cache,
+            self._generator, self.config, self.top_k, self._tp)
 
     # -- KV-page tiering internals ------------------------------------------
     #
@@ -2359,7 +2690,13 @@ class SlotEngine:
         again — what a supervisor calls after failing it fast. Handles that
         clients still hold, and the fault's traceback, keep the engine
         object alive, but no longer its device memory. Host bookkeeping
-        (stats, the ledger rows) stays readable."""
+        (stats, the ledger rows) stays readable. The controller of a serving
+        mesh has its workers release their shards too (``RELEASE``), and a
+        rebuilt engine's ``BUILD`` brings them back."""
+        if (self.mesh is not None and self.mesh.is_controller
+                and self.params is not None and not self.mesh.broken
+                and self._mesh_build == self.mesh.builds):
+            self._mesh_command(OP_RELEASE)
         with self._lock:
             self.params = None
             self._cache = None
@@ -2373,8 +2710,8 @@ class SlotEngine:
 
     def stats(self) -> Dict:
         """Engine snapshot: the JAX engine's ``stats`` under the same key
-        names (``meshShape`` "1x1" and ``numDevices`` 1 until the serving
-        mesh is ported; ``busySlotSeconds`` null without a tenant meter).
+        names (``meshShape`` "dp x tp" and ``numDevices`` dp·tp;
+        ``busySlotSeconds`` null without a tenant meter).
         ``device``, ``stepDispatches`` and ``prefills`` are the port's
         own."""
         def ms(value: Optional[float]) -> Optional[float]:

@@ -35,18 +35,19 @@ TRASH_PAGE = 0
 class PagePool:
     """Fixed-size page allocator + per-slot page tables + refcounts.
 
-    ``num_pages`` usable pages (physical ``1..num_pages``; 0 is the trash
-    page). ``page_table`` is the ``[slots, max_pages_per_slot]`` int32
-    array the paged step/prefill consume: row ``s``, entry ``j`` is the
-    physical page holding slot ``s``'s logical positions ``j*page_size ..
-    (j+1)*page_size-1``; unassigned entries point at the trash page.
+    ``num_pages`` usable pages (physical ``trash_pages .. trash_pages +
+    num_pages - 1``; 0 is the trash page). ``page_table`` is the
+    ``[slots, max_pages_per_slot]`` int32 array the paged step/prefill
+    consume: row ``s``, entry ``j`` is the physical page holding slot
+    ``s``'s logical positions ``j*page_size .. (j+1)*page_size-1``;
+    unassigned entries point at the trash page.
 
     A page is FREE (refcount 0, on the free list) or LIVE (refcount = slot
     grants + at most one prefix-cache reference). ``free_pages +
     live_pages == num_pages`` after every operation."""
 
     def __init__(self, num_pages: int, page_size: int, slots: int,
-                 max_pages_per_slot: int) -> None:
+                 max_pages_per_slot: int, trash_pages: int = 1) -> None:
         if num_pages < 1:
             raise ValueError(f"num_pages must be >= 1, got {num_pages}")
         if page_size < 1:
@@ -56,23 +57,34 @@ class PagePool:
         if max_pages_per_slot < 1:
             raise ValueError(
                 f"max_pages_per_slot must be >= 1, got {max_pages_per_slot}")
+        if trash_pages < 1:
+            raise ValueError(
+                f"trash_pages must be >= 1, got {trash_pages}")
         self.num_pages = int(num_pages)
         self.page_size = int(page_size)
         self.slots = int(slots)
         self.max_pages_per_slot = int(max_pages_per_slot)
+        #: physical rows reserved ahead of the usable pool: 1, or ``dp`` on
+        #: a serving mesh, as in JAX (whose dp-sharded page axis must split
+        #: evenly), so page ids stay JAX's. Parked rows still point at
+        #: TRASH_PAGE (0); the other reserved rows are never referenced.
+        self.trash_pages = int(trash_pages)
         # LIFO free list (recently used pages are reissued first); usable
-        # physical pages are 1 .. num_pages
-        self._free: List[int] = list(range(self.num_pages, 0, -1))
+        # physical pages are trash_pages .. trash_pages + num_pages - 1
+        self._free: List[int] = list(
+            range(self.trash_pages + self.num_pages - 1,
+                  self.trash_pages - 1, -1))
         self._owned: List[List[int]] = [[] for _ in range(self.slots)]
         #: per physical page: slot grants + prefix-cache references
-        self._refcounts = np.zeros(1 + self.num_pages, np.int32)
+        self._refcounts = np.zeros(self.trash_pages + self.num_pages,
+                                   np.int32)
         self.page_table = np.full((self.slots, self.max_pages_per_slot),
                                   TRASH_PAGE, np.int32)
 
     @property
     def physical_pages(self) -> int:
-        """Rows of the physical cache array: trash + usable."""
-        return 1 + self.num_pages
+        """Rows of the physical cache array: reserved trash + usable."""
+        return self.trash_pages + self.num_pages
 
     def pages_for(self, tokens: int) -> int:
         """Pages a ``tokens``-position sequence occupies (ceil division)."""
@@ -119,7 +131,8 @@ class PagePool:
         slot_held = set()
         for owned in self._owned:
             slot_held.update(owned)
-        return int(sum(1 for page in range(1, self.physical_pages)
+        return int(sum(1 for page in range(self.trash_pages,
+                                           self.physical_pages)
                        if self._refcounts[page] > 0
                        and page not in slot_held))
 
@@ -157,7 +170,7 @@ class PagePool:
                 f"slot {slot} already owns {len(self._owned[slot])} pages; "
                 "release before reassigning")
         for page in shared:
-            if not 1 <= page < self.physical_pages:
+            if not self.trash_pages <= page < self.physical_pages:
                 raise ValueError(f"shared page {page} is not a usable page")
             if self._refcounts[page] < 1:
                 raise ValueError(
@@ -364,3 +377,7 @@ class HostCopyLane:
                     self._ready.wait()
                 job = (self._urgent or self._queued).popleft()
             job.run()
+            # the idle thread must not keep the last job's closure (a bound
+            # method of its engine) alive: the engine's weights and cache
+            # would outlive it
+            del job

@@ -23,8 +23,9 @@ the drain, checkpoint loading, telemetry and profiling.
   dtype is set to f32 in both packages for the test).
 * **Telemetry and profiling.** The emitter's drop file has the JAX
   emitter's keys and layout (both statistics sources injected); the
-  trace capture is single-flight and clamps its duration; with profiling
-  off the config gate raises ``ProfileUnavailableError``.
+  trace capture is single-flight, clamps its duration and is taken again
+  when the card's records did not come back; with profiling off the
+  config gate raises ``ProfileUnavailableError``.
 """
 import dataclasses
 import json
@@ -727,6 +728,32 @@ def test_capture_is_single_flight_and_clamped(tmp_path):
         with pytest.raises(ValueError):
             profiling.capture_trace(str(tmp_path), duration_s=duration,
                                     max_duration_s=ceiling)
+
+
+@pytest.mark.parametrize("records, attempts, events", [
+    ([0], 1, 0),                            # an idle card: one capture
+    ([None, 12], 2, 12),                    # records lost, then back
+    ([None, None, None], 3, 0),             # lost every time: the last kept
+])
+def test_capture_again_when_the_card_records_did_not_come_back(
+        tmp_path, monkeypatch, records, attempts, events):
+    calls = iter(records)
+    monkeypatch.setattr(profiling, "_device_records",
+                        lambda profiler: next(calls))
+    result = profiling.capture_trace(str(tmp_path), duration_s=0.01)
+    assert (result["attempts"], result["deviceEvents"]) == (attempts, events)
+    assert len(result["files"]) == 1 and next(calls, None) is None
+
+
+@pytest.mark.parametrize("chosen, kept", [(None, "1"), ("0", "0")])
+def test_device_capture_tears_cupti_down_unless_chosen(monkeypatch, chosen,
+                                                       kept):
+    monkeypatch.delenv("TEARDOWN_CUPTI", raising=False)
+    if chosen is not None:
+        monkeypatch.setenv("TEARDOWN_CUPTI", chosen)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert torch.profiler.ProfilerActivity.CUDA in profiling._activities()
+    assert os.environ["TEARDOWN_CUPTI"] == kept
 
 
 def test_profiling_off_is_unavailable(tmp_path):

@@ -1,9 +1,9 @@
 """Package rules of the port: it imports neither JAX nor anything of the
 JAX package (the serving daemon and its observability included), its entry
 points — the daemon and the telemetry emitter among them — refuse to run
-without CUDA unless the CPU is asked for by name, serving knobs it cannot
-serve yet are refused with "not yet ported", and ``auto`` knobs resolve as
-in JAX."""
+without CUDA unless the CPU is asked for by name, a serving mesh without
+its process group and the knobs a mesh cannot serve yet are refused, and
+``auto`` knobs resolve as in JAX."""
 import ast
 import dataclasses
 import subprocess
@@ -21,6 +21,7 @@ from tensorhive_tpu_torch.core.services.generation import (
 )
 from tensorhive_tpu_torch.models import decode, encoder
 from tensorhive_tpu_torch.models.transformer import PRESETS, TransformerLM
+from tensorhive_tpu_torch.parallel import ServingMesh
 from tensorhive_tpu_torch.serving.engine import SlotEngine
 from tensorhive_tpu_torch.telemetry import TelemetryEmitter
 
@@ -122,20 +123,42 @@ def test_daemon_and_emitter_need_cuda_unless_cpu_is_asked(tmp_path):
 
 @pytest.mark.parametrize("knob", ["mesh_dp", "mesh_tp"])
 def test_daemon_refuses_the_serving_mesh(knob, tmp_path):
-    """The daemon builds through ``build_engine``: the mesh knobs are
-    refused there too, not swallowed as a checkpoint failure."""
+    """The daemon builds through ``build_engine``: a mesh knob with no
+    process group behind it is refused there (never served on fewer ranks,
+    nor swallowed as a checkpoint failure), and so is one whose process
+    group has another size."""
     config = Config(config_dir=tmp_path)
     config.generation = GenerationConfig(max_len=64, **{knob: 2})
-    with pytest.raises(ValueError, match="not yet ported"):
+    with pytest.raises(ValueError, match="none is initialised"):
         GenerationService(config, device="cpu")
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+        world_size=1)
+    try:
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            GenerationService(config, device="cpu")
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 @pytest.mark.parametrize("knob,value", [("mesh_dp", 2), ("mesh_tp", 2)])
 def test_unported_knobs_are_refused(knob, value):
-    generation = GenerationConfig(preset="tiny", max_len=64, **{knob: value})
-    with pytest.raises(ValueError, match="not yet ported") as info:
-        build_engine(generation, device="cpu")
-    assert knob in str(info.value)
+    """What the serving mesh does not serve yet is refused under it: the
+    speculative lane asked for by name and KV tiering (``auto`` resolves
+    the lane off). The refusals come before any collective, so a mesh
+    object without a process group suffices."""
+    mesh = ServingMesh(dp=value if knob == "mesh_dp" else 1,
+                       tp=value if knob == "mesh_tp" else 1, rank=0,
+                       device=torch.device("cpu"), backend="gloo",
+                       tp_group=None)
+    params = TransformerLM.init(TINY, device="cpu")
+    for knobs, match in ((dict(speculative="on"), "speculative='on'"),
+                         (dict(host_kv_bytes=1 << 20), "host_kv_bytes")):
+        with pytest.raises(ValueError, match="not served under a serving "
+                                             "mesh") as info:
+            SlotEngine(params, TINY, slots=2, max_len=64, mesh=mesh,
+                       device="cpu", **knobs)
+        assert match in str(info.value)
 
 
 def test_host_kv_tier_builds_and_serves():

@@ -339,6 +339,33 @@ def test_copy_lane_under_thread_contention():
         sys.setswitchinterval(interval)
 
 
+def test_idle_copy_lane_holds_no_finished_job():
+    """Once its job has run, the idle worker keeps no reference to it: a
+    job's closure is a bound method of its engine, whose weights and cache
+    must not outlive the engine through the lane's thread."""
+    import gc
+    import weakref
+
+    class Owner:
+        def work(self):
+            return 1
+
+    lane = HostCopyLane()
+    owner = Owner()
+    job = lane.submit(owner.work)
+    deadline = time.monotonic() + 10
+    while not job.done and time.monotonic() < deadline:
+        time.sleep(0.001)
+    assert job.done and job.result == 1
+    alive = weakref.ref(owner)
+    del owner, job
+    deadline = time.monotonic() + 10
+    while alive() is not None and time.monotonic() < deadline:
+        gc.collect()
+        time.sleep(0.01)
+    assert alive() is None
+
+
 # -- page copies --------------------------------------------------------------
 
 def test_extract_and_inject_pages_match_jax():
