@@ -154,13 +154,31 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
               through build_engine, twice the slots and pages, tokens
               identical — and a group of 8 ranks: (c) the GQA guard, tp 8
               over 4 KV heads at 7b widths, 2 layers, f32, tokens
-              identical. On every rank K1 and K8/K9 launch exactly layers x
-              prefills and layers x step dispatches at its local head
-              counts (all heads under the guard). Tick times over gloo are
-              printed as such: collectives stage through host memory and
-              measure no multi-card serving. The phase starts with the
-              device memory still allocated and, above 1 GiB, the largest
-              live tensors and what holds them.
+              identical. Then, in the group of 2, the speculative lane and
+              the host tier under the mesh: (e) tp 2, f32, 7b widths at 4
+              layers, whole-prompt prefill, a self-draft and a 4-layer
+              1b-width draft: spec-on tokens identical to (a)'s spec-off
+              tokens on the mesh and to the single card's; (f) tp 2 on
+              the full 7b, the default engine with speculative "auto"
+              (which must resolve on), chat traffic, 16 new tokens: no
+              leaked page, accepted <= proposed, every rank's draft lane
+              half the single card's bytes; (g) tp 2 on the full 7b,
+              tiering (340 pages, 1 GiB of host RAM, the lane off): P + 17
+              evicted to the host by two 3,000-token misses and promoted
+              back, the host hit's tokens identical to the HBM hit's,
+              every rank's promoted pages byte-identical to what it
+              demoted, each rank's host bytes half the store's whole-page
+              count, 0 fallbacks. On every rank K1 and K8/K9 launch exactly
+              as its engine's dispatches say at its local head counts (all
+              heads under the guard): layers x prefills and layers x step
+              dispatches, and with the lane draft layers x mirrored
+              prefills of K1 and draft layers x the draft's one-token
+              steps of K8/K9 (the verify and the draft's catch-up attend in
+              plain PyTorch). Tick times over gloo are printed as such:
+              collectives stage through host memory and measure no
+              multi-card serving. The phase starts with the device memory
+              still allocated and, above 1 GiB, the largest live tensors
+              and what holds them.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``; any failure exits non-zero without
@@ -3226,9 +3244,11 @@ def service_run(card):
 # releases it; ranks report through JSON files in a run directory.
 
 MESH_NEW_TOKENS = 32
+#: new tokens of the lane's full-7b run (f) and of the tiering run (g)
+MESH_LANE_NEW_TOKENS = 16
 MESH_TICK_LABEL = ("tick ms over gloo on one card (collectives staged "
                    "through host memory; no measure of multi-card serving)")
-MESH_TIMEOUT_S = {2: 420, 8: 240}
+MESH_TIMEOUT_S = {2: 900, 8: 240}
 
 
 def mesh_presets():
@@ -3248,13 +3268,17 @@ def mesh_presets():
         PRESETS["7b"], n_layers=4, dtype=torch.float32)
     PRESETS["mesh-7b2-kv4-f32"] = dataclasses.replace(
         PRESETS["7b"], n_layers=2, n_kv_heads=4, dtype=torch.float32)
+    # (e)'s independent draft: 1b widths at 4 layers (the engine gives a
+    # preset draft the target's dtype)
+    PRESETS["mesh-1b4"] = dataclasses.replace(PRESETS["1b"], n_layers=4)
     return PRESETS
 
 
 def mesh_prompts():
-    """Seeded prompts: (a)/(d) 17, 300, 1500 tokens; (b) the chat traffic
-    subset: a 2,048-token system prompt P, P + 17, P + 300, a 3,000-token
-    miss; (c) 17 and 300."""
+    """Seeded prompts: (a)/(d)/(e) 17, 300, 1500 tokens; (b)/(f) the chat
+    traffic subset: a 2,048-token system prompt P, P + 17, P + 300, a
+    3,000-token miss; (c) 17 and 300; (g) P + 17 of (b)'s P and two
+    3,000-token misses of their own."""
     import numpy as np
 
     rng = np.random.default_rng(9)
@@ -3263,7 +3287,9 @@ def mesh_prompts():
     chat = [system, system + rng.integers(0, 32_000, 17).tolist(),
             system + rng.integers(0, 32_000, 300).tolist(),
             rng.integers(0, 32_000, 3000).tolist()]
-    return {"short": short, "chat": chat, "guard": short[:2]}
+    tier = [chat[1]] + [rng.integers(0, 32_000, 3000).tolist()
+                        for _ in range(2)]
+    return {"short": short, "chat": chat, "guard": short[:2], "tier": tier}
 
 
 #: the mesh phase's jobs, in the order the ranks of a group build them:
@@ -3274,10 +3300,28 @@ MESH_JOBS = {
         ("a_chunked", 1, 2, dict(preset="mesh-7b4-f32", max_len=2048,
                                  kv_quant="off"), "short"),
         ("b_7b", 1, 2, dict(preset="7b", max_len=4096), "chat"),
-        ("d_dp2", 2, 1, dict(preset="mesh-7b4-f32", max_len=2048), "short")],
+        ("d_dp2", 2, 1, dict(preset="mesh-7b4-f32", max_len=2048), "short"),
+        ("e_spec_self", 1, 2, dict(preset="mesh-7b4-f32", max_len=2048,
+                                   kv_quant="off", prefix_cache="off",
+                                   speculative="on"), "short"),
+        ("e_spec_1b", 1, 2, dict(preset="mesh-7b4-f32", max_len=2048,
+                                 kv_quant="off", prefix_cache="off",
+                                 speculative="on", draft_preset="mesh-1b4"),
+         "short"),
+        ("f_spec_7b", 1, 2, dict(preset="7b", max_len=4096,
+                                 speculative="auto"), "chat"),
+        ("g_tier_7b", 1, 2, dict(preset="7b", max_len=4096, kv_pages=340,
+                                 host_kv_bytes=1 << 30), "tier")],
     8: [("c_guard", 1, 8, dict(preset="mesh-7b2-kv4-f32", max_len=2048,
                                kv_quant="off", prefix_cache="off"), "guard")],
 }
+#: each job's single-card reference: its own (None: the job is its own
+#: reference), another job's (the lane's spec-on runs are held to (a)'s
+#: spec-off run), or none (the lane's and the tier's full-7b runs hold
+#: themselves: host hit against HBM hit, bytes against the single card's
+#: by their formula)
+MESH_REFERENCE = {"e_spec_self": "a_whole", "e_spec_1b": "a_whole",
+                  "f_spec_7b": False, "g_tier_7b": False}
 
 
 def mesh_generation(knobs, dp=1, tp=1):
@@ -3314,13 +3358,16 @@ def install_logits_spy(engine):
     return capture, lambda: setattr(engine_module, "_lm_head", head)
 
 
-def mesh_drive(engine, prompts):
+def mesh_drive(engine, prompts, new_tokens=MESH_NEW_TOKENS):
     """Serve ``prompts`` one join per tick; returns tokens per request, the
-    f32 logits row of each request's first generated token, and the tick
-    times in ms."""
+    f32 logits row of each request's first generated token (None on a
+    speculative engine, whose verify assembles a window of logits), and
+    the tick times in ms."""
     import torch
 
-    capture, undo = install_logits_spy(engine)
+    spy = engine._spec is None
+    capture, undo = (install_logits_spy(engine) if spy
+                     else ({}, lambda: None))
     handles, first, ticks = [], [None] * len(prompts), []
 
     def tick():
@@ -3331,14 +3378,13 @@ def mesh_drive(engine, prompts):
         ticks.append((time.perf_counter() - before) * 1e3)
         for index, handle in enumerate(handles):
             request = handle._request
-            if first[index] is None and request.generated:
+            if spy and first[index] is None and request.generated:
                 first[index] = capture["logits"][
                     request.record.slot].float().cpu()
 
     try:
         for prompt in prompts:
-            handles.append(engine.submit(prompt,
-                                         max_new_tokens=MESH_NEW_TOKENS))
+            handles.append(engine.submit(prompt, max_new_tokens=new_tokens))
             tick()
         while engine.has_work():
             tick()
@@ -3346,6 +3392,119 @@ def mesh_drive(engine, prompts):
         undo()
     tokens = [h.result(timeout_s=300)["tokens"] for h in handles]
     return tokens, first, ticks
+
+
+def mesh_drive_tier(engine, prompts, record):
+    """(g): P + 17 alone (a miss), again (an HBM hit, tokens T), two
+    3,000-token misses that evict P's run to the host, P + 17 (a host hit,
+    its run promoted on every rank), P + 17 once more (an HBM hit on the
+    reseeded run). Returns the tokens of the six requests and the ticks
+    that decoded or prefilled; ``record`` gets the host hit's pages and ``promote_ms``, and whether P's
+    run was wholly on the host before it."""
+    import torch
+
+    from tensorhive_tpu_torch.serving.paging import page_content_key
+
+    p17, misses = prompts[0], prompts[1:]
+    page = engine.page_size
+    run_pages = (len(p17) - 1) // page
+    ticks = []
+
+    def serve(prompt):
+        handle = engine.submit(prompt, max_new_tokens=MESH_LANE_NEW_TOKENS)
+        while engine.has_work():
+            work = engine.steps + engine.prefill_chunks
+            torch.cuda.synchronize()
+            before = time.perf_counter()
+            engine.step()
+            torch.cuda.synchronize()
+            if engine.steps + engine.prefill_chunks > work:
+                # a tick that decoded or prefilled: not a pass that only
+                # polled the copy lanes
+                ticks.append((time.perf_counter() - before) * 1e3)
+        return handle
+
+    handles = [serve(p17), serve(p17)] + [serve(m) for m in misses]
+    store = engine._host_store
+    record["evicted_whole"] = (
+        engine._prefix.match(p17)[0] == 0
+        and all(page_content_key(p17, i, page) in store
+                for i in range(run_pages)))
+    handles += [serve(p17), serve(p17)]
+    host = handles[4]._request.record
+    record.update(run_pages=run_pages, host_hit_pages=host.host_hit_pages,
+                  promote_ms=host.promote_ms)
+    tokens = [h.result(timeout_s=300)["tokens"] for h in handles]
+    return tokens, [None] * len(tokens), ticks
+
+
+def mesh_watch_tier(engine, record):
+    """Hold, on this rank, every promoted page against what this rank
+    demoted under the same entry id: a device snapshot of its cache shard
+    at each extract, compared after each inject. A worker's release also
+    files the host bytes of its shards first."""
+    import torch
+
+    snapshots = {}
+    record.update(promoted=0, mismatched=0)
+
+    def snapshot(pages, ids):
+        for column, entry_id in enumerate(ids or ()):
+            snapshots[entry_id] = [t[:, int(pages[column])].clone()
+                                   for t in engine._cache]
+
+    def check(pages, ids, missing):
+        if missing or not ids:
+            return
+        for column, entry_id in enumerate(ids):
+            if entry_id not in snapshots:
+                continue                 # warmup's trash page
+            record["promoted"] += 1
+            now = [t[:, int(pages[column])] for t in engine._cache]
+            if not all(torch.equal(a, b)
+                       for a, b in zip(now, snapshots[entry_id])):
+                record["mismatched"] += 1
+
+    if engine.mesh.is_controller:
+        extract, inject = (engine._dispatch_page_extract,
+                           engine._dispatch_page_inject)
+
+        def dispatch_extract(pages, ids=None):
+            snapshot(pages, ids)
+            return extract(pages, ids)
+
+        def dispatch_inject(pages, staged, ids=None):
+            missing = inject(pages, staged, ids)
+            check(pages, ids, missing)
+            return missing
+
+        engine._dispatch_page_extract = dispatch_extract
+        engine._dispatch_page_inject = dispatch_inject
+        return
+    extract_shard, inject_shard = engine._extract_shard, engine._inject_shard
+    release = engine.release
+
+    def extract(pages, ids):
+        snapshot(pages, ids)
+        return extract_shard(pages, ids)
+
+    def inject(pages, ids):
+        missing = inject_shard(pages, ids)
+        check(pages, ids, missing)
+        return missing
+
+    def released():
+        for job, _ in engine._shard_jobs:
+            job.wait(30.0)
+        engine._adopt_shard_jobs()
+        record.update(shard_bytes=engine.host_shard_bytes,
+                      shard_entries=len(engine._host_shards))
+        snapshots.clear()
+        release()
+
+    engine._extract_shard = extract
+    engine._inject_shard = inject
+    engine.release = released
 
 
 def mesh_reset_launches():
@@ -3372,26 +3531,38 @@ def mesh_launch_heads():
 
 
 def mesh_expected_heads(engine):
-    """Every rank's launches of one job: layers x prefills of K1 and
-    layers x step dispatches of K8/K9, at this rank's head counts — its
+    """Every rank's launches of one job, at this rank's head counts — its
     slice of both where both split over tp, every head otherwise (the GQA
-    guard)."""
+    guard): layers x prefills of K1 and layers x step dispatches of K8/K9;
+    with the speculative lane, whose verify launches no kernel, the
+    draft's layers x the mirrored prefills of K1 and its layers x its
+    one-token steps (spec_tokens - 1 a propose) of K8/K9, at the draft's
+    own head counts by the draft's own rules."""
     import torch
 
     config = engine.config
-    heads, kv_heads = config.n_heads, config.kv_heads
-    if engine._kernel_shard_heads:
-        heads //= engine.mesh_tp
-        kv_heads //= engine.mesh_tp
     dtype = "f32" if config.dtype == torch.float32 else "bf16"
     paged = "int8" if engine.kv_quant == "on" else dtype
-    layers = config.n_layers
     out = {}
-    if engine.prefills:
-        out[f"flash|{dtype}|{heads}|{kv_heads}"] = layers * engine.prefills
-    if engine.step_dispatches:
-        out[f"paged|{paged}|{heads}|{kv_heads}"] = (layers
-                                                    * engine.step_dispatches)
+
+    def add(kind, variant, model, rules, count):
+        heads, kv_heads = model.n_heads, model.kv_heads
+        if rules is not None and rules.heads == "tp" \
+                and rules.kv_heads == "tp":
+            heads //= engine.mesh_tp
+            kv_heads //= engine.mesh_tp
+        if count:
+            key = f"{kind}|{variant}|{heads}|{kv_heads}"
+            out[key] = out.get(key, 0) + model.n_layers * count
+
+    add("flash", dtype, config, engine._rules, engine.prefills)
+    lane = engine._spec
+    if lane is None:
+        add("paged", paged, config, engine._rules, engine.step_dispatches)
+        return out
+    add("flash", dtype, lane.draft_config, lane._rules, engine.prefills)
+    add("paged", paged, lane.draft_config, lane._rules,
+        engine.draft_dispatches * (engine.spec_tokens - 1))
     return out
 
 
@@ -3433,8 +3604,13 @@ def mesh_rank_main(rank: int, world: int, rundir: str) -> int:
             mesh_reset_launches()
             engine = build_engine(mesh_generation(knobs, dp, tp))
             built.append(name)
-            out["jobs"][name] = {"param_bytes": engine.param_bytes,
-                                 "kv_bytes": engine.kv_cache_bytes}
+            record = out["jobs"][name] = {
+                "param_bytes": engine.param_bytes,
+                "kv_bytes": engine.kv_cache_bytes,
+                "draft_kv_bytes": (engine._spec.kv_cache_bytes
+                                   if engine._spec is not None else None)}
+            if engine._host_store is not None:
+                mesh_watch_tier(engine, record)
             return engine
 
         serve_worker(meshes[shapes[0]], factory)
@@ -3448,23 +3624,69 @@ def mesh_rank_main(rank: int, world: int, rundir: str) -> int:
         started = time.perf_counter()
         engine = build_engine(mesh_generation(knobs, dp, tp))
         build_s = time.perf_counter() - started
-        tokens, first, ticks = mesh_drive(engine, prompts[traffic])
+        record = {}
+        if engine._host_store is not None:
+            mesh_watch_tier(engine, record)
+            tokens, first, ticks = mesh_drive_tier(engine, prompts[traffic],
+                                                   record)
+        elif engine._spec is not None and traffic == "chat":
+            tokens, first, ticks = mesh_drive(engine, prompts[traffic],
+                                              MESH_LANE_NEW_TOKENS)
+        else:
+            tokens, first, ticks = mesh_drive(engine, prompts[traffic])
         stats = engine.stats()
-        out["jobs"][name] = {
-            "tokens": tokens, "first": [row.tolist() for row in first],
+        out["jobs"][name] = record
+        record.update({
+            "tokens": tokens,
+            "first": [None if row is None else row.tolist()
+                      for row in first],
             "ticks": ticks, "build_s": build_s, "stats": stats,
             "capacity": engine.capacity, "param_bytes": engine.param_bytes,
             "kv_bytes": engine.kv_cache_bytes,
             "rules_kv_heads": engine._rules.kv_heads,
             "shard_heads": engine._kernel_shard_heads,
             "launches": mesh_launch_heads(),
-            "expected": mesh_expected_heads(engine)}
+            "expected": mesh_expected_heads(engine)})
+        if engine._spec is not None:
+            record.update(draft_kv_bytes=engine._spec.kv_cache_bytes,
+                          draft_single_bytes=mesh_lane_single_bytes(engine),
+                          draft_layers=engine._spec.draft_config.n_layers,
+                          draft_dispatches=engine.draft_dispatches)
+        store = engine._host_store
+        if store is not None:
+            record.update(
+                store_bytes=store.bytes_used,
+                store_entries=store.resident_pages,
+                shard_bytes=sum(e.k.nbytes + e.v.nbytes + e.k_scale.nbytes
+                                + e.v_scale.nbytes
+                                for e in store._entries.values()),
+                fallbacks=engine.host_kv_fallbacks,
+                promotions=engine.host_kv_promotions,
+                demotions=engine.host_kv_demotions)
         engine.release()
         del engine
         release_device_memory()
     stop_workers(meshes[shapes[0]])
     path.write_text(json.dumps(out))
     return 0
+
+
+def mesh_lane_single_bytes(engine):
+    """Device bytes the speculative lane's draft KV cache takes on one
+    card with this engine's pool: every KV head of the draft, the pool's
+    pages and the drop page past them (payload, and int8 scales)."""
+    import torch
+
+    draft = engine._spec.draft_config
+    if engine.paged:
+        rows = engine._pool.physical_pages + 1
+        per_row = engine.page_size
+    else:
+        rows, per_row = engine.capacity, engine.max_len
+    cells = draft.n_layers * rows * per_row * draft.kv_heads * draft.d_head
+    if engine._quant:
+        return 2 * cells + 2 * draft.n_layers * rows * draft.kv_heads * 4
+    return 2 * cells * torch.empty((), dtype=draft.dtype).element_size()
 
 
 def mesh_group(world: int, rundir: Path):
@@ -3559,6 +3781,80 @@ def check_mesh_launches(label, reports, job):
     return expected
 
 
+def check_mesh_lane(label, name, reports, references, expected):
+    """The lane's and the tier's jobs: (e) spec-on tokens identical to
+    (a)'s spec-off tokens on the mesh and to the single card's; (f) the
+    lane on by ``auto``, accepted <= proposed, each rank's draft lane half
+    the single card's bytes; (g) the host hit's tokens identical to the
+    HBM hit's, every rank's promoted pages byte-identical to what it
+    demoted, each rank's host bytes half the store's, 0 fallbacks."""
+    ours = reports[0]["jobs"][name]
+    stats = ours["stats"]
+    ticks = sorted(ours["ticks"])
+    log(f"{label}: build {ours['build_s']:.1f} s; launches per rank "
+        f"{expected}")
+    log(f"  {MESH_TICK_LABEL}: median {ticks[len(ticks) // 2]:.1f}, max "
+        f"{ticks[-1]:.1f} over {len(ticks)} ticks")
+    if name.startswith(("e_", "f_")):
+        require(stats["speculative"] == "on",
+                f"{label}: the lane resolved {stats['speculative']}")
+        require(0 <= stats["specAccepted"] <= stats["specProposed"],
+                f"{label}: accepted {stats['specAccepted']} of "
+                f"{stats['specProposed']}")
+        draft_bytes = [r["jobs"][name]["draft_kv_bytes"] for r in reports]
+        require(all(2 * b == ours["draft_single_bytes"]
+                    for b in draft_bytes),
+                f"{label}: draft KV bytes per rank {draft_bytes}, the single "
+                f"card's {ours['draft_single_bytes']}")
+        log(f"  acceptance {stats['specAccepted']}/{stats['specProposed']} "
+            f"= {stats['specAcceptanceRate']}; draft {ours['draft_layers']} "
+            f"layers, {ours['draft_dispatches']} proposes; draft KV bytes "
+            f"per rank {draft_bytes} (single card "
+            f"{ours['draft_single_bytes']})")
+    if name.startswith("e_"):
+        spec_off = reports[0]["jobs"][MESH_REFERENCE[name]]["tokens"]
+        single = references[MESH_REFERENCE[name]]["tokens"]
+        require(ours["tokens"] == spec_off,
+                f"{label}: spec-on tokens differ from spec-off on the mesh")
+        require(ours["tokens"] == single,
+                f"{label}: spec-on tokens differ from the single card's")
+        log("  tokens identical to spec-off on the mesh and to the single "
+            "card")
+    if name.startswith("g_"):
+        tokens = ours["tokens"]
+        require(ours["evicted_whole"],
+                f"{label}: P's run was not pushed out to the host whole")
+        require(ours["host_hit_pages"] == ours["run_pages"]
+                and ours["promotions"] >= ours["run_pages"],
+                f"{label}: the host hit promoted {ours['host_hit_pages']} of "
+                f"{ours['run_pages']} pages")
+        require(tokens[4] == tokens[1] and tokens[5] == tokens[1],
+                f"{label}: host hit {tokens[4]} / HBM hit again {tokens[5]} "
+                f"!= HBM hit {tokens[1]}")
+        require(ours["fallbacks"] == 0, f"{label}: {ours['fallbacks']} "
+                "fallbacks")
+        for report in reports:
+            job = report["jobs"][name]
+            require(job["promoted"] >= ours["run_pages"]
+                    and job["mismatched"] == 0,
+                    f"{label}: rank {report['rank']} promoted "
+                    f"{job['promoted']} pages, {job['mismatched']} differ "
+                    "from what it demoted")
+            require(2 * job["shard_bytes"] == ours["store_bytes"],
+                    f"{label}: rank {report['rank']} holds "
+                    f"{job['shard_bytes']} host bytes, the store counts "
+                    f"{ours['store_bytes']} whole-page bytes")
+        log(f"  host hit tokens identical to the HBM hit's; "
+            f"{ours['host_hit_pages']} pages promoted on every rank "
+            f"byte-identical to what each demoted; promote_ms "
+            f"{ours['promote_ms']}; fallbacks {ours['fallbacks']}; "
+            f"demotions {ours['demotions']}; host bytes per rank "
+            + ", ".join(f"rank {r['rank']} {r['jobs'][name]['shard_bytes']}"
+                        for r in reports)
+            + f" (the store's whole pages: {ours['store_bytes']} over "
+            f"{ours['store_entries']} entries)")
+
+
 def phase_mesh(card):
     """The serving mesh on this card, groups of 2 and 8 ranks over gloo:
     (a) tp 2, f32, 7b widths at 4 layers, whole-prompt and chunked, tokens
@@ -3582,6 +3878,8 @@ def phase_mesh(card):
     references, f32_logits = {}, None
     for world, jobs in MESH_JOBS.items():
         for name, dp, tp, knobs, traffic in jobs:
+            if name in MESH_REFERENCE:
+                continue
             references[name], logits = mesh_reference(name, knobs,
                                                       prompts[traffic])
             f32_logits = logits if logits is not None else f32_logits
@@ -3598,7 +3896,6 @@ def phase_mesh(card):
         for name, dp, tp, knobs, traffic in jobs:
             label = f"mesh {name} ({dp}x{tp}, {knobs['preset']})"
             ours = reports[world][0]["jobs"][name]
-            ref = references[name]
             expected = check_mesh_launches(label, reports[world], name)
             for key, count in expected.items():
                 kind, variant = key.split("|")[:2]
@@ -3614,6 +3911,11 @@ def phase_mesh(card):
                 require(stats["kvPagesFree"] + (stats["cachedPages"] or 0)
                         == stats["kvPagesTotal"],
                         f"{label}: pages leaked: {stats}")
+            if name in MESH_REFERENCE:
+                check_mesh_lane(label, name, reports[world], references,
+                                expected)
+                continue
+            ref = references[name]
             diffs = [float((torch.tensor(a) - b).abs().max())
                      for a, b in zip(ours["first"], ref["first"])]
             agree = [x == y for t, r in zip(ours["tokens"], ref["tokens"])

@@ -439,7 +439,9 @@ def build_engine(generation: GenerationConfig, device: DeviceLike = None,
     initialised process group's dp x tp ranks (``parallel.serving_mesh``;
     ``device`` None = ``cuda:{LOCAL_RANK}``), with ``slots`` and
     ``kv_pages`` counted per dp replica, as in JAX — the engine holds
-    ``slots * mesh_dp`` slots and ``kv_pages * mesh_dp`` pages. Every rank
+    ``slots * mesh_dp`` slots and ``kv_pages * mesh_dp`` pages, while
+    ``host_kv_bytes`` is the whole engine's host budget (rank 0's store
+    counts whole pages against it; JAX does not multiply it either). Every rank
     calls this with the same config: the full weights (checkpoint or seed)
     are loaded, then sharded by the engine. Rank 0 warms the engine, which
     warms every rank; a worker's call is its ``serve_worker`` factory and

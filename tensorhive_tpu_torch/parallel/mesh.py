@@ -402,3 +402,20 @@ class TensorParallel:
         if not self.gather_heads:
             return fn(q)
         return self.own_heads(fn(self.all_heads(q)))
+
+
+def shard_model(params, config, mesh: ServingMesh, sharded: bool = False
+                ) -> Tuple[MeshRules, Any, Optional[TensorParallel]]:
+    """What one rank holds of one model on a serving mesh: ``(rules,
+    params, tp)`` — the GQA-guarded rules of ``config``, this rank's shard
+    of ``params`` (taken as given when ``sharded``: leaves cut from a shard
+    by the same rules, as a self-draft's are from its target's) and the
+    model's :class:`TensorParallel` hooks (None at tp 1). A rank can hold
+    several models this way (a serving target and its speculative draft),
+    each by its own rules: a draft's GQA guard follows its own head
+    counts."""
+    rules = serving_rules(config, mesh.tp)
+    if not sharded:
+        params = shard_serving_params(params, rules, mesh.tp_rank, mesh.tp)
+    tp = TensorParallel(mesh, rules, config) if mesh.tp > 1 else None
+    return rules, params, tp

@@ -85,9 +85,20 @@ device side is eager PyTorch:
   kernels run on every head. Pages are whole on every rank (JAX's kernel
   route: page tables hold global ids), so a dp replica computes what the
   others do; ``slots`` and ``kv_pages`` count per engine (``build_engine``
-  multiplies the per-replica knobs by dp). The speculative lane and KV
-  tiering are not served under a mesh yet: ``speculative="on"`` and
-  ``host_kv_bytes`` > 0 are refused, and ``auto`` resolves off.
+  multiplies the per-replica knobs by dp). The speculative lane runs on
+  every rank: each holds its shard of the draft by the draft's own rules
+  and its KV heads of the draft lane, the prefill mirrors ride the
+  prefill and chunk commands, and each tick sends ``PROPOSE`` and
+  ``VERIFY``; only rank 0 samples and accepts. The host tier keeps ONE
+  index, rank 0's ``HostPageStore`` (keys, LRU, budget and counters, on
+  whole-page bytes as JAX counts them), while each rank keeps the payload
+  of its own cache shard in its own host RAM under the entry id rank 0
+  assigned: ``EXTRACT`` gathers a demotion's pages on every rank and each
+  rank's copy lane brings its shard down, ``INJECT`` has each rank stage
+  and scatter its shard of a promotion, ``DROP`` forgets what rank 0's
+  store let go. A rank that lacks a shard at ``INJECT`` says so in the
+  command's flag, and rank 0 recomputes the pages (a fallback, not a
+  fault).
 """
 from __future__ import annotations
 
@@ -109,8 +120,7 @@ from ..parallel.mesh import (
     TensorParallel,
     kernel_cache_spec,
     local_shape,
-    serving_rules,
-    shard_serving_params,
+    shard_model,
 )
 from ..models.decode import (
     KVCache,
@@ -144,14 +154,22 @@ from .faults import ServingFaultPlan
 from .mesh_worker import (
     OP_BUILD,
     OP_CHUNK,
+    OP_DROP,
+    OP_EXTRACT,
+    OP_INJECT,
     OP_PING,
     OP_PREFILL,
+    OP_PROPOSE,
     OP_RELEASE,
     OP_STEP,
+    OP_VERIFY,
+    TP_BODIES,
     MeshWorkerError,
     finish_command,
+    ids_to_words,
     send_command,
     stop_workers,
+    words_to_ids,
 )
 from .paging import (
     TRASH_PAGE,
@@ -831,17 +849,6 @@ class SlotEngine:
                 raise MeshWorkerError(
                     f"the serving mesh is broken ({mesh.broken}); restart "
                     "its ranks")
-            # not served under a mesh yet (ROADMAP A10b): refused, never
-            # quietly dropped
-            if speculative == "on":
-                raise ValueError(
-                    "speculative='on' is not served under a serving mesh "
-                    "yet; set speculative=auto/off (auto resolves off "
-                    "under a mesh)")
-            if host_kv_bytes:
-                raise ValueError(
-                    "host_kv_bytes > 0 (KV-page tiering) is not served "
-                    "under a serving mesh yet; set host_kv_bytes=0")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if queue_depth < 1:
@@ -863,8 +870,6 @@ class SlotEngine:
         self.max_concurrent_per_user = int(max_concurrent_per_user)
         self.paged = bool(paged)
         self.speculative = resolve_speculative(speculative, self.device)
-        if mesh is not None:
-            self.speculative = "off"        # auto under a mesh
         self.spec_tokens = int(spec_tokens)
         self.kv_quant = kvq.resolve_kv_quant(kv_quant, self.paged)
         self._quant = self.kv_quant == "on"
@@ -889,18 +894,14 @@ class SlotEngine:
         # GQA-guarded rules) and of the cache, and every dispatch of the
         # controller (rank 0) is mirrored on the workers
         self.mesh = mesh
+        self._tp: Optional[TensorParallel] = None
         if mesh is not None:
             self.mesh_dp, self.mesh_tp = mesh.dp, mesh.tp
-            self._rules = serving_rules(config, mesh.tp)
-            self.params = shard_serving_params(params, self._rules,
-                                               mesh.tp_rank, mesh.tp)
-            self._tp: Optional[TensorParallel] = (
-                TensorParallel(mesh, self._rules, config)
-                if mesh.tp > 1 else None)
+            self._rules, self.params, self._tp = shard_model(params, config,
+                                                             mesh)
         else:
             self.mesh_dp = self.mesh_tp = 1
             self._rules = None
-            self._tp = None
         #: the attention kernels run on this rank's slice of both head
         #: counts (contiguous head blocks keep the kernels' ``h // group``
         #: map aligned); False under the GQA guard, where K/V and the cache
@@ -913,6 +914,8 @@ class SlotEngine:
         self._mesh_build = None
         #: monotonic stamp of the last command sent (the idle heartbeat)
         self._mesh_last_command = time.monotonic()
+        #: ranks that lacked a host shard the last command named
+        self._mesh_missing = 0
 
         self._lock = threading.Lock()
         self._pending: Deque[_Request] = collections.deque()
@@ -1097,13 +1100,29 @@ class SlotEngine:
         self.host_kv_promotions = 0
         #: promotions whose copy failed and were recomputed instead
         self.host_kv_fallbacks = 0
+        # the host tier on a serving mesh: rank 0's store is the index and
+        # holds rank 0's shard of each page; every rank keeps its own shard
+        # by the entry id rank 0 assigned
+        #: (controller) the next entry id, and ids whose shards the other
+        #: ranks must drop (sent as DROP)
+        self._next_entry_id = 1
+        self._host_drops: List[int] = []
+        #: (worker) this rank's shards by entry id, its demotion copies in
+        #: flight (job, ids), and ids dropped while their copy was in flight
+        self._host_shards: Dict[int, HostPageEntry] = {}
+        self._shard_jobs: List[Tuple[LaneJob, List[int]]] = []
+        self._shards_dropped: set = set()
+        if self._host_store is not None and mesh is not None \
+                and mesh.is_controller:
+            self._host_store.on_remove = self._host_entry_removed
 
         # the speculative lane: with it on, every tick is one draft propose
         # and one batched verify; the plain step is never dispatched
         self._spec: Optional[SpeculativeLane] = None
         if self.speculative == "on":
+            # a self-draft takes the first blocks of THIS rank's shard
             self._spec = SpeculativeLane(self, *build_draft(
-                params, config, draft_preset=draft_preset,
+                self.params, config, draft_preset=draft_preset,
                 draft_layers=draft_layers))
         self.spec_proposed = 0
         self.spec_accepted = 0
@@ -1192,11 +1211,12 @@ class SlotEngine:
                       payload: Sequence[np.ndarray] = (),
                       body: Optional[Callable[[], object]] = None):
         """(controller) Send one command to the workers, run ``body`` (the
-        device work the command mirrors) and sum every rank's error flag.
-        A worker that failed raises :class:`MeshWorkerError` here. A
-        failure part way through a tensor-parallel body leaves the tp
-        collectives out of step between ranks: the mesh is marked broken
-        and refuses every later command."""
+        device work the command mirrors) and sum every rank's flags. A
+        worker that failed raises :class:`MeshWorkerError` here; the ranks
+        that lacked a host shard the command named are left in
+        ``_mesh_missing``. A failure part way through a tensor-parallel
+        body leaves the tp collectives out of step between ranks: the mesh
+        is marked broken and refuses every later command."""
         mesh = self.mesh
         if mesh.broken:
             raise MeshWorkerError(
@@ -1217,7 +1237,7 @@ class SlotEngine:
         try:
             result = body() if body is not None else None
         except Exception as exc:
-            if mesh.tp > 1:
+            if mesh.tp > 1 and op in TP_BODIES:
                 mesh.broken = (f"command {op} failed part way on rank 0: "
                                f"{type(exc).__name__}: {exc}")
                 raise MeshWorkerError(
@@ -1227,7 +1247,8 @@ class SlotEngine:
         else:
             failure = None
         try:
-            failed = finish_command(mesh, failure is not None)
+            failed, self._mesh_missing = finish_command(mesh,
+                                                        failure is not None)
         except Exception as exc:
             mesh.broken = f"{type(exc).__name__}: {exc}"
             raise MeshWorkerError(
@@ -1255,19 +1276,25 @@ class SlotEngine:
             stop_workers(self.mesh)
 
     def _serve_dispatch(self, op: int, args: Sequence[int],
-                        payload: np.ndarray) -> None:
+                        payload: np.ndarray) -> bool:
         """(worker) Run one of the controller's dispatches on this rank's
         shards, with its operands: the body the controller runs, after this
-        engine's own fault point and counters."""
+        engine's own fault point and counters. Returns True when an
+        ``INJECT`` named a host shard this rank lacks. Finished demotion
+        copies are adopted first, whatever the command."""
+        self._adopt_shard_jobs()
+        slots = self.capacity
+
+        def page_table(flat: np.ndarray) -> Optional[np.ndarray]:
+            return flat.reshape(slots, -1) if self.paged else None
+
         if op == OP_STEP:
-            slots = self.capacity
             tokens, positions = payload[:slots], payload[slots:2 * slots]
-            page_table = (payload[2 * slots:].reshape(
-                slots, self._pool.max_pages_per_slot) if self.paged else None)
             self._fault_point("step")
             self.step_dispatches += 1
-            self._step_device(tokens, positions, None, None, page_table)
-            return
+            self._step_device(tokens, positions, None, None,
+                              page_table(payload[2 * slots:]))
+            return False
         if op == OP_PREFILL:
             slot, real_len, width = args[:3]
             row = payload[width:] if self.paged else None
@@ -1275,14 +1302,48 @@ class SlotEngine:
             self.prefills += 1
             self._prefill_device(payload[:width].reshape(1, width), slot,
                                  real_len, row)
-            return
+            return False
         if op == OP_CHUNK:
             start, real_len, width = args[:3]
             self._fault_point("prefill")
             self.prefill_chunks += 1
             self._chunk_prefill_device(payload[:width].reshape(1, width),
                                        start, real_len, payload[width:])
-            return
+            return False
+        if op == OP_PROPOSE:
+            width = self.spec_tokens + 1
+            window = payload[:slots * width].reshape(slots, width)
+            lens, positions, limits = payload[
+                slots * width:slots * (width + 3)].reshape(3, slots)
+            self._fault_point("step")
+            self._spec.propose(window, lens, positions, limits,
+                               page_table(payload[slots * (width + 3):]))
+            return False
+        if op == OP_VERIFY:
+            width = self.spec_tokens + 1
+            window = payload[:slots * width].reshape(slots, width)
+            positions, limits = payload[
+                slots * width:slots * (width + 2)].reshape(2, slots)
+            self._fault_point("verify")
+            self.step_dispatches += 1
+            self._verify_device(window, positions, None, None, limits,
+                                page_table(payload[slots * (width + 2):]))
+            return False
+        # the host tier's commands: args[0] page ids, then the entry ids
+        # (DROP: no pages)
+        count = args[0]
+        pages = payload[:count]
+        ids = [int(i) for i in words_to_ids(payload[count:])]
+        if op == OP_EXTRACT:
+            self._fault_point("extract")
+            self._extract_shard(pages, ids)
+            return False
+        if op == OP_INJECT:
+            self._fault_point("inject")
+            return self._inject_shard(pages, ids)
+        if op == OP_DROP:
+            self._drop_shards(ids)
+            return False
         raise ValueError(f"not a dispatch: command {op}")
 
     # -- admission --------------------------------------------------------
@@ -1480,11 +1541,13 @@ class SlotEngine:
     def has_work(self) -> bool:
         with self._lock:
             # the tier's backlog counts: queued demotions still need their
-            # gather, and copies in flight need adopting into the store
+            # gather, copies in flight need adopting into the store, and
+            # (on a mesh) entries the store let go need dropping everywhere
             return (bool(self._pending)
                     or any(slot is not None for slot in self._slots)
                     or bool(self._pending_demotes)
-                    or bool(self._demote_jobs))
+                    or bool(self._demote_jobs)
+                    or bool(self._host_drops))
 
     def _meter_tick(self) -> None:
         """Integrate one tick's resource-time products into the tenant
@@ -1624,7 +1687,9 @@ class SlotEngine:
         one propose and one verify instead of the step. A tiered engine
         also takes the trash page through the tier's whole path: gather,
         copy out, copy back, inject (its own bytes, to the write sink).
-        On a serving mesh the controller's warmup warms every rank."""
+        On a serving mesh the controller's warmup warms every rank: the
+        lane's bodies and, with the tier, every rank's extract, copies and
+        inject (the warm entry dropped after)."""
         self._check_driven()
         if self._use_chunk_prefill:
             widths = {_prefill_bucket(1, self.max_len - 1)}
@@ -1638,15 +1703,16 @@ class SlotEngine:
             for width in sorted(widths):
                 self._dispatch_chunk_prefill(np.zeros((1, width), np.int32),
                                              slot=0, start=0, real_len=0)
-                if self._spec is not None:
-                    self._spec.chunk_prefill(np.zeros((1, width), np.int32),
-                                             0, 0, 0)
             if self._host_store is not None:
+                ids = self._new_entry_ids(1)
                 _, [page] = self._materialize_demotion(
-                    [b""], *self._dispatch_page_extract([TRASH_PAGE]))
+                    [b""], *self._dispatch_page_extract([TRASH_PAGE], ids))
                 self._dispatch_page_inject(
                     [TRASH_PAGE], self._stage_promotion(
-                        [HostPageEntry(*page, last_used=0)]))
+                        [HostPageEntry(*page, last_used=0)]), ids)
+                if ids is not None:
+                    self._host_drops.extend(ids)
+                    self._flush_host_drops()
         else:
             buckets = {_prefill_bucket(max(1, length - 1), self.max_len - 1)
                        for length in prompt_lens} or {
@@ -1654,8 +1720,6 @@ class SlotEngine:
             for width in sorted(buckets):
                 self._dispatch_prefill(np.zeros((1, width), np.int32),
                                        slot=0, real_len=0)
-                if self._spec is not None:
-                    self._spec.prefill(np.zeros((1, width), np.int32), 0, 0)
         if self._spec is None:
             self._run_step().cpu()
             return
@@ -1663,8 +1727,8 @@ class SlotEngine:
         # at the trash page, so no speculative write lands on a real page
         with self._lock:
             window, lens, limits, page_table = self._spec_operands_locked()
-        proposals = self._spec.propose(window, lens, self._positions, limits,
-                                       page_table).cpu().numpy()
+        proposals = self._run_spec_propose(window, lens, limits,
+                                           page_table).cpu().numpy()
         verify_window = np.concatenate([self._tokens[:, None], proposals],
                                        axis=1)
         self._run_spec_verify(verify_window, limits, page_table)[0].cpu()
@@ -1696,6 +1760,8 @@ class SlotEngine:
 
     def _prefill_device(self, head: np.ndarray, slot: int, real_len: int,
                         row: Optional[np.ndarray]) -> None:
+        """The whole-prompt prefill's device body, and the speculative
+        lane's mirror of it right after (the same head and row)."""
         if self.paged:
             _paged_prefill_body(self.params, self._operand(head),
                                 self._cache, self._operand(row),
@@ -1703,6 +1769,8 @@ class SlotEngine:
         else:
             _prefill_body(self.params, self._operand(head), self._cache,
                           int(slot), int(real_len), self.config, self._tp)
+        if self._spec is not None:
+            self._spec.prefill(head, slot, real_len, row)
 
     def _dispatch_chunk_prefill(self, head: np.ndarray, slot: int,
                                 start: int, real_len: int) -> None:
@@ -1722,10 +1790,15 @@ class SlotEngine:
 
     def _chunk_prefill_device(self, head: np.ndarray, start: int,
                               real_len: int, row: np.ndarray) -> None:
+        """One chunk's device body, and the speculative lane's mirror of it
+        right after — before the radix tree adopts the chunk's pages, so a
+        cached page carries both lanes' K/V."""
         _paged_chunk_prefill_body(
             self.params, self._operand(head), self._cache,
             self._operand(row), int(start), int(real_len), self.config,
             self._tp)
+        if self._spec is not None:
+            self._spec.chunk_prefill(head, start, real_len, row)
 
     def _run_step(self) -> torch.Tensor:
         self._fault_point("step")
@@ -1783,15 +1856,64 @@ class SlotEngine:
     # after the gather by an event, the inject's stream waits on the copy's
     # event, and the tensors that cross streams stay alive (held in the job)
     # or are marked with record_stream.
+    #
+    # On a serving mesh every rank runs the same on its own cache shard and
+    # its own copy lane; no collective ever runs on a lane thread (gloo's
+    # collectives must come in one order on every rank). Rank 0's store is
+    # the tier's one index; a worker keeps its shards in _host_shards by
+    # entry id, adopts its finished copies when it reads a command, and
+    # waits for its own copy at INJECT.
 
-    def _dispatch_page_extract(self, pages: Sequence[int]):
+    def _new_entry_ids(self, count: int) -> Optional[List[int]]:
+        """(controller) ``count`` fresh entry ids on a serving mesh (None
+        without one): the names every rank files its shards under."""
+        if self.mesh is None:
+            return None
+        first = self._next_entry_id
+        self._next_entry_id += count
+        return list(range(first, first + count))
+
+    def _host_entry_removed(self, entry: HostPageEntry) -> None:
+        """(controller) The store let ``entry`` go (evicted, replaced or
+        discarded): the other ranks drop their shards of it."""
+        self._host_drops.append(entry.entry_id)
+
+    def _flush_host_drops(self) -> None:
+        """(controller) Send the entry ids the store let go (``DROP``), so
+        no rank's host bytes outgrow the store's accounting — all but those
+        a parked promotion still holds: as in JAX, an entry the store
+        evicts after a hit took it is still promoted from, and its drop
+        waits for the inject (or the fallback)."""
+        if self.mesh is None or not self._host_drops:
+            return
+        with self._lock:
+            held = {entry.entry_id for state in self._slots
+                    if state is not None for entry in state.promote_entries}
+        drops = [entry_id for entry_id in self._host_drops
+                 if entry_id not in held]
+        self._host_drops = [entry_id for entry_id in self._host_drops
+                            if entry_id in held]
+        if drops:
+            self._mesh_command(OP_DROP, (0,), [ids_to_words(drops)])
+
+    def _dispatch_page_extract(self, pages: Sequence[int],
+                               ids: Optional[List[int]] = None):
         """Gather ``pages`` for demotion: ``(extracted, ready)`` with
         ``ready`` an event recorded on the compute stream after the gather
         (None on the CPU). Dispatched before anything that could overwrite
-        the pages, so it reads them as they were."""
+        the pages, so it reads them as they were. On a serving mesh every
+        rank gathers its shard (``EXTRACT``) and copies it down on its own
+        lane under ``ids``."""
         self._fault_point("extract")
-        extracted = _page_extract_body(
-            self._cache, self._operand(np.asarray(pages, np.int32)))
+        pages = np.asarray(pages, np.int32)
+        if self.mesh is None:
+            return self._extract_device(pages)
+        return self._mesh_command(
+            OP_EXTRACT, (len(pages),), [pages, ids_to_words(ids)],
+            lambda: self._extract_device(pages))
+
+    def _extract_device(self, pages: np.ndarray):
+        extracted = _page_extract_body(self._cache, self._operand(pages))
         if self._copy_stream is None:
             return extracted, None
         ready = torch.cuda.Event()
@@ -1801,11 +1923,13 @@ class SlotEngine:
     def _staged_run(self, count: int) -> Tuple[torch.Tensor, ...]:
         """``(k, k_scale, v, v_scale)`` ``[L, count, ...]`` host tensors for
         one lane job: contiguous views of the pinned staging on the card
-        (the caller holds ``_staging_lock``), fresh tensors on the CPU."""
+        (the caller holds ``_staging_lock``), fresh tensors on the CPU. On a
+        serving mesh a page is this rank's shard: its KV heads."""
         config = self.config
-        payload = (config.n_layers, count, self.page_size, config.kv_heads,
+        heads = self._cache.k.shape[3]
+        payload = (config.n_layers, count, self.page_size, heads,
                    config.d_head)
-        scales = (config.n_layers, count, config.kv_heads)
+        scales = (config.n_layers, count, heads)
         shapes = (payload, scales, payload, scales)
         dtypes = (torch.int8, torch.float32) * 2
         if not self._staging:
@@ -1884,22 +2008,98 @@ class SlotEngine:
             done.synchronize()
         return on_device, done
 
-    def _dispatch_page_inject(self, pages: Sequence[int], staged) -> None:
+    def _dispatch_page_inject(self, pages: Sequence[int], staged,
+                              ids: Optional[List[int]] = None) -> int:
         """Scatter a staged run into the slot's fresh pages, in place. On
-        the card the compute stream first waits on the copy's event, and
-        the copied tensors, allocated on the copy stream, are marked as
+        a serving mesh every rank stages and scatters its shard of the
+        entries ``ids`` (``INJECT``); returns the number of ranks that
+        lacked one (0 without a mesh), whose pages must be recomputed."""
+        self._fault_point("inject")
+        pages = np.asarray(pages, np.int32)
+        if self.mesh is None:
+            self._inject_device(pages, staged)
+            return 0
+        self._mesh_command(OP_INJECT, (len(pages),),
+                           [pages, ids_to_words(ids)],
+                           lambda: self._inject_device(pages, staged))
+        return self._mesh_missing
+
+    def _inject_device(self, pages: np.ndarray, staged) -> None:
+        """On the card the compute stream first waits on the copy's event,
+        and the copied tensors, allocated on the copy stream, are marked as
         used by the compute stream, so the allocator cannot hand their
         memory out again while the inject still reads it."""
-        self._fault_point("inject")
         tensors, done = staged
         if done is not None:
             compute = torch.cuda.current_stream(self.device)
             compute.wait_event(done)
             for tensor in tensors:
                 tensor.record_stream(compute)
-        _page_inject_body(self._cache,
-                          self._operand(np.asarray(pages, np.int32)),
-                          *tensors)
+        _page_inject_body(self._cache, self._operand(pages), *tensors)
+
+    # -- the host tier on a serving-mesh worker --------------------------------
+    def _extract_shard(self, pages: np.ndarray, ids: List[int]) -> None:
+        """(worker) ``EXTRACT``: gather this rank's shard of ``pages`` and
+        hand the copy down to this rank's lane, filed under ``ids``."""
+        extracted, ready = self._extract_device(pages)
+        job = self._host_lane.submit(functools.partial(
+            self._materialize_demotion, list(ids), extracted, ready))
+        self._shard_jobs.append((job, list(ids)))
+
+    def _adopt_shard_jobs(self) -> None:
+        """(worker) File this rank's finished demotion copies by entry id
+        (a failed copy files nothing: its ids stay missing)."""
+        still_running = []
+        for job, ids in self._shard_jobs:
+            if not job.done:
+                still_running.append((job, ids))
+                continue
+            if job.error is not None:
+                log.warning("host-kv demotion of entries %s dropped on rank "
+                            "%d: %s", ids, self.mesh.rank, job.error)
+                self._shards_dropped.difference_update(ids)
+                continue
+            for entry_id, page in zip(*job.result):
+                if entry_id in self._shards_dropped:
+                    self._shards_dropped.discard(entry_id)
+                else:
+                    self._host_shards[entry_id] = HostPageEntry(
+                        *page, last_used=0, entry_id=entry_id)
+        self._shard_jobs = still_running
+
+    def _inject_shard(self, pages: np.ndarray, ids: List[int]) -> bool:
+        """(worker) ``INJECT``: wait for this rank's own copy of the
+        entries if it is still in flight (at most the mesh's heartbeat
+        period), then stage and scatter the shards. Returns True, injecting
+        nothing, when a shard is missing: the controller recomputes the
+        pages. The controller waits in the command's closing collective
+        meanwhile, and sends no heartbeat: both run on its pump thread."""
+        pending = [job for job, job_ids in self._shard_jobs
+                   if not job.done and set(job_ids) & set(ids)]
+        for job in pending:
+            job.wait(self.mesh.heartbeat_s)
+        self._adopt_shard_jobs()
+        entries = [self._host_shards.get(entry_id) for entry_id in ids]
+        if any(entry is None for entry in entries):
+            return True
+        self._inject_device(pages, self._stage_promotion(entries))
+        return False
+
+    def _drop_shards(self, ids: List[int]) -> None:
+        """(worker) ``DROP``: forget this rank's shards of ``ids``; a copy
+        still in flight is forgotten when it lands."""
+        in_flight = {entry_id for job, job_ids in self._shard_jobs
+                     for entry_id in job_ids}
+        for entry_id in ids:
+            if self._host_shards.pop(entry_id, None) is None \
+                    and entry_id in in_flight:
+                self._shards_dropped.add(entry_id)
+
+    @property
+    def host_shard_bytes(self) -> int:
+        """(worker) Host bytes of this rank's shards: its share of the
+        pages rank 0's store lists."""
+        return sum(entry.nbytes for entry in self._host_shards.values())
 
     def _spill_page_locked(self, key: bytes, page: int) -> None:
         """PrefixCache eviction hook (under the engine lock, BEFORE the
@@ -1958,10 +2158,12 @@ class SlotEngine:
         """Tick the tier — first thing in step(), before admission: gather
         queued demotions ahead of anything that could overwrite their
         pages, adopt finished copies. Poll and dispatch only; a copy still
-        in flight is picked up on a later tick."""
+        in flight is picked up on a later tick. On a serving mesh the
+        entries the store let go are dropped on every rank last."""
         self._dispatch_demotions()
         self._adopt_demotions()
         self._adopt_promotions()
+        self._flush_host_drops()
 
     def _dispatch_demotions(self) -> None:
         """Drain queued demotions: gather their pages (pump thread, outside
@@ -1971,9 +2173,10 @@ class SlotEngine:
         width = self._pool.max_pages_per_slot
         for start in range(0, len(pending), width):
             group = pending[start:start + width]
+            ids = self._new_entry_ids(len(group))
             try:
                 extracted, ready = self._dispatch_page_extract(
-                    [page for _, page in group])
+                    [page for _, page in group], ids)
             except Exception:
                 # nothing of this group was gathered: it and the rest go
                 # back to the head of the queue, which the next tick
@@ -1981,25 +2184,40 @@ class SlotEngine:
                 with self._lock:
                     self._pending_demotes[:0] = pending[start:]
                 raise
-            self._demote_jobs.append(self._host_lane.submit(
+            self._demote_jobs.append((self._host_lane.submit(
                 functools.partial(self._materialize_demotion,
                                   [key for key, _ in group], extracted,
-                                  ready)))
+                                  ready)), ids))
 
     def _adopt_demotions(self) -> None:
         """Adopt finished copies into the host store (pump thread: the
-        store's single writer)."""
-        still_running: List[LaneJob] = []
-        for job in self._demote_jobs:
+        store's single writer). On a serving mesh an entry is filed with
+        its id and charged the whole page's bytes; the ids of entries that
+        never entered the store (a failed copy, an entry past the budget)
+        and of those it let go are queued for dropping on every rank."""
+        still_running: List[Tuple[LaneJob, Optional[List[int]]]] = []
+        for job, ids in self._demote_jobs:
             if not job.done:
-                still_running.append(job)
+                still_running.append((job, ids))
                 continue
             if job.error is not None:
                 log.warning("host-kv demotion dropped: %s", job.error)
+                if ids is not None:
+                    self._host_drops.extend(ids)
                 continue
             keys, pages = job.result
-            adopted = sum(self._host_store.put(key, *page)
-                          for key, page in zip(keys, pages))
+            if ids is None:
+                adopted = sum(self._host_store.put(key, *page)
+                              for key, page in zip(keys, pages))
+            else:
+                adopted = 0
+                for key, page, entry_id in zip(keys, pages, ids):
+                    if self._host_store.put(key, *page,
+                                            nbytes=self._page_bytes,
+                                            entry_id=entry_id):
+                        adopted += 1
+                    else:
+                        self._host_drops.append(entry_id)
             if adopted:
                 with self._lock:
                     self.host_kv_demotions += adopted
@@ -2036,7 +2254,29 @@ class SlotEngine:
             with self._lock:
                 if self._slots[index] is not state:
                     continue        # cancelled and freed while it copied
-            self._dispatch_page_inject(state.promote_pages, job.result)
+            missing = self._dispatch_page_inject(
+                state.promote_pages, job.result,
+                [entry.entry_id for entry in state.promote_entries]
+                if self.mesh is not None else None)
+            if missing:
+                # a rank lacks a shard of the run: recompute it, as after a
+                # failed copy here, and drop the run's entries on every rank
+                log.warning("host-kv promotion (slot %d): %d rank(s) lack "
+                            "a shard — falling back to recompute", index,
+                            missing)
+                with self._lock:
+                    entries = state.promote_entries
+                    if self._slots[index] is state:
+                        self.host_kv_fallbacks += 1
+                        state.promote_job = None
+                        state.promote_entries = []
+                        state.promote_pages = []
+                        state.promote_boundary = 0
+                        state.host_hit_pages = 0
+                for entry in entries:
+                    self._host_store.discard(entry)
+                _HOST_KV_BYTES_USED.set(self._host_store.bytes_used)
+                continue
             promoted = len(state.promote_pages)
             now = self.clock()
             finish = False
@@ -2240,10 +2480,8 @@ class SlotEngine:
             head[0, :prompt_len - 1] = prompt[:-1]
             started = self.clock()
             try:
+                # the draft lane's mirror rides the same dispatch
                 self._dispatch_prefill(head, slot, prompt_len - 1)
-                if self._spec is not None:
-                    # the same head into the draft lane's K/V
-                    self._spec.prefill(head, slot, prompt_len - 1)
             except Exception:
                 # a failed prefill must not wedge the slot: free it and
                 # requeue the request at the head before re-raising
@@ -2327,11 +2565,8 @@ class SlotEngine:
         head = np.zeros((1, width), np.int32)
         head[0, :length] = prompt[start:start + length]
         started = self.clock()
+        # with the speculative lane, the draft's mirror rides the dispatch
         self._dispatch_chunk_prefill(head, index, start, length)
-        if self._spec is not None:
-            # into the draft lane BEFORE the radix tree adopts the chunk's
-            # pages: a cached page carries both lanes' K/V
-            self._spec.chunk_prefill(head, index, start, length)
         state.prefill_ms += (self.clock() - started) * 1e3
         state.prefill_chunks += 1
         state.prefill_compile = _COMPILE_EVENT
@@ -2414,28 +2649,70 @@ class SlotEngine:
             page_table[~self._active] = TRASH_PAGE
         return window, lens, limits, page_table
 
+    def _run_spec_propose(self, window: np.ndarray, lens: np.ndarray,
+                          limits: np.ndarray,
+                          page_table: Optional[np.ndarray]) -> torch.Tensor:
+        """The draft lane's catch-up and proposals (``[S, k]`` on the
+        device); on a serving mesh every rank runs them (``PROPOSE``)."""
+        positions = self._positions.copy()
+
+        def body():
+            return self._spec.propose(window, lens, positions, limits,
+                                      page_table)
+
+        if self.mesh is None:
+            return body()
+        return self._mesh_command(
+            OP_PROPOSE, (), [window, lens, positions, limits]
+            + ([page_table] if self.paged else []), body)
+
     def _run_spec_verify(self, verify_window: np.ndarray, limits: np.ndarray,
                          page_table: Optional[np.ndarray]):
         """The batched target verify over ``[S, k+1]`` window tokens
         (current token + proposals): ``(greedy [S, k+1], chosen [S])`` on
-        the device."""
+        the device. On a serving mesh every rank runs it (``VERIFY``);
+        only rank 0 samples."""
         self._fault_point("verify")
         self.step_dispatches += 1
-        operands = (self._operand(verify_window),
-                    self._operand(self._positions),
-                    self._operand(self._active), self._operand(self._temps),
+        positions = self._positions.copy()
+
+        def body():
+            return self._verify_device(verify_window, positions,
+                                       self._active, self._temps, limits,
+                                       page_table)
+
+        if self.mesh is None:
+            return body()
+        return self._mesh_command(
+            OP_VERIFY, (), [verify_window, positions, limits]
+            + ([page_table] if self.paged else []), body)
+
+    def _verify_device(self, verify_window: np.ndarray,
+                       positions: np.ndarray, active: Optional[np.ndarray],
+                       temps: Optional[np.ndarray], limits: np.ndarray,
+                       page_table: Optional[np.ndarray]):
+        """The verify's device body; a worker passes no ``active``/``temps``
+        (it does not sample) and gets None for ``chosen``."""
+        if active is None:
+            active = np.zeros(self.capacity, bool)
+            temps = np.zeros(self.capacity, np.float32)
+        operands = (self._operand(verify_window), self._operand(positions),
+                    self._operand(active), self._operand(temps),
                     self._operand(limits))
         if self.paged:
             return _paged_spec_verify_body(
                 self.params, *operands, self._operand(page_table),
-                self._cache, self._generator, self.config, self.top_k)
+                self._cache, self._generator, self.config, self.top_k,
+                self._tp)
         return _spec_verify_body(self.params, *operands, self._cache,
-                                 self._generator, self.config, self.top_k)
+                                 self._generator, self.config, self.top_k,
+                                 self._tp)
 
     def _spec_decode_step(self) -> int:
         """One speculative tick: draft catch-up + k proposals, ONE batched
         verify over all k+1 positions, then longest-matching-prefix
-        acceptance. Greedy slots emit the target's own greedy tokens (the
+        acceptance (on a serving mesh: on rank 0 alone; the next tick's
+        payloads carry what it decided). Greedy slots emit the target's own greedy tokens (the
         matched proposals and the bonus token: what k+1 plain steps would
         emit); sampled slots emit the verify pass's one ``_choose_next``
         token. Rollback is not advancing past the last accepted token:
@@ -2451,8 +2728,8 @@ class SlotEngine:
         # the "step" point covers the propose half of the tick (the verify
         # has its own), outside the lock like every dispatch
         self._fault_point("step")
-        proposals = np.asarray(self._spec.propose(
-            window, lens, self._positions, limits, page_table).cpu())
+        proposals = np.asarray(self._run_spec_propose(
+            window, lens, limits, page_table).cpu())
         verify_window = np.concatenate([self._tokens[:, None], proposals],
                                        axis=1)
         greedy, chosen = self._run_spec_verify(verify_window, limits,
@@ -2687,12 +2964,14 @@ class SlotEngine:
     def release(self) -> None:
         """Drop the device state (weights, KV cache, the draft lane, the
         copy stream and its pinned staging) of an engine that will not run
-        again — what a supervisor calls after failing it fast. Handles that
+        again — what a supervisor calls after failing it fast — and the
+        host tier's payloads, and end its copy lane's thread. Handles that
         clients still hold, and the fault's traceback, keep the engine
-        object alive, but no longer its device memory. Host bookkeeping
-        (stats, the ledger rows) stays readable. The controller of a serving
-        mesh has its workers release their shards too (``RELEASE``), and a
-        rebuilt engine's ``BUILD`` brings them back."""
+        object alive, but no longer its memory. Host bookkeeping (stats'
+        counters, the ledger rows) stays readable. The controller of a
+        serving mesh has its workers release theirs too (``RELEASE``: their
+        draft lanes, staging, shards and lane threads), and a rebuilt
+        engine's ``BUILD`` brings them back."""
         if (self.mesh is not None and self.mesh.is_controller
                 and self.params is not None and not self.mesh.broken
                 and self._mesh_build == self.mesh.builds):
@@ -2703,6 +2982,13 @@ class SlotEngine:
             self._spec = None
             self._copy_stream = None
             self._staging = ()
+            self._host_shards = {}
+            self._shard_jobs = []
+            self._demote_jobs = []
+            if self._host_store is not None:
+                self._host_store.clear()
+        if isinstance(self._host_lane, HostCopyLane):
+            self._host_lane.close()
 
     # -- introspection ----------------------------------------------------
     def _busy_locked(self) -> int:

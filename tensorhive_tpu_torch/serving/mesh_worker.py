@@ -14,7 +14,21 @@ on the controller's commands:
   as the controller, on this rank's shards, with the controller's
   operands (tokens, positions, page-table rows, head tokens, slot, real
   length, chunk offset); the body's tp collectives pair with the
-  controller's;
+  controller's. An engine with the speculative lane runs the lane's
+  prefill mirror right after the target's prefill or chunk, in the same
+  command;
+* the speculative lane's two bodies: ``PROPOSE`` (the draft's catch-up
+  window, its lengths, positions, limits and the page table: the
+  catch-up and the k proposals) and ``VERIFY`` (the verify window,
+  positions, limits and the page table: the batched target pass). Only
+  the controller samples and accepts; a worker computes the same bodies,
+  whose collectives pair with the controller's, and drops their outputs;
+* the host tier's three: ``EXTRACT`` (page ids and the controller's entry
+  ids: gather this rank's shard of the pages and copy it down on the
+  rank's own copy lane), ``INJECT`` (page ids and entry ids: stage this
+  rank's shards of the entries and scatter them into the pages) and
+  ``DROP`` (entry ids the controller's store let go: forget this rank's
+  shards of them). These hold no collective;
 * ``RELEASE`` — drop the shard engine's device state (the controller's
   ``SlotEngine.release``); ``PING`` — nothing (an idle controller's
   heartbeat, inside the process group's timeout); ``STOP`` — leave.
@@ -22,14 +36,19 @@ on the controller's commands:
 A command is a fixed int64 header broadcast from rank 0 on the control
 device (host memory under gloo, the card under NCCL) and, when it carries
 operands, one int32 payload of the length the header names. Engine shapes
-are static, so both sides know every payload's layout. After each command
-but ``STOP`` every rank adds an error flag to one all_reduce, so a worker
-that fails surfaces on the controller at that command as
+are static, so both sides know every payload's layout; entry ids are
+int64, two int32 words each (:func:`ids_to_words`). After each command but
+``STOP`` every rank adds its flags to one all_reduce of two int32 counts
+(:func:`finish_command`): ranks that FAILED the command, and ranks that
+lacked a host shard an ``INJECT`` named (a copy that failed or did not
+land in time: not a fault — the controller recomputes the pages). A
+worker that fails surfaces on the controller at that command as
 :class:`MeshWorkerError`: a worker whose failure leaves the tp collectives
-in step (a build, or any body at tp 1) reports its flag and keeps serving;
-one that failed inside a tp body leaves the loop and the process, which
-closes its connections, so the controller's pending collective fails at
-once instead of waiting out the group's timeout.
+in step (a build, a host-tier command, or any body at tp 1) reports its
+flag and keeps serving; one that failed inside a tp body
+(:data:`TP_BODIES`) leaves the loop and the process, which closes its
+connections, so the controller's pending collective fails at once instead
+of waiting out the group's timeout.
 """
 from __future__ import annotations
 
@@ -47,8 +66,14 @@ log = logging.getLogger(__name__)
 
 OP_STOP, OP_BUILD, OP_RELEASE, OP_PING = 0, 1, 2, 3
 OP_PREFILL, OP_CHUNK, OP_STEP = 4, 5, 6
-#: commands that run a device body
-DISPATCHES = (OP_PREFILL, OP_CHUNK, OP_STEP)
+OP_PROPOSE, OP_VERIFY = 7, 8
+OP_EXTRACT, OP_INJECT, OP_DROP = 9, 10, 11
+#: commands the worker's engine serves (``SlotEngine._serve_dispatch``)
+DISPATCHES = (OP_PREFILL, OP_CHUNK, OP_STEP, OP_PROPOSE, OP_VERIFY,
+              OP_EXTRACT, OP_INJECT, OP_DROP)
+#: dispatches whose body holds tp collectives: a rank that fails one part
+#: way leaves the collectives out of step
+TP_BODIES = (OP_PREFILL, OP_CHUNK, OP_STEP, OP_PROPOSE, OP_VERIFY)
 #: header: op, up to five arguments, payload length, spare
 HEADER_LEN = 8
 
@@ -92,13 +117,26 @@ def recv_command(mesh: ServingMesh) -> Tuple[int, Tuple[int, ...],
     return values[0], tuple(values[1:HEADER_LEN - 2]), payload
 
 
-def finish_command(mesh: ServingMesh, failed: bool) -> int:
-    """Every rank's error flag, summed over the mesh: the number of ranks
-    that failed the command."""
-    flag = torch.tensor([1 if failed else 0], dtype=torch.int32,
-                        device=mesh.control_device)
-    dist.all_reduce(flag)
-    return int(flag.item())
+def ids_to_words(ids: Sequence[int]) -> np.ndarray:
+    """Entry ids (int64) as the int32 words a payload carries: two each."""
+    return np.asarray(ids, np.int64).view(np.int32)
+
+
+def words_to_ids(words: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`ids_to_words`."""
+    return np.ascontiguousarray(words, np.int32).view(np.int64)
+
+
+def finish_command(mesh: ServingMesh, failed: bool,
+                   missing: bool = False) -> Tuple[int, int]:
+    """Every rank's flags, summed over the mesh: ``(failed, missing)``,
+    the number of ranks that failed the command and the number that
+    lacked a host shard it named."""
+    flags = torch.tensor([int(bool(failed)), int(bool(missing))],
+                         dtype=torch.int32, device=mesh.control_device)
+    dist.all_reduce(flags)
+    failed_ranks, missing_ranks = flags.cpu().tolist()
+    return failed_ranks, missing_ranks
 
 
 def stop_workers(mesh: ServingMesh) -> None:
@@ -123,7 +161,8 @@ def serve_worker(mesh: ServingMesh, engine_factory: Callable[[], object],
     carries the commands. ``fault_plan`` is installed on each engine built
     (tests inject a worker's failure so). Raises after a body failed inside
     a tensor-parallel dispatch: the collectives are out of step with the
-    controller's, so the rank leaves."""
+    controller's, so the rank leaves. ``STOP`` releases the engine, which
+    ends its copy lane's thread."""
     if mesh.is_controller:
         raise ValueError("serve_worker runs on ranks 1..n-1; rank 0 is the "
                          "controller and serves through its SlotEngine")
@@ -134,7 +173,7 @@ def serve_worker(mesh: ServingMesh, engine_factory: Callable[[], object],
             if engine is not None:
                 engine.release()
             return
-        failed = False
+        failed = missing = False
         try:
             if op == OP_BUILD:
                 if engine is not None:
@@ -158,13 +197,13 @@ def serve_worker(mesh: ServingMesh, engine_factory: Callable[[], object],
             elif op in DISPATCHES:
                 if engine is None:
                     raise RuntimeError("dispatch before BUILD")
-                engine._serve_dispatch(op, args, payload)
+                missing = bool(engine._serve_dispatch(op, args, payload))
             elif op != OP_PING:
                 raise ValueError(f"unknown serving-mesh command {op}")
         except Exception:
             log.exception("serving-mesh worker rank %d failed command %d",
                           mesh.rank, op)
-            if op in DISPATCHES and engine is not None \
+            if op in TP_BODIES and engine is not None \
                     and engine.mesh.tp > 1:
                 # close this rank's connections now, so the controller's
                 # pending collective fails at once
@@ -173,4 +212,4 @@ def serve_worker(mesh: ServingMesh, engine_factory: Callable[[], object],
                 dist.destroy_process_group()
                 raise
             failed = True
-        finish_command(mesh, failed)
+        finish_command(mesh, failed, missing)

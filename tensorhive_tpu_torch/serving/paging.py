@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import collections
 import threading
+import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -241,19 +242,29 @@ class HostPageEntry:
     d_head]`` plus the per-(page, kv_head) f32 scale rows ``[layers,
     kv_heads]`` that travelled with it. Immutable once stored: a promotion
     reads it, never edits it, so the store can hand one entry to several
-    promote jobs without copying."""
+    promote jobs without copying.
 
-    __slots__ = ("k", "v", "k_scale", "v_scale", "nbytes", "last_used")
+    On a serving mesh the payload is one rank's shard of the page (its KV
+    heads) and ``entry_id`` names the entry on every rank; ``nbytes`` is
+    then what the whole page costs (what the controller's budget counts,
+    as JAX's store holds whole pages), not the shard's bytes. ``key`` is
+    the content key the store filed it under (None until stored)."""
+
+    __slots__ = ("k", "v", "k_scale", "v_scale", "nbytes", "last_used",
+                 "entry_id", "key")
 
     def __init__(self, k: np.ndarray, v: np.ndarray, k_scale: np.ndarray,
-                 v_scale: np.ndarray, last_used: int) -> None:
+                 v_scale: np.ndarray, last_used: int,
+                 nbytes: Optional[int] = None, entry_id: int = 0) -> None:
         self.k = k
         self.v = v
         self.k_scale = k_scale
         self.v_scale = v_scale
         self.nbytes = int(k.nbytes + v.nbytes + k_scale.nbytes
-                          + v_scale.nbytes)
+                          + v_scale.nbytes) if nbytes is None else int(nbytes)
         self.last_used = last_used
+        self.entry_id = int(entry_id)
+        self.key: Optional[bytes] = None
 
 
 class HostPageStore:
@@ -264,7 +275,9 @@ class HostPageStore:
     an entry and LRU-evicts past the budget; ``get`` returns the entry and
     touches its LRU stamp. An entry larger than the whole budget is
     refused. Not locked: the engine touches it only from its pump thread,
-    like :class:`PagePool`."""
+    like :class:`PagePool`. ``on_remove``, when set, is called with every
+    entry that leaves the store (evicted, replaced or discarded): a
+    serving mesh's controller drops the other ranks' shards of it."""
 
     def __init__(self, capacity_bytes: int) -> None:
         if capacity_bytes < 1:
@@ -276,6 +289,7 @@ class HostPageStore:
         self.bytes_used = 0
         #: lifetime pages the budget pushed back out
         self.evictions = 0
+        self.on_remove: Optional[Callable[[HostPageEntry], None]] = None
 
     @property
     def resident_pages(self) -> int:
@@ -285,25 +299,42 @@ class HostPageStore:
         return key in self._entries
 
     def put(self, key: bytes, k: np.ndarray, v: np.ndarray,
-            k_scale: np.ndarray, v_scale: np.ndarray) -> bool:
+            k_scale: np.ndarray, v_scale: np.ndarray,
+            nbytes: Optional[int] = None, entry_id: int = 0) -> bool:
         """Adopt one demoted page; returns False when it can never fit.
         Re-demoting a resident key refreshes its bytes and LRU stamp (the
-        payload is the same by construction: content-keyed)."""
+        payload is the same by construction: content-keyed). ``nbytes`` and
+        ``entry_id`` as in :class:`HostPageEntry`."""
         self._tick += 1
-        entry = HostPageEntry(k, v, k_scale, v_scale, self._tick)
+        entry = HostPageEntry(k, v, k_scale, v_scale, self._tick,
+                              nbytes=nbytes, entry_id=entry_id)
         if entry.nbytes > self.capacity_bytes:
             return False
+        entry.key = key
         old = self._entries.pop(key, None)
         if old is not None:
-            self.bytes_used -= old.nbytes
+            self._removed(old)
         self._entries[key] = entry
         self.bytes_used += entry.nbytes
         while self.bytes_used > self.capacity_bytes:
             victim = min(self._entries,
                          key=lambda k_: self._entries[k_].last_used)
-            self.bytes_used -= self._entries.pop(victim).nbytes
+            self._removed(self._entries.pop(victim))
             self.evictions += 1
         return True
+
+    def discard(self, entry: HostPageEntry) -> bool:
+        """Drop ``entry`` (a serving mesh's promotion that a rank could not
+        serve) if the store still files it; True when it did."""
+        if self._entries.get(entry.key) is not entry:
+            return False
+        self._removed(self._entries.pop(entry.key))
+        return True
+
+    def _removed(self, entry: HostPageEntry) -> None:
+        self.bytes_used -= entry.nbytes
+        if self.on_remove is not None:
+            self.on_remove(entry)
 
     def get(self, key: bytes) -> Optional[HostPageEntry]:
         entry = self._entries.get(key)
@@ -339,6 +370,15 @@ class LaneJob:
             self.error = exc
         self.done = True
 
+    def wait(self, timeout_s: float) -> bool:
+        """Poll ``done`` for up to ``timeout_s``: what a serving-mesh
+        worker does with its own demotion of a page it must promote. The
+        pump thread never calls it."""
+        deadline = time.monotonic() + timeout_s
+        while not self.done and time.monotonic() < deadline:
+            time.sleep(0.0005)
+        return self.done
+
 
 class HostCopyLane:
     """The promote/demote copy lane: one background worker that runs the
@@ -349,19 +389,36 @@ class HostCopyLane:
     it never joins or waits. An ``urgent`` job (a promotion, which a
     request waits on) runs ahead of the queued others (demotions, whose
     pages were gathered already and wait on no one). The worker starts at
-    the first submit and is a daemon. Tests substitute a synchronous or
-    manually released lane through the same ``submit(fn, urgent)``."""
+    the first submit and is a daemon; :meth:`close` ends it (the engine's
+    ``release``). Tests substitute a synchronous or manually released lane
+    through the same ``submit(fn, urgent)``."""
 
     def __init__(self) -> None:
         self._ready = threading.Condition()
         self._urgent: "collections.deque[LaneJob]" = collections.deque()
         self._queued: "collections.deque[LaneJob]" = collections.deque()
         self._worker: Optional[threading.Thread] = None
+        self._closed = False
+
+    def close(self, timeout_s: float = 5.0) -> None:
+        """Drop the queued jobs and end the thread once its current job is
+        done (waited for up to ``timeout_s``). Idempotent; a closed lane
+        takes no more jobs."""
+        with self._ready:
+            self._closed = True
+            self._urgent.clear()
+            self._queued.clear()
+            self._ready.notify_all()
+            worker = self._worker
+        if worker is not None and worker is not threading.current_thread():
+            worker.join(timeout_s)
 
     def submit(self, fn: Callable[[], object],
                urgent: bool = False) -> LaneJob:
         job = LaneJob(fn)
         with self._ready:
+            if self._closed:
+                raise RuntimeError("the host copy lane is closed")
             if self._worker is None:
                 self._worker = threading.Thread(
                     target=self._run, name="host-kv-copy-lane", daemon=True)
@@ -373,8 +430,10 @@ class HostCopyLane:
     def _run(self) -> None:
         while True:
             with self._ready:
-                while not (self._urgent or self._queued):
+                while not (self._urgent or self._queued or self._closed):
                     self._ready.wait()
+                if self._closed:
+                    return
                 job = (self._urgent or self._queued).popleft()
             job.run()
             # the idle thread must not keep the last job's closure (a bound

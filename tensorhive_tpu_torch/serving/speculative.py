@@ -48,6 +48,16 @@ differences in form from the JAX module, none in the tokens or counters:
   the card, its plain version on the CPU, as the port's decode step does
   (JAX's draft step takes the XLA gather there). The catch-up and verify
   windows attend in plain PyTorch (:func:`_window_attend`), as in JAX.
+
+On a serving mesh every body takes the engine's tensor-parallel hooks
+(``tp``, a ``parallel.mesh.TensorParallel``), as the target's step does:
+the vocab-sharded embedding, the row-parallel sums of ``wo`` and the MLP
+down projection, the logits assembled over tp before every greedy argmax
+(so every rank proposes and verifies the same tokens) and, under the GQA
+guard, the attention on every head. The draft holds its own shard by its
+own rules (``parallel.mesh.shard_model``): a self-draft the first blocks of
+the target's shard, a preset draft its slice of the seeded whole; its
+cache holds the rank's KV heads of the draft.
 """
 from __future__ import annotations
 
@@ -69,6 +79,12 @@ from ..models.transformer import (
 from ..ops import kv_quant as kvq
 from ..ops.flash_attention import NEG_INF
 from ..ops.paged_attention import decode_attention, paged_attention
+from ..parallel.mesh import (
+    TensorParallel,
+    kernel_cache_spec,
+    local_shape,
+    shard_model,
+)
 
 
 def resolve_speculative(mode: str, device: torch.device) -> str:
@@ -158,11 +174,14 @@ def _window_attend(q: torch.Tensor, k_ctx: torch.Tensor, v_ctx: torch.Tensor,
 
 
 def _head_logits(params: Params, x: torch.Tensor,
-                 config: TransformerConfig) -> torch.Tensor:
+                 config: TransformerConfig,
+                 tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """Final norm + LM head over a ``[S, W, D]`` trunk output: f32 logits
-    ``[S, W, V]``, the ``_choose_next`` tail widened to a window."""
+    ``[S, W, V]``, the ``_choose_next`` tail widened to a window (the
+    vocab-sharded columns assembled over tp)."""
     x = _rmsnorm(x, params["final_norm"]["scale"])
-    return _lm_head(x, params["w_lm_head"], config.dtype)
+    logits = _lm_head(x, params["w_lm_head"], config.dtype)
+    return logits if tp is None else tp.logits(logits)
 
 
 def drop_page(cache) -> int:
@@ -221,12 +240,15 @@ def _paged_window_write(cache, layer: int, page_tables: torch.Tensor,
 def _paged_draft_step(params: Params, token: torch.Tensor,
                       step_positions: torch.Tensor, limits: torch.Tensor,
                       page_tables: torch.Tensor, cache,
-                      config: TransformerConfig) -> torch.Tensor:
+                      config: TransformerConfig,
+                      tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """One greedy draft step at per-slot positions over the paged draft
     cache: write the token's K/V through the page-table row (positions past
     ``limits`` to the drop page), attend through ``paged_attention`` and
     return the argmax. The engine's ``_paged_step_body`` minus sampling,
     int8 pages included."""
+    from .engine import _embed, _on_heads, _reducers
+
     page_size = cache.k.shape[2]
     max_pages = page_tables.shape[1]
     slot_ids = torch.arange(token.shape[0], device=token.device)
@@ -235,7 +257,7 @@ def _paged_draft_step(params: Params, token: torch.Tensor,
     pages = torch.where(step_positions <= limits, rows, drop_page(cache))
     offsets = safe % page_size
     quant = isinstance(cache, QuantKVCache)
-    x = params["tok_embed"][token.long()][:, None, :]
+    x = _embed(params, token, tp)[:, None, :]
     rope_positions = step_positions[:, None]
 
     def attend(q, k, v, layer):
@@ -247,22 +269,25 @@ def _paged_draft_step(params: Params, token: torch.Tensor,
         else:
             cache.k[layer][pages, offsets] = k[:, 0].to(cache.k.dtype)
             cache.v[layer][pages, offsets] = v[:, 0].to(cache.v.dtype)
-        return paged_attention(
+        return _on_heads(tp, q, lambda q: paged_attention(
             q, cache.k[layer], cache.v[layer], page_tables, step_positions,
             k_scales=cache.k_scale[layer] if quant else None,
-            v_scales=cache.v_scale[layer] if quant else None)
+            v_scales=cache.v_scale[layer] if quant else None))
 
     for layer_index, block in enumerate(params["blocks"]):
         x = TransformerLM.block_forward(x, block, config, rope_positions,
-                                        attend, layer_index=layer_index)
-    return _greedy(_head_logits(params, x, config)[:, 0])
+                                        attend, layer_index=layer_index,
+                                        **_reducers(tp))
+    return _greedy(_head_logits(params, x, config, tp)[:, 0])
 
 
 def _paged_draft_propose_body(params: Params, window_tokens: torch.Tensor,
                               window_lens: torch.Tensor,
                               positions: torch.Tensor, limits: torch.Tensor,
                               page_tables: torch.Tensor, cache,
-                              config: TransformerConfig) -> torch.Tensor:
+                              config: TransformerConfig,
+                              tp: Optional[TensorParallel] = None
+                              ) -> torch.Tensor:
     """Catch the draft lane up on last tick's accepted tokens, then propose
     ``k = W - 1`` greedy continuations per slot: ``[S, k]`` int32.
 
@@ -274,6 +299,8 @@ def _paged_draft_propose_body(params: Params, window_tokens: torch.Tensor,
     is proposal 1. Phase B rolls k - 1 single-token steps through
     ``paged_attention``. Padding and positions past ``limits`` write only
     the drop page (int8 window: nothing)."""
+    from .engine import _embed, _on_heads, _reducers
+
     width = window_tokens.shape[1]
     page_size = cache.k.shape[2]
     window_ctx = page_tables.shape[1] * page_size
@@ -283,21 +310,23 @@ def _paged_draft_propose_body(params: Params, window_tokens: torch.Tensor,
     valid = ((columns[None, :] >= width - window_lens[:, None])
              & (global_positions >= 0)
              & (global_positions <= limits[:, None]))
-    x = params["tok_embed"][window_tokens.long()]
+    x = _embed(params, window_tokens, tp)
 
     def attend(q, k, v, layer):
         ctx_k, ctx_v = _paged_window_write(cache, layer, page_tables, k, v,
                                            safe_pos, valid, config.dtype)
-        return _window_attend(q, ctx_k, ctx_v, safe_pos)
+        return _on_heads(tp, q, lambda q: _window_attend(q, ctx_k, ctx_v,
+                                                         safe_pos))
 
     for layer_index, block in enumerate(params["blocks"]):
         x = TransformerLM.block_forward(x, block, config, safe_pos, attend,
-                                        layer_index=layer_index)
-    token = _greedy(_head_logits(params, x[:, -1:], config)[:, 0])
+                                        layer_index=layer_index,
+                                        **_reducers(tp))
+    token = _greedy(_head_logits(params, x[:, -1:], config, tp)[:, 0])
     proposals = [token]
     for step in range(1, width - 1):
         token = _paged_draft_step(params, token, positions + step, limits,
-                                  page_tables, cache, config)
+                                  page_tables, cache, config, tp)
         proposals.append(token)
     return torch.stack(proposals, dim=1)
 
@@ -333,35 +362,43 @@ def _contiguous_window_write(cache: KVCache, layer: int, k: torch.Tensor,
 
 def _draft_step(params: Params, token: torch.Tensor,
                 step_positions: torch.Tensor, limits: torch.Tensor,
-                cache: KVCache, config: TransformerConfig) -> torch.Tensor:
+                cache: KVCache, config: TransformerConfig,
+                tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """Contiguous twin of :func:`_paged_draft_step`: the write lands at
     ``(slot, position)`` of the slot's own row (past ``limits``: kept as
     it was) and the attend is the plain masked decode attention."""
+    from .engine import _embed, _on_heads, _reducers
+
     max_len = cache.k.shape[2]
     slot_ids = torch.arange(token.shape[0], device=token.device)
     safe = torch.clamp(step_positions, 0, max_len - 1).long()
     writable = step_positions <= limits
-    x = params["tok_embed"][token.long()][:, None, :]
+    x = _embed(params, token, tp)[:, None, :]
     rope_positions = step_positions[:, None]
 
     def attend(q, k, v, layer):
         _row_write(cache, layer, slot_ids, safe, writable, k[:, 0], v[:, 0])
-        return decode_attention(q, cache.k[layer], cache.v[layer],
-                                step_positions[:, None, None, None, None])
+        return _on_heads(tp, q, lambda q: decode_attention(
+            q, cache.k[layer], cache.v[layer],
+            step_positions[:, None, None, None, None]))
 
     for layer_index, block in enumerate(params["blocks"]):
         x = TransformerLM.block_forward(x, block, config, rope_positions,
-                                        attend, layer_index=layer_index)
-    return _greedy(_head_logits(params, x, config)[:, 0])
+                                        attend, layer_index=layer_index,
+                                        **_reducers(tp))
+    return _greedy(_head_logits(params, x, config, tp)[:, 0])
 
 
 def _draft_propose_body(params: Params, window_tokens: torch.Tensor,
                         window_lens: torch.Tensor, positions: torch.Tensor,
                         limits: torch.Tensor, cache: KVCache,
-                        config: TransformerConfig) -> torch.Tensor:
+                        config: TransformerConfig,
+                        tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """Contiguous twin of :func:`_paged_draft_propose_body`: the same
     window and phases, writes into each slot's row, whose post-write state
     is the attend context (no gather)."""
+    from .engine import _embed, _on_heads, _reducers
+
     width = window_tokens.shape[1]
     max_len = cache.k.shape[2]
     global_positions, safe_pos = _window_cells(positions, width,
@@ -370,20 +407,22 @@ def _draft_propose_body(params: Params, window_tokens: torch.Tensor,
     valid = ((columns[None, :] >= width - window_lens[:, None])
              & (global_positions >= 0)
              & (global_positions <= limits[:, None]))
-    x = params["tok_embed"][window_tokens.long()]
+    x = _embed(params, window_tokens, tp)
 
     def attend(q, k, v, layer):
         _contiguous_window_write(cache, layer, k, v, safe_pos, valid)
-        return _window_attend(q, cache.k[layer], cache.v[layer], safe_pos)
+        return _on_heads(tp, q, lambda q: _window_attend(
+            q, cache.k[layer], cache.v[layer], safe_pos))
 
     for layer_index, block in enumerate(params["blocks"]):
         x = TransformerLM.block_forward(x, block, config, safe_pos, attend,
-                                        layer_index=layer_index)
-    token = _greedy(_head_logits(params, x[:, -1:], config)[:, 0])
+                                        layer_index=layer_index,
+                                        **_reducers(tp))
+    token = _greedy(_head_logits(params, x[:, -1:], config, tp)[:, 0])
     proposals = [token]
     for step in range(1, width - 1):
         token = _draft_step(params, token, positions + step, limits, cache,
-                            config)
+                            config, tp)
         proposals.append(token)
     return torch.stack(proposals, dim=1)
 
@@ -394,10 +433,12 @@ def _paged_spec_verify_body(params: Params, window_tokens: torch.Tensor,
                             positions: torch.Tensor, active: torch.Tensor,
                             temps: torch.Tensor, limits: torch.Tensor,
                             page_tables: torch.Tensor, cache,
-                            generator: torch.Generator,
+                            generator: Optional[torch.Generator],
                             config: TransformerConfig,
-                            top_k: Optional[int]
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+                            top_k: Optional[int],
+                            tp: Optional[TensorParallel] = None
+                            ) -> Tuple[torch.Tensor,
+                                       Optional[torch.Tensor]]:
     """Verify all ``k + 1`` window positions in one batched target pass.
 
     ``window_tokens`` [S, W] is LEFT-ALIGNED: column 0 is the slot's
@@ -409,57 +450,63 @@ def _paged_spec_verify_body(params: Params, window_tokens: torch.Tensor,
     column (``greedy[s, j]`` is the token for position ``positions[s] + j
     + 1`` given the true prefix and proposals 1..j, which is what the
     sequential step would emit) and ``_choose_next``'s pick for column 0
-    (greedy or sampled; the sampled slots' one token per tick)."""
-    from .engine import _choose_next
+    (greedy or sampled; the sampled slots' one token per tick). A mesh
+    worker (no ``generator``) gets None for ``chosen``."""
+    from .engine import _choose_next, _embed, _on_heads, _reducers
 
     width = window_tokens.shape[1]
     window_ctx = page_tables.shape[1] * cache.k.shape[2]
     global_positions, safe_pos = _window_cells(positions, width, 0,
                                                window_ctx - 1)
     writable = global_positions <= limits[:, None]
-    x = params["tok_embed"][window_tokens.long()]
+    x = _embed(params, window_tokens, tp)
 
     def attend(q, k, v, layer):
         ctx_k, ctx_v = _paged_window_write(cache, layer, page_tables, k, v,
                                            safe_pos, writable, config.dtype)
-        return _window_attend(q, ctx_k, ctx_v, safe_pos)
+        return _on_heads(tp, q, lambda q: _window_attend(q, ctx_k, ctx_v,
+                                                         safe_pos))
 
     for layer_index, block in enumerate(params["blocks"]):
         x = TransformerLM.block_forward(x, block, config, safe_pos, attend,
-                                        layer_index=layer_index)
+                                        layer_index=layer_index,
+                                        **_reducers(tp))
     chosen = _choose_next(params, x[:, :1], window_tokens[:, 0], active,
-                          temps, generator, config, top_k)
-    return _greedy(_head_logits(params, x, config)), chosen
+                          temps, generator, config, top_k, tp)
+    return _greedy(_head_logits(params, x, config, tp)), chosen
 
 
 def _spec_verify_body(params: Params, window_tokens: torch.Tensor,
                       positions: torch.Tensor, active: torch.Tensor,
                       temps: torch.Tensor, limits: torch.Tensor,
-                      cache: KVCache, generator: torch.Generator,
-                      config: TransformerConfig, top_k: Optional[int]
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      cache: KVCache, generator: Optional[torch.Generator],
+                      config: TransformerConfig, top_k: Optional[int],
+                      tp: Optional[TensorParallel] = None
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Contiguous twin of :func:`_paged_spec_verify_body`: the window's
     K/V go into each slot's row (past ``limits`` — a freed slot's limit is
     -1 — the row keeps its cells) and the attend context is the row."""
-    from .engine import _choose_next
+    from .engine import _choose_next, _embed, _on_heads, _reducers
 
     width = window_tokens.shape[1]
     max_len = cache.k.shape[2]
     global_positions, safe_pos = _window_cells(positions, width, 0,
                                                max_len - 1)
     writable = global_positions <= limits[:, None]
-    x = params["tok_embed"][window_tokens.long()]
+    x = _embed(params, window_tokens, tp)
 
     def attend(q, k, v, layer):
         _contiguous_window_write(cache, layer, k, v, safe_pos, writable)
-        return _window_attend(q, cache.k[layer], cache.v[layer], safe_pos)
+        return _on_heads(tp, q, lambda q: _window_attend(
+            q, cache.k[layer], cache.v[layer], safe_pos))
 
     for layer_index, block in enumerate(params["blocks"]):
         x = TransformerLM.block_forward(x, block, config, safe_pos, attend,
-                                        layer_index=layer_index)
+                                        layer_index=layer_index,
+                                        **_reducers(tp))
     chosen = _choose_next(params, x[:, :1], window_tokens[:, 0], active,
-                          temps, generator, config, top_k)
-    return _greedy(_head_logits(params, x, config)), chosen
+                          temps, generator, config, top_k, tp)
+    return _greedy(_head_logits(params, x, config, tp)), chosen
 
 
 # -- the lane -----------------------------------------------------------------
@@ -468,28 +515,43 @@ class SpeculativeLane:
     """The draft side of the speculative engine: draft params and config,
     the draft KV cache (the target's layout, read through the same page
     tables), the mirrors of the engine's prefills and the per-tick
-    proposals. Only the engine's stepping thread calls it."""
+    proposals. Only the engine's stepping thread calls it (on a serving
+    mesh: the controller's pump, and each worker's command loop)."""
 
     def __init__(self, engine, draft_params: Params,
                  draft_config: TransformerConfig,
                  shares_target: bool) -> None:
         self._engine = engine
-        self.params = draft_params
         self.draft_config = draft_config
         self.shares_target = shares_target
+        #: the draft's tensor-parallel hooks (None without a mesh or at tp
+        #: 1); under a mesh the draft holds its own shard by its own rules
+        self._tp: Optional[TensorParallel] = None
+        self._rules = None
+        if engine.mesh is not None:
+            self._rules, draft_params, self._tp = shard_model(
+                draft_params, draft_config, engine.mesh,
+                sharded=shares_target)
+        self.params = draft_params
         layers, device = draft_config.n_layers, engine.device
         if engine.paged:
-            # one page past the pool: the drop page (drop_page)
+            # one page past the pool (dp trash pages included): the drop
+            # page (drop_page), at the same index on every rank
             shape = (layers, engine._pool.physical_pages + 1,
                      engine.page_size, draft_config.kv_heads,
                      draft_config.d_head)
         else:
             shape = (layers, engine.capacity, engine.max_len,
                      draft_config.kv_heads, draft_config.d_head)
+        if engine.mesh is not None:
+            # this rank's KV heads of the draft, by the draft's own rules
+            # (the pool whole, as the target's)
+            shape = local_shape(shape, kernel_cache_spec(self._rules),
+                                engine.mesh.axis_sizes)
         if engine._quant:
             # int8 pages + scales like the target lane's, behind the same
             # page tables
-            scale_shape = (layers, shape[1], draft_config.kv_heads)
+            scale_shape = (layers, shape[1], shape[3])
             self.cache = QuantKVCache(
                 k=torch.zeros(shape, dtype=torch.int8, device=device),
                 v=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -507,33 +569,36 @@ class SpeculativeLane:
         """Device bytes of the draft KV cache (payload + scales)."""
         return sum(t.numel() * t.element_size() for t in self.cache)
 
-    def prefill(self, head: np.ndarray, slot: int, real_len: int) -> None:
+    def prefill(self, head: np.ndarray, slot: int, real_len: int,
+                row: Optional[np.ndarray]) -> None:
         """Mirror one whole-prompt prefill into the draft lane: the same
-        head and slot row, the draft params, config and cache."""
+        head and slot row (``row``, the slot's page-table row on the paged
+        layout), the draft params, config and cache."""
         from .engine import _paged_prefill_body, _prefill_body
 
         engine = self._engine
         if engine.paged:
             _paged_prefill_body(self.params, engine._operand(head),
-                                self.cache,
-                                engine._operand(engine._pool.page_table[slot]),
-                                int(real_len), self.draft_config)
+                                self.cache, engine._operand(row),
+                                int(real_len), self.draft_config, self._tp)
         else:
             _prefill_body(self.params, engine._operand(head), self.cache,
-                          int(slot), int(real_len), self.draft_config)
+                          int(slot), int(real_len), self.draft_config,
+                          self._tp)
 
-    def chunk_prefill(self, head: np.ndarray, slot: int, start: int,
-                      real_len: int) -> None:
-        """Mirror one prefill chunk into the draft lane — dispatched right
-        after the target's chunk and BEFORE the radix tree adopts its
-        pages, so a cached page carries both lanes' K/V."""
+    def chunk_prefill(self, head: np.ndarray, start: int, real_len: int,
+                      row: np.ndarray) -> None:
+        """Mirror one prefill chunk into the draft lane through the slot's
+        page-table ``row`` — dispatched right after the target's chunk and
+        BEFORE the radix tree adopts its pages, so a cached page carries
+        both lanes' K/V."""
         from .engine import _paged_chunk_prefill_body
 
         engine = self._engine
         _paged_chunk_prefill_body(
             self.params, engine._operand(head), self.cache,
-            engine._operand(engine._pool.page_table[slot]), int(start),
-            int(real_len), self.draft_config)
+            engine._operand(row), int(start), int(real_len),
+            self.draft_config, self._tp)
 
     def propose(self, window: np.ndarray, lens: np.ndarray,
                 positions: np.ndarray, limits: np.ndarray,
@@ -547,6 +612,6 @@ class SpeculativeLane:
         if engine.paged:
             return _paged_draft_propose_body(
                 self.params, *operands, engine._operand(page_table),
-                self.cache, self.draft_config)
+                self.cache, self.draft_config, self._tp)
         return _draft_propose_body(self.params, *operands, self.cache,
-                                   self.draft_config)
+                                   self.draft_config, self._tp)

@@ -2,8 +2,7 @@
 JAX package (the serving daemon and its observability included), its entry
 points — the daemon and the telemetry emitter among them — refuse to run
 without CUDA unless the CPU is asked for by name, a serving mesh without
-its process group and the knobs a mesh cannot serve yet are refused, and
-``auto`` knobs resolve as in JAX."""
+its process group is refused, and ``auto`` knobs resolve as in JAX."""
 import ast
 import dataclasses
 import subprocess
@@ -21,7 +20,6 @@ from tensorhive_tpu_torch.core.services.generation import (
 )
 from tensorhive_tpu_torch.models import decode, encoder
 from tensorhive_tpu_torch.models.transformer import PRESETS, TransformerLM
-from tensorhive_tpu_torch.parallel import ServingMesh
 from tensorhive_tpu_torch.serving.engine import SlotEngine
 from tensorhive_tpu_torch.telemetry import TelemetryEmitter
 
@@ -139,26 +137,6 @@ def test_daemon_refuses_the_serving_mesh(knob, tmp_path):
             GenerationService(config, device="cpu")
     finally:
         torch.distributed.destroy_process_group()
-
-
-@pytest.mark.parametrize("knob,value", [("mesh_dp", 2), ("mesh_tp", 2)])
-def test_unported_knobs_are_refused(knob, value):
-    """What the serving mesh does not serve yet is refused under it: the
-    speculative lane asked for by name and KV tiering (``auto`` resolves
-    the lane off). The refusals come before any collective, so a mesh
-    object without a process group suffices."""
-    mesh = ServingMesh(dp=value if knob == "mesh_dp" else 1,
-                       tp=value if knob == "mesh_tp" else 1, rank=0,
-                       device=torch.device("cpu"), backend="gloo",
-                       tp_group=None)
-    params = TransformerLM.init(TINY, device="cpu")
-    for knobs, match in ((dict(speculative="on"), "speculative='on'"),
-                         (dict(host_kv_bytes=1 << 20), "host_kv_bytes")):
-        with pytest.raises(ValueError, match="not served under a serving "
-                                             "mesh") as info:
-            SlotEngine(params, TINY, slots=2, max_len=64, mesh=mesh,
-                       device="cpu", **knobs)
-        assert match in str(info.value)
 
 
 def test_host_kv_tier_builds_and_serves():
