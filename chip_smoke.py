@@ -179,6 +179,29 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
               multi-card serving. The phase starts with the device memory
               still allocated and, above 1 GiB, the largest live tensors
               and what holds them.
+10. train-mesh — sharded training, every rank a process of its own on
+              this card (this script again, run with --train-rank), over
+              gloo, each single-card reference first: a group of 8 ranks —
+              (a) dp 2 x fsdp 2 x tp 2, t2t-base widths at 2 layers, f32,
+              block remat, b8 x s512 in 2 microbatches, 3 steps: loss and
+              grad norm within TRAIN_REL_TOL of the single card at every
+              step, the params gathered to rank 0 by the per-leaf mean
+              rule, and one MLM encoder step (head-blocked forward, G 4)
+              within TRAIN_REL_TOL — and a group of 4 ranks: (b) fsdp 2 x
+              tp 2, t2t-base b64 x s1024, remat off, bf16 on f32 masters,
+              5 steps on one batch whose loss must fall, the step-1 loss
+              no further from an f32 evaluation of the same weights than
+              twice the single card's bf16 loss is, each rank's bytes of
+              params, mu and nu exactly its specs' share, then a checkpoint
+              written there and restored at dp 2 x fsdp 2 into
+              abstract_train_state templates, bitwise, whose next step's
+              loss is the continuous run's within the same bound; (c) 7b
+              widths at 4 layers (GQA 32/8), fsdp 2 x tp 2, b4 x s2048,
+              remat "mlp", 4 steps whose loss must fall, bytes exact. On
+              every rank K1 (K3 for the encoder) and K4-K7 launch exactly
+              layers x microbatches x steps (twice for the forward under
+              "block" remat) at the rank's local head counts. Step times
+              over gloo are printed as such, with each rank's peak memory.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``; any failure exits non-zero without
@@ -3689,9 +3712,10 @@ def mesh_lane_single_bytes(engine):
     return 2 * cells * torch.empty((), dtype=draft.dtype).element_size()
 
 
-def mesh_group(world: int, rundir: Path):
-    """Run one group of ``world`` ranks (this script, --mesh-rank r) to its
-    end under a timeout; returns every rank's report."""
+def mesh_group(world: int, rundir: Path, kind: str = "mesh"):
+    """Run one group of ``world`` ranks (this script, --mesh-rank r, or
+    --train-rank r for the training mesh's ``kind`` "train") to its end
+    under a timeout; returns every rank's report."""
     import os
     import shutil
 
@@ -3702,11 +3726,12 @@ def mesh_group(world: int, rundir: Path):
         env = dict(os.environ, LOCAL_RANK=str(rank))
         log_file = open(rundir / f"rank{rank}.log", "w")
         processes.append((subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
-             str(rank), "--mesh-world", str(world), "--mesh-dir",
+            [sys.executable, str(Path(__file__).resolve()), f"--{kind}-rank",
+             str(rank), f"--{kind}-world", str(world), f"--{kind}-dir",
              str(rundir)], stdout=log_file, stderr=subprocess.STDOUT,
             env=env, cwd=str(REPO)), log_file))
-    deadline = time.monotonic() + MESH_TIMEOUT_S[world]
+    deadline = time.monotonic() + (MESH_TIMEOUT_S if kind == "mesh"
+                                   else TRAIN_MESH_TIMEOUT_S)[world]
     failed = []
     for rank, (process, log_file) in enumerate(processes):
         try:
@@ -3724,7 +3749,7 @@ def mesh_group(world: int, rundir: Path):
         for rank in range(world):
             tail = (rundir / f"rank{rank}.log").read_text()[-3000:]
             log(f"  --- rank {rank} log tail ---\n{tail}")
-        raise PhaseFailure(f"mesh group of {world} ranks: "
+        raise PhaseFailure(f"{kind} group of {world} ranks: "
                            + "; ".join(failed))
     return [json.loads((rundir / f"rank{rank}.json").read_text())
             for rank in range(world)]
@@ -3968,6 +3993,501 @@ def phase_mesh(card):
     return launches
 
 
+# -- phase 10 -----------------------------------------------------------------
+#
+# Sharded training: every rank a process of its own on this card (this
+# script again, with --train-rank), over gloo, as in phase 9: its
+# collectives on CUDA tensors stage through host memory, so the step times
+# below measure that staging, not multi-card training. The parent runs the
+# single-card references first and releases them; ranks report through JSON
+# files in a run directory (and (a)'s rank 0 its gathered params through a
+# torch.save file).
+
+TRAIN_MESH_TIMEOUT_S = {8: 420, 4: 900}
+TRAIN_STEP_LABEL = ("step ms over gloo on one card (collectives staged "
+                    "through host memory; no measure of multi-card "
+                    "training)")
+#: per group size: the sections its ranks run, in order, and the meshes
+#: (dp, fsdp, tp) every rank builds up front
+TRAIN_MESH_GROUPS = {8: (("a",), ((2, 2, 2),)),
+                     4: (("b", "c"), ((1, 2, 2), (2, 2, 1)))}
+
+
+def train_parity_setup():
+    """(a)'s runs: the LM at t2t-base widths, 2 layers, f32, "block"
+    remat, b8 x s512 in 2 microbatches, 3 steps; the MLM encoder at the
+    same widths with the head-blocked forward (G 4), one step. Batches come
+    from CPU generators, so every process draws the same ones."""
+    import dataclasses
+
+    import torch
+
+    from tensorhive_tpu_torch import train
+    from tensorhive_tpu_torch.models import encoder
+    from tensorhive_tpu_torch.models.transformer import PRESETS
+
+    lm = dataclasses.replace(PRESETS["t2t-base"], n_layers=2,
+                             dtype=torch.float32, remat=True,
+                             remat_policy="block")
+    tc = train.TrainConfig(batch_size=8, seq_len=512, warmup_steps=1,
+                           total_steps=10, learning_rate=1e-3,
+                           grad_accum_steps=2)
+    tokens = train.synthetic_batch(torch.Generator().manual_seed(12), tc,
+                                   lm.vocab_size, device="cpu")
+    enc = dataclasses.replace(encoder.ENCODER_PRESETS["t2t-base"],
+                              n_layers=2, dtype=torch.float32, remat=False,
+                              flash_bh_block=4)
+    enc_tc = train.TrainConfig(batch_size=8, seq_len=512, warmup_steps=1,
+                               total_steps=10)
+    raw = train.synthetic_batch(torch.Generator().manual_seed(14), enc_tc,
+                                enc.vocab_size - 1, device="cpu")[:, :-1]
+    packed = encoder.pack_mlm_batch(torch.Generator().manual_seed(15), raw,
+                                    enc)
+    return lm, tc, tokens, enc, enc_tc, packed
+
+
+def train_big_setup(section, device="cuda"):
+    """(b) t2t-base at full width and depth, b64 x s1024, remat off; (c)
+    7b widths at 4 layers (GQA 32/8), b4 x s2048, remat "mlp" — bf16
+    compute on f32 masters, one fixed batch from a seeded generator on the
+    card."""
+    import dataclasses
+
+    import torch
+
+    from tensorhive_tpu_torch import train
+    from tensorhive_tpu_torch.models.transformer import PRESETS
+
+    if section == "b":
+        config = dataclasses.replace(PRESETS["t2t-base"], remat=False)
+        tc = train.TrainConfig(batch_size=64, seq_len=1024, warmup_steps=2,
+                               total_steps=100)
+    else:
+        config = dataclasses.replace(PRESETS["7b"], n_layers=4, remat=True,
+                                     remat_policy="mlp")
+        tc = train.TrainConfig(batch_size=4, seq_len=2048, warmup_steps=2,
+                               total_steps=100)
+    tokens = train.synthetic_batch(
+        torch.Generator(device=device).manual_seed(21), tc,
+        config.vocab_size, device=device)
+    return config, tc, tokens
+
+
+def rank_rows(tokens, mesh):
+    """A rank's rows of a global batch, on its device."""
+    rows = tokens.shape[0] // mesh.data_size
+    return tokens[mesh.data_rank * rows:(mesh.data_rank + 1) * rows].to(
+        mesh.device)
+
+
+def timed_train_steps(step, params, opt_state, tokens, steps):
+    """``steps`` steps, each timed to its end: (metrics per step, ms per
+    step)."""
+    import torch
+
+    metrics, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        params, opt_state, out = step(params, opt_state, tokens)
+        metrics.append({key: float(value) for key, value in out.items()})
+        times.append((time.perf_counter() - started) * 1e3)
+    return metrics, times
+
+
+def train_state_bytes(params, opt_state, config, mesh):
+    """(bytes this rank holds of the params, mu and nu; the bytes their
+    specs give it)."""
+    import torch
+
+    from tensorhive_tpu_torch import train
+    from tensorhive_tpu_torch.models.transformer import TransformerLM
+    from tensorhive_tpu_torch.parallel.mesh import share_bytes
+
+    held = sum(leaf.numel() * leaf.element_size()
+               for tree in (params, opt_state["mu"], opt_state["nu"])
+               for leaf in train.tree_leaves(tree))
+    whole = TransformerLM.init(config, device="meta",
+                               param_dtype=torch.float32)
+    return held, 3 * share_bytes(whole, mesh)
+
+
+def train_section_a(meshes, rundir, rank):
+    import torch
+
+    from tensorhive_tpu_torch import train
+    from tensorhive_tpu_torch.models import encoder
+    from tensorhive_tpu_torch.parallel.train_parallel import (
+        assemble_train_tree,
+    )
+
+    mesh = meshes[(2, 2, 2)]
+    lm, tc, tokens, enc, enc_tc, packed = train_parity_setup()
+    params, opt_state = train.init_train_state(
+        lm, tc, torch.Generator(device=mesh.device).manual_seed(11),
+        mesh=mesh)
+    step = train.make_train_step(lm, tc, mesh)
+    mesh_reset_launches()
+    metrics, times = timed_train_steps(step, params, opt_state,
+                                       rank_rows(tokens, mesh), 3)
+    out = {"lm": metrics, "lm_ms": times, "lm_launches": mesh_launch_heads()}
+    whole = assemble_train_tree(params, mesh)
+    if rank == 0:
+        torch.save(train.tree_map(lambda t: t.cpu(), whole),
+                   Path(rundir) / "a_params.pt")
+    del whole, params, opt_state
+    params, opt_state = train.init_train_state(
+        enc, enc_tc, torch.Generator(device=mesh.device).manual_seed(13),
+        mesh=mesh)
+    step = train.make_train_step(enc, enc_tc, mesh,
+                                 loss_fn=encoder.mlm_loss_packed)
+    mesh_reset_launches()
+    out["mlm"], out["mlm_ms"] = timed_train_steps(
+        step, params, opt_state, rank_rows(packed, mesh), 1)
+    out["mlm_launches"] = mesh_launch_heads()
+    return out
+
+
+def train_section_b(meshes, rundir, rank):
+    import torch
+
+    from tensorhive_tpu_torch import train
+    from tensorhive_tpu_torch.parallel.train_parallel import (
+        assemble_train_leaf,
+    )
+
+    mesh_a, mesh_b = meshes[(1, 2, 2)], meshes[(2, 2, 1)]
+    config, tc, tokens = train_big_setup("b", mesh_a.device)
+    params, opt_state = train.init_train_state(
+        config, tc, torch.Generator(device=mesh_a.device).manual_seed(0),
+        mesh=mesh_a)
+    out = {"bytes": train_state_bytes(params, opt_state, config, mesh_a)}
+    step = train.make_train_step(config, tc, mesh_a)
+    mesh_reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out["metrics"], out["ms"] = timed_train_steps(
+        step, params, opt_state, rank_rows(tokens, mesh_a), 5)
+    out["launches"] = mesh_launch_heads()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    path = str(Path(rundir) / "checkpoint")
+    started = time.perf_counter()
+    train.save_checkpoint(path, 5, params, opt_state, mesh=mesh_a)
+    out["save_s"] = time.perf_counter() - started
+    started = time.perf_counter()
+    restored_step, params_b, opt_b = train.restore_checkpoint(
+        path, *train.abstract_train_state(config, tc, mesh_b), mesh=mesh_b)
+    out["restore_s"] = time.perf_counter() - started
+    out["restored_step"] = restored_step
+    out["restored_bytes"] = train_state_bytes(params_b, opt_b, config,
+                                              mesh_b)
+    bitwise = opt_b["count"] == opt_state["count"]
+    for tree_a, tree_b in ((params, params_b), (opt_state["mu"], opt_b["mu"]),
+                           (opt_state["nu"], opt_b["nu"])):
+        for name, leaf_a, leaf_b in zip(train.leaf_names(tree_a),
+                                        train.tree_leaves(tree_a),
+                                        train.tree_leaves(tree_b)):
+            bitwise &= torch.equal(assemble_train_leaf(leaf_a, name, mesh_a),
+                                   assemble_train_leaf(leaf_b, name, mesh_b))
+    out["bitwise"] = bool(bitwise)
+    out["next_a"] = timed_train_steps(step, params, opt_state,
+                                      rank_rows(tokens, mesh_a), 1)[0][0]
+    out["next_b"] = timed_train_steps(
+        train.make_train_step(config, tc, mesh_b), params_b, opt_b,
+        rank_rows(tokens, mesh_b), 1)[0][0]
+    return out
+
+
+def train_section_c(meshes, rundir, rank):
+    import torch
+
+    from tensorhive_tpu_torch import train
+
+    mesh = meshes[(1, 2, 2)]
+    config, tc, tokens = train_big_setup("c", mesh.device)
+    params, opt_state = train.init_train_state(
+        config, tc, torch.Generator(device=mesh.device).manual_seed(0),
+        mesh=mesh)
+    out = {"bytes": train_state_bytes(params, opt_state, config, mesh)}
+    step = train.make_train_step(config, tc, mesh)
+    mesh_reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out["metrics"], out["ms"] = timed_train_steps(
+        step, params, opt_state, rank_rows(tokens, mesh), 4)
+    out["launches"] = mesh_launch_heads()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+TRAIN_SECTIONS = {"a": train_section_a, "b": train_section_b,
+                  "c": train_section_c}
+
+
+def train_rank_main(rank: int, world: int, rundir: str) -> int:
+    """One rank of a training-mesh group (this script run with
+    --train-rank): build the group's meshes, run its sections and write
+    what it saw to ``rank<r>.json``."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from tensorhive_tpu_torch.parallel.mesh import train_mesh
+
+    sections, shapes = TRAIN_MESH_GROUPS[world]
+    # the group's ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("gloo", init_method=f"file://{rundir}/store",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    meshes = {shape: train_mesh(*shape) for shape in shapes}
+    out = {"rank": rank, "sections": {}}
+    for name in sections:
+        out["sections"][name] = TRAIN_SECTIONS[name](meshes, rundir, rank)
+        release_device_memory()
+    out["device_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    (Path(rundir) / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def train_references(device="cuda"):
+    """The single-card runs the ranks are held to: (a) the LM's 3 steps
+    and params, the encoder's step; (b) the step-1 loss in bf16 and an f32
+    evaluation of the same weights on the same batch."""
+    import dataclasses
+
+    import torch
+
+    from tensorhive_tpu_torch import train
+    from tensorhive_tpu_torch.models import encoder
+    from tensorhive_tpu_torch.models.transformer import TransformerLM
+
+    lm, tc, tokens, enc, enc_tc, packed = train_parity_setup()
+    params, opt_state = train.init_train_state(
+        lm, tc, torch.Generator(device=device).manual_seed(11), device)
+    out = {}
+    out["lm"], out["lm_ms"] = timed_train_steps(
+        train.make_train_step(lm, tc), params, opt_state, tokens.to(device),
+        3)
+    out["lm_params"] = train.tree_map(lambda t: t.cpu(), params)
+    out["lm_lr_sum"] = sum(train.make_optimizer(tc).learning_rate(index)
+                           for index in range(3))
+    params, opt_state = train.init_train_state(
+        enc, enc_tc, torch.Generator(device=device).manual_seed(13), device)
+    out["mlm"], out["mlm_ms"] = timed_train_steps(
+        train.make_train_step(enc, enc_tc, loss_fn=encoder.mlm_loss_packed),
+        params, opt_state, packed.to(device), 1)
+    del params, opt_state
+    config, tc, tokens = train_big_setup("b", device)
+    params, _ = train.init_train_state(
+        config, tc, torch.Generator(device=device).manual_seed(0), device)
+    with torch.no_grad():
+        out["b_bf16"] = TransformerLM.loss(params, tokens, config).item()
+        out["b_f32"] = TransformerLM.loss(
+            params, tokens, dataclasses.replace(config,
+                                                dtype=torch.float32)).item()
+    del params
+    release_device_memory()
+    return out
+
+
+def expected_train_launches(config, steps, micro, variant, heads,
+                            kv_heads):
+    """A rank's flash launches of ``steps`` steps of ``micro``
+    microbatches at its local head counts: forward = layers x micro x
+    steps (twice under "block" remat; the head-blocked counter when the
+    config asks for G > 1), backward the same without the rerun."""
+    runs = config.n_layers * micro * steps
+    reruns = 2 if config.remat and config.remat_policy == "block" else 1
+    forward = f"bh_{variant}" if config.flash_bh_block > 1 else variant
+    return {f"flash|{forward}|{heads}|{kv_heads}": runs * reruns,
+            f"flash|bwd_{variant}|{heads}|{kv_heads}": runs}
+
+
+def check_train_ranks(label, reports, section, key, launches_key,
+                      expected):
+    """Every rank's ``key`` metrics of ``section`` equal rank 0's (each is
+    the global value) and its launches are exactly ``expected``; returns
+    rank 0's metrics."""
+    first = reports[0]["sections"][section][key]
+    for report in reports:
+        ours = report["sections"][section]
+        require(ours[key] == first,
+                f"{label}: rank {report['rank']} metrics {ours[key]} differ "
+                f"from rank 0's {first}")
+        require(ours[launches_key] == expected,
+                f"{label}: rank {report['rank']} launches "
+                f"{ours[launches_key]}, expected {expected}")
+    return first
+
+
+def relative(a, b):
+    return abs(a - b) / abs(b)
+
+
+def median(values):
+    return sorted(values)[len(values) // 2]
+
+
+def phase_train_mesh(card):
+    """Sharded training on this card, groups of 8 and 4 ranks over gloo:
+    (a) f32 parity at dp 2 x fsdp 2 x tp 2 (LM with 2 microbatches, 3
+    steps; the MLM encoder's step) against the single card; (b) t2t-base
+    b64 x s1024 at fsdp 2 x tp 2, 5 steps, bf16 on f32 masters, then a
+    checkpoint restored at dp 2 x fsdp 2; (c) 7b widths at 4 layers, GQA
+    32/8, fsdp 2 x tp 2, 4 steps. Returns the launches per kernel name
+    summed over ranks."""
+    import torch
+
+    from tensorhive_tpu_torch import train
+    from tensorhive_tpu_torch.models.transformer import TransformerLM
+
+    started = time.perf_counter()
+    release_device_memory()
+    refs = train_references()
+    log(f"  single-card references {time.perf_counter() - started:.1f} s")
+    reports = {}
+    for world in TRAIN_MESH_GROUPS:
+        group_started = time.perf_counter()
+        reports[world] = mesh_group(world, REPO / "build" / "train_mesh_smoke"
+                                    / f"world{world}", kind="train")
+        log(f"  group of {world} ranks: "
+            f"{time.perf_counter() - group_started:.1f} s")
+    launches = {}
+
+    def count(expected, world):
+        for key, value in expected.items():
+            variant = key.split("|")[1]
+            name = ("flash_bwd_" + variant[4:] if variant.startswith("bwd_")
+                    else "flash_fwd_" + variant)
+            launches[name] = launches.get(name, 0) + value * world
+
+    # (a) f32 parity
+    lm, tc, _, enc, _, _ = train_parity_setup()
+    label = "train-mesh (a) dp2 x fsdp2 x tp2, t2t-base widths, 2 layers, f32"
+    expected = expected_train_launches(lm, 3, 2, "f32", 4, 4)
+    ours = check_train_ranks(label, reports[8], "a", "lm", "lm_launches",
+                             expected)
+    count(expected, 8)
+    worst = 0.0
+    for index, (got, want) in enumerate(zip(ours, refs["lm"])):
+        for key in ("loss", "grad_norm"):
+            err = relative(got[key], want[key])
+            worst = max(worst, err)
+            require(math.isfinite(got[key]) and err <= TRAIN_REL_TOL,
+                    f"{label} step {index + 1}: {key} {got[key]} vs the "
+                    f"single card's {want[key]} (rel {err:.2e})")
+    gathered = torch.load(REPO / "build" / "train_mesh_smoke" / "world8"
+                          / "a_params.pt", weights_only=True)
+    mean_diff = max(
+        (got - want).abs().mean().item() for got, want in zip(
+            train.tree_leaves(gathered),
+            train.tree_leaves(refs["lm_params"])))
+    require(mean_diff <= 1e-3 * refs["lm_lr_sum"],
+            f"{label}: params differ (worst leaf mean {mean_diff}, summed "
+            f"lr {refs['lm_lr_sum']})")
+    log(f"{label}: b8 x s512, 2 microbatches, block remat, 3 steps: loss "
+        f"{ours[-1]['loss']:.6f} vs {refs['lm'][-1]['loss']:.6f}; max rel "
+        f"err of loss/grad_norm {worst:.2e} (tolerance {TRAIN_REL_TOL}); "
+        f"params gathered to rank 0: worst leaf mean |diff| {mean_diff:.2e} "
+        f"(summed lr {refs['lm_lr_sum']:.1e}); launches per rank {expected}")
+    expected = expected_train_launches(enc, 1, 1, "f32", 4, 4)
+    mlm = check_train_ranks(label + ", MLM", reports[8], "a", "mlm",
+                            "mlm_launches", expected)[0]
+    count(expected, 8)
+    for key in ("loss", "grad_norm"):
+        err = relative(mlm[key], refs["mlm"][0][key])
+        require(err <= TRAIN_REL_TOL, f"{label}, MLM: {key} {mlm[key]} vs "
+                f"{refs['mlm'][0][key]} (rel {err:.2e})")
+    log(f"  MLM encoder (G 4): loss {mlm['loss']:.6f} vs the single card's "
+        f"{refs['mlm'][0]['loss']:.6f}, grad norm {mlm['grad_norm']:.6f} vs "
+        f"{refs['mlm'][0]['grad_norm']:.6f}; launches per rank {expected}")
+    a_ms = reports[8][0]["sections"]["a"]["lm_ms"]
+    log(f"  {TRAIN_STEP_LABEL}: rank 0 {[round(t, 1) for t in a_ms]}, "
+        f"single card {[round(t, 1) for t in refs['lm_ms']]}; peak memory "
+        + ", ".join(f"{r['device_peak_gb']:.2f}" for r in reports[8])
+        + " GB")
+
+    # (b) t2t-base, fsdp 2 x tp 2, and the checkpoint across mesh shapes
+    config, _, _ = train_big_setup("b")
+    label = "train-mesh (b) fsdp2 x tp2, t2t-base b64 x s1024, bf16"
+    expected = expected_train_launches(config, 5, 1, "bf16",
+                                       config.n_heads // 2,
+                                       config.kv_heads // 2)
+    metrics = check_train_ranks(label, reports[4], "b", "metrics",
+                                "launches", expected)
+    count(expected, 4)
+    losses = falling(label, [torch.tensor(m["loss"]) for m in metrics])
+    single_err = abs(refs["b_bf16"] - refs["b_f32"])
+    mesh_err = abs(metrics[0]["loss"] - refs["b_f32"])
+    log(f"{label}: 5 steps on one batch, loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}; step-1 loss {metrics[0]['loss']:.6f}, single "
+        f"card bf16 {refs['b_bf16']:.6f}, f32 evaluation "
+        f"{refs['b_f32']:.6f}: |mesh - f32| {mesh_err:.3e}, |single - f32| "
+        f"{single_err:.3e}; launches per rank {expected}")
+    require(mesh_err <= 2 * single_err,
+            f"{label}: step-1 loss {mesh_err:.3e} from f32, past twice the "
+            f"single card's {single_err:.3e}")
+    for report in reports[4]:
+        b = report["sections"]["b"]
+        held, want = b["bytes"]
+        require(held == want, f"{label}: rank {report['rank']} holds "
+                f"{held} B of params/mu/nu, its specs give {want}")
+        require(b["restored_step"] == 5 and b["bitwise"]
+                and b["restored_bytes"][0] == b["restored_bytes"][1],
+                f"{label}: rank {report['rank']}: restore at dp2 x fsdp2 "
+                f"not bitwise or not at its spec's bytes: {b['bitwise']}, "
+                f"{b['restored_bytes']}")
+        gap = abs(b["next_b"]["loss"] - b["next_a"]["loss"])
+        require(gap <= 2 * single_err,
+                f"{label}: step 6 after the restore {b['next_b']['loss']} vs "
+                f"the continuous run's {b['next_a']['loss']}")
+    b0 = reports[4][0]["sections"]["b"]
+    log(f"  per rank: {b0['bytes'][0] / 1e9:.4f} GB of params/mu/nu (spec "
+        f"share exactly); peak memory "
+        + ", ".join(f"{r['sections']['b']['peak_gb']:.2f}"
+                    for r in reports[4]) + " GB")
+    log(f"  checkpoint at fsdp2 x tp2, saved in {b0['save_s']:.2f} s, "
+        f"restored at dp2 x fsdp2 into abstract templates in "
+        f"{b0['restore_s']:.2f} s, bitwise on every rank; step 6 loss "
+        f"{b0['next_b']['loss']:.6f} restored vs {b0['next_a']['loss']:.6f} "
+        f"continuous")
+    log(f"  {TRAIN_STEP_LABEL}: median {median(b0['ms'][1:]):.1f} "
+        f"(steps {[round(t, 1) for t in b0['ms']]})")
+
+    # (c) 7b widths at 4 layers
+    config, _, _ = train_big_setup("c")
+    label = "train-mesh (c) fsdp2 x tp2, 7b widths 4 layers, b4 x s2048, bf16"
+    expected = expected_train_launches(config, 4, 1, "bf16",
+                                       config.n_heads // 2,
+                                       config.kv_heads // 2)
+    metrics = check_train_ranks(label, reports[4], "c", "metrics",
+                                "launches", expected)
+    count(expected, 4)
+    losses = falling(label, [torch.tensor(m["loss"]) for m in metrics])
+    whole = TransformerLM.init(config, device="meta",
+                               param_dtype=torch.float32)
+    n_params = sum(leaf.numel() for leaf in train.tree_leaves(whole))
+    for report in reports[4]:
+        held, want = report["sections"]["c"]["bytes"]
+        require(held == want, f"{label}: rank {report['rank']} holds "
+                f"{held} B of params/mu/nu, its specs give {want}")
+    c0 = reports[4][0]["sections"]["c"]
+    log(f"{label}: {n_params / 1e6:.1f} M params, {16 * n_params / 1e9:.2f} "
+        f"GB of params, grads, mu and nu whole; 4 steps, loss "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}; per rank "
+        f"{c0['bytes'][0] / 1e9:.4f} GB of params/mu/nu (spec share "
+        f"exactly); peak memory "
+        + ", ".join(f"{r['sections']['c']['peak_gb']:.2f}"
+                    for r in reports[4])
+        + f" GB; launches per rank {expected}")
+    log(f"  {TRAIN_STEP_LABEL}: median {median(c0['ms'][1:]):.1f} "
+        f"(steps {[round(t, 1) for t in c0['ms']]})")
+    log(f"  train-mesh phase {time.perf_counter() - started:.1f} s ({card})")
+    return launches
+
+
 def memory_census(label, top=4, depth=6):
     """Where leftover device memory lives: when more than 1 GiB is still
     allocated, log the largest live CUDA tensors (by storage) and, for
@@ -4111,6 +4631,12 @@ def main() -> int:
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
         return mesh_rank_main(int(args["--mesh-rank"]),
                               int(args["--mesh-world"]), args["--mesh-dir"])
+    if "--train-rank" in sys.argv:
+        # a rank of the training mesh's group (run by phase_train_mesh)
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        return train_rank_main(int(args["--train-rank"]),
+                               int(args["--train-world"]),
+                               args["--train-dir"])
     started = time.perf_counter()
     phase = "device"
 
@@ -4147,6 +4673,9 @@ def main() -> int:
         phase = "mesh"
         log("== mesh")
         mesh_launches = phase_mesh(card)
+        phase = "train-mesh"
+        log("== train-mesh")
+        train_mesh_launches = phase_train_mesh(card)
     except Exception:                       # every phase failure is fatal
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} FAILED", file=sys.stderr)
@@ -4154,7 +4683,8 @@ def main() -> int:
     log(f"total {time.perf_counter() - started:.1f} s")
     launches = dict(training["launches"])
     for name, count in (list(families["launches"].items())
-                        + list(mesh_launches.items())):
+                        + list(mesh_launches.items())
+                        + list(train_mesh_launches.items())):
         launches[name] = launches.get(name, 0) + count
     print(json.dumps({"kernels": kernel_report(kernels, runs, launches)}))
     print(json.dumps({"ok": True, "device": {

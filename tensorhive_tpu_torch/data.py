@@ -25,7 +25,7 @@ import glob as globlib
 import queue
 import threading
 from pathlib import Path
-from typing import Iterator, List, Optional, Tuple
+from typing import Any, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -140,18 +140,31 @@ class TokenDataset:
 
 def prefetch_to_device(dataset: TokenDataset, start_step: int,
                        num_steps: int, device: DeviceLike = None,
-                       buffer_size: int = 2) -> Iterator[torch.Tensor]:
+                       buffer_size: int = 2,
+                       mesh: Any = None) -> Iterator[torch.Tensor]:
     """Iterate [B, L+1] int32 batches on ``device`` (``None`` = CUDA) for
     steps [start_step, start_step + num_steps), read and copied
     ``buffer_size`` batches ahead of the consumer on a background thread.
     Under ``torch.distributed`` each process gets its own rows
-    (``host_batch_at``). An exception in the producer is raised in the
-    consumer; a consumer that stops early (``close()`` or garbage
-    collection of the generator) stops the producer."""
+    (``host_batch_at``); on a training ``mesh`` each rank reads the rows
+    of its data shard (``mesh.data_rank`` of ``mesh.data_size``), so every
+    tp rank of a shard reads the same rows (by the process rank and world
+    alone, tp ranks would read different ones). An exception in the
+    producer is raised in the consumer; a consumer that stops early
+    (``close()`` or garbage collection of the generator) stops the
+    producer."""
     device = resolve_device(device)
     todo: queue.Queue = queue.Queue(maxsize=buffer_size)
     stop = threading.Event()
     multihost = _process_layout()[1] > 1
+
+    def host_rows(step: int) -> np.ndarray:
+        if mesh is not None:
+            return dataset.host_batch_at(step, mesh.data_rank,
+                                         mesh.data_size)
+        return (dataset.host_batch_at(step) if multihost
+                else dataset.batch_at(step))
+
     copy_stream = (torch.cuda.Stream(device=device)
                    if device.type == "cuda" else None)
 
@@ -183,9 +196,7 @@ def prefetch_to_device(dataset: TokenDataset, start_step: int,
             for step in range(start_step, start_step + num_steps):
                 if stop.is_set():
                     return
-                host = (dataset.host_batch_at(step) if multihost
-                        else dataset.batch_at(step))
-                if not enqueue(to_device(host)):
+                if not enqueue(to_device(host_rows(step))):
                     return
             enqueue(None)
         except BaseException as exc:  # surfaces in the consumer, not lost

@@ -30,6 +30,7 @@ from .transformer import (
     _loss_chunk,
     _lse_minus_target,
 )
+from ..parallel.train_parallel import TrainParallel
 
 #: encoder presets mirror the LM geometries with bidirectional attention;
 #: the top vocab id is reserved as the [MASK] token (``mask_token_id``)
@@ -75,10 +76,23 @@ def mlm_loss(params: Params, inputs: torch.Tensor, targets: torch.Tensor,
     """Cross entropy over the selected positions only, mean per selected
     token (f32). ``inputs``/``targets`` [B, L] int, ``mask`` [B, L] bool.
     Chunks the head and loss past the LM loss's threshold
-    (``_loss_chunk``), with the mask as the per-token weight."""
-    if mesh is not None:
-        raise ValueError("mlm_loss: mesh is not yet ported")
+    (``_loss_chunk``), with the mask as the per-token weight. On a training
+    ``mesh`` the arguments are this rank's rows and shard: the mask count
+    is summed over the data ranks before the division, so the loss is the
+    global one on every rank."""
     n_tokens = targets.shape[0] * targets.shape[1]
+    if mesh is not None:
+        par = TrainParallel(mesh)
+        with torch.no_grad():
+            count = torch.clamp(par.data_sum(mask.sum().to(torch.float32)),
+                                min=1)
+        x = TransformerLM.apply_trunk(params, inputs, config, mesh=mesh)
+        total = _chunked_ce(
+            x.reshape(n_tokens, -1), targets.reshape(n_tokens),
+            params["w_lm_head"], config.dtype,
+            _loss_chunk(n_tokens, config, targets.device, mesh.tp),
+            weights_flat=mask.reshape(n_tokens), par=par)
+        return par.data_sum(total) / count
     count = torch.clamp(mask.sum(), min=1)
     chunk = _loss_chunk(n_tokens, config, targets.device)
     if chunk:

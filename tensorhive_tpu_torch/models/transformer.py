@@ -26,8 +26,14 @@ per-token weights, which the MLM loss of ``models/encoder`` passes), the
 ("block" checkpoints whole blocks, "mlp" only the MLP half) through
 ``torch.utils.checkpoint``, and ``train_flops_per_token``. Serving under a
 tensor-parallel mesh runs the block functions on a rank's weight shard,
-with ``reduce`` hooks for the row-parallel sums (``parallel/mesh.py``);
-sharded training and the pipeline are not ported yet.
+with ``reduce`` hooks for the row-parallel sums (``parallel/mesh.py``).
+Training under a ``dp x fsdp x tp`` mesh (``apply_trunk``/``apply``/
+``loss`` with ``mesh``) adds the ``gather`` hook (each leaf's fsdp blocks
+assembled inside the function that reads it) and the ``copy`` hook (the
+tp sum of the input's gradient), and takes the vocab-parallel embedding
+and cross entropy of ``parallel/train_parallel.py``; each rank runs the
+flash kernels at its local head counts. The pipeline and ring attention
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..ops.flash_attention import flash_attention
+from ..parallel.train_parallel import TrainParallel
 
 Params = Dict[str, Any]
 
@@ -124,13 +131,16 @@ def _chunk_threshold_bytes(device: torch.device) -> int:
 
 
 def _loss_chunk(n_tokens: int, config: "TransformerConfig",
-                device: torch.device) -> int:
+                device: torch.device, vocab_shards: int = 1) -> int:
     """Token-chunk size of the chunked CE path, or 0 for the full-logits
     path. The chunk shrinks to a divisor of ``n_tokens`` (gcd) so awkward
-    batches still chunk."""
+    batches still chunk. Under a mesh ``n_tokens`` is the rank's and the
+    vocab is cut in ``vocab_shards`` (tp): the rank's logits shard is what
+    is held against the threshold, as JAX does."""
     if not config.loss_chunk_tokens:
         return 0
-    if n_tokens * config.vocab_size * 4 <= _chunk_threshold_bytes(device):
+    if (n_tokens * config.vocab_size * 4 // vocab_shards
+            <= _chunk_threshold_bytes(device)):
         return 0
     return math.gcd(n_tokens, config.loss_chunk_tokens)
 
@@ -183,21 +193,34 @@ def _lm_head(x: torch.Tensor, w_head: torch.Tensor,
 def _chunked_ce(x_flat: torch.Tensor, targets_flat: torch.Tensor,
                 w_head: torch.Tensor, dtype: torch.dtype,
                 chunk_tokens: int,
-                weights_flat: Optional[torch.Tensor] = None) -> torch.Tensor:
+                weights_flat: Optional[torch.Tensor] = None,
+                par: Optional[TrainParallel] = None) -> torch.Tensor:
     """Sum of weight * (logsumexp - target logit) over all tokens, one
     token chunk at a time (``weights_flat`` None = unweighted; the MLM loss
     passes its mask). Each chunk runs under ``torch.utils.checkpoint``, so
     the backward recomputes its logits instead of keeping them: peak memory
-    is one [chunk, vocab] f32 buffer either way."""
+    is one [chunk, vocab] f32 buffer either way.
+
+    On a training mesh (``par``) the sum is over this rank's tokens, from
+    its vocab columns of the head through the vocab-parallel CE (the whole
+    logits are never assembled), and ``chunk_tokens`` 0 takes all of them
+    at once."""
     if weights_flat is None:
         weights_flat = torch.ones(x_flat.shape[0], dtype=torch.float32,
                                   device=x_flat.device)
     weights_flat = weights_flat.to(torch.float32)
+    if par is not None:
+        x_flat = par.copy(x_flat)
+        w_head = par.gather(w_head, "w_lm_head")
 
     def one_chunk(x_blk, t_blk, w_blk):
         logits = _lm_head(x_blk, w_head, dtype)
-        return torch.sum(_lse_minus_target(logits, t_blk) * w_blk)
+        per_token = (_lse_minus_target(logits, t_blk) if par is None
+                     else par.cross_entropy(logits, t_blk))
+        return torch.sum(per_token * w_blk)
 
+    if not chunk_tokens:
+        return one_chunk(x_flat, targets_flat, weights_flat)
     sums = [checkpoint(one_chunk, x_blk, t_blk, w_blk, use_reentrant=False)
             for x_blk, t_blk, w_blk in zip(x_flat.split(chunk_tokens),
                                            targets_flat.split(chunk_tokens),
@@ -208,6 +231,14 @@ def _chunked_ce(x_flat: torch.Tensor, targets_flat: torch.Tensor,
 Attend = Callable[..., torch.Tensor]
 #: a row-parallel partial sum -> the sum over the tensor-parallel ranks
 Reduce = Callable[[torch.Tensor], torch.Tensor]
+#: a training mesh's ``gather(shard, leaf name)`` -> the whole leaf; and
+#: its ``copy``, the identity whose backward sums over the tp ranks
+Gather = Callable[[torch.Tensor, str], torch.Tensor]
+Copy = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _as_is(leaf: torch.Tensor, name: str) -> torch.Tensor:
+    return leaf
 
 
 class TransformerLM(nn.Module):
@@ -238,7 +269,9 @@ class TransformerLM(nn.Module):
     def init(config: TransformerConfig,
              generator: Optional[torch.Generator] = None,
              device: DeviceLike = None,
-             param_dtype: Optional[torch.dtype] = None) -> Params:
+             param_dtype: Optional[torch.dtype] = None,
+             shard: Optional[Callable[[torch.Tensor, str], torch.Tensor]]
+             = None) -> Params:
         """Random params with the JAX init's distributions
         (``transformer.py:229-257``): embedding N(0, 0.02²), dense weights
         N(0, 1/fan_in), norm scales 1. The draws come from ``generator``
@@ -246,44 +279,49 @@ class TransformerLM(nn.Module):
         parity tests carry JAX-made weights across with ``convert``.
         Matmul weights and the embedding are stored in ``param_dtype``
         (default ``config.dtype``; training passes f32 masters). On the
-        ``meta`` device the tree has shapes and dtypes and no values."""
+        ``meta`` device the tree has shapes and dtypes and no values.
+        ``shard(leaf, name)`` (a training mesh's block of a leaf) is applied
+        to each leaf as it is drawn, so the whole tree is never held: the
+        draws stay the same, whatever the mesh."""
         device = resolve_device(device)
         if generator is None and device.type != "meta":
             generator = torch.Generator(device=device).manual_seed(0)
         dtype = config.dtype if param_dtype is None else param_dtype
 
-        def normal(std: float, *shape: int) -> torch.Tensor:
+        keep = shard or _as_is
+
+        def normal(std: float, name: str, *shape: int) -> torch.Tensor:
             values = torch.randn(shape, generator=generator, device=device,
                                  dtype=torch.float32)
-            return (values * std).to(dtype)
+            return keep((values * std).to(dtype), name)
 
-        def dense(fan_in: int, *shape: int) -> torch.Tensor:
-            return normal(1.0 / math.sqrt(fan_in), *shape)
+        def dense(fan_in: int, name: str, *shape: int) -> torch.Tensor:
+            return normal(1.0 / math.sqrt(fan_in), name, *shape)
 
         def ones(size: int) -> Dict[str, torch.Tensor]:
-            return {"scale": torch.ones(size, dtype=torch.float32,
-                                        device=device)}
+            return {"scale": keep(torch.ones(size, dtype=torch.float32,
+                                             device=device), "scale")}
 
         d, h, dh, f = (config.d_model, config.n_heads, config.d_head,
                        config.d_ff)
         kv = config.kv_heads
         params: Params = {
-            "tok_embed": normal(0.02, config.vocab_size, d),
+            "tok_embed": normal(0.02, "tok_embed", config.vocab_size, d),
             "final_norm": ones(d),
-            "w_lm_head": dense(d, d, config.vocab_size),
+            "w_lm_head": dense(d, "w_lm_head", d, config.vocab_size),
             "blocks": [],
         }
         for _ in range(config.n_layers):
             params["blocks"].append({
                 "attn_norm": ones(d),
                 "mlp_norm": ones(d),
-                "wq": dense(d, d, h * dh),
-                "wk": dense(d, d, kv * dh),
-                "wv": dense(d, d, kv * dh),
-                "wo": dense(h * dh, h * dh, d),
-                "w_in": dense(d, d, f),
-                "w_gate": dense(d, d, f),
-                "w_out": dense(f, f, d),
+                "wq": dense(d, "wq", d, h * dh),
+                "wk": dense(d, "wk", d, kv * dh),
+                "wv": dense(d, "wv", d, kv * dh),
+                "wo": dense(h * dh, "wo", h * dh, d),
+                "w_in": dense(d, "w_in", d, f),
+                "w_gate": dense(d, "w_gate", d, f),
+                "w_out": dense(f, "w_out", f, d),
             })
         return params
 
@@ -302,41 +340,57 @@ class TransformerLM(nn.Module):
     def block_attn_half(x, block, config: TransformerConfig, positions,
                         attend: Attend,
                         layer_index: Optional[int] = None,
-                        reduce: Optional[Reduce] = None) -> torch.Tensor:
+                        reduce: Optional[Reduce] = None,
+                        copy: Optional[Copy] = None,
+                        gather: Optional[Gather] = None) -> torch.Tensor:
         """Pre-norm QKV + rope + ``attend`` + output projection, residual
         added. ``attend(q, k, v)`` — or ``attend(q, k, v, layer_index)``
         when the caller passes ``layer_index`` (cache-writing strategies).
         Head counts come from the weights, so a tensor-parallel rank's
         shard (``wq``/``wk``/``wv`` columns of its heads) runs its local
         heads; ``reduce`` then sums its row-parallel ``attn @ wo`` over the
-        ranks before the residual add."""
+        ranks before the residual add. In training on a mesh ``gather``
+        assembles each leaf's fsdp blocks and ``copy`` stands before the
+        column-parallel products."""
         dtype = config.dtype
-        h = _rmsnorm(x, block["attn_norm"]["scale"])
+        gather = gather or _as_is
+        h = _rmsnorm(x, gather(block["attn_norm"]["scale"], "scale"))
+        if copy is not None:
+            h = copy(h)
         b, length, _ = h.shape
         d_head = config.d_head
         heads = block["wq"].shape[-1] // d_head
         kv_heads = block["wk"].shape[-1] // d_head
-        q = (h @ block["wq"].to(dtype)).reshape(b, length, heads, d_head)
-        k = (h @ block["wk"].to(dtype)).reshape(b, length, kv_heads, d_head)
-        v = (h @ block["wv"].to(dtype)).reshape(b, length, kv_heads, d_head)
+        q = (h @ gather(block["wq"], "wq").to(dtype)
+             ).reshape(b, length, heads, d_head)
+        k = (h @ gather(block["wk"], "wk").to(dtype)
+             ).reshape(b, length, kv_heads, d_head)
+        v = (h @ gather(block["wv"], "wv").to(dtype)
+             ).reshape(b, length, kv_heads, d_head)
         q = _rope(q, positions, config.rope_theta)
         k = _rope(k, positions, config.rope_theta)
         attn = (attend(q, k, v) if layer_index is None
                 else attend(q, k, v, layer_index))
         attn = attn.reshape(b, length, heads * d_head)
-        out = attn @ block["wo"].to(dtype)
+        out = attn @ gather(block["wo"], "wo").to(dtype)
         return x + (out if reduce is None else reduce(out))
 
     @staticmethod
     def block_mlp_half(x, block, config: TransformerConfig,
-                       reduce: Optional[Reduce] = None) -> torch.Tensor:
+                       reduce: Optional[Reduce] = None,
+                       copy: Optional[Copy] = None,
+                       gather: Optional[Gather] = None) -> torch.Tensor:
         """SwiGLU MLP half of a block, residual added; ``reduce`` sums a
-        tensor-parallel rank's row-parallel ``gated @ w_out``."""
+        tensor-parallel rank's row-parallel ``gated @ w_out`` (``copy``
+        and ``gather`` as in ``block_attn_half``)."""
         dtype = config.dtype
-        h = _rmsnorm(x, block["mlp_norm"]["scale"])
-        gated = (F.silu(h @ block["w_gate"].to(dtype))
-                 * (h @ block["w_in"].to(dtype)))
-        out = gated @ block["w_out"].to(dtype)
+        gather = gather or _as_is
+        h = _rmsnorm(x, gather(block["mlp_norm"]["scale"], "scale"))
+        if copy is not None:
+            h = copy(h)
+        gated = (F.silu(h @ gather(block["w_gate"], "w_gate").to(dtype))
+                 * (h @ gather(block["w_in"], "w_in").to(dtype)))
+        out = gated @ gather(block["w_out"], "w_out").to(dtype)
         return x + (out if reduce is None else reduce(out))
 
     @staticmethod
@@ -344,22 +398,31 @@ class TransformerLM(nn.Module):
                       attend: Attend,
                       layer_index: Optional[int] = None,
                       reduce_attn: Optional[Reduce] = None,
-                      reduce_mlp: Optional[Reduce] = None) -> torch.Tensor:
+                      reduce_mlp: Optional[Reduce] = None,
+                      copy: Optional[Copy] = None,
+                      gather: Optional[Gather] = None) -> torch.Tensor:
         """One block — the single copy of the block math that prefill,
         decode and ``apply`` share, each with its own ``attend``."""
         x = TransformerLM.block_attn_half(x, block, config, positions, attend,
                                           layer_index=layer_index,
-                                          reduce=reduce_attn)
+                                          reduce=reduce_attn, copy=copy,
+                                          gather=gather)
         return TransformerLM.block_mlp_half(x, block, config,
-                                            reduce=reduce_mlp)
+                                            reduce=reduce_mlp, copy=copy,
+                                            gather=gather)
 
     @staticmethod
     def apply_trunk(params: Params, tokens: torch.Tensor,
                     config: TransformerConfig,
-                    positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    positions: Optional[torch.Tensor] = None,
+                    mesh: Any = None) -> torch.Tensor:
         """Everything before the LM head: normed activations
         [B, L, d_model] in ``config.dtype``. Under autograd with
-        ``config.remat`` the blocks are checkpointed by ``remat_policy``."""
+        ``config.remat`` the blocks are checkpointed by ``remat_policy``.
+        On a training ``mesh`` (``parallel.mesh.train_mesh``) ``params``
+        is this rank's shard and ``tokens`` its rows: the blocks gather
+        each leaf inside their (checkpointed) function, so a recomputed
+        block gathers again rather than keeping whole weights alive."""
         if config.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
                              f"got {config.remat_policy!r}")
@@ -367,7 +430,16 @@ class TransformerLM(nn.Module):
             positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                      device=tokens.device
                                      ).expand(tokens.shape)
-        x = params["tok_embed"].to(config.dtype)[tokens.long()]
+        # the mesh's hooks of the block functions (none on one device)
+        reduce: Optional[Reduce] = None
+        copy: Optional[Copy] = None
+        gather: Gather = _as_is
+        if mesh is None:
+            x = params["tok_embed"].to(config.dtype)[tokens.long()]
+        else:
+            par = TrainParallel(mesh)
+            reduce, copy, gather = par.reduce, par.copy, par.gather
+            x = par.embed(params["tok_embed"], tokens, config.dtype)
 
         def attend(q, k, v):
             # GQA is native in the kernel (KV head h // group, no expanded
@@ -376,8 +448,9 @@ class TransformerLM(nn.Module):
                                    bh_block=config.flash_bh_block)
 
         def plain_block(x, block):
-            return TransformerLM.block_forward(x, block, config, positions,
-                                               attend)
+            return TransformerLM.block_forward(
+                x, block, config, positions, attend, reduce_attn=reduce,
+                reduce_mlp=reduce, copy=copy, gather=gather)
 
         def remat_block(x, block):
             return checkpoint(plain_block, x, block, use_reentrant=False)
@@ -385,9 +458,11 @@ class TransformerLM(nn.Module):
         def remat_mlp(x, block):
             # the attention half's activations, the flash O/LSE residuals
             # included, stay saved: the backward re-runs only the MLP half
-            x = TransformerLM.block_attn_half(x, block, config, positions,
-                                              attend)
+            x = TransformerLM.block_attn_half(
+                x, block, config, positions, attend, reduce=reduce,
+                copy=copy, gather=gather)
             return checkpoint(TransformerLM.block_mlp_half, x, block, config,
+                              reduce=reduce, copy=copy, gather=gather,
                               use_reentrant=False)
 
         block_fn = plain_block
@@ -396,25 +471,32 @@ class TransformerLM(nn.Module):
                         else remat_block)
         for block in params["blocks"]:
             x = block_fn(x, block)
-        return _rmsnorm(x, params["final_norm"]["scale"])
+        return _rmsnorm(x, gather(params["final_norm"]["scale"], "scale"))
 
     @staticmethod
     def apply(params: Params, tokens: torch.Tensor,
               config: TransformerConfig,
-              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Logits [B, L, vocab] in f32."""
+              positions: Optional[torch.Tensor] = None,
+              mesh: Any = None) -> torch.Tensor:
+        """Logits [B, L, vocab] in f32 (on a training ``mesh``: of this
+        rank's rows, assembled over tp)."""
         x = TransformerLM.apply_trunk(params, tokens, config,
-                                      positions=positions)
-        return _lm_head(x, params["w_lm_head"], config.dtype)
+                                      positions=positions, mesh=mesh)
+        if mesh is None:
+            return _lm_head(x, params["w_lm_head"], config.dtype)
+        par = TrainParallel(mesh)
+        return par.logits(_lm_head(par.copy(x), par.gather(
+            params["w_lm_head"], "w_lm_head"), config.dtype))
 
     # -- loss ---------------------------------------------------------------
     @staticmethod
     def loss(params: Params, tokens: torch.Tensor, config: TransformerConfig,
              mesh: Any = None) -> torch.Tensor:
         """Next-token cross entropy, mean over tokens (f32). ``tokens`` is
-        [B, L+1]: inputs and shifted targets."""
-        if mesh is not None:
-            raise ValueError("TransformerLM.loss: mesh is not yet ported")
+        [B, L+1]: inputs and shifted targets. On a training ``mesh``
+        ``params`` is this rank's shard and ``tokens`` its rows of the
+        global batch; the loss is the global mean, the same on every
+        rank."""
         if not config.causal:
             # bidirectional attention lets position p see token p+1, its
             # own target: the next-token loss would train a copy-through
@@ -423,6 +505,15 @@ class TransformerLM(nn.Module):
                 "config is a bidirectional encoder (causal=False)")
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         n_tokens = targets.shape[0] * targets.shape[1]
+        if mesh is not None:
+            par = TrainParallel(mesh)
+            x = TransformerLM.apply_trunk(params, inputs, config, mesh=mesh)
+            total = _chunked_ce(
+                x.reshape(n_tokens, -1), targets.reshape(n_tokens),
+                params["w_lm_head"], config.dtype,
+                _loss_chunk(n_tokens, config, tokens.device, mesh.tp),
+                par=par)
+            return par.data_sum(total) / (n_tokens * mesh.data_size)
         chunk = _loss_chunk(n_tokens, config, tokens.device)
         if chunk:
             x = TransformerLM.apply_trunk(params, inputs, config)

@@ -45,9 +45,15 @@ NEG_INF = -1e30
 #: forward, "bwd_bf16"/"bwd_f32" the backward
 launches: Dict[str, int] = {"bf16": 0, "f32": 0, "bh_bf16": 0, "bh_f32": 0,
                             "bwd_bf16": 0, "bwd_f32": 0}
-#: the per-head forward's launches by (input type, heads, kv_heads): the
-#: head counts a serving-mesh rank launches at
+#: launches by (counter of ``launches``, heads, kv_heads): the head counts
+#: a mesh rank launches at
 launch_heads: Dict[Tuple[str, int, int], int] = {}
+
+
+def _count(key: str, heads: int, kv_heads: int) -> None:
+    launches[key] += 1
+    heads_key = (key, heads, kv_heads)
+    launch_heads[heads_key] = launch_heads.get(heads_key, 0) + 1
 
 #: the JAX package's per-operand VMEM budget of its resident kernels, kept
 #: here only so that ``fwd_bh_block`` picks the G that JAX picks
@@ -202,16 +208,14 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.data_ptr(), batch, seq, heads, d, int(causal), float(scale),
             g, stream)
         cuda_build.check(status, "flash_fwd_bh")
-        launches[f"bh_{variant}"] += 1
+        _count(f"bh_{variant}", heads, kv_heads)
         return out, lse
     status = _library().thp_flash_fwd(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), batch, seq, heads, kv_heads, d, int(causal),
         float(scale), stream)
     cuda_build.check(status, "flash_fwd")
-    launches[variant] += 1
-    key = (variant, heads, kv_heads)
-    launch_heads[key] = launch_heads.get(key, 0) + 1
+    _count(variant, heads, kv_heads)
     return out, lse
 
 
@@ -397,5 +401,5 @@ def flash_attention_backward(
         dv.data_ptr(), batch, seq, heads, k.shape[2], d, int(causal),
         float(scale), stream)
     cuda_build.check(status, "flash_bwd")
-    launches[f"bwd_{variant}"] += 1
+    _count(f"bwd_{variant}", heads, k.shape[2])
     return dq, dk, dv

@@ -1,18 +1,22 @@
-"""Parallelism layer of the port: the serving mesh over
-``torch.distributed`` (``mesh.py``), the counterpart of the serving half of
-``tensorhive_tpu/parallel/``. Ring attention, the pipeline and sharded
-training are not ported yet."""
+"""Parallelism layer of the port, the counterpart of
+``tensorhive_tpu/parallel/`` over ``torch.distributed``: the serving mesh
+and the ``dp x fsdp x tp`` training mesh (``mesh.py``) and the training
+collectives (``train_parallel.py``). Ring attention (sp) and the pipeline
+(pp) are not ported yet."""
 from .mesh import (
     DEFAULT_RULES,
     MeshRules,
     ServingMesh,
     TensorParallel,
+    TrainMesh,
     best_mesh_shape,
     serving_mesh,
     serving_rules,
     shard_serving_params,
+    shard_train_params,
     tp_all_reduce,
     tp_assemble,
+    train_mesh,
 )
 
 __all__ = [
@@ -20,10 +24,13 @@ __all__ = [
     "MeshRules",
     "ServingMesh",
     "TensorParallel",
+    "TrainMesh",
     "best_mesh_shape",
     "serving_mesh",
     "serving_rules",
     "shard_serving_params",
+    "shard_train_params",
     "tp_all_reduce",
     "tp_assemble",
+    "train_mesh",
 ]

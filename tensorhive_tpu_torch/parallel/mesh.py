@@ -1,4 +1,4 @@
-"""Serving mesh of the port — the PyTorch counterpart of the serving half of
+"""Serving and training meshes of the port — the PyTorch counterpart of
 ``tensorhive_tpu/parallel/mesh.py``, over ``torch.distributed``.
 
 The JAX package shards a serving engine with one controller and GSPMD: a
@@ -27,10 +27,17 @@ gloo (every rank on one card, or the CPU) and NCCL (a card per rank):
 :func:`tp_all_reduce` sums in f32 and :func:`tp_assemble` scatters each
 rank's block into a zero-filled buffer that the sum fills. Both are the
 identity at tp 1.
+
+The training mesh (:func:`train_mesh`, ``dp x fsdp x tp``) lays ranks out
+the same way over JAX's training axes: :func:`shard_train_params` keeps
+each rank's block of every leaf by ``DEFAULT_RULES`` (``embed`` over fsdp,
+the rest over tp, no GQA guard), and ``train_parallel.py`` holds its
+collectives.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Any, Dict, Optional, Tuple
 
@@ -220,6 +227,16 @@ class ServingMesh:
         return self.device if self.backend == "nccl" else torch.device("cpu")
 
 
+def _rank_device(device: DeviceLike) -> torch.device:
+    """A rank's device: ``None`` means ``cuda:{LOCAL_RANK % device_count}``
+    (and raises without CUDA); the CPU only when asked for by name."""
+    if device is not None:
+        return resolve_device(device)
+    resolve_device(None)
+    local_rank = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    return torch.device("cuda", local_rank % torch.cuda.device_count())
+
+
 #: meshes already built in this process, per (process group, dp, tp,
 #: device): building a mesh creates its tp process groups, a collective
 #: call every rank must make in the same order, so a rebuilt engine reuses
@@ -252,13 +269,7 @@ def serving_mesh(dp: int = 1, tp: int = 1,
         raise ValueError(
             f"serving mesh dp={dp} x tp={tp} needs {dp * tp} ranks, the "
             f"process group has {world}")
-    if device is None:
-        resolved = resolve_device(None)
-        local_rank = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
-        resolved = torch.device("cuda",
-                                local_rank % torch.cuda.device_count())
-    else:
-        resolved = resolve_device(device)
+    resolved = _rank_device(device)
     key = (id(dist.group.WORLD), dp, tp, str(resolved))
     mesh = _MESHES.get(key)
     if mesh is not None:
@@ -280,6 +291,30 @@ def serving_mesh(dp: int = 1, tp: int = 1,
 
 
 # -- parameters ---------------------------------------------------------------
+
+def map_named(fn, tree):
+    """``fn(leaf, name)`` over a param tree, keeping its structure; a
+    leaf's name is its last dict key (``"wq"``, ``"scale"``)."""
+    def walk(node, name=None):
+        if isinstance(node, dict):
+            return {key: walk(value, key) for key, value in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(item, name) for item in node]
+        return fn(node, name)
+
+    return walk(tree)
+
+
+def named_leaves(tree, name=None):
+    """(name, leaf) pairs of a param tree, names as in ``map_named``, in
+    the order of ``train.tree_leaves`` (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [pair for key in sorted(tree)
+                for pair in named_leaves(tree[key], key)]
+    if isinstance(tree, (list, tuple)):
+        return [pair for item in tree for pair in named_leaves(item, name)]
+    return [(name, tree)]
+
 
 def shard_serving_params(params, rules: MeshRules, tp_rank: int, tp: int):
     """This rank's shard of a transformer param tree: each leaf named in
@@ -304,14 +339,7 @@ def shard_serving_params(params, rules: MeshRules, tp_rank: int, tp: int):
             out = out.narrow(axis, tp_rank * block, block)
         return out if out is leaf else out.clone()
 
-    def walk(node, name=None):
-        if isinstance(node, dict):
-            return {key: walk(value, key) for key, value in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [walk(item, name) for item in node]
-        return shard(node, name)
-
-    return walk(params)
+    return map_named(shard, params)
 
 
 # -- collectives --------------------------------------------------------------
@@ -419,3 +447,265 @@ def shard_model(params, config, mesh: ServingMesh, sharded: bool = False
         params = shard_serving_params(params, rules, mesh.tp_rank, mesh.tp)
     tp = TensorParallel(mesh, rules, config) if mesh.tp > 1 else None
     return rules, params, tp
+
+
+# -- the training mesh --------------------------------------------------------
+#
+# JAX trains under a 5-axis mesh ("pp", "dp", "fsdp", "tp", "sp"; its
+# ``make_mesh``) with params and Adam moments laid out by ``tree_shardings``
+# under ``DEFAULT_RULES``. The port runs one process per rank of a
+# ``dp x fsdp x tp`` mesh (sp and pp are A11b and A11c): rank ``r`` is JAX's
+# device ``r`` of that layout, at ``(dp_rank, fsdp_rank, tp_rank) = (r //
+# (fsdp tp), (r // tp) % fsdp, r % tp)``, and holds the contiguous block of
+# every leaf that JAX's sharding puts on that device.
+
+#: the axes of JAX's ``make_mesh``, outermost first
+AXES = ("pp", "dp", "fsdp", "tp", "sp")
+_UNPORTED_AXES = {"sp": "sequence parallelism (ring attention) is ROADMAP "
+                        "A11b",
+                  "pp": "the pipeline is ROADMAP A11c"}
+
+
+def mesh_sizes(n_devices: int, **sizes: int) -> Dict[str, int]:
+    """JAX's ``make_mesh`` rule for the axis sizes of ``n_devices``: at
+    most one axis may be -1 and takes what the others leave; the product
+    must equal ``n_devices``."""
+    sizes = {axis: int(sizes.get(axis, 1)) for axis in AXES}
+    unknown = [axis for axis, size in sizes.items() if size == -1]
+    known = math.prod(size for size in sizes.values() if size != -1)
+    if len(unknown) > 1:
+        raise ValueError("at most one mesh axis may be -1")
+    if any(size < 1 and size != -1 for size in sizes.values()):
+        raise ValueError(f"mesh axes must be >= 1 or -1, got {sizes}")
+    if unknown:
+        if n_devices % known:
+            raise ValueError(f"cannot infer {unknown[0]}: {n_devices} ranks "
+                             f"not divisible by {known}")
+        sizes[unknown[0]] = n_devices // known
+    if math.prod(sizes.values()) != n_devices:
+        raise ValueError(f"mesh {sizes} needs {math.prod(sizes.values())} "
+                         f"ranks, the process group has {n_devices}")
+    return sizes
+
+
+def _refuse_unported_axes(sizes: Dict[str, int]) -> None:
+    for axis, item in _UNPORTED_AXES.items():
+        if sizes.get(axis, 1) not in (1, -1):
+            raise ValueError(f"{axis}={sizes[axis]}: {item}, not ported "
+                             "yet; the training mesh runs sp = pp = 1")
+
+
+class TrainMesh:
+    """One rank's view of a ``dp x fsdp x tp`` training mesh: its
+    coordinates, the device it computes on and three process groups, each
+    None where it would hold one rank:
+
+    * ``tp_group``: the ranks at this rank's dp and fsdp coordinates (the
+      megatron products' sums);
+    * ``fsdp_group``: the ranks at its dp and tp coordinates (the ZeRO-3
+      gathers of the ``embed`` axis);
+    * ``data_group``: every rank at its tp coordinate, all dp x fsdp of
+      them (the gradient sums of the leaves they share, and the loss).
+
+    A mesh built without groups (``train_mesh`` builds them) serves only
+    the checks of its sizes."""
+
+    def __init__(self, dp: int, fsdp: int, tp: int, rank: int = 0,
+                 device: torch.device = torch.device("cpu"),
+                 tp_group: Any = None, fsdp_group: Any = None,
+                 data_group: Any = None) -> None:
+        self.dp, self.fsdp, self.tp = int(dp), int(fsdp), int(tp)
+        self.rank = int(rank)
+        self.device = torch.device(device)
+        self.tp_group = tp_group
+        self.fsdp_group = fsdp_group
+        self.data_group = data_group
+
+    @property
+    def world(self) -> int:
+        return self.dp * self.fsdp * self.tp
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        return {"dp": self.rank // (self.fsdp * self.tp),
+                "fsdp": (self.rank // self.tp) % self.fsdp,
+                "tp": self.rank % self.tp}
+
+    @property
+    def tp_rank(self) -> int:
+        return self.rank % self.tp
+
+    @property
+    def data_rank(self) -> int:
+        """The rank's block of the global batch, ``dp_rank * fsdp +
+        fsdp_rank``: every tp rank of a data shard holds the same rows."""
+        return self.rank // self.tp
+
+    @property
+    def data_size(self) -> int:
+        return self.dp * self.fsdp
+
+    @property
+    def axis_sizes(self) -> Dict[str, int]:
+        """Every axis of JAX's mesh with its size (JAX's ``mesh.shape``)."""
+        return {"pp": 1, "dp": self.dp, "fsdp": self.fsdp, "tp": self.tp,
+                "sp": 1}
+
+    def owns(self, spec: Spec) -> bool:
+        """Whether this rank holds the copy of its block of a leaf laid out
+        by ``spec`` that counts: its coordinate is 0 on every axis the
+        leaf is replicated over. Each block of a leaf has exactly one
+        owner, so a sum over owners counts every element once (the
+        global gradient norm) and the owners' files hold a leaf once (the
+        checkpoint)."""
+        named = set(spec)
+        return all(index == 0 for axis, index in self.coords.items()
+                   if axis not in named)
+
+
+#: training meshes already built in this process, per (process group,
+#: sizes, device): building one creates process groups, which every rank
+#: must do in the same order
+_TRAIN_MESHES: Dict[Tuple[int, int, int, int, str], TrainMesh] = {}
+
+
+def train_mesh(dp: int = 1, fsdp: int = -1, tp: int = 1, sp: int = 1,
+               pp: int = 1, device: DeviceLike = None) -> TrainMesh:
+    """This rank's ``dp x fsdp x tp`` training mesh over the initialised
+    default process group, by JAX's ``make_mesh`` rule (one axis may be
+    -1; the product must equal the group's size — never fewer ranks than
+    asked for). ``sp`` or ``pp`` above 1 is refused (ROADMAP A11b, A11c).
+    ``device`` None means ``cuda:{LOCAL_RANK % device_count}`` (and raises
+    without CUDA); the CPU is used only when asked for by name. Every rank
+    must call this in the same order: the first call for a shape creates
+    its process groups."""
+    _refuse_unported_axes({"sp": sp, "pp": pp})
+    if not dist.is_available() or not dist.is_initialized():
+        raise ValueError(
+            f"training mesh dp={dp} x fsdp={fsdp} x tp={tp} needs an "
+            "initialised torch.distributed process group (one process per "
+            "rank); none is initialised")
+    world = dist.get_world_size()
+    sizes = mesh_sizes(world, dp=dp, fsdp=fsdp, tp=tp, sp=sp, pp=pp)
+    _refuse_unported_axes(sizes)
+    dp, fsdp, tp = sizes["dp"], sizes["fsdp"], sizes["tp"]
+    resolved = _rank_device(device)
+    key = (id(dist.group.WORLD), dp, fsdp, tp, str(resolved))
+    mesh = _TRAIN_MESHES.get(key)
+    if mesh is not None:
+        return mesh
+    rank = dist.get_rank()
+
+    def own_group(member_lists):
+        """Create every group (all ranks, one order); return this rank's.
+        Groups of one rank are not made: their collectives are skipped."""
+        mine = None
+        for members in member_lists:
+            if len(members) == 1:
+                continue
+            group = dist.new_group(members)
+            if rank in members:
+                mine = group
+        return mine
+
+    tp_group = own_group([list(range(base, base + tp))
+                          for base in range(0, world, tp)])
+    fsdp_group = own_group([[d * fsdp * tp + f * tp + t for f in range(fsdp)]
+                            for d in range(dp) for t in range(tp)])
+    data_group = own_group([list(range(t, world, tp)) for t in range(tp)])
+    mesh = TrainMesh(dp, fsdp, tp, rank, resolved, tp_group, fsdp_group,
+                     data_group)
+    _TRAIN_MESHES[key] = mesh
+    return mesh
+
+
+def train_spec(name: str, ndim: int,
+               rules: MeshRules = DEFAULT_RULES) -> Spec:
+    """The mesh axes of a training leaf named ``name`` (its last key) with
+    ``ndim`` axes, by ``_PARAM_LOGICAL`` and ``rules`` (JAX's
+    ``param_sharding``): ``embed`` over fsdp, ``heads``/``kv_heads``/
+    ``ffn``/``vocab`` over tp, so ``wq`` ``("embed", "heads")`` is cut on
+    both. An unknown leaf is whole on every rank."""
+    logical = _PARAM_LOGICAL.get(name)
+    if logical is None or len(logical) != ndim:
+        return (None,) * ndim
+    return rules.spec(*logical)
+
+
+def block_starts(shape: Tuple[int, ...], spec: Spec,
+                 mesh: TrainMesh) -> Tuple[int, ...]:
+    """Where this rank's block of a leaf of global ``shape`` starts, per
+    axis."""
+    coords = mesh.coords
+    local = local_shape(shape, spec, mesh.axis_sizes)
+    return tuple(0 if axis is None else coords[axis] * size
+                 for axis, size in zip(spec, local))
+
+
+def shard_train_leaf(leaf: torch.Tensor, name: str, mesh: TrainMesh,
+                     rules: MeshRules = DEFAULT_RULES) -> torch.Tensor:
+    """This rank's contiguous block of a whole training leaf (a copy, so
+    the whole leaf can be freed); an axis that does not split raises,
+    naming the leaf and the mesh axis."""
+    spec = train_spec(name, leaf.dim(), rules)
+    out = leaf
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        size = mesh.axis_sizes[axis]
+        if leaf.shape[dim] % size:
+            raise ValueError(f"{name} axis {dim} ({leaf.shape[dim]}) does "
+                             f"not split over {axis}={size}")
+        block = leaf.shape[dim] // size
+        out = out.narrow(dim, mesh.coords[axis] * block, block)
+    return out if out is leaf else out.clone(
+        memory_format=torch.contiguous_format)
+
+
+def shard_train_params(params, rules: MeshRules, mesh: TrainMesh):
+    """This rank's shard of a whole transformer param tree (or Adam
+    moment tree) by ``rules`` — the generalisation of
+    ``shard_serving_params`` to the fsdp axis: every leaf keeps the block
+    at this rank's coordinates along each axis its rules map to fsdp or
+    tp. JAX's ``tree_shardings`` shard for the device at the same
+    coordinates, byte for byte."""
+    return map_named(lambda leaf, name: shard_train_leaf(leaf, name, mesh,
+                                                         rules), params)
+
+
+def check_train_mesh(config, mesh: TrainMesh, batch_size: Optional[int] = None,
+                     accum: int = 1) -> None:
+    """Refuse a mesh whose axes do not divide what they split: tp the
+    query and K/V heads (a head is never cut), d_ff and the vocab; fsdp
+    d_model; dp x fsdp x ``accum`` the batch (each rank's rows split into
+    equal microbatches). JAX lets GSPMD reshard there instead (ROADMAP C).
+    Training has no GQA guard: K/V heads stay on tp, as JAX's
+    ``DEFAULT_RULES`` keep them."""
+    def divides(size: int, what: str, axis: str, count: int) -> None:
+        if count % size:
+            raise ValueError(f"{axis}={size} does not divide {what} "
+                             f"({count})")
+
+    divides(mesh.tp, "n_heads (wq/wo heads axis)", "tp", config.n_heads)
+    divides(mesh.tp, "kv_heads (wk/wv kv_heads axis)", "tp", config.kv_heads)
+    divides(mesh.tp, "d_ff (w_in/w_gate/w_out ffn axis)", "tp", config.d_ff)
+    divides(mesh.tp, "vocab_size (tok_embed/w_lm_head vocab axis)", "tp",
+            config.vocab_size)
+    divides(mesh.fsdp, "d_model (the embed axis of every leaf)", "fsdp",
+            config.d_model)
+    if batch_size is not None:
+        divides(mesh.data_size * accum,
+                f"batch_size: {accum} microbatch(es) on each of "
+                f"{mesh.data_size} data ranks (dp x fsdp)",
+                "dp x fsdp x grad_accum_steps", batch_size)
+
+
+def share_bytes(whole, mesh: TrainMesh,
+                rules: MeshRules = DEFAULT_RULES) -> int:
+    """The bytes of a whole tree (``meta`` leaves will do) that the specs
+    give one rank of ``mesh``: each leaf's bytes over the sizes of the
+    axes its spec names."""
+    sizes = mesh.axis_sizes
+    return sum(leaf.numel() * leaf.element_size() // math.prod(
+        sizes[axis] for axis in train_spec(name, leaf.dim(), rules) if axis)
+        for name, leaf in named_leaves(whole))

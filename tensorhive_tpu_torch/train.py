@@ -1,5 +1,6 @@
 """Training: optimizer, train step, loop, checkpoints, synthetic data — the
-PyTorch counterpart of ``tensorhive_tpu/train.py`` on one device.
+PyTorch counterpart of ``tensorhive_tpu/train.py``, on one device or on a
+``dp x fsdp x tp`` training mesh (``parallel.mesh.train_mesh``).
 
 * ``make_optimizer`` is optax's ``chain(clip_by_global_norm(max_norm),
   adamw(warmup_cosine_decay_schedule(0, lr, warmup, total), weight_decay))``
@@ -16,12 +17,17 @@ PyTorch counterpart of ``tensorhive_tpu/train.py`` on one device.
   place (the JAX step donates its buffers instead), so a step holds no
   second copy of either.
 * Checkpoints are ``torch.save`` files, one per step, keeping the newest
-  ``max_to_keep``.
+  ``max_to_keep``; on a mesh, a directory per step with one file per
+  owning rank, restored onto any other mesh shape.
 
 Params and gradients are the plain param dict of ``models/transformer``.
-The mesh arguments of the JAX functions (sharded params and batches) are
-refused as not yet ported. Entry points that make tensors take
-``device=None``, which means CUDA and raises without a card.
+On a mesh each rank holds only its block of every f32 param and of Adam's
+``mu`` and ``nu`` (JAX's ``tree_shardings`` and ``_opt_state_shardings``),
+steps on its rows of the global batch (``B / (dp x fsdp)``, block
+``mesh.data_rank``; every tp rank of a data shard holds the same rows) and
+computes the same loss, gradient norm and update as one device on the
+global batch. Entry points that make tensors take ``device=None``, which
+means CUDA and raises without a card.
 """
 from __future__ import annotations
 
@@ -30,14 +36,25 @@ import logging
 import math
 import os
 import re
+import shutil
 import time
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .device import DeviceLike, resolve_device
 from .models.transformer import Params, TransformerConfig, TransformerLM
+from .parallel.mesh import (
+    TrainMesh,
+    block_starts,
+    check_train_mesh,
+    named_leaves,
+    shard_train_leaf,
+    train_spec,
+)
+from .parallel.train_parallel import sharded_global_norm
 
 log = logging.getLogger(__name__)
 
@@ -60,11 +77,6 @@ class TrainConfig:
     grad_accum_steps: int = 1
 
 
-def _refuse_mesh(mesh: Any) -> None:
-    if mesh is not None:
-        raise ValueError("mesh (sharded training) is not yet ported")
-
-
 # -- param trees ---------------------------------------------------------------
 
 def tree_leaves(tree: Any) -> List[torch.Tensor]:
@@ -75,6 +87,23 @@ def tree_leaves(tree: Any) -> List[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [leaf for item in tree for leaf in tree_leaves(item)]
     return [tree]
+
+
+def leaf_names(tree: Any) -> List[str]:
+    """The last key of each leaf's path, in ``tree_leaves`` order (the
+    name a mesh's sharding rules read: ``"wq"``, ``"scale"``, ...)."""
+    return [name for name, _ in named_leaves(tree)]
+
+
+def leaf_paths(tree: Any, prefix: str = "") -> List[str]:
+    """Each leaf's path (``"blocks/0/wq"``), in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree)
+                for leaf in leaf_paths(tree[key], f"{prefix}{key}/")]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for index, item in enumerate(tree)
+                for leaf in leaf_paths(item, f"{prefix}{index}/")]
+    return [prefix.rstrip("/")]
 
 
 def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
@@ -140,12 +169,15 @@ class AdamW:
                 "nu": tree_map(zeros, params)}
 
     @torch.no_grad()
-    def update(self, grads: Params, state: OptState,
-               params: Params) -> OptState:
+    def update(self, grads: Params, state: OptState, params: Params,
+               g_norm: Optional[torch.Tensor] = None) -> OptState:
         """Apply one step to ``params`` in place; returns the new state
-        (its moments updated in place)."""
+        (its moments updated in place). ``g_norm``: the global norm of the
+        gradients when they are a mesh rank's blocks (the clip needs the
+        norm of the whole tree); computed from ``grads`` when None."""
         grad_leaves = tree_leaves(grads)
-        g_norm = global_norm(grad_leaves)
+        if g_norm is None:
+            g_norm = global_norm(grad_leaves)
         max_norm = self.config.max_grad_norm
         clip = torch.where(g_norm < max_norm, torch.ones_like(g_norm),
                            max_norm / g_norm)
@@ -180,11 +212,51 @@ def init_train_state(model_config: TransformerConfig,
                      mesh: Any = None) -> Tuple[Params, OptState]:
     """f32 master params from ``TransformerLM.init`` (draws from
     ``generator``, default seed 0 on the device) and a fresh optimizer
-    state."""
-    _refuse_mesh(mesh)
-    device = resolve_device(device)
+    state. On a ``mesh`` the state lives on ``mesh.device``: every rank
+    draws each leaf whole, in ``init``'s fixed order, and keeps its block
+    (so the global params are the same whatever the mesh, and a rank
+    holds its shard plus one whole leaf at most); ``mu`` and ``nu`` mirror
+    the param blocks and ``count`` is replicated (JAX's
+    ``_opt_state_shardings``)."""
+    shard = None
+    if mesh is None:
+        device = resolve_device(device)
+    else:
+        check_train_mesh(model_config, mesh)
+        device = _mesh_device(mesh, device)
+
+        def shard(leaf: torch.Tensor, name: str) -> torch.Tensor:
+            return shard_train_leaf(leaf, name, mesh)
     params = TransformerLM.init(model_config, generator, device,
-                                param_dtype=torch.float32)
+                                param_dtype=torch.float32, shard=shard)
+    return params, make_optimizer(train_config).init(params)
+
+
+def _mesh_device(mesh: TrainMesh, device: DeviceLike) -> torch.device:
+    """A mesh rank's state lives on the mesh's device; another device
+    asked for beside it is refused."""
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device {device} differs from the mesh's "
+                         f"{mesh.device}")
+    return mesh.device
+
+
+def abstract_train_state(model_config: TransformerConfig,
+                         train_config: TrainConfig, mesh: Any = None
+                         ) -> Tuple[Params, OptState]:
+    """(params, opt_state) templates on the ``meta`` device, at this
+    rank's local shapes on ``mesh`` (whole shapes without one): no memory
+    at all. ``restore_checkpoint`` allocates only the restored blocks
+    into them, so a resume never holds a throwaway initialised copy beside
+    the restored one (JAX's ``abstract_train_state``)."""
+    shard = None
+    if mesh is not None:
+        check_train_mesh(model_config, mesh)
+
+        def shard(leaf: torch.Tensor, name: str) -> torch.Tensor:
+            return shard_train_leaf(leaf, name, mesh)
+    params = TransformerLM.init(model_config, device="meta",
+                                param_dtype=torch.float32, shard=shard)
     return params, make_optimizer(train_config).init(params)
 
 
@@ -197,8 +269,14 @@ def make_train_step(model_config: TransformerConfig,
     ``models.encoder.mlm_loss_packed`` with [B, 3, L] batches, LoRA
     ``models.lora.lora_loss`` with the adapter tree as ``params``.
     ``metrics`` holds 0-d device tensors ``loss`` and ``grad_norm`` (reading
-    them syncs)."""
-    _refuse_mesh(mesh)
+    them syncs).
+
+    On a ``mesh`` the step takes a rank's shard and its ``B / (dp x
+    fsdp)`` rows, calls ``loss_fn(params, tokens, model_config, mesh)``
+    (which returns the global loss), clips by the global gradient norm
+    (``metrics["grad_norm"]``, the same on every rank) and updates the
+    rank's blocks. Accumulation splits the rank's rows: the mean of equal
+    micro means is the global mean, as in JAX."""
     optimizer = make_optimizer(train_config)
     accum = train_config.grad_accum_steps
     if accum < 1:
@@ -207,11 +285,16 @@ def make_train_step(model_config: TransformerConfig,
         raise ValueError(
             f"batch_size {train_config.batch_size} not divisible by "
             f"grad_accum_steps {accum}")
+    rows = train_config.batch_size
+    if mesh is not None:
+        check_train_mesh(model_config, mesh, train_config.batch_size, accum)
+        rows //= mesh.data_size
 
     def value_and_grad(params: Params, tokens: torch.Tensor
                        ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
-        loss = loss_fn(live, tokens, model_config)
+        loss = (loss_fn(live, tokens, model_config) if mesh is None
+                else loss_fn(live, tokens, model_config, mesh))
         return loss.detach(), list(torch.autograd.grad(loss,
                                                        tree_leaves(live)))
 
@@ -223,7 +306,7 @@ def make_train_step(model_config: TransformerConfig,
         sums = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                 for p in tree_leaves(params)]
         # split the leading (batch) axis only: an MLM batch is [B, 3, L]
-        micro = train_config.batch_size // accum
+        micro = rows // accum
         for micro_batch in tokens.reshape(accum, micro, *tokens.shape[1:]):
             loss, grads = value_and_grad(params, micro_batch)
             loss_sum += loss
@@ -234,10 +317,19 @@ def make_train_step(model_config: TransformerConfig,
 
     def step(params: Params, opt_state: OptState, tokens: torch.Tensor
              ) -> Tuple[Params, OptState, Dict[str, torch.Tensor]]:
+        if mesh is not None and tokens.shape[0] != rows:
+            raise ValueError(
+                f"a rank of a {mesh.data_size}-way data mesh steps on its "
+                f"{rows} rows of the global batch of "
+                f"{train_config.batch_size}, got {tokens.shape[0]}")
         loss, grad_leaves = loss_and_grads(params, tokens)
-        grad_norm = global_norm(grad_leaves)
+        if mesh is None:
+            grad_norm = global_norm(grad_leaves)
+        else:
+            grad_norm = sharded_global_norm(grad_leaves, leaf_names(params),
+                                            mesh)
         grads = _unflatten(params, grad_leaves)
-        opt_state = optimizer.update(grads, opt_state, params)
+        opt_state = optimizer.update(grads, opt_state, params, grad_norm)
         return params, opt_state, {"loss": loss, "grad_norm": grad_norm}
 
     return step
@@ -265,65 +357,221 @@ def synthetic_batch(generator: torch.Generator, train_config: TrainConfig,
 # -- checkpoints ---------------------------------------------------------------
 
 _CHECKPOINT = re.compile(r"^step_(\d+)\.pt$")
+_MESH_CHECKPOINT = re.compile(r"^step_(\d+)\.ranks$")
+_RANK_FILE = re.compile(r"^fsdp(\d+)_tp(\d+)_of_(\d+)x(\d+)\.pt$")
+
+
+def _rank_files(directory: Path) -> List[Path]:
+    """The files of a complete set in a mesh step's directory (one per
+    (fsdp, tp) coordinate of the mesh that wrote it), or none."""
+    sets: Dict[Tuple[int, int], set] = {}
+    for name in os.listdir(directory):
+        match = _RANK_FILE.match(name)
+        if match:
+            f, t, fsdp, tp = map(int, match.groups())
+            sets.setdefault((fsdp, tp), set()).add((f, t))
+    for (fsdp, tp), found in sorted(sets.items()):
+        if len(found) == fsdp * tp:
+            return [directory / f"fsdp{f}_tp{t}_of_{fsdp}x{tp}.pt"
+                    for f, t in sorted(found)]
+    return []
+
+
+def _checkpoints(path: Path) -> Dict[int, Path]:
+    """Step -> its ``step_<n>.pt`` file, or its ``step_<n>.ranks``
+    directory once every file of the mesh that wrote it is there."""
+    if not path.is_dir():
+        return {}
+    found = {}
+    for name in os.listdir(path):
+        match = _CHECKPOINT.match(name) or _MESH_CHECKPOINT.match(name)
+        if match and (name.endswith(".pt") or _rank_files(path / name)):
+            found[int(match.group(1))] = path / name
+    return found
 
 
 def checkpoint_steps(path) -> List[int]:
-    """Steps of the ``step_<n>.pt`` files under ``path``, ascending (none
+    """Steps of the complete checkpoints under ``path``, ascending (none
     for a missing directory)."""
-    path = Path(path)
-    if not path.is_dir():
-        return []
-    return sorted(int(match.group(1)) for match in
-                  map(_CHECKPOINT.match, os.listdir(path)) if match)
+    return sorted(_checkpoints(Path(path)))
+
+
+def _prune(directory: Path, max_to_keep: int) -> None:
+    found = _checkpoints(directory)
+    for old in sorted(found)[:-max_to_keep]:
+        if found[old].is_dir():
+            shutil.rmtree(found[old])
+        else:
+            found[old].unlink()
 
 
 def save_checkpoint(path: str, step: int, params: Params, opt_state: OptState,
-                    max_to_keep: int = 3) -> None:
+                    max_to_keep: int = 3, mesh: Any = None) -> None:
     """Write ``path/step_<step>.pt`` (atomically: a temporary file, then a
-    rename) and delete all but the newest ``max_to_keep`` steps."""
+    rename) and delete all but the newest ``max_to_keep`` steps.
+
+    On a ``mesh`` every rank calls this: each rank that owns a block
+    (``TrainMesh.owns``: dp rank 0, and tp rank 0 for the norm scales,
+    which are replicated over tp) writes
+    ``step_<step>.ranks/fsdp<f>_tp<t>_of_<F>x<T>.pt`` atomically, holding
+    only its blocks of the params, ``mu`` and ``nu`` (each with its start
+    and the leaf's whole shape), the mesh shape, its coordinates, the step
+    and Adam's count. Other dp ranks hold copies of those blocks and write
+    nothing. Rank 0 prunes after every rank has written."""
     directory = Path(path)
     directory.mkdir(parents=True, exist_ok=True)
-    target = directory / f"step_{step:010d}.pt"
+    if mesh is None:
+        target = directory / f"step_{step:010d}.pt"
+        partial = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        torch.save({"step": step, "params": params, "opt_state": opt_state},
+                   partial)
+        os.replace(partial, target)
+    else:
+        _save_blocks(directory, step, params, opt_state, mesh)
+        if mesh.world > 1:          # every file is in place before a prune
+            done = torch.zeros(1, device=mesh.device)
+            dist.all_reduce(done)
+        if mesh.rank:
+            return
+    _prune(directory, max_to_keep)
+
+
+def _save_blocks(directory: Path, step: int, params: Params,
+                 opt_state: OptState, mesh: TrainMesh) -> None:
+    blocks, starts, shapes = {}, {}, {}
+    for prefix, tree in (("params", params), ("mu", opt_state["mu"]),
+                         ("nu", opt_state["nu"])):
+        for path, name, leaf in zip(leaf_paths(tree), leaf_names(tree),
+                                    tree_leaves(tree)):
+            spec = train_spec(name, leaf.dim())
+            if not mesh.owns(spec):
+                continue
+            whole = tuple(size * (mesh.axis_sizes[axis] if axis else 1)
+                          for size, axis in zip(leaf.shape, spec))
+            key = f"{prefix}/{path}"
+            blocks[key] = leaf.detach().cpu()
+            starts[key] = block_starts(whole, spec, mesh)
+            shapes[key] = whole
+    if not blocks:
+        return
+    coords = mesh.coords
+    step_dir = directory / f"step_{step:010d}.ranks"
+    step_dir.mkdir(exist_ok=True)
+    target = step_dir / (f"fsdp{coords['fsdp']}_tp{coords['tp']}_of_"
+                         f"{mesh.fsdp}x{mesh.tp}.pt")
     partial = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    torch.save({"step": step, "params": params, "opt_state": opt_state},
-               partial)
+    torch.save({"step": step, "count": int(opt_state["count"]),
+                "mesh": {"dp": mesh.dp, "fsdp": mesh.fsdp, "tp": mesh.tp},
+                "coords": coords, "blocks": blocks, "starts": starts,
+                "shapes": shapes}, partial)
     os.replace(partial, target)
-    for old in checkpoint_steps(directory)[:-max_to_keep]:
-        (directory / f"step_{old:010d}.pt").unlink()
+
+
+def _sources(entry: Path) -> Tuple[List[Tuple[Dict, Dict, Dict]], int]:
+    """The saved blocks of one step as (blocks, starts, whole shapes) per
+    file, memory-mapped (only the bytes a restore copies are read), and
+    Adam's count. A single-device file is one source of whole leaves."""
+    def load(file: Path) -> Dict[str, Any]:
+        return torch.load(file, map_location="cpu", weights_only=True,
+                          mmap=True)
+
+    if entry.is_dir():
+        saved = [load(file) for file in _rank_files(entry)]
+        return ([(s["blocks"], s["starts"], s["shapes"]) for s in saved],
+                int(saved[0]["count"]))
+    saved = load(entry)
+    blocks = {}
+    for prefix, tree in (("params", saved["params"]),
+                         ("mu", saved["opt_state"]["mu"]),
+                         ("nu", saved["opt_state"]["nu"])):
+        for path, leaf in zip(leaf_paths(tree), tree_leaves(tree)):
+            blocks[f"{prefix}/{path}"] = leaf
+    starts = {key: (0,) * leaf.dim() for key, leaf in blocks.items()}
+    shapes = {key: tuple(leaf.shape) for key, leaf in blocks.items()}
+    return [(blocks, starts, shapes)], int(saved["opt_state"]["count"])
+
+
+def _restore_leaf(key: str, name: str, like: torch.Tensor,
+                  sources: List[Tuple[Dict, Dict, Dict]], mesh: Any,
+                  device: DeviceLike) -> torch.Tensor:
+    """This rank's block of one leaf (the template's shape, dtype and
+    device; a ``meta`` template's goes to the mesh's device), copied from
+    every saved block that overlaps it."""
+    spec = (train_spec(name, like.dim()) if mesh is not None
+            else (None,) * like.dim())
+    sizes = mesh.axis_sizes if mesh is not None else {}
+    whole = tuple(size * (sizes[axis] if axis else 1)
+                  for size, axis in zip(like.shape, spec))
+    start = (block_starts(whole, spec, mesh) if mesh is not None
+             else (0,) * like.dim())
+    target = like.device
+    if target.type == "meta":
+        target = mesh.device if mesh is not None else resolve_device(device)
+    out = torch.empty(like.shape, dtype=like.dtype, device=target)
+    filled = 0
+    for blocks, starts, shapes in sources:
+        if key not in blocks:
+            continue
+        if tuple(shapes[key]) != whole:
+            raise ValueError(f"checkpoint leaf {key} {tuple(shapes[key])} "
+                             f"does not match the template {whole}")
+        piece, there = blocks[key], starts[key]
+        lo = [max(a, b) for a, b in zip(start, there)]
+        hi = [min(a + n, b + m) for a, n, b, m in
+              zip(start, like.shape, there, piece.shape)]
+        if any(low >= high for low, high in zip(lo, hi)):
+            continue
+        into = out
+        for dim, (low, high) in enumerate(zip(lo, hi)):
+            piece = piece.narrow(dim, low - there[dim], high - low)
+            into = into.narrow(dim, low - start[dim], high - low)
+        into.copy_(piece)
+        filled += piece.numel()
+    if filled != out.numel():
+        raise ValueError(f"checkpoint holds {filled} of the {out.numel()} "
+                         f"elements of {key} this rank needs")
+    return out
 
 
 def restore_checkpoint(path: str, params_like: Params,
-                       opt_state_like: OptState
+                       opt_state_like: OptState, mesh: Any = None,
+                       device: DeviceLike = None
                        ) -> Tuple[int, Params, OptState]:
     """The newest step under ``path``: ``(step, params, opt_state)`` placed
     like the templates (device and dtype of each leaf); a leaf whose shape
-    differs from its template raises."""
-    steps = checkpoint_steps(Path(path))
-    if not steps:
+    differs from its template raises.
+
+    The templates may be concrete or ``abstract_train_state``'s ``meta``
+    trees, whose leaves are allocated on ``mesh.device`` (or ``device``,
+    None = CUDA, without a mesh). On a ``mesh`` the templates hold this
+    rank's local shapes and each rank assembles its own blocks from the
+    saved ones, whatever mesh (or single device) wrote them: the files are
+    memory-mapped, so no rank reads the whole tree."""
+    found = _checkpoints(Path(path))
+    if not found:
         raise FileNotFoundError(f"no checkpoint under {path}")
-    saved = torch.load(Path(path) / f"step_{steps[-1]:010d}.pt",
-                       map_location="cpu", weights_only=True)
+    step = max(found)
+    sources, count = _sources(found[step])
 
-    def place(value: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-        if value.shape != like.shape:
-            raise ValueError(f"checkpoint leaf {tuple(value.shape)} does not "
-                             f"match the template {tuple(like.shape)}")
-        return value.to(device=like.device, dtype=like.dtype)
+    def restore(prefix: str, tree: Any) -> Any:
+        return _unflatten(tree, [
+            _restore_leaf(f"{prefix}/{leaf_path}", name, like, sources, mesh,
+                          device)
+            for leaf_path, name, like in zip(leaf_paths(tree),
+                                             leaf_names(tree),
+                                             tree_leaves(tree))])
 
-    params = tree_map(place, saved["params"], params_like)
-    opt_state = {"count": int(saved["opt_state"]["count"]),
-                 "mu": tree_map(place, saved["opt_state"]["mu"],
-                                opt_state_like["mu"]),
-                 "nu": tree_map(place, saved["opt_state"]["nu"],
-                                opt_state_like["nu"])}
-    return saved["step"], params, opt_state
+    return step, restore("params", params_like), {
+        "count": count, "mu": restore("mu", opt_state_like["mu"]),
+        "nu": restore("nu", opt_state_like["nu"])}
 
 
 # -- loop ----------------------------------------------------------------------
 
 def train_loop(model_config: TransformerConfig, train_config: TrainConfig,
                mesh: Any = None, num_steps: int = 10, seed: int = 0,
-               log_every: int = 10, sync_every: int = 1,
+               log_every: int = 10, telemetry: Any = None,
+               sync_every: int = 1,
                batches: Optional[Iterator[torch.Tensor]] = None,
                loss_fn: Callable = TransformerLM.loss,
                device: DeviceLike = None) -> Dict[str, float]:
@@ -333,14 +581,26 @@ def train_loop(model_config: TransformerConfig, train_config: TrainConfig,
 
     ``sync_every``: wait for the device only every N steps, as a real loop
     enqueues steps back to back; the step time is then wall-clock over each
-    N-step window (``_steady_step_time``)."""
-    _refuse_mesh(mesh)
-    device = resolve_device(device)
+    N-step window (``_steady_step_time``). ``telemetry`` (a
+    ``telemetry.TelemetryEmitter``) gets ``sample(step_time_s=...)`` once
+    per window, as in JAX.
+
+    On a ``mesh`` every rank runs the loop on ``mesh.device``: ``batches``
+    yields the rank's rows (``data.prefetch_to_device(..., mesh=mesh)``);
+    a synthetic batch is drawn whole from the shared seed and each rank
+    keeps its rows. The metrics are the same on every rank; only rank 0
+    samples ``telemetry``."""
+    if mesh is None:
+        device = resolve_device(device)
+    else:
+        device = _mesh_device(mesh, device)
     params, opt_state = init_train_state(
         model_config, train_config,
-        torch.Generator(device=device).manual_seed(seed), device)
+        torch.Generator(device=device).manual_seed(seed), device, mesh)
     data = torch.Generator(device=device).manual_seed(seed + 1)
-    step_fn = make_train_step(model_config, train_config, loss_fn=loss_fn)
+    step_fn = make_train_step(model_config, train_config, mesh,
+                              loss_fn=loss_fn)
+    samples = telemetry is not None and (mesh is None or mesh.rank == 0)
     window_times: List[Tuple[float, bool]] = []
     metrics_dev: Dict[str, torch.Tensor] = {}
     window_start = time.perf_counter()
@@ -357,6 +617,10 @@ def train_loop(model_config: TransformerConfig, train_config: TrainConfig,
         else:
             tokens = synthetic_batch(data, train_config,
                                      model_config.vocab_size, device)
+            if mesh is not None:
+                rows = train_config.batch_size // mesh.data_size
+                tokens = tokens[mesh.data_rank * rows:
+                                (mesh.data_rank + 1) * rows]
         params, opt_state, metrics_dev = step_fn(params, opt_state, tokens)
         window_len += 1
         if window_len >= sync_every or step_index == num_steps - 1:
@@ -364,6 +628,8 @@ def train_loop(model_config: TransformerConfig, train_config: TrainConfig,
             now = time.perf_counter()
             per_step = (now - window_start) / window_len
             window_times.append((per_step, window_len >= sync_every))
+            if samples:
+                telemetry.sample(step_time_s=per_step)
             if log_every and (step_index + 1) - last_logged >= log_every:
                 log.info("step %d loss=%.4f (%.1f ms)", step_index + 1,
                          loss_value, per_step * 1e3)

@@ -38,13 +38,14 @@ from tensorhive_tpu.models.transformer import PRESETS as JAX_PRESETS
 from tensorhive_tpu.models.transformer import TransformerLM as JaxLM
 from tensorhive_tpu_torch import train
 from tensorhive_tpu_torch.convert import params_from_jax, params_to_numpy
-from tensorhive_tpu_torch.models import transformer
+from tensorhive_tpu_torch.models import lora, transformer
 from tensorhive_tpu_torch.models.transformer import (
     PRESETS,
     TransformerLM,
     _lm_head,
     train_flops_per_token,
 )
+from tensorhive_tpu_torch.parallel.mesh import TrainMesh, train_mesh
 
 LOSS_TOL = 1e-5
 GRAD_TOL = 2e-5
@@ -267,23 +268,59 @@ def test_train_loop_on_the_cpu():
 
 
 def test_unported_and_invalid_options_are_refused():
-    """A mesh is not yet ported; the LM loss refuses a bidirectional config
-    and the model an unknown remat policy. (The CUDA default of the entry
-    points is held in test_torch_package.py.)"""
+    """What the training mesh still refuses: sp (ring attention, A11b), pp
+    (the pipeline, A11c), LoRA's adapters under a mesh (A11a-LoRA) and a
+    tp that does not divide the heads; the LM loss refuses a bidirectional
+    config and the model an unknown remat policy. (The CUDA default of the
+    entry points is held in test_torch_package.py.)"""
     config = dataclasses.replace(PRESETS["tiny"], dtype=torch.float32)
     tc = train.TrainConfig(batch_size=2, seq_len=8)
-    for call in (lambda: train.make_train_step(config, tc, mesh=object()),
-                 lambda: train.init_train_state(config, tc, device="cpu",
-                                                mesh=object())):
-        with pytest.raises(ValueError, match="not yet ported"):
-            call()
+    for axes, item in ((dict(sp=2), "A11b"), (dict(pp=2), "A11c")):
+        with pytest.raises(ValueError, match=item):
+            train_mesh(fsdp=2, device="cpu", **axes)
     params = TransformerLM.init(config, device="cpu")
     tokens = torch.zeros((1, 5), dtype=torch.int32)
-    with pytest.raises(ValueError, match="not yet ported"):
-        TransformerLM.loss(params, tokens, config, mesh=object())
+    with pytest.raises(ValueError, match="A11a-LoRA"):
+        lora.lora_loss(lora.init_lora(params, lora.LoraConfig()), tokens,
+                       config, TrainMesh(1, 2, 1), base_params=params,
+                       lora_config=lora.LoraConfig())
+    for call in (lambda: train.make_train_step(config, tc,
+                                               mesh=TrainMesh(1, 1, 3)),
+                 lambda: train.init_train_state(config, tc, device="cpu",
+                                                mesh=TrainMesh(1, 1, 8))):
+        with pytest.raises(ValueError, match="n_heads"):
+            call()
     with pytest.raises(ValueError, match="causal"):
         TransformerLM.loss(params, tokens,
                            dataclasses.replace(config, causal=False))
     with pytest.raises(ValueError, match="remat_policy"):
         TransformerLM.apply(params, tokens, dataclasses.replace(
             config, remat_policy="attention"))
+
+
+class RecordingEmitter:
+    def __init__(self):
+        self.samples = []
+
+    def sample(self, **fields):
+        self.samples.append(fields)
+
+
+@pytest.mark.parametrize("sync_every", [1, 3])
+def test_train_loop_samples_telemetry_per_window(sync_every):
+    """train_loop(telemetry=...) calls sample(step_time_s=...) once per
+    sync window (ROADMAP C.1), as many times as the JAX loop does with the
+    same arguments (7 steps: 7 windows, or 3 of 3, 3 and 1)."""
+    jax_config, config = configs(remat=False)
+    knobs = dict(batch_size=2, seq_len=16, warmup_steps=1, total_steps=7)
+    ours, theirs = RecordingEmitter(), RecordingEmitter()
+    train.train_loop(dataclasses.replace(config, n_layers=1),
+                     train.TrainConfig(**knobs), num_steps=7, log_every=0,
+                     telemetry=ours, sync_every=sync_every, device="cpu")
+    jax_train.train_loop(dataclasses.replace(jax_config, n_layers=1),
+                         jax_train.TrainConfig(**knobs), num_steps=7,
+                         log_every=0, telemetry=theirs,
+                         sync_every=sync_every)
+    assert len(ours.samples) == len(theirs.samples) == -(-7 // sync_every)
+    assert all(set(fields) == {"step_time_s"} and fields["step_time_s"] > 0
+               for fields in ours.samples)
