@@ -145,9 +145,10 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
               each single-card reference first (then released), then a
               group of 2 ranks — (a) tp 2, f32, 7b widths at 4 layers,
               prompts of 17/300/1,500 tokens whole-prompt and chunked,
-              tokens identical to the single card; (b) tp 2 on the full 7b
-              preset, the default engine on chat traffic (a 2,048-token
-              system prompt P, P + 17, P + 300, a 3,000-token miss), no
+              tokens identical to the single card; (b) tp 2 on the 7b
+              preset cut to 8 layers, the default engine on chat traffic
+              (a 2,048-token system prompt P, P + 17, P + 300, a
+              3,000-token miss), no
               leaked page, the first-step logits of P no further from the
               single card's than the single card's are from an f32
               evaluation of the same weights, per-rank bytes; (d) dp 2
@@ -159,10 +160,10 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
               layers, whole-prompt prefill, a self-draft and a 4-layer
               1b-width draft: spec-on tokens identical to (a)'s spec-off
               tokens on the mesh and to the single card's; (f) tp 2 on
-              the full 7b, the default engine with speculative "auto"
+              the 8-layer 7b, the default engine with speculative "auto"
               (which must resolve on), chat traffic, 16 new tokens: no
               leaked page, accepted <= proposed, every rank's draft lane
-              half the single card's bytes; (g) tp 2 on the full 7b,
+              half the single card's bytes; (g) tp 2 on the 8-layer 7b,
               tiering (340 pages, 1 GiB of host RAM, the lane off): P + 17
               evicted to the host by two 3,000-token misses and promoted
               back, the host hit's tokens identical to the HBM hit's,
@@ -187,21 +188,36 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
               grad norm within TRAIN_REL_TOL of the single card at every
               step, the params gathered to rank 0 by the per-leaf mean
               rule, and one MLM encoder step (head-blocked forward, G 4)
-              within TRAIN_REL_TOL — and a group of 4 ranks: (b) fsdp 2 x
-              tp 2, t2t-base b64 x s1024, remat off, bf16 on f32 masters,
-              5 steps on one batch whose loss must fall, the step-1 loss
-              no further from an f32 evaluation of the same weights than
-              twice the single card's bf16 loss is, each rank's bytes of
-              params, mu and nu exactly its specs' share, then a checkpoint
-              written there and restored at dp 2 x fsdp 2 into
-              abstract_train_state templates, bitwise, whose next step's
-              loss is the continuous run's within the same bound; (c) 7b
-              widths at 4 layers (GQA 32/8), fsdp 2 x tp 2, b4 x s2048,
-              remat "mlp", 4 steps whose loss must fall, bytes exact. On
-              every rank K1 (K3 for the encoder) and K4-K7 launch exactly
-              layers x microbatches x steps (twice for the forward under
-              "block" remat) at the rank's local head counts. Step times
-              over gloo are printed as such, with each rank's peak memory.
+              within TRAIN_REL_TOL; (d) (a)'s runs on the ring and the
+              pipeline: the LM at sp 2 x fsdp 2 x tp 2 and at pp 2 x sp 2
+              x fsdp 2 (2 pipeline microbatches), and the MLM step (a
+              non-causal ring) at sp 2 x fsdp 2 x tp 2, each within
+              RING_TRAIN_REL_TOL of the same single-card runs — and a
+              group of 4 ranks: (b) fsdp 2 x tp 2, t2t-base b64 x s1024,
+              remat off, bf16 on f32 masters, 5 steps on one batch whose
+              loss must fall, the step-1 loss no further from an f32
+              evaluation of the same weights than twice the single card's
+              bf16 loss is, each rank's bytes of params, mu and nu exactly
+              its specs' share, then a checkpoint written there and
+              restored at dp 2 x fsdp 2 into abstract_train_state
+              templates, bitwise, whose next step's loss is the continuous
+              run's within the same bound; (c) 7b widths at TRAIN_C_LAYERS
+              layers (GQA 32/8), fsdp 2 x tp 2, b4 x s2048, remat "mlp",
+              TRAIN_C_STEPS steps whose loss must fall, bytes exact; (e)
+              (b)'s model at pp 2 x sp 2 (3 layers a stage, 4 pipeline
+              microbatches), 5 steps whose loss must fall, bytes exact
+              (the stage's layers only), its checkpoint restored at fsdp 2
+              x tp 2 bitwise, then one step; (f) 7b widths at 4 layers,
+              b2 x s16384 over sp 2 x fsdp 2 (one row and 8,192 positions
+              a rank), remat "mlp", 4 steps whose loss must fall, bytes
+              exact, then one layer's ring attention (out, dq, dk, dv) on
+              each rank's block held to the single card's kernels over the
+              whole sequence. On every rank K1 (K3 for the encoder off the
+              ring) and K4-K7 launch exactly layers x microbatches x steps
+              (twice for the forward under "block" remat) at the rank's
+              local head counts, times the ring's live blocks (sp index +
+              1 causal, sp not). Step times over gloo are printed as such,
+              with each rank's peak memory.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``; any failure exits non-zero without
@@ -219,6 +235,11 @@ import traceback
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+#: the whole run is held to 1,200 s: every wait on a group of rank
+#: processes ends by RUN_DEADLINE_S after the start, so a group that hangs
+#: fails with its ranks' logs printed instead of running into that limit
+STARTED = time.monotonic()
+RUN_DEADLINE_S = 1140
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel is the
 # larger of its bytes over the memory rate and its FLOPs over the rate of
@@ -1821,13 +1842,16 @@ def profile_window(run, steps):
     kinds = {kind: 0.0 for kind, _ in KERNEL_KINDS}
     kinds["other"] = 0.0
     launched = 0
-    for event in prof.key_averages():
-        if event.device_type != DeviceType.CUDA:
+    # the raw records: key_averages() first builds a tree of every host
+    # op, which took most of a minute for three speculative ticks
+    for event in prof.profiler.kineto_results.events():
+        if event.device_type() != DeviceType.CUDA:
             continue
+        name = event.name()
         kind = next((kind for kind, tags in KERNEL_KINDS
-                     if any(tag in event.key for tag in tags)), "other")
-        kinds[kind] += event.self_device_time_total / 1e3 / steps
-        launched += event.count
+                     if any(tag in name for tag in tags)), "other")
+        kinds[kind] += event.duration_ns() / 1e6 / steps
+        launched += 1
     return kinds, launched / steps
 
 
@@ -1858,6 +1882,12 @@ def phase_serving(card):
     from tensorhive_tpu_torch.serving.engine import SlotEngine
 
     max_len, new_tokens = 4096, 32
+    phase_started = time.perf_counter()
+
+    def lap(what):
+        log(f"  serving: {what} done "
+            f"{time.perf_counter() - phase_started:.1f} s into the phase")
+
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 32_000, length).tolist()
                for length in (1, 17, 300, 1500, 3000)]
@@ -1903,6 +1933,7 @@ def phase_serving(card):
 
     runs["f32"] = serve(f32_engine, "f32 weights, f32 pages", prompts,
                         new_tokens, buckets)
+    lap("whole-prompt runs")
 
     default = GenerationConfig(preset="7b", slots=8, max_len=max_len,
                                paged_kernel="on", speculative="off")
@@ -1915,6 +1946,7 @@ def phase_serving(card):
         dataclasses.replace(default, kv_quant="off"),
         "prefix cache on bf16 pages, shared system prompt",
         runs["bf16"]["longest_join_ms"])
+    lap("shared-prompt runs")
     runs["tiering"] = tiering_run(card)
     runs["contiguous"] = serve(
         lambda: build_engine(generation(paged=False)),
@@ -1925,11 +1957,14 @@ def phase_serving(card):
     log(f"  greedy match rate contiguous vs bf16 pages: "
         f"{sum(greedy) / len(greedy):.4f} (informational)")
     chunked_vs_whole_prefill()
+    lap("tiering, contiguous and chunked runs")
     speculative_runs(runs, prompts, new_tokens, buckets, generation,
                      f32_engine, f32_config, default)
+    lap("speculative runs")
 
     # where a tick's device time goes, traced after the timed runs (the
-    # profiler slows every later step of the process)
+    # profiler slows every later step of the process, so no engine is
+    # pumped to its end after a window: its unfinished requests go with it)
     engine = build_engine(generation())
     for prompt in prompts:
         engine.submit(prompt, max_new_tokens=new_tokens)
@@ -1938,7 +1973,6 @@ def phase_serving(card):
     log(f"  device busy {100 * kernel_ms / runs['int8']['step_ms']:.1f}% of "
         f"the int8-page decode step ({runs['int8']['step_ms']:.2f} ms, "
         f"untraced)")
-    engine.pump()
     del engine
     release_device_memory()
     engine = build_engine(default)
@@ -1947,6 +1981,7 @@ def phase_serving(card):
     release_device_memory()
     profile_spec_ticks(dataclasses.replace(default, speculative="auto"),
                        prompts)
+    lap("profiles")
     return runs
 
 
@@ -2654,7 +2689,8 @@ def chunked_vs_whole_prefill(prompt_len=3000, chunk=256):
 def profile_chunk_ticks(engine, steps=3):
     """Two requests decoding while an unrelated 3,000-token prompt chunks:
     trace ``steps`` ticks that each run a prefill chunk and a decode step;
-    print the device time per tick by kind of kernel."""
+    print the device time per tick by kind of kernel. The requests are
+    left unfinished, to go with the engine."""
     import numpy as np
 
     rng = np.random.default_rng(3)
@@ -2676,7 +2712,6 @@ def profile_chunk_ticks(engine, steps=3):
         f"miss + a decode step of 2 slots): {total:.2f} ms of kernels per "
         f"tick (" + ", ".join(f"{kind} {ms:.2f}" for kind, ms in kinds.items())
         + f"); {launched:.0f} kernel launches per tick")
-    engine.pump()
 
 
 # -- report -------------------------------------------------------------------
@@ -2684,6 +2719,9 @@ def profile_chunk_ticks(engine, steps=3):
 # -- phase 8 ------------------------------------------------------------------
 
 SERVICE_PROMPT_LENS = (17, 100, 300, 600, 1000, 1500, 2200, 3000)
+#: the daemon's depth at 7b widths, cut so that the whole script keeps
+#: inside its time limit (the serving phase runs all 32 layers)
+SERVICE_LAYERS = 8
 
 
 def reset_launches():
@@ -2696,9 +2734,10 @@ def reset_launches():
 
 
 def service_generation(**knobs):
-    """The daemon's serving config: the full 7b preset, the default engine
-    (int8 pages, prefix cache, chunks of 256), the speculative lane off
-    (int8 pages with the lane are not token-exact), a 20 ms pump tick."""
+    """A daemon's serving config: the full 7b preset unless ``knobs`` name
+    another, the default engine (int8 pages, prefix cache, chunks of 256),
+    the speculative lane off (int8 pages with the lane are not
+    token-exact), a 20 ms pump tick."""
     from tensorhive_tpu_torch.config import GenerationConfig
 
     base = dict(preset="7b", slots=8, max_len=4096, paged_kernel="on",
@@ -2804,9 +2843,10 @@ def check_registry(engine, baseline, requests, label):
 
 
 def service_run(card):
-    """The serving daemon on the full 7b preset: GenerationService's pump
-    thread serving client threads, with the engine's observability, then a
-    fatal fault and the rebuild, the drain, and checkpoint loading."""
+    """The serving daemon at 7b widths, cut to SERVICE_LAYERS layers:
+    GenerationService's pump thread serving client threads, with the
+    engine's observability, then a fatal fault and the rebuild, the drain,
+    and checkpoint loading."""
     import dataclasses
     import json
     import shutil
@@ -2842,13 +2882,15 @@ def service_run(card):
     )
     from tensorhive_tpu_torch.telemetry import TelemetryEmitter
 
-    label = "service (7b, GenerationService)"
+    label = f"service (7b widths, {SERVICE_LAYERS} layers, GenerationService)"
     started = time.perf_counter()
     new_tokens = 32
     workdir = REPO / "build" / "service_smoke"
     shutil.rmtree(workdir, ignore_errors=True)
     release_device_memory()
-    generation = service_generation()
+    PRESETS["7b-service"] = dataclasses.replace(PRESETS["7b"],
+                                                n_layers=SERVICE_LAYERS)
+    generation = service_generation(preset="7b-service")
     rng = np.random.default_rng(4)
     # no two prompts share a first token, so none can match another's
     # cached prefix (prefix_min_tokens 32): no request's tokens depend on
@@ -3250,7 +3292,7 @@ def service_run(card):
         f"the 32-layer 7b daemon on it stayed up with no engine: "
         f"{reason[:100]}")
     del service, wrong, handle, on_host
-    del PRESETS["7b-4-layers"]
+    del PRESETS["7b-4-layers"], PRESETS["7b-service"]
     shutil.rmtree(workdir, ignore_errors=True)
     release_device_memory()
     log(f"  service section {time.perf_counter() - started:.1f} s ({card})")
@@ -3267,7 +3309,7 @@ def service_run(card):
 # releases it; ranks report through JSON files in a run directory.
 
 MESH_NEW_TOKENS = 32
-#: new tokens of the lane's full-7b run (f) and of the tiering run (g)
+#: new tokens of the lane's 7b run (f) and of the tiering run (g)
 MESH_LANE_NEW_TOKENS = 16
 MESH_TICK_LABEL = ("tick ms over gloo on one card (collectives staged "
                    "through host memory; no measure of multi-card serving)")
@@ -3277,10 +3319,12 @@ MESH_TIMEOUT_S = {2: 900, 8: 240}
 def mesh_presets():
     """The cut configurations of the mesh phase, registered as presets in
     the parent and in every rank so that build_engine can build them: 7b
-    widths at 4 layers in f32, and 7b widths at 2 layers in f32 with 4 KV
-    heads (the GQA guard at tp 8: 8 does not divide 4; the paged-decode
-    kernel takes at most 8 query heads per KV head, so 2 KV heads under 32
-    query heads would be refused on one card as well)."""
+    widths at 4 layers in f32; the 7b preset (bf16) cut to 8 layers for
+    (b), (f) and (g), so that the whole script keeps inside its time
+    limit; and 7b widths at 2 layers in f32
+    with 4 KV heads (the GQA guard at tp 8: 8 does not divide 4; the
+    paged-decode kernel takes at most 8 query heads per KV head, so 2 KV
+    heads under 32 query heads would be refused on one card as well)."""
     import dataclasses
 
     import torch
@@ -3289,6 +3333,7 @@ def mesh_presets():
 
     PRESETS["mesh-7b4-f32"] = dataclasses.replace(
         PRESETS["7b"], n_layers=4, dtype=torch.float32)
+    PRESETS["mesh-7b8"] = dataclasses.replace(PRESETS["7b"], n_layers=8)
     PRESETS["mesh-7b2-kv4-f32"] = dataclasses.replace(
         PRESETS["7b"], n_layers=2, n_kv_heads=4, dtype=torch.float32)
     # (e)'s independent draft: 1b widths at 4 layers (the engine gives a
@@ -3322,7 +3367,7 @@ MESH_JOBS = {
                                kv_quant="off", prefix_cache="off"), "short"),
         ("a_chunked", 1, 2, dict(preset="mesh-7b4-f32", max_len=2048,
                                  kv_quant="off"), "short"),
-        ("b_7b", 1, 2, dict(preset="7b", max_len=4096), "chat"),
+        ("b_7b", 1, 2, dict(preset="mesh-7b8", max_len=4096), "chat"),
         ("d_dp2", 2, 1, dict(preset="mesh-7b4-f32", max_len=2048), "short"),
         ("e_spec_self", 1, 2, dict(preset="mesh-7b4-f32", max_len=2048,
                                    kv_quant="off", prefix_cache="off",
@@ -3331,16 +3376,17 @@ MESH_JOBS = {
                                  kv_quant="off", prefix_cache="off",
                                  speculative="on", draft_preset="mesh-1b4"),
          "short"),
-        ("f_spec_7b", 1, 2, dict(preset="7b", max_len=4096,
+        ("f_spec_7b", 1, 2, dict(preset="mesh-7b8", max_len=4096,
                                  speculative="auto"), "chat"),
-        ("g_tier_7b", 1, 2, dict(preset="7b", max_len=4096, kv_pages=340,
+        ("g_tier_7b", 1, 2, dict(preset="mesh-7b8", max_len=4096,
+                                 kv_pages=340,
                                  host_kv_bytes=1 << 30), "tier")],
     8: [("c_guard", 1, 8, dict(preset="mesh-7b2-kv4-f32", max_len=2048,
                                kv_quant="off", prefix_cache="off"), "guard")],
 }
 #: each job's single-card reference: its own (None: the job is its own
 #: reference), another job's (the lane's spec-on runs are held to (a)'s
-#: spec-off run), or none (the lane's and the tier's full-7b runs hold
+#: spec-off run), or none (the lane's and the tier's 8-layer 7b runs hold
 #: themselves: host hit against HBM hit, bytes against the single card's
 #: by their formula)
 MESH_REFERENCE = {"e_spec_self": "a_whole", "e_spec_1b": "a_whole",
@@ -3664,6 +3710,7 @@ def mesh_rank_main(rank: int, world: int, rundir: str) -> int:
             "first": [None if row is None else row.tolist()
                       for row in first],
             "ticks": ticks, "build_s": build_s, "stats": stats,
+            "job_s": time.perf_counter() - started,
             "capacity": engine.capacity, "param_bytes": engine.param_bytes,
             "kv_bytes": engine.kv_cache_bytes,
             "rules_kv_heads": engine._rules.kv_heads,
@@ -3724,14 +3771,20 @@ def mesh_group(world: int, rundir: Path, kind: str = "mesh"):
     processes = []
     for rank in range(world):
         env = dict(os.environ, LOCAL_RANK=str(rank))
+        if kind == "train":
+            # the group's ranks share the card's memory: allocate in
+            # expandable segments, so no rank strands its free blocks
+            env.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                           "expandable_segments:True")
         log_file = open(rundir / f"rank{rank}.log", "w")
         processes.append((subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), f"--{kind}-rank",
              str(rank), f"--{kind}-world", str(world), f"--{kind}-dir",
              str(rundir)], stdout=log_file, stderr=subprocess.STDOUT,
             env=env, cwd=str(REPO)), log_file))
-    deadline = time.monotonic() + (MESH_TIMEOUT_S if kind == "mesh"
-                                   else TRAIN_MESH_TIMEOUT_S)[world]
+    deadline = min(time.monotonic() + (MESH_TIMEOUT_S if kind == "mesh"
+                                       else TRAIN_MESH_TIMEOUT_S)[world],
+                   STARTED + RUN_DEADLINE_S)
     failed = []
     for rank, (process, log_file) in enumerate(processes):
         try:
@@ -3883,9 +3936,10 @@ def check_mesh_lane(label, name, reports, references, expected):
 def phase_mesh(card):
     """The serving mesh on this card, groups of 2 and 8 ranks over gloo:
     (a) tp 2, f32, 7b widths at 4 layers, whole-prompt and chunked, tokens
-    identical to the single card; (b) tp 2 on the full 7b preset, the
-    default engine on chat traffic, no leaked page, first-step logits
-    within the single card's own bf16 error; (c) the GQA guard at tp 8
+    identical to the single card; (b) tp 2 on the 7b preset cut to 8
+    layers, the default engine on chat traffic, no leaked page,
+    first-step logits within the single card's own bf16 error; (c) the
+    GQA guard at tp 8
     over 4 KV heads, tokens identical; (d) dp 2 through build_engine,
     capacity and pages doubled, tokens identical. K1 and K8/K9 launched on
     every rank at its local head counts. Returns the launches per kernel
@@ -3914,8 +3968,11 @@ def phase_mesh(card):
         group_started = time.perf_counter()
         reports[world] = mesh_group(world, REPO / "build" / "mesh_smoke"
                                     / f"world{world}")
+        jobs = reports[world][0]["jobs"]
         log(f"  group of {world} ranks: "
-            f"{time.perf_counter() - group_started:.1f} s")
+            f"{time.perf_counter() - group_started:.1f} s (rank 0's jobs: "
+            + ", ".join(f"{name} {job['job_s']:.1f} s"
+                        for name, job in jobs.items()) + ")")
     launches = {}
     for world, jobs in MESH_JOBS.items():
         for name, dp, tp, knobs, traffic in jobs:
@@ -4003,14 +4060,36 @@ def phase_mesh(card):
 # files in a run directory (and (a)'s rank 0 its gathered params through a
 # torch.save file).
 
-TRAIN_MESH_TIMEOUT_S = {8: 420, 4: 900}
+TRAIN_MESH_TIMEOUT_S = {8: 480, 4: 900}
 TRAIN_STEP_LABEL = ("step ms over gloo on one card (collectives staged "
                     "through host memory; no measure of multi-card "
                     "training)")
+#: the training mesh's axes, in the order of a mesh key
+TRAIN_AXES = ("pp", "dp", "fsdp", "tp", "sp")
+
+
+def mesh_key(**axes):
+    """A training mesh's shape as a (pp, dp, fsdp, tp, sp) tuple."""
+    return tuple(axes.get(axis, 1) for axis in TRAIN_AXES)
+
+
 #: per group size: the sections its ranks run, in order, and the meshes
-#: (dp, fsdp, tp) every rank builds up front
-TRAIN_MESH_GROUPS = {8: (("a",), ((2, 2, 2),)),
-                     4: (("b", "c"), ((1, 2, 2), (2, 2, 1)))}
+#: every rank builds up front
+TRAIN_MESH_GROUPS = {
+    8: (("a", "d"), (mesh_key(dp=2, fsdp=2, tp=2),
+                     mesh_key(sp=2, fsdp=2, tp=2),
+                     mesh_key(pp=2, sp=2, fsdp=2))),
+    4: (("b", "c", "e", "f"), (mesh_key(fsdp=2, tp=2),
+                               mesh_key(dp=2, fsdp=2),
+                               mesh_key(pp=2, sp=2),
+                               mesh_key(sp=2, fsdp=2)))}
+#: (c)'s depth and steps, cut so that the whole script keeps inside its
+#: time limit
+TRAIN_C_LAYERS, TRAIN_C_STEPS = 2, 3
+#: (d)'s bound on loss and grad norm against the single card (f32): the
+#: ring's merge and the pipeline's microbatches change the order of f32
+#: sums only ((a), without them, measured 7.24e-7 on an H100)
+RING_TRAIN_REL_TOL = 2e-6
 
 
 def train_parity_setup():
@@ -4047,10 +4126,12 @@ def train_parity_setup():
 
 
 def train_big_setup(section, device="cuda"):
-    """(b) t2t-base at full width and depth, b64 x s1024, remat off; (c)
-    7b widths at 4 layers (GQA 32/8), b4 x s2048, remat "mlp" — bf16
-    compute on f32 masters, one fixed batch from a seeded generator on the
-    card."""
+    """(b) t2t-base at full width and depth, b64 x s1024, remat off (and
+    (e), the same with 4 pipeline microbatches); (c) 7b widths at
+    TRAIN_C_LAYERS layers (GQA 32/8), b4 x s2048, remat "mlp"; (f) the
+    same widths at 4 layers with ``max_seq_len`` 16384 (RoPE: no learned
+    positions to grow), b2 x s16384 — bf16 compute on f32 masters, one
+    fixed batch from a seeded generator on the card."""
     import dataclasses
 
     import torch
@@ -4058,13 +4139,21 @@ def train_big_setup(section, device="cuda"):
     from tensorhive_tpu_torch import train
     from tensorhive_tpu_torch.models.transformer import PRESETS
 
-    if section == "b":
+    if section in ("b", "e"):
         config = dataclasses.replace(PRESETS["t2t-base"], remat=False)
+        if section == "e":
+            config = dataclasses.replace(config, pp_microbatches=4)
         tc = train.TrainConfig(batch_size=64, seq_len=1024, warmup_steps=2,
                                total_steps=100)
-    else:
-        config = dataclasses.replace(PRESETS["7b"], n_layers=4, remat=True,
+    elif section == "f":
+        config = dataclasses.replace(PRESETS["7b"], n_layers=4,
+                                     max_seq_len=16384, remat=True,
                                      remat_policy="mlp")
+        tc = train.TrainConfig(batch_size=2, seq_len=16384, warmup_steps=2,
+                               total_steps=100)
+    else:
+        config = dataclasses.replace(PRESETS["7b"], n_layers=TRAIN_C_LAYERS,
+                                     remat=True, remat_policy="mlp")
         tc = train.TrainConfig(batch_size=4, seq_len=2048, warmup_steps=2,
                                total_steps=100)
     tokens = train.synthetic_batch(
@@ -4121,7 +4210,7 @@ def train_section_a(meshes, rundir, rank):
         assemble_train_tree,
     )
 
-    mesh = meshes[(2, 2, 2)]
+    mesh = meshes[mesh_key(dp=2, fsdp=2, tp=2)]
     lm, tc, tokens, enc, enc_tc, packed = train_parity_setup()
     params, opt_state = train.init_train_state(
         lm, tc, torch.Generator(device=mesh.device).manual_seed(11),
@@ -4156,7 +4245,8 @@ def train_section_b(meshes, rundir, rank):
         assemble_train_leaf,
     )
 
-    mesh_a, mesh_b = meshes[(1, 2, 2)], meshes[(2, 2, 1)]
+    mesh_a = meshes[mesh_key(fsdp=2, tp=2)]
+    mesh_b = meshes[mesh_key(dp=2, fsdp=2)]
     config, tc, tokens = train_big_setup("b", mesh_a.device)
     params, opt_state = train.init_train_state(
         config, tc, torch.Generator(device=mesh_a.device).manual_seed(0),
@@ -4202,7 +4292,7 @@ def train_section_c(meshes, rundir, rank):
 
     from tensorhive_tpu_torch import train
 
-    mesh = meshes[(1, 2, 2)]
+    mesh = meshes[mesh_key(fsdp=2, tp=2)]
     config, tc, tokens = train_big_setup("c", mesh.device)
     params, opt_state = train.init_train_state(
         config, tc, torch.Generator(device=mesh.device).manual_seed(0),
@@ -4212,14 +4302,190 @@ def train_section_c(meshes, rundir, rank):
     mesh_reset_launches()
     torch.cuda.reset_peak_memory_stats()
     out["metrics"], out["ms"] = timed_train_steps(
-        step, params, opt_state, rank_rows(tokens, mesh), 4)
+        step, params, opt_state, rank_rows(tokens, mesh), TRAIN_C_STEPS)
     out["launches"] = mesh_launch_heads()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
 
 
+def train_section_d(meshes, rundir, rank):
+    """(a)'s runs on the ring and the pipeline: the LM at sp 2 x fsdp 2 x
+    tp 2 and at pp 2 x sp 2 x fsdp 2 (2 pipeline microbatches), 3 steps
+    each, and the MLM step (a non-causal ring) at sp 2 x fsdp 2 x tp 2."""
+    import dataclasses
+
+    import torch
+
+    from tensorhive_tpu_torch import train
+    from tensorhive_tpu_torch.models import encoder
+
+    lm, tc, tokens, enc, enc_tc, packed = train_parity_setup()
+    out = {}
+    for name, axes, config in (
+            ("lm_sp", dict(sp=2, fsdp=2, tp=2), lm),
+            ("lm_pp", dict(pp=2, sp=2, fsdp=2),
+             dataclasses.replace(lm, pp_microbatches=2))):
+        mesh = meshes[mesh_key(**axes)]
+        params, opt_state = train.init_train_state(
+            config, tc, torch.Generator(device=mesh.device).manual_seed(11),
+            mesh=mesh)
+        step = train.make_train_step(config, tc, mesh)
+        mesh_reset_launches()
+        out[name], out[f"{name}_ms"] = timed_train_steps(
+            step, params, opt_state, rank_rows(tokens, mesh), 3)
+        out[f"{name}_launches"] = mesh_launch_heads()
+        out[f"{name}_sp_rank"] = mesh.sp_rank
+        del params, opt_state
+    mesh = meshes[mesh_key(sp=2, fsdp=2, tp=2)]
+    params, opt_state = train.init_train_state(
+        enc, enc_tc, torch.Generator(device=mesh.device).manual_seed(13),
+        mesh=mesh)
+    step = train.make_train_step(enc, enc_tc, mesh,
+                                 loss_fn=encoder.mlm_loss_packed)
+    mesh_reset_launches()
+    out["mlm"], out["mlm_ms"] = timed_train_steps(
+        step, params, opt_state, rank_rows(packed, mesh), 1)
+    out["mlm_launches"] = mesh_launch_heads()
+    out["mlm_sp_rank"] = mesh.sp_rank
+    return out
+
+
+def train_section_e(meshes, rundir, rank):
+    """pp 2 x sp 2 at t2t-base, full width and depth (3 layers a stage),
+    b64 x s1024 (512 positions a rank), 4 pipeline microbatches, 5 steps;
+    then the checkpoint restored at fsdp 2 x tp 2 and a step on both."""
+    import torch
+
+    from tensorhive_tpu_torch import train
+    from tensorhive_tpu_torch.parallel.train_parallel import (
+        assemble_train_tree,
+    )
+
+    mesh_a = meshes[mesh_key(pp=2, sp=2)]
+    mesh_b = meshes[mesh_key(fsdp=2, tp=2)]
+    config, tc, tokens = train_big_setup("e", mesh_a.device)
+    params, opt_state = train.init_train_state(
+        config, tc, torch.Generator(device=mesh_a.device).manual_seed(0),
+        mesh=mesh_a)
+    out = {"bytes": train_state_bytes(params, opt_state, config, mesh_a),
+           "layers": len(params["blocks"]), "sp_rank": mesh_a.sp_rank}
+    step = train.make_train_step(config, tc, mesh_a)
+    mesh_reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out["metrics"], out["ms"] = timed_train_steps(
+        step, params, opt_state, rank_rows(tokens, mesh_a), 5)
+    out["launches"] = mesh_launch_heads()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    path = str(Path(rundir) / "checkpoint_e")
+    train.save_checkpoint(path, 5, params, opt_state, mesh=mesh_a)
+    restored_step, params_b, opt_b = train.restore_checkpoint(
+        path, *train.abstract_train_state(config, tc, mesh_b), mesh=mesh_b)
+    out["restored_step"] = restored_step
+    out["restored_bytes"] = train_state_bytes(params_b, opt_b, config,
+                                              mesh_b)
+    bitwise = opt_b["count"] == opt_state["count"]
+    for tree_a, tree_b in ((params, params_b), (opt_state["mu"], opt_b["mu"]),
+                           (opt_state["nu"], opt_b["nu"])):
+        whole_a = assemble_train_tree(tree_a, mesh_a)
+        whole_b = assemble_train_tree(tree_b, mesh_b)
+        bitwise &= all(torch.equal(a, b) for a, b in zip(
+            train.tree_leaves(whole_a), train.tree_leaves(whole_b)))
+        del whole_a, whole_b
+    out["bitwise"] = bool(bitwise)
+    out["next_a"] = timed_train_steps(step, params, opt_state,
+                                      rank_rows(tokens, mesh_a), 1)[0][0]
+    out["next_b"] = timed_train_steps(
+        train.make_train_step(config, tc, mesh_b), params_b, opt_b,
+        rank_rows(tokens, mesh_b), 1)[0][0]
+    return out
+
+
+def ring_layer_check(mesh, config, seq):
+    """One layer's ring attention at (f)'s shapes (bf16, B 1, ``seq``
+    positions, ``config``'s heads, causal) against the single card's
+    kernels over the whole sequence, on this rank's block of out, dq, dk
+    and dv: each one's relative error over the whole block (||ring -
+    single|| / ||single||), and its largest row error. Every rank draws
+    the same q, k, v and dO.
+
+    The ring rounds each step's partial O, dQ and dK/dV to bf16 before its
+    f32 merge (as JAX's does), the single card only the finished values:
+    where a row's partials cancel, its relative error grows by the ratio of
+    their size to the sum's, so among the ~10^5 rows of a rank some pass
+    1e-2 though every partial is right. The whole block's error is held to
+    the phase's bf16 bound; the rows are reported."""
+    import torch
+
+    from tensorhive_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_backward,
+    )
+    from tensorhive_tpu_torch.parallel.ring import ring_attention
+
+    generator = torch.Generator(device=mesh.device).manual_seed(31)
+    d = config.d_head
+
+    def draw(heads):
+        return torch.randn((1, seq, heads, d), generator=generator,
+                           device=mesh.device, dtype=torch.bfloat16)
+
+    q, k, v = draw(config.n_heads), draw(config.kv_heads), \
+        draw(config.kv_heads)
+    do = draw(config.n_heads)
+    block = seq // mesh.sp
+    start = mesh.sp_rank * block
+
+    def mine(t):
+        return t[:, start:start + block].contiguous()
+
+    live = [mine(t).requires_grad_() for t in (q, k, v)]
+    out = ring_attention(*live, mesh, causal=True)
+    grads = torch.autograd.grad(out, live, mine(do))
+    whole, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    whole_grads = flash_attention_backward(q, k, v, whole, lse, do,
+                                           causal=True)
+    pairs = [(out.detach(), mine(whole))] + [
+        (got, mine(want)) for got, want in zip(grads, whole_grads)]
+    block = [((got.float() - want.float()).norm()
+              / want.float().norm()).item() for got, want in pairs]
+    rows = [errors(pairs[0][0], pairs[0][1].float())[1]] + [
+        grad_errors(got, want, first_row_zero=(
+            index == 0 and mesh.sp_rank == 0))[1]
+        for index, (got, want) in enumerate(pairs[1:])]
+    return {"block": block, "rows": rows}
+
+
+def train_section_f(meshes, rundir, rank):
+    """sp 2 x fsdp 2 at 7b widths for long context: 4 layers, b2 x
+    s16384 (one row and 8,192 positions a rank), remat "mlp", 4 steps;
+    then one layer's ring against the single card's kernels."""
+    import torch
+
+    from tensorhive_tpu_torch import train
+
+    mesh = meshes[mesh_key(sp=2, fsdp=2)]
+    config, tc, tokens = train_big_setup("f", mesh.device)
+    params, opt_state = train.init_train_state(
+        config, tc, torch.Generator(device=mesh.device).manual_seed(0),
+        mesh=mesh)
+    out = {"bytes": train_state_bytes(params, opt_state, config, mesh),
+           "sp_rank": mesh.sp_rank}
+    step = train.make_train_step(config, tc, mesh)
+    mesh_reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out["metrics"], out["ms"] = timed_train_steps(
+        step, params, opt_state, rank_rows(tokens, mesh), 4)
+    out["launches"] = mesh_launch_heads()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt_state, step
+    release_device_memory()
+    out["ring_check"] = ring_layer_check(mesh, config, tc.seq_len)
+    return out
+
+
 TRAIN_SECTIONS = {"a": train_section_a, "b": train_section_b,
-                  "c": train_section_c}
+                  "c": train_section_c, "d": train_section_d,
+                  "e": train_section_e, "f": train_section_f}
 
 
 def train_rank_main(rank: int, world: int, rundir: str) -> int:
@@ -4240,11 +4506,14 @@ def train_rank_main(rank: int, world: int, rundir: str) -> int:
     dist.init_process_group("gloo", init_method=f"file://{rundir}/store",
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=600))
-    meshes = {shape: train_mesh(*shape) for shape in shapes}
+    meshes = {shape: train_mesh(**dict(zip(TRAIN_AXES, shape)))
+              for shape in shapes}
     out = {"rank": rank, "sections": {}}
     for name in sections:
+        started = time.perf_counter()
         out["sections"][name] = TRAIN_SECTIONS[name](meshes, rundir, rank)
         release_device_memory()
+        out["sections"][name]["section_s"] = time.perf_counter() - started
     out["device_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     (Path(rundir) / f"rank{rank}.json").write_text(json.dumps(out))
     dist.destroy_process_group()
@@ -4293,14 +4562,19 @@ def train_references(device="cuda"):
 
 
 def expected_train_launches(config, steps, micro, variant, heads,
-                            kv_heads):
+                            kv_heads, sp=1, sp_rank=0, pp=1):
     """A rank's flash launches of ``steps`` steps of ``micro``
-    microbatches at its local head counts: forward = layers x micro x
-    steps (twice under "block" remat; the head-blocked counter when the
-    config asks for G > 1), backward the same without the rerun."""
-    runs = config.n_layers * micro * steps
+    microbatches (gradient accumulation times pipeline microbatches) at
+    its local head counts: forward = its stage's layers x micro x steps
+    (twice under "block" remat; the head-blocked counter when the config
+    asks for G > 1 and there is no ring), backward the same without the
+    rerun; each times the ring's live blocks at sp > 1 (``sp_rank + 1``
+    causal, ``sp`` not)."""
+    blocks = 1 if sp == 1 else (sp_rank + 1 if config.causal else sp)
+    runs = config.n_layers // pp * micro * steps * blocks
     reruns = 2 if config.remat and config.remat_policy == "block" else 1
-    forward = f"bh_{variant}" if config.flash_bh_block > 1 else variant
+    forward = (f"bh_{variant}" if config.flash_bh_block > 1 and sp == 1
+               else variant)
     return {f"flash|{forward}|{heads}|{kv_heads}": runs * reruns,
             f"flash|bwd_{variant}|{heads}|{kv_heads}": runs}
 
@@ -4308,17 +4582,19 @@ def expected_train_launches(config, steps, micro, variant, heads,
 def check_train_ranks(label, reports, section, key, launches_key,
                       expected):
     """Every rank's ``key`` metrics of ``section`` equal rank 0's (each is
-    the global value) and its launches are exactly ``expected``; returns
-    rank 0's metrics."""
+    the global value) and its launches are exactly ``expected`` (or
+    ``expected(section's report)``, where they depend on the rank's sp
+    index); returns rank 0's metrics."""
     first = reports[0]["sections"][section][key]
     for report in reports:
         ours = report["sections"][section]
+        want = expected(ours) if callable(expected) else expected
         require(ours[key] == first,
                 f"{label}: rank {report['rank']} metrics {ours[key]} differ "
                 f"from rank 0's {first}")
-        require(ours[launches_key] == expected,
+        require(ours[launches_key] == want,
                 f"{label}: rank {report['rank']} launches "
-                f"{ours[launches_key]}, expected {expected}")
+                f"{ours[launches_key]}, expected {want}")
     return first
 
 
@@ -4332,12 +4608,18 @@ def median(values):
 
 def phase_train_mesh(card):
     """Sharded training on this card, groups of 8 and 4 ranks over gloo:
-    (a) f32 parity at dp 2 x fsdp 2 x tp 2 (LM with 2 microbatches, 3
-    steps; the MLM encoder's step) against the single card; (b) t2t-base
-    b64 x s1024 at fsdp 2 x tp 2, 5 steps, bf16 on f32 masters, then a
-    checkpoint restored at dp 2 x fsdp 2; (c) 7b widths at 4 layers, GQA
-    32/8, fsdp 2 x tp 2, 4 steps. Returns the launches per kernel name
-    summed over ranks."""
+    (a) f32 parity at dp 2 x fsdp 2 x tp 2 (LM with 2 microbatches, 3 steps; the
+    MLM encoder's step) against the single card; (b) t2t-base b64 x s1024
+    at fsdp 2 x tp 2, 5 steps, bf16 on f32 masters, then a checkpoint
+    restored at dp 2 x fsdp 2; (c) 7b widths at TRAIN_C_LAYERS layers, GQA
+    32/8, fsdp 2 x tp 2, TRAIN_C_STEPS steps; (d) (a)'s runs on the ring
+    (sp 2 x fsdp 2 x tp 2, LM and MLM) and the pipeline (pp 2 x sp 2 x fsdp
+    2) against the same single-card runs; (e) (b)'s model at pp 2 x sp 2,
+    its checkpoint restored at fsdp 2 x tp 2; (f) 7b widths at 16,384
+    positions over sp 2 x fsdp 2, and one layer's ring against the single
+    card's kernels. Returns the launches per kernel name summed over ranks."""
+    import dataclasses
+
     import torch
 
     from tensorhive_tpu_torch import train
@@ -4352,16 +4634,24 @@ def phase_train_mesh(card):
         group_started = time.perf_counter()
         reports[world] = mesh_group(world, REPO / "build" / "train_mesh_smoke"
                                     / f"world{world}", kind="train")
+        sections = reports[world][0]["sections"]
         log(f"  group of {world} ranks: "
-            f"{time.perf_counter() - group_started:.1f} s")
+            f"{time.perf_counter() - group_started:.1f} s (rank 0's "
+            "sections: " + ", ".join(f"({name}) {out['section_s']:.1f} s"
+                                     for name, out in sections.items()) + ")")
     launches = {}
 
     def count(expected, world):
-        for key, value in expected.items():
-            variant = key.split("|")[1]
-            name = ("flash_bwd_" + variant[4:] if variant.startswith("bwd_")
-                    else "flash_fwd_" + variant)
-            launches[name] = launches.get(name, 0) + value * world
+        """Add a section's launches: ``expected`` for each of ``world``
+        ranks, or a list with each rank's."""
+        for one in (expected if isinstance(expected, list)
+                    else [expected] * world):
+            for key, value in one.items():
+                variant = key.split("|")[1]
+                name = ("flash_bwd_" + variant[4:]
+                        if variant.startswith("bwd_")
+                        else "flash_fwd_" + variant)
+                launches[name] = launches.get(name, 0) + value
 
     # (a) f32 parity
     lm, tc, _, enc, _, _ = train_parity_setup()
@@ -4456,10 +4746,11 @@ def phase_train_mesh(card):
     log(f"  {TRAIN_STEP_LABEL}: median {median(b0['ms'][1:]):.1f} "
         f"(steps {[round(t, 1) for t in b0['ms']]})")
 
-    # (c) 7b widths at 4 layers
+    # (c) 7b widths, cut in depth
     config, _, _ = train_big_setup("c")
-    label = "train-mesh (c) fsdp2 x tp2, 7b widths 4 layers, b4 x s2048, bf16"
-    expected = expected_train_launches(config, 4, 1, "bf16",
+    label = (f"train-mesh (c) fsdp2 x tp2, 7b widths {config.n_layers} "
+             "layers, b4 x s2048, bf16")
+    expected = expected_train_launches(config, TRAIN_C_STEPS, 1, "bf16",
                                        config.n_heads // 2,
                                        config.kv_heads // 2)
     metrics = check_train_ranks(label, reports[4], "c", "metrics",
@@ -4475,7 +4766,7 @@ def phase_train_mesh(card):
                 f"{held} B of params/mu/nu, its specs give {want}")
     c0 = reports[4][0]["sections"]["c"]
     log(f"{label}: {n_params / 1e6:.1f} M params, {16 * n_params / 1e9:.2f} "
-        f"GB of params, grads, mu and nu whole; 4 steps, loss "
+        f"GB of params, grads, mu and nu whole; {TRAIN_C_STEPS} steps, loss "
         f"{losses[0]:.6f} -> {losses[-1]:.6f}; per rank "
         f"{c0['bytes'][0] / 1e9:.4f} GB of params/mu/nu (spec share "
         f"exactly); peak memory "
@@ -4484,6 +4775,147 @@ def phase_train_mesh(card):
         + f" GB; launches per rank {expected}")
     log(f"  {TRAIN_STEP_LABEL}: median {median(c0['ms'][1:]):.1f} "
         f"(steps {[round(t, 1) for t in c0['ms']]})")
+
+    # (d) the ring and the pipeline against the single card, f32
+    for name, shape, config, micro, heads, pp in (
+            ("lm_sp", "sp2 x fsdp2 x tp2", lm, 2, 4, 1),
+            ("lm_pp", "pp2 x sp2 x fsdp2, 2 pipeline microbatches",
+             dataclasses.replace(lm, pp_microbatches=2), 4, 8, 2)):
+        label = f"train-mesh (d) {shape}, t2t-base widths, 2 layers, f32"
+
+        def want(section, config=config, micro=micro, heads=heads, pp=pp,
+                 name=name):
+            return expected_train_launches(
+                config, 3, micro, "f32", heads, heads, sp=2,
+                sp_rank=section[f"{name}_sp_rank"], pp=pp)
+        ours = check_train_ranks(label, reports[8], "d", name,
+                                 f"{name}_launches", want)
+        count([want(r["sections"]["d"]) for r in reports[8]], 8)
+        worst = 0.0
+        for index, (got, ref) in enumerate(zip(ours, refs["lm"])):
+            for key in ("loss", "grad_norm"):
+                err = relative(got[key], ref[key])
+                worst = max(worst, err)
+                require(math.isfinite(got[key]) and err <= RING_TRAIN_REL_TOL,
+                        f"{label} step {index + 1}: {key} {got[key]} vs the "
+                        f"single card's {ref[key]} (rel {err:.2e})")
+        d0 = reports[8][0]["sections"]["d"]
+        log(f"{label}: b8 x s512, 2 accumulation microbatches, block remat, "
+            f"3 steps: loss {ours[-1]['loss']:.6f} vs "
+            f"{refs['lm'][-1]['loss']:.6f}; max rel err of loss/grad_norm "
+            f"{worst:.2e} (tolerance {RING_TRAIN_REL_TOL}); launches per "
+            "rank " + ", ".join(
+                str(want(r["sections"]["d"])) for r in reports[8][:2])
+            + f"; {TRAIN_STEP_LABEL}: rank 0 "
+            f"{[round(t, 1) for t in d0[f'{name}_ms']]}")
+
+    def want_mlm(section):
+        return expected_train_launches(enc, 1, 1, "f32", 4, 4, sp=2,
+                                       sp_rank=section["mlm_sp_rank"])
+    label = "train-mesh (d) sp2 x fsdp2 x tp2, MLM (non-causal ring), f32"
+    mlm = check_train_ranks(label, reports[8], "d", "mlm", "mlm_launches",
+                            want_mlm)[0]
+    count([want_mlm(r["sections"]["d"]) for r in reports[8]], 8)
+    for key in ("loss", "grad_norm"):
+        err = relative(mlm[key], refs["mlm"][0][key])
+        require(err <= RING_TRAIN_REL_TOL, f"{label}: {key} {mlm[key]} vs "
+                f"{refs['mlm'][0][key]} (rel {err:.2e})")
+    log(f"{label}: loss {mlm['loss']:.6f} vs the single card's "
+        f"{refs['mlm'][0]['loss']:.6f}, grad norm {mlm['grad_norm']:.6f} vs "
+        f"{refs['mlm'][0]['grad_norm']:.6f}; launches per rank "
+        f"{want_mlm(reports[8][0]['sections']['d'])} (every rank)")
+
+    # (e) pp 2 x sp 2 at t2t-base, and its checkpoint at fsdp 2 x tp 2
+    config, _, _ = train_big_setup("e")
+    label = "train-mesh (e) pp2 x sp2, t2t-base b64 x s1024, bf16"
+
+    def want_e(section):
+        return expected_train_launches(config, 5, 4, "bf16", 8, 8, sp=2,
+                                       sp_rank=section["sp_rank"], pp=2)
+    metrics = check_train_ranks(label, reports[4], "e", "metrics",
+                                "launches", want_e)
+    count([want_e(r["sections"]["e"]) for r in reports[4]], 4)
+    losses = falling(label, [torch.tensor(m["loss"]) for m in metrics])
+    mesh_err = abs(metrics[0]["loss"] - refs["b_f32"])
+    require(mesh_err <= 2 * single_err,
+            f"{label}: step-1 loss {mesh_err:.3e} from f32, past twice the "
+            f"single card's {single_err:.3e}")
+    for report in reports[4]:
+        e = report["sections"]["e"]
+        held, want = e["bytes"]
+        require(held == want and e["layers"] == config.n_layers // 2,
+                f"{label}: rank {report['rank']} holds {held} B of "
+                f"params/mu/nu in {e['layers']} layers, its specs give "
+                f"{want} in {config.n_layers // 2}")
+        require(e["restored_step"] == 5 and e["bitwise"]
+                and e["restored_bytes"][0] == e["restored_bytes"][1],
+                f"{label}: rank {report['rank']}: restore at fsdp2 x tp2 "
+                f"not bitwise or not at its spec's bytes: {e['bitwise']}, "
+                f"{e['restored_bytes']}")
+        gap = abs(e["next_b"]["loss"] - e["next_a"]["loss"])
+        require(gap <= 2 * single_err,
+                f"{label}: step 6 after the restore {e['next_b']['loss']} vs "
+                f"the continuous run's {e['next_a']['loss']}")
+    e0 = reports[4][0]["sections"]["e"]
+    log(f"{label}: 3 layers a stage, 4 pipeline microbatches, 5 steps on one "
+        f"batch, loss {losses[0]:.6f} -> {losses[-1]:.6f}; step-1 "
+        f"|mesh - f32| {mesh_err:.3e} (single card {single_err:.3e}); per "
+        f"rank {e0['bytes'][0] / 1e9:.4f} GB of params/mu/nu (spec share "
+        "exactly); peak memory "
+        + ", ".join(f"{r['sections']['e']['peak_gb']:.2f}"
+                    for r in reports[4])
+        + " GB; launches per rank " + ", ".join(
+            str(want_e(r["sections"]["e"])) for r in reports[4][:2]))
+    log(f"  checkpoint at pp2 x sp2 restored at fsdp2 x tp2, bitwise on "
+        f"every rank; step 6 loss {e0['next_b']['loss']:.6f} restored vs "
+        f"{e0['next_a']['loss']:.6f} continuous; {TRAIN_STEP_LABEL}: "
+        f"median {median(e0['ms'][1:]):.1f} (steps "
+        f"{[round(t, 1) for t in e0['ms']]})")
+
+    # (f) sp 2 x fsdp 2 at 7b widths, 16,384 positions
+    config, _, _ = train_big_setup("f")
+    label = ("train-mesh (f) sp2 x fsdp2, 7b widths 4 layers, b2 x s16384, "
+             "bf16")
+
+    def want_f(section):
+        return expected_train_launches(config, 4, 1, "bf16", config.n_heads,
+                                       config.kv_heads, sp=2,
+                                       sp_rank=section["sp_rank"])
+    metrics = check_train_ranks(label, reports[4], "f", "metrics",
+                                "launches", want_f)
+    count([want_f(r["sections"]["f"]) for r in reports[4]], 4)
+    losses = falling(label, [torch.tensor(m["loss"]) for m in metrics])
+    for report in reports[4]:
+        f = report["sections"]["f"]
+        held, want = f["bytes"]
+        require(held == want, f"{label}: rank {report['rank']} holds "
+                f"{held} B of params/mu/nu, its specs give {want}")
+        out_rel, *grad_rel = f["ring_check"]["block"]
+        require(out_rel <= ROW_REL_TOL
+                and all(rel <= GRAD_ROW_TOL["bf16"] for rel in grad_rel),
+                f"{label}: rank {report['rank']} ring layer against the "
+                f"single card, over the rank's block: out {out_rel:.2e} "
+                f"(tolerance {ROW_REL_TOL}), dq/dk/dv {grad_rel} (tolerance "
+                f"{GRAD_ROW_TOL['bf16']})")
+    f0 = reports[4][0]["sections"]["f"]
+    worst = {kind: [max(r["sections"]["f"]["ring_check"][kind][i]
+                        for r in reports[4]) for i in range(4)]
+             for kind in ("block", "rows")}
+    log(f"{label}: 4 steps, loss {losses[0]:.6f} -> {losses[-1]:.6f}; per "
+        f"rank {f0['bytes'][0] / 1e9:.4f} GB of params/mu/nu (spec share "
+        "exactly); peak memory "
+        + ", ".join(f"{r['sections']['f']['peak_gb']:.2f}"
+                    for r in reports[4])
+        + " GB; launches per rank " + ", ".join(
+            str(want_f(r["sections"]["f"])) for r in reports[4][:2]))
+    log("  one layer's ring (S 16384, H 32 / Hkv 8) against the single "
+        "card's kernels over the whole sequence, worst rank: relative error "
+        "of the block (out, dq, dk, dv) "
+        + ", ".join(f"{err:.2e}" for err in worst["block"])
+        + "; largest row error " + ", ".join(f"{err:.2e}"
+                                             for err in worst["rows"]))
+    log(f"  {TRAIN_STEP_LABEL}: median {median(f0['ms'][1:]):.1f} (steps "
+        f"{[round(t, 1) for t in f0['ms']]})")
     log(f"  train-mesh phase {time.perf_counter() - started:.1f} s ({card})")
     return launches
 
@@ -4649,32 +5081,32 @@ def main() -> int:
         phase = "build"
         phase_build()
         phase = "kernels"
-        log("== kernels")
+        log(f"== kernels (at {time.perf_counter() - started:.1f} s)")
         kernels = phase_kernels()
         phase = "model"
-        log("== model")
+        log(f"== model (at {time.perf_counter() - started:.1f} s)")
         phase_model()
         phase = "training"
-        log("== training")
+        log(f"== training (at {time.perf_counter() - started:.1f} s)")
         training = phase_training()
         memory("training")
         phase = "families"
-        log("== families")
+        log(f"== families (at {time.perf_counter() - started:.1f} s)")
         families = phase_families()
         memory("families")
         phase = "serving"
-        log("== serving")
+        log(f"== serving (at {time.perf_counter() - started:.1f} s)")
         runs = phase_serving(card)
         memory("serving")
         phase = "service"
-        log("== service")
+        log(f"== service (at {time.perf_counter() - started:.1f} s)")
         runs["service"] = service_run(card)
         memory("service")
         phase = "mesh"
-        log("== mesh")
+        log(f"== mesh (at {time.perf_counter() - started:.1f} s)")
         mesh_launches = phase_mesh(card)
         phase = "train-mesh"
-        log("== train-mesh")
+        log(f"== train-mesh (at {time.perf_counter() - started:.1f} s)")
         train_mesh_launches = phase_train_mesh(card)
     except Exception:                       # every phase failure is fatal
         traceback.print_exc()

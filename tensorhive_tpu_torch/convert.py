@@ -8,11 +8,13 @@ param dict on a device: matmul weights and the embedding in
 to carry JAX's f32 masters across unrounded (training) — and norm scales
 kept f32; see ``models/transformer``.
 ``lora_from_jax`` / ``lora_to_numpy`` do the same for LoRA adapter trees
-(``models/lora``), which stay f32.
+(``models/lora``), which stay f32. ``config_from_jax`` carries a JAX
+``TransformerConfig`` across, field by field.
 Nothing here imports JAX; the caller does the JAX-side conversion.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -23,6 +25,23 @@ from .models.transformer import Params, TransformerConfig
 
 _BLOCK_MATMULS = ("wq", "wk", "wv", "wo", "w_in", "w_gate", "w_out")
 _BLOCK_NORMS = ("attn_norm", "mlp_norm")
+
+
+def config_from_jax(jax_config: Any, **overrides: Any) -> TransformerConfig:
+    """The port's ``TransformerConfig`` of a JAX one: every field both
+    define (``pp_microbatches`` included), the dtype by name; fields only
+    JAX has (``use_flash``: the port always runs its kernels) are dropped.
+    ``overrides`` replace fields afterwards."""
+    values = {}
+    for field in dataclasses.fields(TransformerConfig):
+        if not hasattr(jax_config, field.name):
+            continue
+        value = getattr(jax_config, field.name)
+        if field.name == "dtype":
+            value = getattr(torch, np.dtype(value).name)
+        values[field.name] = value
+    values.update(overrides)
+    return TransformerConfig(**values)
 
 
 def params_from_jax(tree: Dict[str, Any], config: TransformerConfig,

@@ -77,12 +77,14 @@ def mlm_loss(params: Params, inputs: torch.Tensor, targets: torch.Tensor,
     token (f32). ``inputs``/``targets`` [B, L] int, ``mask`` [B, L] bool.
     Chunks the head and loss past the LM loss's threshold
     (``_loss_chunk``), with the mask as the per-token weight. On a training
-    ``mesh`` the arguments are this rank's rows and shard: the mask count
-    is summed over the data ranks before the division, so the loss is the
-    global one on every rank."""
-    n_tokens = targets.shape[0] * targets.shape[1]
+    ``mesh`` the arguments are this rank's rows (whole sequences: under sp
+    the rank takes its block of each) and shard: the mask count is summed
+    over the data ranks (dp x fsdp x sp) before the division, so the loss
+    is the global one on every rank."""
     if mesh is not None:
         par = TrainParallel(mesh)
+        targets, mask = par.seq_block(targets), par.seq_block(mask)
+        n_tokens = targets.numel()
         with torch.no_grad():
             count = torch.clamp(par.data_sum(mask.sum().to(torch.float32)),
                                 min=1)
@@ -93,6 +95,7 @@ def mlm_loss(params: Params, inputs: torch.Tensor, targets: torch.Tensor,
             _loss_chunk(n_tokens, config, targets.device, mesh.tp),
             weights_flat=mask.reshape(n_tokens), par=par)
         return par.data_sum(total) / count
+    n_tokens = targets.shape[0] * targets.shape[1]
     count = torch.clamp(mask.sum(), min=1)
     chunk = _loss_chunk(n_tokens, config, targets.device)
     if chunk:

@@ -27,13 +27,14 @@ per-token weights, which the MLM loss of ``models/encoder`` passes), the
 ``torch.utils.checkpoint``, and ``train_flops_per_token``. Serving under a
 tensor-parallel mesh runs the block functions on a rank's weight shard,
 with ``reduce`` hooks for the row-parallel sums (``parallel/mesh.py``).
-Training under a ``dp x fsdp x tp`` mesh (``apply_trunk``/``apply``/
-``loss`` with ``mesh``) adds the ``gather`` hook (each leaf's fsdp blocks
-assembled inside the function that reads it) and the ``copy`` hook (the
-tp sum of the input's gradient), and takes the vocab-parallel embedding
-and cross entropy of ``parallel/train_parallel.py``; each rank runs the
-flash kernels at its local head counts. The pipeline and ring attention
-are not ported yet.
+Training under a ``pp x dp x fsdp x tp x sp`` mesh (``apply_trunk``/
+``apply``/``loss`` with ``mesh``) adds the ``gather`` hook (each leaf's
+fsdp blocks assembled inside the function that reads it) and the ``copy``
+hook (the tp sum of the input's gradient), and takes the vocab-parallel
+embedding and cross entropy of ``parallel/train_parallel.py``; each rank
+runs the flash kernels at its local head counts. Under sp a rank holds
+its block of the sequence and attends through ``parallel/ring.py``; under
+pp its stage's layers run as a stage of ``parallel/pipeline.py``.
 """
 from __future__ import annotations
 
@@ -49,6 +50,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..ops.flash_attention import flash_attention
+from ..parallel.pipeline import pipeline_apply, pp_enabled
+from ..parallel.ring import ring_attention
 from ..parallel.train_parallel import TrainParallel
 
 Params = Dict[str, Any]
@@ -81,6 +84,10 @@ class TransformerConfig:
     #: ``TPUHIVE_FLASH_BH_BLOCK``; 1 = off, the JAX default). Clamped by
     #: ``ops.flash_attention.fwd_bh_block``, so GQA configs stay at 1
     flash_bh_block: int = 1
+    #: pipeline microbatches when the mesh has pp > 1 (0 = one per stage);
+    #: more microbatches shrink the (pp-1)/(M+pp-1) bubble at the cost of
+    #: smaller per-step matmuls
+    pp_microbatches: int = 0
 
     @property
     def d_head(self) -> int:
@@ -271,7 +278,7 @@ class TransformerLM(nn.Module):
              device: DeviceLike = None,
              param_dtype: Optional[torch.dtype] = None,
              shard: Optional[Callable[[torch.Tensor, str], torch.Tensor]]
-             = None) -> Params:
+             = None, layers: Optional[range] = None) -> Params:
         """Random params with the JAX init's distributions
         (``transformer.py:229-257``): embedding N(0, 0.02²), dense weights
         N(0, 1/fan_in), norm scales 1. The draws come from ``generator``
@@ -282,7 +289,9 @@ class TransformerLM(nn.Module):
         ``meta`` device the tree has shapes and dtypes and no values.
         ``shard(leaf, name)`` (a training mesh's block of a leaf) is applied
         to each leaf as it is drawn, so the whole tree is never held: the
-        draws stay the same, whatever the mesh."""
+        draws stay the same, whatever the mesh. ``layers`` (a pp stage's
+        global layer indices) keeps only those blocks; every layer is
+        still drawn, in order."""
         device = resolve_device(device)
         if generator is None and device.type != "meta":
             generator = torch.Generator(device=device).manual_seed(0)
@@ -311,8 +320,8 @@ class TransformerLM(nn.Module):
             "w_lm_head": dense(d, "w_lm_head", d, config.vocab_size),
             "blocks": [],
         }
-        for _ in range(config.n_layers):
-            params["blocks"].append({
+        for index in range(config.n_layers):
+            block = {
                 "attn_norm": ones(d),
                 "mlp_norm": ones(d),
                 "wq": dense(d, "wq", d, h * dh),
@@ -322,7 +331,9 @@ class TransformerLM(nn.Module):
                 "w_in": dense(d, "w_in", d, f),
                 "w_gate": dense(d, "w_gate", d, f),
                 "w_out": dense(f, "w_out", f, d),
-            })
+            }
+            if layers is None or index in layers:
+                params["blocks"].append(block)
         return params
 
     @staticmethod
@@ -422,7 +433,11 @@ class TransformerLM(nn.Module):
         On a training ``mesh`` (``parallel.mesh.train_mesh``) ``params``
         is this rank's shard and ``tokens`` its rows: the blocks gather
         each leaf inside their (checkpointed) function, so a recomputed
-        block gathers again rather than keeping whole weights alive."""
+        block gathers again rather than keeping whole weights alive. Under
+        sp the rank embeds its block of the sequence (RoPE at the block's
+        global positions), attends through the ring and returns that block,
+        [B, L / sp, d_model]; under pp its stage's layers run as one stage
+        of the pipeline and every stage returns the finished activations."""
         if config.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
                              f"got {config.remat_policy!r}")
@@ -434,28 +449,41 @@ class TransformerLM(nn.Module):
         reduce: Optional[Reduce] = None
         copy: Optional[Copy] = None
         gather: Gather = _as_is
+        pipelined = pp_enabled(mesh)
+        if pipelined:
+            stage = mesh.stage_layers(config.n_layers)
+            if len(params["blocks"]) != len(stage):
+                raise ValueError(
+                    f"a pp rank holds its stage's {len(stage)} layers, got "
+                    f"{len(params['blocks'])}")
         if mesh is None:
             x = params["tok_embed"].to(config.dtype)[tokens.long()]
         else:
             par = TrainParallel(mesh)
             reduce, copy, gather = par.reduce, par.copy, par.gather
+            tokens = par.seq_block(tokens)
+            positions = par.seq_block(positions)
             x = par.embed(params["tok_embed"], tokens, config.dtype)
+        ring = mesh is not None and mesh.sp > 1
 
         def attend(q, k, v):
-            # GQA is native in the kernel (KV head h // group, no expanded
-            # copy); the plain version on CPU tensors expands internally
+            # GQA is native in the kernels (KV head h // group, no expanded
+            # copy); the plain versions on CPU tensors expand internally
+            if ring:
+                return ring_attention(q, k, v, mesh, causal=config.causal)
             return flash_attention(q, k, v, causal=config.causal,
                                    bh_block=config.flash_bh_block)
 
-        def plain_block(x, block):
+        def plain_block(x, block, positions):
             return TransformerLM.block_forward(
                 x, block, config, positions, attend, reduce_attn=reduce,
                 reduce_mlp=reduce, copy=copy, gather=gather)
 
-        def remat_block(x, block):
-            return checkpoint(plain_block, x, block, use_reentrant=False)
+        def remat_block(x, block, positions):
+            return checkpoint(plain_block, x, block, positions,
+                              use_reentrant=False)
 
-        def remat_mlp(x, block):
+        def remat_mlp(x, block, positions):
             # the attention half's activations, the flash O/LSE residuals
             # included, stay saved: the backward re-runs only the MLP half
             x = TransformerLM.block_attn_half(
@@ -469,8 +497,17 @@ class TransformerLM(nn.Module):
         if config.remat and torch.is_grad_enabled():
             block_fn = (remat_mlp if config.remat_policy == "mlp"
                         else remat_block)
-        for block in params["blocks"]:
-            x = block_fn(x, block)
+
+        def apply_blocks(x, positions):
+            for block in params["blocks"]:
+                x = block_fn(x, block, positions)
+            return x
+
+        if pipelined:
+            x = pipeline_apply(apply_blocks, par.stage_shared(x), positions,
+                               mesh, config.pp_microbatches)
+        else:
+            x = apply_blocks(x, positions)
         return _rmsnorm(x, gather(params["final_norm"]["scale"], "scale"))
 
     @staticmethod
@@ -479,7 +516,8 @@ class TransformerLM(nn.Module):
               positions: Optional[torch.Tensor] = None,
               mesh: Any = None) -> torch.Tensor:
         """Logits [B, L, vocab] in f32 (on a training ``mesh``: of this
-        rank's rows, assembled over tp)."""
+        rank's rows and, under sp, its block of the sequence, assembled
+        over tp)."""
         x = TransformerLM.apply_trunk(params, tokens, config,
                                       positions=positions, mesh=mesh)
         if mesh is None:
@@ -495,8 +533,10 @@ class TransformerLM(nn.Module):
         """Next-token cross entropy, mean over tokens (f32). ``tokens`` is
         [B, L+1]: inputs and shifted targets. On a training ``mesh``
         ``params`` is this rank's shard and ``tokens`` its rows of the
-        global batch; the loss is the global mean, the same on every
-        rank."""
+        global batch (the whole sequence: under sp each rank takes its
+        block of the inputs and of the targets, cut after the shift, so
+        target ``p`` is still token ``p + 1``); the loss is the global
+        mean, the same on every rank."""
         if not config.causal:
             # bidirectional attention lets position p see token p+1, its
             # own target: the next-token loss would train a copy-through
@@ -504,16 +544,19 @@ class TransformerLM(nn.Module):
                 "TransformerLM.loss is the autoregressive objective; this "
                 "config is a bidirectional encoder (causal=False)")
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
-        n_tokens = targets.shape[0] * targets.shape[1]
         if mesh is not None:
             par = TrainParallel(mesh)
+            targets = par.seq_block(targets)
+            n_tokens = targets.numel()
             x = TransformerLM.apply_trunk(params, inputs, config, mesh=mesh)
             total = _chunked_ce(
                 x.reshape(n_tokens, -1), targets.reshape(n_tokens),
                 params["w_lm_head"], config.dtype,
                 _loss_chunk(n_tokens, config, tokens.device, mesh.tp),
                 par=par)
-            return par.data_sum(total) / (n_tokens * mesh.data_size)
+            return par.data_sum(total) / (n_tokens * mesh.data_size
+                                          * mesh.sp)
+        n_tokens = targets.shape[0] * targets.shape[1]
         chunk = _loss_chunk(n_tokens, config, tokens.device)
         if chunk:
             x = TransformerLM.apply_trunk(params, inputs, config)

@@ -1,8 +1,8 @@
 """Parallelism layer of the port, the counterpart of
 ``tensorhive_tpu/parallel/`` over ``torch.distributed``: the serving mesh
-and the ``dp x fsdp x tp`` training mesh (``mesh.py``) and the training
-collectives (``train_parallel.py``). Ring attention (sp) and the pipeline
-(pp) are not ported yet."""
+and the ``pp x dp x fsdp x tp x sp`` training mesh (``mesh.py``), the
+training collectives (``train_parallel.py``), ring attention over sp
+(``ring.py``) and the GPipe pipeline over pp (``pipeline.py``)."""
 from .mesh import (
     DEFAULT_RULES,
     MeshRules,
@@ -18,6 +18,8 @@ from .mesh import (
     tp_assemble,
     train_mesh,
 )
+from .pipeline import pipeline_apply, pipeline_microbatches, pp_enabled
+from .ring import ring_attention
 
 __all__ = [
     "DEFAULT_RULES",
@@ -26,6 +28,10 @@ __all__ = [
     "TensorParallel",
     "TrainMesh",
     "best_mesh_shape",
+    "pipeline_apply",
+    "pipeline_microbatches",
+    "pp_enabled",
+    "ring_attention",
     "serving_mesh",
     "serving_rules",
     "shard_serving_params",

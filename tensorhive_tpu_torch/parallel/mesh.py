@@ -453,17 +453,19 @@ def shard_model(params, config, mesh: ServingMesh, sharded: bool = False
 #
 # JAX trains under a 5-axis mesh ("pp", "dp", "fsdp", "tp", "sp"; its
 # ``make_mesh``) with params and Adam moments laid out by ``tree_shardings``
-# under ``DEFAULT_RULES``. The port runs one process per rank of a
-# ``dp x fsdp x tp`` mesh (sp and pp are A11b and A11c): rank ``r`` is JAX's
-# device ``r`` of that layout, at ``(dp_rank, fsdp_rank, tp_rank) = (r //
-# (fsdp tp), (r // tp) % fsdp, r % tp)``, and holds the contiguous block of
-# every leaf that JAX's sharding puts on that device.
+# under ``DEFAULT_RULES``. The port runs one process per rank: rank ``r`` is
+# JAX's device ``r``, at the position of ``r`` unravelled over the shape
+# ``(pp, dp, fsdp, tp, sp)`` (sp innermost: ``sp_rank = r % sp``, ``tp_rank =
+# (r // sp) % tp``, and so on outwards), and holds the contiguous block of
+# every leaf that JAX's sharding puts on that device. Params are replicated
+# over sp (each sp rank holds a block of the sequence's activations) and
+# cut over pp by layer: a pp rank holds only its stage's layers
+# (``stage_layers``), the embedding, final norm and LM head whole.
 
 #: the axes of JAX's ``make_mesh``, outermost first
 AXES = ("pp", "dp", "fsdp", "tp", "sp")
-_UNPORTED_AXES = {"sp": "sequence parallelism (ring attention) is ROADMAP "
-                        "A11b",
-                  "pp": "the pipeline is ROADMAP A11c"}
+#: the axes every ``TrainMesh.coords`` names, whatever their size
+_BASE_AXES = ("dp", "fsdp", "tp")
 
 
 def mesh_sizes(n_devices: int, **sizes: int) -> Dict[str, int]:
@@ -488,113 +490,170 @@ def mesh_sizes(n_devices: int, **sizes: int) -> Dict[str, int]:
     return sizes
 
 
-def _refuse_unported_axes(sizes: Dict[str, int]) -> None:
-    for axis, item in _UNPORTED_AXES.items():
-        if sizes.get(axis, 1) not in (1, -1):
-            raise ValueError(f"{axis}={sizes[axis]}: {item}, not ported "
-                             "yet; the training mesh runs sp = pp = 1")
+def is_staged(path: str) -> bool:
+    """Whether a leaf at ``path`` (``"blocks/3/wq"``, or a bare name) is
+    a layer's: cut over pp by stage, not replicated over it."""
+    return path.startswith("blocks/")
 
 
 class TrainMesh:
-    """One rank's view of a ``dp x fsdp x tp`` training mesh: its
-    coordinates, the device it computes on and three process groups, each
+    """One rank's view of a ``pp x dp x fsdp x tp x sp`` training mesh: its
+    coordinates, the device it computes on and its process groups, each
     None where it would hold one rank:
 
-    * ``tp_group``: the ranks at this rank's dp and fsdp coordinates (the
+    * ``tp_group``: the ranks that differ from it in tp alone (the
       megatron products' sums);
-    * ``fsdp_group``: the ranks at its dp and tp coordinates (the ZeRO-3
-      gathers of the ``embed`` axis);
-    * ``data_group``: every rank at its tp coordinate, all dp x fsdp of
-      them (the gradient sums of the leaves they share, and the loss).
+    * ``fsdp_group``: those that differ in fsdp alone (the ZeRO-3 gathers
+      of the ``embed`` axis);
+    * ``sp_group``: those that differ in sp alone, in sp order (the ring);
+    * ``pp_group``: those that differ in pp alone, in stage order (the
+      pipeline's hand-offs);
+    * ``data_group``: every rank at its tp and pp coordinates, dp x fsdp x
+      sp of them (the gradient sums of the leaves they share, and the
+      loss).
 
     A mesh built without groups (``train_mesh`` builds them) serves only
-    the checks of its sizes."""
+    the checks of its sizes and layout."""
 
     def __init__(self, dp: int, fsdp: int, tp: int, rank: int = 0,
                  device: torch.device = torch.device("cpu"),
                  tp_group: Any = None, fsdp_group: Any = None,
-                 data_group: Any = None) -> None:
+                 data_group: Any = None, *, sp: int = 1, pp: int = 1,
+                 sp_group: Any = None, pp_group: Any = None) -> None:
         self.dp, self.fsdp, self.tp = int(dp), int(fsdp), int(tp)
+        self.sp, self.pp = int(sp), int(pp)
         self.rank = int(rank)
         self.device = torch.device(device)
         self.tp_group = tp_group
         self.fsdp_group = fsdp_group
         self.data_group = data_group
+        self.sp_group = sp_group
+        self.pp_group = pp_group
 
     @property
     def world(self) -> int:
-        return self.dp * self.fsdp * self.tp
+        return self.dp * self.fsdp * self.tp * self.sp * self.pp
+
+    @property
+    def axis_sizes(self) -> Dict[str, int]:
+        """Every axis of JAX's mesh with its size (JAX's ``mesh.shape``)."""
+        return {"pp": self.pp, "dp": self.dp, "fsdp": self.fsdp,
+                "tp": self.tp, "sp": self.sp}
+
+    def position_of(self, rank: int) -> Dict[str, int]:
+        """The coordinates of ``rank`` on all five axes: ``rank``
+        unravelled over ``(pp, dp, fsdp, tp, sp)``, sp innermost."""
+        sizes, position = self.axis_sizes, {}
+        for axis in reversed(AXES):
+            position[axis] = rank % sizes[axis]
+            rank //= sizes[axis]
+        return {axis: position[axis] for axis in AXES}
+
+    def rank_at(self, position: Dict[str, int]) -> int:
+        """The rank at ``position`` (every axis named), raveled."""
+        rank = 0
+        for axis in AXES:
+            rank = rank * self.axis_sizes[axis] + position[axis]
+        return rank
+
+    @property
+    def position(self) -> Dict[str, int]:
+        return self.position_of(self.rank)
 
     @property
     def coords(self) -> Dict[str, int]:
-        return {"dp": self.rank // (self.fsdp * self.tp),
-                "fsdp": (self.rank // self.tp) % self.fsdp,
-                "tp": self.rank % self.tp}
+        """The rank's coordinate on dp, fsdp and tp, and on sp and pp where
+        the mesh cuts them (an axis of size 1 is coordinate 0)."""
+        sizes = self.axis_sizes
+        return {axis: index for axis, index in self.position.items()
+                if axis in _BASE_AXES or sizes[axis] > 1}
+
+    def axis_ranks(self, axis: str) -> list:
+        """The ranks that differ from this one along ``axis`` alone, in
+        that axis's order."""
+        position = self.position
+        return [self.rank_at({**position, axis: index})
+                for index in range(self.axis_sizes[axis])]
 
     @property
     def tp_rank(self) -> int:
-        return self.rank % self.tp
+        return self.position["tp"]
+
+    @property
+    def sp_rank(self) -> int:
+        return self.position["sp"]
+
+    @property
+    def pp_rank(self) -> int:
+        return self.position["pp"]
 
     @property
     def data_rank(self) -> int:
         """The rank's block of the global batch, ``dp_rank * fsdp +
-        fsdp_rank``: every tp rank of a data shard holds the same rows."""
-        return self.rank // self.tp
+        fsdp_rank``: every sp, tp and pp rank of a data shard holds the
+        same rows (JAX's ``batch_sharding``)."""
+        position = self.position
+        return position["dp"] * self.fsdp + position["fsdp"]
 
     @property
     def data_size(self) -> int:
         return self.dp * self.fsdp
 
-    @property
-    def axis_sizes(self) -> Dict[str, int]:
-        """Every axis of JAX's mesh with its size (JAX's ``mesh.shape``)."""
-        return {"pp": 1, "dp": self.dp, "fsdp": self.fsdp, "tp": self.tp,
-                "sp": 1}
+    def stage_layers(self, n_layers: int) -> range:
+        """The global indices of the layers this rank's pp stage holds."""
+        if n_layers % self.pp:
+            raise ValueError(f"{n_layers} layers not divisible by "
+                             f"pp={self.pp}")
+        per_stage = n_layers // self.pp
+        return range(self.pp_rank * per_stage,
+                     (self.pp_rank + 1) * per_stage)
 
-    def owns(self, spec: Spec) -> bool:
+    def owns(self, spec: Spec, staged: bool = False) -> bool:
         """Whether this rank holds the copy of its block of a leaf laid out
         by ``spec`` that counts: its coordinate is 0 on every axis the
-        leaf is replicated over. Each block of a leaf has exactly one
-        owner, so a sum over owners counts every element once (the
-        global gradient norm) and the owners' files hold a leaf once (the
-        checkpoint)."""
+        leaf is replicated over (pp is not one for a layer's leaf,
+        ``staged``: each stage holds its own layers). Each block of a leaf
+        has exactly one owner, so a sum over owners counts every element
+        once (the global gradient norm) and the owners' files hold a leaf
+        once (the checkpoint)."""
         named = set(spec)
-        return all(index == 0 for axis, index in self.coords.items()
+        if staged:
+            named.add("pp")
+        return all(index == 0 for axis, index in self.position.items()
                    if axis not in named)
 
 
 #: training meshes already built in this process, per (process group,
 #: sizes, device): building one creates process groups, which every rank
 #: must do in the same order
-_TRAIN_MESHES: Dict[Tuple[int, int, int, int, str], TrainMesh] = {}
+_TRAIN_MESHES: Dict[Tuple[Any, ...], TrainMesh] = {}
 
 
 def train_mesh(dp: int = 1, fsdp: int = -1, tp: int = 1, sp: int = 1,
                pp: int = 1, device: DeviceLike = None) -> TrainMesh:
-    """This rank's ``dp x fsdp x tp`` training mesh over the initialised
-    default process group, by JAX's ``make_mesh`` rule (one axis may be
-    -1; the product must equal the group's size — never fewer ranks than
-    asked for). ``sp`` or ``pp`` above 1 is refused (ROADMAP A11b, A11c).
-    ``device`` None means ``cuda:{LOCAL_RANK % device_count}`` (and raises
-    without CUDA); the CPU is used only when asked for by name. Every rank
-    must call this in the same order: the first call for a shape creates
-    its process groups."""
-    _refuse_unported_axes({"sp": sp, "pp": pp})
+    """This rank's ``pp x dp x fsdp x tp x sp`` training mesh over the
+    initialised default process group, by JAX's ``make_mesh`` rule (one
+    axis may be -1; the product must equal the group's size — never fewer
+    ranks than asked for). ``device`` None means ``cuda:{LOCAL_RANK %
+    device_count}`` (and raises without CUDA); the CPU is used only when
+    asked for by name. Every rank must call this in the same order: the
+    first call for a shape creates its process groups."""
     if not dist.is_available() or not dist.is_initialized():
         raise ValueError(
-            f"training mesh dp={dp} x fsdp={fsdp} x tp={tp} needs an "
-            "initialised torch.distributed process group (one process per "
-            "rank); none is initialised")
+            f"training mesh dp={dp} x fsdp={fsdp} x tp={tp} x sp={sp} x "
+            f"pp={pp} needs an initialised torch.distributed process group "
+            "(one process per rank); none is initialised")
     world = dist.get_world_size()
     sizes = mesh_sizes(world, dp=dp, fsdp=fsdp, tp=tp, sp=sp, pp=pp)
-    _refuse_unported_axes(sizes)
-    dp, fsdp, tp = sizes["dp"], sizes["fsdp"], sizes["tp"]
     resolved = _rank_device(device)
-    key = (id(dist.group.WORLD), dp, fsdp, tp, str(resolved))
+    key = (id(dist.group.WORLD), *(sizes[axis] for axis in AXES),
+           str(resolved))
     mesh = _TRAIN_MESHES.get(key)
     if mesh is not None:
         return mesh
     rank = dist.get_rank()
+    layout = TrainMesh(sizes["dp"], sizes["fsdp"], sizes["tp"],
+                       sp=sizes["sp"], pp=sizes["pp"])
 
     def own_group(member_lists):
         """Create every group (all ranks, one order); return this rank's.
@@ -608,13 +667,31 @@ def train_mesh(dp: int = 1, fsdp: int = -1, tp: int = 1, sp: int = 1,
                 mine = group
         return mine
 
-    tp_group = own_group([list(range(base, base + tp))
-                          for base in range(0, world, tp)])
-    fsdp_group = own_group([[d * fsdp * tp + f * tp + t for f in range(fsdp)]
-                            for d in range(dp) for t in range(tp)])
-    data_group = own_group([list(range(t, world, tp)) for t in range(tp)])
-    mesh = TrainMesh(dp, fsdp, tp, rank, resolved, tp_group, fsdp_group,
-                     data_group)
+    def lines(axis):
+        """Every group of ranks that differ along ``axis`` alone, each
+        listed once (from its member at coordinate 0), in rank order."""
+        return [TrainMesh(sizes["dp"], sizes["fsdp"], sizes["tp"], first,
+                          sp=sizes["sp"], pp=sizes["pp"]).axis_ranks(axis)
+                for first in range(world)
+                if layout.position_of(first)[axis] == 0]
+
+    def data_lines():
+        """The ranks at each (pp, tp) coordinate: dp x fsdp x sp each."""
+        groups: Dict[Tuple[int, int], list] = {}
+        for member in range(world):
+            position = layout.position_of(member)
+            groups.setdefault((position["pp"], position["tp"]),
+                              []).append(member)
+        return [groups[key] for key in sorted(groups)]
+
+    tp_group = own_group(lines("tp"))
+    fsdp_group = own_group(lines("fsdp"))
+    data_group = own_group(data_lines())
+    sp_group = own_group(lines("sp"))
+    pp_group = own_group(lines("pp"))
+    mesh = TrainMesh(sizes["dp"], sizes["fsdp"], sizes["tp"], rank, resolved,
+                     tp_group, fsdp_group, data_group, sp=sizes["sp"],
+                     pp=sizes["pp"], sp_group=sp_group, pp_group=pp_group)
     _TRAIN_MESHES[key] = mesh
     return mesh
 
@@ -674,13 +751,14 @@ def shard_train_params(params, rules: MeshRules, mesh: TrainMesh):
 
 
 def check_train_mesh(config, mesh: TrainMesh, batch_size: Optional[int] = None,
-                     accum: int = 1) -> None:
+                     accum: int = 1, seq_len: Optional[int] = None) -> None:
     """Refuse a mesh whose axes do not divide what they split: tp the
     query and K/V heads (a head is never cut), d_ff and the vocab; fsdp
-    d_model; dp x fsdp x ``accum`` the batch (each rank's rows split into
-    equal microbatches). JAX lets GSPMD reshard there instead (ROADMAP C).
-    Training has no GQA guard: K/V heads stay on tp, as JAX's
-    ``DEFAULT_RULES`` keep them."""
+    d_model; pp the layers; sp the sequence length; dp x fsdp x ``accum``
+    the batch (each rank's rows split into equal microbatches), and the
+    pipeline's microbatch count each of those. JAX lets GSPMD reshard
+    there instead (ROADMAP C). Training has no GQA guard: K/V heads stay
+    on tp, as JAX's ``DEFAULT_RULES`` keep them."""
     def divides(size: int, what: str, axis: str, count: int) -> None:
         if count % size:
             raise ValueError(f"{axis}={size} does not divide {what} "
@@ -693,19 +771,32 @@ def check_train_mesh(config, mesh: TrainMesh, batch_size: Optional[int] = None,
             config.vocab_size)
     divides(mesh.fsdp, "d_model (the embed axis of every leaf)", "fsdp",
             config.d_model)
+    mesh.stage_layers(config.n_layers)          # "not divisible by pp"
+    if seq_len is not None:
+        divides(mesh.sp, "the sequence length", "sp", seq_len)
     if batch_size is not None:
         divides(mesh.data_size * accum,
                 f"batch_size: {accum} microbatch(es) on each of "
                 f"{mesh.data_size} data ranks (dp x fsdp)",
                 "dp x fsdp x grad_accum_steps", batch_size)
+        if mesh.pp > 1:
+            from .pipeline import pipeline_microbatches
+
+            pipeline_microbatches(batch_size // (mesh.data_size * accum),
+                                  mesh, config.pp_microbatches)
 
 
 def share_bytes(whole, mesh: TrainMesh,
                 rules: MeshRules = DEFAULT_RULES) -> int:
     """The bytes of a whole tree (``meta`` leaves will do) that the specs
     give one rank of ``mesh``: each leaf's bytes over the sizes of the
-    axes its spec names."""
+    axes its spec names, and a pp stage's share of the layers."""
     sizes = mesh.axis_sizes
-    return sum(leaf.numel() * leaf.element_size() // math.prod(
-        sizes[axis] for axis in train_spec(name, leaf.dim(), rules) if axis)
-        for name, leaf in named_leaves(whole))
+
+    def share(tree) -> int:
+        return sum(leaf.numel() * leaf.element_size() // math.prod(
+            sizes[axis] for axis in train_spec(name, leaf.dim(), rules)
+            if axis) for name, leaf in named_leaves(tree))
+
+    rest = {key: value for key, value in whole.items() if key != "blocks"}
+    return share(rest) + share(whole.get("blocks", [])) // mesh.pp

@@ -23,11 +23,20 @@ and divided by the global count, so autograd's own chain rule puts the
 ``1 / count`` on every rank's gradient and the gathers' backward sums
 them.
 
-Every collective is an f32 ``all_reduce``: gloo runs only ``broadcast``
-and ``all_reduce`` on CUDA tensors, so a gather is the sum of zero-filled
-buffers (adding zeros is exact) and a reduce-scatter a sum then a
-``narrow``; one code path serves gloo and NCCL. Each group is its own
-``new_group``, never the default group.
+Sequence parallelism (sp) adds ``ring_shift``, one hop of the ring that
+``parallel/ring.py`` runs K/V blocks and their gradients around, and
+pipeline parallelism (pp) the stage hand-off ``handoff`` (an
+``autograd.Function``: the forward passes each sending stage's activations
+to the next stage, the backward passes their gradient back — what JAX's
+``ppermute`` is under autodiff) and ``replicate`` (the last stage's
+output summed over the stages: every stage then holds it).
+
+Every sum is an f32 ``all_reduce`` and every move a ``broadcast``: gloo
+runs only these two on CUDA tensors, so a gather is the sum of zero-filled
+buffers (adding zeros is exact), a reduce-scatter a sum then a ``narrow``,
+and a point-to-point move one ``broadcast`` from its source over the group
+(of the bytes, so any dtype moves bit for bit); one code path serves gloo
+and NCCL. Each group is its own ``new_group``, never the default group.
 """
 from __future__ import annotations
 
@@ -37,7 +46,7 @@ import torch
 import torch.distributed as dist
 from torch.autograd import Function
 
-from .mesh import TrainMesh, map_named, train_spec
+from .mesh import TrainMesh, is_staged, map_named, train_spec
 
 
 def _sum(tensor: torch.Tensor, group) -> torch.Tensor:
@@ -64,6 +73,107 @@ def _assemble(local: torch.Tensor, dim: int, index: int, count: int,
     whole.narrow(dim, index * block, block).copy_(local)
     dist.all_reduce(whole, group=group)
     return whole.to(local.dtype)
+
+
+def _broadcast_from(buffer: torch.Tensor, index: int, group) -> None:
+    """Broadcast contiguous ``buffer`` in place from rank ``index`` of
+    ``group`` (its group rank), as bytes."""
+    dist.broadcast(buffer.reshape(-1).view(torch.uint8),
+                   src=dist.get_global_rank(group, index), group=group)
+
+
+def ring_shift(tensor: torch.Tensor, group, size: int) -> torch.Tensor:
+    """One hop of the ring over ``group`` (``size`` ranks, in group-rank
+    order): rank ``i`` passes ``tensor`` to rank ``(i + 1) % size`` and
+    gets rank ``(i - 1) % size``'s. One ``broadcast`` per source, every
+    rank in the same order; a rank holds its own block and the one in
+    flight, never the whole ring's. The identity at size 1. No autograd:
+    the ring's own ``autograd.Function`` calls it both ways."""
+    if group is None or size == 1:
+        return tensor
+    me = dist.get_rank(group)
+    source = (me - 1) % size
+    data = tensor.contiguous()
+    received = None
+    for index in range(size):
+        buffer = data if index == me else torch.empty_like(data)
+        _broadcast_from(buffer, index, group)
+        if index == source:
+            received = buffer
+    return received
+
+
+class _Handoff(Function):
+    """One step of the pipeline's hand-off over the pp group: each stage in
+    ``senders`` passes its ``send`` ([mb, L, D]) to the next stage, which
+    gets it as ``recv`` (an empty tensor on every other stage). ``chain``
+    (a 0-d f32 tensor, passed on unchanged) threads every hand-off of a
+    pipeline run into one line on every rank, so each rank's backward runs
+    the hand-offs in the same order, the last first, whether or not it sent
+    or received at that step: the backward moves the receivers' gradient
+    back to the senders, one ``broadcast`` per sender."""
+
+    @staticmethod
+    def forward(ctx, send, chain, senders, shape, dtype, mesh):
+        ctx.senders, ctx.mesh = senders, mesh
+        stage, recv = mesh.pp_rank, None
+        for sender in senders:
+            if stage == sender:
+                buffer = send.contiguous()
+            else:
+                buffer = torch.empty(shape, dtype=dtype, device=mesh.device)
+            _broadcast_from(buffer, sender, mesh.pp_group)
+            if stage == sender + 1:
+                recv = buffer
+        ctx.shape, ctx.dtype = shape, dtype
+        if recv is None:
+            recv = torch.empty(0, dtype=dtype, device=mesh.device)
+        return recv, chain.clone()
+
+    @staticmethod
+    def backward(ctx, grad_recv, grad_chain):
+        mesh, stage, grad_send = ctx.mesh, ctx.mesh.pp_rank, None
+        for sender in ctx.senders:
+            if stage == sender + 1:
+                buffer = grad_recv.contiguous()
+            else:
+                buffer = torch.empty(ctx.shape, dtype=ctx.dtype,
+                                     device=mesh.device)
+            _broadcast_from(buffer, sender + 1, mesh.pp_group)
+            if stage == sender:
+                grad_send = buffer
+        return grad_send, grad_chain, None, None, None, None
+
+
+def handoff(send: Optional[torch.Tensor], chain: torch.Tensor,
+            senders: List[int], shape, dtype: torch.dtype,
+            mesh: TrainMesh):
+    """``(recv, chain)`` of one pipeline step (``_Handoff``): ``send`` is
+    this stage's output when it is among ``senders``, else None."""
+    return _Handoff.apply(send, chain, tuple(senders), tuple(shape), dtype,
+                          mesh)
+
+
+class _Replicate(Function):
+    """The sum over the pp group of ``partial`` (the last stage's output,
+    zeros elsewhere): every stage gets the finished activations. Each
+    stage computes the same loss from them, so the backward is the
+    identity (no sum); ``chain`` gets a zero gradient, which carries every
+    rank's backward into the hand-offs."""
+
+    @staticmethod
+    def forward(ctx, partial, chain, group):
+        return _sum(partial, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, torch.zeros((), dtype=torch.float32,
+                                 device=grad.device), None
+
+
+def replicate(partial: torch.Tensor, chain: torch.Tensor,
+              mesh: TrainMesh) -> torch.Tensor:
+    return _Replicate.apply(partial, chain, mesh.pp_group)
 
 
 class _CopyToTP(Function):
@@ -128,7 +238,9 @@ class _VocabParallelCE(Function):
     them: the row max is an ``all_reduce(MAX)`` (no gradient), the sum of
     exps and the target logit (read only by the rank whose block holds
     the target) f32 sums. The backward is ``(softmax - onehot) * g`` on
-    the rank's own columns."""
+    the rank's own columns. Each direction holds two [N, V / tp] buffers
+    at most (the logits and the softmax, the softmax and its gradient):
+    at a rank's 32,768 tokens of a 32,000 vocab one is 4.2 GB."""
 
     @staticmethod
     def forward(ctx, logits, targets, mesh):
@@ -140,7 +252,7 @@ class _VocabParallelCE(Function):
         if mesh.tp_group is not None:
             dist.all_reduce(row_max, op=dist.ReduceOp.MAX,
                             group=mesh.tp_group)
-        exp = torch.exp(logits - row_max[:, None])
+        exp = (logits - row_max[:, None]).exp_()
         sum_exp = _sum(exp.sum(dim=-1), mesh.tp_group)
         target = torch.gather(logits, -1, local[:, None])[:, 0]
         target = _sum(torch.where(inside, target - row_max, 0.0),
@@ -155,7 +267,7 @@ class _VocabParallelCE(Function):
         dlogits = softmax.clone()
         rows = torch.arange(dlogits.shape[0], device=dlogits.device)
         dlogits[rows, local] -= inside.to(dlogits.dtype)
-        return dlogits * grad[:, None], None, None
+        return dlogits.mul_(grad[:, None]), None, None
 
 
 def embed_dim(name: str, ndim: int) -> Optional[int]:
@@ -195,6 +307,27 @@ class TrainParallel:
             return partial
         return _SumOver.apply(partial, self.mesh.tp_group)
 
+    def stage_shared(self, x: torch.Tensor) -> torch.Tensor:
+        """The identity forward, the sum over the pp group backward: the
+        embedded activations, which only stage 0 feeds into the pipeline,
+        so every stage ends with stage 0's gradient of the (pp-replicated)
+        embedding."""
+        if self.mesh.pp_group is None:
+            return x
+        return _CopyToTP.apply(x, self.mesh.pp_group)
+
+    def seq_block(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's contiguous block of ``x`` along its sequence axis
+        ``dim`` (the whole of it at sp 1)."""
+        if self.mesh.sp == 1:
+            return x
+        length = x.shape[dim]
+        if length % self.mesh.sp:
+            raise ValueError(f"sp={self.mesh.sp} does not divide the "
+                             f"sequence length ({length})")
+        block = length // self.mesh.sp
+        return x.narrow(dim, self.mesh.sp_rank * block, block)
+
     def data_sum(self, value: torch.Tensor) -> torch.Tensor:
         if self.mesh.data_group is None:
             return value
@@ -227,16 +360,20 @@ class TrainParallel:
         return _AssembleTP.apply(local, self.mesh)
 
 
-def sharded_global_norm(leaves: List[torch.Tensor], names: List[str],
+def sharded_global_norm(leaves: List[torch.Tensor], paths: List[str],
                         mesh: TrainMesh) -> torch.Tensor:
     """optax's ``global_norm`` of a sharded gradient tree: each rank adds
     the squares of the blocks it owns (``TrainMesh.owns``: a norm scale,
-    replicated over tp, counts on tp rank 0 only; every leaf on dp rank 0
-    only) and one f32 sum over the world adds the owners' parts, so every
-    element counts once. The same 0-d f32 tensor on every rank."""
+    replicated over tp, counts on tp rank 0 only; every leaf on dp and sp
+    rank 0 only; the embedding, final norm and head on pp rank 0 only, a
+    layer's leaf on its stage) and one f32 sum over the world adds the
+    owners' parts, so every element counts once. ``paths`` are the
+    leaves' tree paths (``"blocks/0/wq"``; a bare name is a leaf outside
+    the layers). The same 0-d f32 tensor on every rank."""
     total = torch.zeros((), dtype=torch.float32, device=mesh.device)
-    for leaf, name in zip(leaves, names):
-        if mesh.owns(train_spec(name, leaf.dim())):
+    for leaf, path in zip(leaves, paths):
+        name = path.rsplit("/", 1)[-1]
+        if mesh.owns(train_spec(name, leaf.dim()), is_staged(path)):
             total += torch.sum(leaf.to(torch.float32) ** 2)
     if mesh.world > 1:
         dist.all_reduce(total)
@@ -257,8 +394,22 @@ def assemble_train_leaf(block: torch.Tensor, name: str,
 
 
 def assemble_train_tree(tree, mesh: TrainMesh):
-    """``assemble_train_leaf`` over a sharded tree (every rank gets the
-    whole tree; for checks at small sizes)."""
+    """``assemble_train_leaf`` over a sharded tree, and under pp every
+    stage's layers in order (each stage broadcasts its own): every rank
+    gets the whole tree; for checks at small sizes."""
     with torch.no_grad():
-        return map_named(
+        whole = map_named(
             lambda leaf, name: assemble_train_leaf(leaf, name, mesh), tree)
+        if mesh.pp_group is None or "blocks" not in whole:
+            return whole
+        own = whole["blocks"]
+        layers = []
+        for stage in range(mesh.pp):
+            for local in own:
+                def move(leaf, name, stage=stage):
+                    buffer = (leaf.contiguous() if stage == mesh.pp_rank
+                              else torch.empty_like(leaf))
+                    _broadcast_from(buffer, stage, mesh.pp_group)
+                    return buffer
+                layers.append(map_named(move, local))
+        return {**whole, "blocks": layers}

@@ -1,6 +1,6 @@
 """Training: optimizer, train step, loop, checkpoints, synthetic data — the
 PyTorch counterpart of ``tensorhive_tpu/train.py``, on one device or on a
-``dp x fsdp x tp`` training mesh (``parallel.mesh.train_mesh``).
+``pp x dp x fsdp x tp x sp`` training mesh (``parallel.mesh.train_mesh``).
 
 * ``make_optimizer`` is optax's ``chain(clip_by_global_norm(max_norm),
   adamw(warmup_cosine_decay_schedule(0, lr, warmup, total), weight_decay))``
@@ -18,15 +18,17 @@ PyTorch counterpart of ``tensorhive_tpu/train.py``, on one device or on a
   second copy of either.
 * Checkpoints are ``torch.save`` files, one per step, keeping the newest
   ``max_to_keep``; on a mesh, a directory per step with one file per
-  owning rank, restored onto any other mesh shape.
+  owning rank (a pp stage's layers under their global indices), restored
+  onto any other mesh shape.
 
 Params and gradients are the plain param dict of ``models/transformer``.
 On a mesh each rank holds only its block of every f32 param and of Adam's
-``mu`` and ``nu`` (JAX's ``tree_shardings`` and ``_opt_state_shardings``),
-steps on its rows of the global batch (``B / (dp x fsdp)``, block
-``mesh.data_rank``; every tp rank of a data shard holds the same rows) and
-computes the same loss, gradient norm and update as one device on the
-global batch. Entry points that make tensors take ``device=None``, which
+``mu`` and ``nu`` (JAX's ``tree_shardings`` and ``_opt_state_shardings``)
+and, under pp, only its stage's layers; it steps on its rows of the global
+batch (``B / (dp x fsdp)``, block ``mesh.data_rank``; every sp, tp and pp
+rank of a data shard holds the same rows, and under sp takes its block of
+the sequence) and computes the same loss, gradient norm and update as one
+device on the global batch. Entry points that make tensors take ``device=None``, which
 means CUDA and raises without a card.
 """
 from __future__ import annotations
@@ -50,6 +52,7 @@ from .parallel.mesh import (
     TrainMesh,
     block_starts,
     check_train_mesh,
+    is_staged,
     named_leaves,
     shard_train_leaf,
     train_spec,
@@ -214,21 +217,23 @@ def init_train_state(model_config: TransformerConfig,
     ``generator``, default seed 0 on the device) and a fresh optimizer
     state. On a ``mesh`` the state lives on ``mesh.device``: every rank
     draws each leaf whole, in ``init``'s fixed order, and keeps its block
-    (so the global params are the same whatever the mesh, and a rank
-    holds its shard plus one whole leaf at most); ``mu`` and ``nu`` mirror
-    the param blocks and ``count`` is replicated (JAX's
-    ``_opt_state_shardings``)."""
-    shard = None
+    and its pp stage's layers (so the global params are the same whatever
+    the mesh, and a rank holds its shard plus one whole leaf at most);
+    ``mu`` and ``nu`` mirror the param blocks and ``count`` is replicated
+    (JAX's ``_opt_state_shardings``)."""
+    shard = layers = None
     if mesh is None:
         device = resolve_device(device)
     else:
         check_train_mesh(model_config, mesh)
         device = _mesh_device(mesh, device)
+        layers = mesh.stage_layers(model_config.n_layers)
 
         def shard(leaf: torch.Tensor, name: str) -> torch.Tensor:
             return shard_train_leaf(leaf, name, mesh)
     params = TransformerLM.init(model_config, generator, device,
-                                param_dtype=torch.float32, shard=shard)
+                                param_dtype=torch.float32, shard=shard,
+                                layers=layers)
     return params, make_optimizer(train_config).init(params)
 
 
@@ -249,14 +254,16 @@ def abstract_train_state(model_config: TransformerConfig,
     at all. ``restore_checkpoint`` allocates only the restored blocks
     into them, so a resume never holds a throwaway initialised copy beside
     the restored one (JAX's ``abstract_train_state``)."""
-    shard = None
+    shard = layers = None
     if mesh is not None:
         check_train_mesh(model_config, mesh)
+        layers = mesh.stage_layers(model_config.n_layers)
 
         def shard(leaf: torch.Tensor, name: str) -> torch.Tensor:
             return shard_train_leaf(leaf, name, mesh)
     params = TransformerLM.init(model_config, device="meta",
-                                param_dtype=torch.float32, shard=shard)
+                                param_dtype=torch.float32, shard=shard,
+                                layers=layers)
     return params, make_optimizer(train_config).init(params)
 
 
@@ -287,7 +294,8 @@ def make_train_step(model_config: TransformerConfig,
             f"grad_accum_steps {accum}")
     rows = train_config.batch_size
     if mesh is not None:
-        check_train_mesh(model_config, mesh, train_config.batch_size, accum)
+        check_train_mesh(model_config, mesh, train_config.batch_size, accum,
+                         train_config.seq_len)
         rows //= mesh.data_size
 
     def value_and_grad(params: Params, tokens: torch.Tensor
@@ -326,7 +334,7 @@ def make_train_step(model_config: TransformerConfig,
         if mesh is None:
             grad_norm = global_norm(grad_leaves)
         else:
-            grad_norm = sharded_global_norm(grad_leaves, leaf_names(params),
+            grad_norm = sharded_global_norm(grad_leaves, leaf_paths(params),
                                             mesh)
         grads = _unflatten(params, grad_leaves)
         opt_state = optimizer.update(grads, opt_state, params, grad_norm)
@@ -358,23 +366,50 @@ def synthetic_batch(generator: torch.Generator, train_config: TrainConfig,
 
 _CHECKPOINT = re.compile(r"^step_(\d+)\.pt$")
 _MESH_CHECKPOINT = re.compile(r"^step_(\d+)\.ranks$")
-_RANK_FILE = re.compile(r"^fsdp(\d+)_tp(\d+)_of_(\d+)x(\d+)\.pt$")
+_RANK_FILE = re.compile(
+    r"^(?:pp(\d+)_)?fsdp(\d+)_tp(\d+)_of_(?:(\d+)x)?(\d+)x(\d+)\.pt$")
+
+
+def _rank_file(p: int, f: int, t: int, pp: int, fsdp: int, tp: int) -> str:
+    """The file of coordinate (pp p, fsdp f, tp t) of a ``pp x fsdp x tp``
+    set (the pp part only where the mesh has stages)."""
+    if pp == 1:
+        return f"fsdp{f}_tp{t}_of_{fsdp}x{tp}.pt"
+    return f"pp{p}_fsdp{f}_tp{t}_of_{pp}x{fsdp}x{tp}.pt"
 
 
 def _rank_files(directory: Path) -> List[Path]:
     """The files of a complete set in a mesh step's directory (one per
-    (fsdp, tp) coordinate of the mesh that wrote it), or none."""
-    sets: Dict[Tuple[int, int], set] = {}
+    (pp, fsdp, tp) coordinate of the mesh that wrote it), or none."""
+    sets: Dict[Tuple[int, int, int], set] = {}
     for name in os.listdir(directory):
         match = _RANK_FILE.match(name)
         if match:
-            f, t, fsdp, tp = map(int, match.groups())
-            sets.setdefault((fsdp, tp), set()).add((f, t))
-    for (fsdp, tp), found in sorted(sets.items()):
-        if len(found) == fsdp * tp:
-            return [directory / f"fsdp{f}_tp{t}_of_{fsdp}x{tp}.pt"
-                    for f, t in sorted(found)]
+            p, f, t, pp, fsdp, tp = (int(group or 0)
+                                     for group in match.groups())
+            sets.setdefault((pp or 1, fsdp, tp), set()).add((p, f, t))
+    for (pp, fsdp, tp), found in sorted(sets.items()):
+        if len(found) == pp * fsdp * tp:
+            return [directory / _rank_file(p, f, t, pp, fsdp, tp)
+                    for p, f, t in sorted(found)]
     return []
+
+
+def _global_path(path: str, first_layer: int) -> str:
+    """A leaf's path with its layer index made global (``blocks/1/wq`` of
+    a stage whose first layer is 4 -> ``blocks/5/wq``)."""
+    if not is_staged(path) or not first_layer:
+        return path
+    _, index, rest = path.split("/", 2)
+    return f"blocks/{int(index) + first_layer}/{rest}"
+
+
+def _first_layer(tree: Any, mesh: Any) -> int:
+    """The global index of a stage's first layer in ``tree`` (0 off a pp
+    mesh)."""
+    if mesh is None or mesh.pp == 1:
+        return 0
+    return mesh.pp_rank * len(tree.get("blocks", ()))
 
 
 def _checkpoints(path: Path) -> Dict[int, Path]:
@@ -411,13 +446,15 @@ def save_checkpoint(path: str, step: int, params: Params, opt_state: OptState,
     rename) and delete all but the newest ``max_to_keep`` steps.
 
     On a ``mesh`` every rank calls this: each rank that owns a block
-    (``TrainMesh.owns``: dp rank 0, and tp rank 0 for the norm scales,
-    which are replicated over tp) writes
-    ``step_<step>.ranks/fsdp<f>_tp<t>_of_<F>x<T>.pt`` atomically, holding
-    only its blocks of the params, ``mu`` and ``nu`` (each with its start
-    and the leaf's whole shape), the mesh shape, its coordinates, the step
-    and Adam's count. Other dp ranks hold copies of those blocks and write
-    nothing. Rank 0 prunes after every rank has written."""
+    (``TrainMesh.owns``: dp and sp rank 0, tp rank 0 for the norm scales,
+    which are replicated over tp, and pp rank 0 for the embedding, final
+    norm and head) writes ``step_<step>.ranks/fsdp<f>_tp<t>_of_<F>x<T>.pt``
+    (``pp<p>_fsdp<f>_tp<t>_of_<P>x<F>x<T>.pt`` under pp) atomically,
+    holding only its blocks of the params, ``mu`` and ``nu`` (each with its
+    start and the leaf's whole shape; a stage's layers under their global
+    indices), the mesh shape, its coordinates, the step and Adam's count.
+    Other dp and sp ranks hold copies of those blocks and write nothing.
+    Rank 0 prunes after every rank has written."""
     directory = Path(path)
     directory.mkdir(parents=True, exist_ok=True)
     if mesh is None:
@@ -439,16 +476,17 @@ def save_checkpoint(path: str, step: int, params: Params, opt_state: OptState,
 def _save_blocks(directory: Path, step: int, params: Params,
                  opt_state: OptState, mesh: TrainMesh) -> None:
     blocks, starts, shapes = {}, {}, {}
+    first_layer = _first_layer(params, mesh)
     for prefix, tree in (("params", params), ("mu", opt_state["mu"]),
                          ("nu", opt_state["nu"])):
         for path, name, leaf in zip(leaf_paths(tree), leaf_names(tree),
                                     tree_leaves(tree)):
             spec = train_spec(name, leaf.dim())
-            if not mesh.owns(spec):
+            if not mesh.owns(spec, is_staged(path)):
                 continue
             whole = tuple(size * (mesh.axis_sizes[axis] if axis else 1)
                           for size, axis in zip(leaf.shape, spec))
-            key = f"{prefix}/{path}"
+            key = f"{prefix}/{_global_path(path, first_layer)}"
             blocks[key] = leaf.detach().cpu()
             starts[key] = block_starts(whole, spec, mesh)
             shapes[key] = whole
@@ -457,11 +495,11 @@ def _save_blocks(directory: Path, step: int, params: Params,
     coords = mesh.coords
     step_dir = directory / f"step_{step:010d}.ranks"
     step_dir.mkdir(exist_ok=True)
-    target = step_dir / (f"fsdp{coords['fsdp']}_tp{coords['tp']}_of_"
-                         f"{mesh.fsdp}x{mesh.tp}.pt")
+    target = step_dir / _rank_file(mesh.pp_rank, coords["fsdp"],
+                                   coords["tp"], mesh.pp, mesh.fsdp, mesh.tp)
     partial = target.with_name(f"{target.name}.{os.getpid()}.tmp")
     torch.save({"step": step, "count": int(opt_state["count"]),
-                "mesh": {"dp": mesh.dp, "fsdp": mesh.fsdp, "tp": mesh.tp},
+                "mesh": mesh.axis_sizes,
                 "coords": coords, "blocks": blocks, "starts": starts,
                 "shapes": shapes}, partial)
     os.replace(partial, target)
@@ -545,18 +583,20 @@ def restore_checkpoint(path: str, params_like: Params,
     trees, whose leaves are allocated on ``mesh.device`` (or ``device``,
     None = CUDA, without a mesh). On a ``mesh`` the templates hold this
     rank's local shapes and each rank assembles its own blocks from the
-    saved ones, whatever mesh (or single device) wrote them: the files are
+    saved ones, whatever mesh (or single device) wrote them — under pp its
+    stage's layers, found by their global indices: the files are
     memory-mapped, so no rank reads the whole tree."""
     found = _checkpoints(Path(path))
     if not found:
         raise FileNotFoundError(f"no checkpoint under {path}")
     step = max(found)
     sources, count = _sources(found[step])
+    first_layer = _first_layer(params_like, mesh)
 
     def restore(prefix: str, tree: Any) -> Any:
         return _unflatten(tree, [
-            _restore_leaf(f"{prefix}/{leaf_path}", name, like, sources, mesh,
-                          device)
+            _restore_leaf(f"{prefix}/{_global_path(leaf_path, first_layer)}",
+                          name, like, sources, mesh, device)
             for leaf_path, name, like in zip(leaf_paths(tree),
                                              leaf_names(tree),
                                              tree_leaves(tree))])

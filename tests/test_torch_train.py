@@ -36,6 +36,7 @@ from tensorhive_tpu import train as jax_train
 from tensorhive_tpu.models import transformer as jax_transformer
 from tensorhive_tpu.models.transformer import PRESETS as JAX_PRESETS
 from tensorhive_tpu.models.transformer import TransformerLM as JaxLM
+from tensorhive_tpu.parallel.mesh import make_mesh
 from tensorhive_tpu_torch import train
 from tensorhive_tpu_torch.convert import params_from_jax, params_to_numpy
 from tensorhive_tpu_torch.models import lora, transformer
@@ -45,7 +46,8 @@ from tensorhive_tpu_torch.models.transformer import (
     _lm_head,
     train_flops_per_token,
 )
-from tensorhive_tpu_torch.parallel.mesh import TrainMesh, train_mesh
+from tensorhive_tpu_torch.parallel.mesh import TrainMesh
+from tests import torch_pp_sp_ranks as pp_sp_ranks
 
 LOSS_TOL = 1e-5
 GRAD_TOL = 2e-5
@@ -267,17 +269,24 @@ def test_train_loop_on_the_cpu():
                                     (30.0, True), (0.5, False)]) == (1.2, 1)
 
 
-def test_unported_and_invalid_options_are_refused():
-    """What the training mesh still refuses: sp (ring attention, A11b), pp
-    (the pipeline, A11c), LoRA's adapters under a mesh (A11a-LoRA) and a
-    tp that does not divide the heads; the LM loss refuses a bidirectional
-    config and the model an unknown remat policy. (The CUDA default of the
-    entry points is held in test_torch_package.py.)"""
+def test_unported_and_invalid_options_are_refused(monkeypatch):
+    """What the training mesh still refuses: LoRA's adapters under a mesh
+    (A11a-LoRA) and a tp that does not divide the heads; sp and pp now
+    build, each rank where JAX's make_mesh puts its device. The LM loss
+    refuses a bidirectional config and the model an unknown remat policy.
+    (The CUDA default of the entry points is held in
+    test_torch_package.py.)"""
     config = dataclasses.replace(PRESETS["tiny"], dtype=torch.float32)
     tc = train.TrainConfig(batch_size=2, seq_len=8)
-    for axes, item in ((dict(sp=2), "A11b"), (dict(pp=2), "A11c")):
-        with pytest.raises(ValueError, match=item):
-            train_mesh(fsdp=2, device="cpu", **axes)
+    for axes in (dict(sp=2), dict(pp=2)):
+        layout = make_mesh(fsdp=2, devices=jax.devices()[:4], **axes)
+        with monkeypatch.context() as patch:
+            for rank, device in enumerate(layout.devices.flat):
+                mesh, _ = pp_sp_ranks.built_mesh(patch, rank, 4, fsdp=2,
+                                                 **axes)
+                index = np.argwhere(layout.devices == device)[0]
+                assert mesh.position == dict(zip(layout.axis_names,
+                                                 map(int, index)))
     params = TransformerLM.init(config, device="cpu")
     tokens = torch.zeros((1, 5), dtype=torch.int32)
     with pytest.raises(ValueError, match="A11a-LoRA"):

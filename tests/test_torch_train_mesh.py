@@ -3,8 +3,8 @@
 In process: ``mesh_sizes`` and the rank layout equal JAX's ``make_mesh``
 (rank ``r`` sits where device ``r`` sits), each rank's
 ``shard_train_params`` block equals, byte for byte, the shard JAX's
-``tree_shardings`` puts on that device, and the refusals (sp, pp, axes that
-do not divide, no process group).
+``tree_shardings`` puts on that device, the refusals (axes that do not
+divide, no process group), and the layout of meshes with sp or pp.
 
 One spawned group of 8 ranks on the CPU over gloo (``FileStore`` under
 ``tmp_path``; rank code in ``tests/torch_train_ranks.py``, no JAX) runs
@@ -56,6 +56,7 @@ from tensorhive_tpu_torch import data, train
 from tensorhive_tpu_torch.convert import params_from_jax
 from tensorhive_tpu_torch.models.transformer import TransformerLM
 from tensorhive_tpu_torch.parallel import mesh as port_mesh
+from tests import torch_pp_sp_ranks as pp_sp_ranks
 from tests import torch_train_ranks as ranks
 
 pytestmark = pytest.mark.skipif(
@@ -308,13 +309,18 @@ def test_layout_and_shards_match_jax(axes):
             assert np.array_equal(got.numpy(), np.asarray(theirs))
 
 
-def test_refusals():
-    """sp and pp name their ROADMAP items; no process group, a size that
-    is not the group's, and axes that do not divide are refused."""
-    with pytest.raises(ValueError, match="A11b"):
-        port_mesh.train_mesh(fsdp=2, sp=2, device="cpu")
-    with pytest.raises(ValueError, match="A11c"):
-        port_mesh.train_mesh(fsdp=2, pp=2, device="cpu")
+def test_refusals(monkeypatch):
+    """sp and pp build meshes with JAX's layout (rank r where make_mesh
+    puts device r); no process group, a size that is not the group's, and
+    axes that do not divide are refused."""
+    for axes in (dict(fsdp=-1, sp=2), dict(fsdp=-1, pp=2)):
+        layout = jax_mesh.make_mesh(**axes)
+        where = {device.id: dict(zip(layout.axis_names, index))
+                 for index, device in np.ndenumerate(layout.devices)}
+        with monkeypatch.context() as patch:
+            for rank, device in enumerate(jax.devices()):
+                mesh, _ = pp_sp_ranks.built_mesh(patch, rank, WORLD, **axes)
+                assert mesh.position == where[device.id], (axes, rank)
     with pytest.raises(ValueError, match="initialised"):
         port_mesh.train_mesh(fsdp=2, device="cpu")
     with pytest.raises(ValueError, match="needs 8 ranks"):
