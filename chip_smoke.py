@@ -61,7 +61,13 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
               bitwise unchanged, then merge and 8 greedy tokens from the
               merged tree. Launch counters exact as in training (the
               encoder's forward is the head-blocked kernel, "bh_bf16").
-7. serving  — the main path: the full 7b preset served through
+7. serving  — first the int8 KV quality probe: ops.kv_quant.sim_kv_loss
+              on the phase's weights (the 32-layer 7b preset, bf16, seed
+              0) over seeded tokens [2, 2049], page 16, quantized and
+              not: the delta within JAX's 2% gate, the unquantized probe
+              within 2e-3 of TransformerLM.loss on the same weights and
+              tokens, K1 launched 32 layers x 2 calls. Then
+              the main path: the full 7b preset served through
               build_engine -> SlotEngine.submit -> step/pump -> result.
               With whole-prompt prefill (prefix_cache="off"): int8 pages,
               then bf16 pages, then the f32 model with f32 pages; launch
@@ -212,12 +218,35 @@ into build/tensorhive_tpu_torch/). Phases, each fatal on failure:
               a rank), remat "mlp", 4 steps whose loss must fall, bytes
               exact, then one layer's ring attention (out, dq, dk, dv) on
               each rank's block held to the single card's kernels over the
-              whole sequence. On every rank K1 (K3 for the encoder off the
-              ring) and K4-K7 launch exactly layers x microbatches x steps
-              (twice for the forward under "block" remat) at the rank's
-              local head counts, times the ring's live blocks (sp index +
-              1 causal, sp not). Step times over gloo are printed as such,
-              with each rank's peak memory.
+              whole sequence; (g), in the group of 8, LoRA (rank 8 on
+              wq/wv, adapters whole on every rank) over (a)'s model as a
+              frozen f32 base from a seed, at dp 2 x fsdp 2 x tp 2 and at
+              pp 2 x sp 2 x fsdp 2, 3 steps each: loss and grad norm within
+              TRAIN_REL_TOL and RING_TRAIN_REL_TOL of the same LoRA run on
+              the single card at every step, the adapters gathered to rank
+              0 by the per-leaf mean rule, the base bitwise unchanged on
+              every rank; (h), in the group of 4, LoRA at (c)'s widths and
+              batch over a frozen bf16 base at fsdp 2 x tp 2,
+              TRAIN_C_STEPS steps whose loss must fall, the base bitwise,
+              each rank's base bytes exactly its specs' share and its
+              adapters, mu and nu whole, the adapters' checkpoint restored
+              on one device bitwise. On every rank K1 (K3 for the encoder
+              off the ring) and K4-K7 launch exactly layers x microbatches
+              x steps (twice for the forward under "block" remat) at the
+              rank's local head counts, times the ring's live blocks (sp
+              index + 1 causal, sp not). Step times over gloo are printed
+              as such, with each rank's peak memory.
+11. monitor — the GPU host plane while this process holds the card (2
+              GiB on it): the native probe (native/probe.cpp, built with
+              g++) and the inline Python probe must list card 0 under the
+              name nvidia-smi gives, its memory used at least
+              torch.cuda.memory_reserved(), this process among its holders
+              and a utilization in [0, 100] (each probe's time printed);
+              GpuMonitor.update over the native probe; the torchrun
+              template for one placement on card 0, under whose env a
+              child process must see exactly one card.
+
+Each phase's seconds are printed at the end.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``; any failure exits non-zero without
@@ -1867,6 +1896,59 @@ def profile_steps(engine, label, steps=3):
             f"{kind} {ms:.2f}" for kind, ms in kinds.items())
         + f"); {launched:.0f} kernel launches per step")
     return total
+
+
+def kv_probe_run():
+    """``ops.kv_quant.sim_kv_loss`` on the serving phase's weights (the
+    32-layer 7b preset in bf16, seed 0, as build_engine draws them), seeded
+    tokens [2, 2049], page 16, quantized and not: the int8 round trip's
+    delta within JAX's 2% gate, the unquantized probe within 2e-3 of
+    ``TransformerLM.loss`` on the same weights and tokens (both bf16),
+    and the flash forward (K1) launched once per layer per call."""
+    import torch
+
+    from tensorhive_tpu_torch.models.transformer import PRESETS, TransformerLM
+    from tensorhive_tpu_torch.ops import flash_attention as fa
+    from tensorhive_tpu_torch.ops.kv_quant import sim_kv_loss
+
+    config = PRESETS["7b"]
+    params = TransformerLM.init(config, device="cuda")
+    tokens = torch.randint(0, config.vocab_size, (2, 2049),
+                           generator=torch.Generator(device="cuda").manual_seed(
+                               23), device="cuda", dtype=torch.int32)
+    reset_flash_counters()
+    timings = {}
+    values = {}
+    with torch.no_grad():
+        for name, quantized in (("quant", True), ("ref", False)):
+            torch.cuda.synchronize()
+            started = time.perf_counter()
+            values[name] = sim_kv_loss(params, config, tokens, 16,
+                                       quantized=quantized).item()
+            timings[name] = time.perf_counter() - started
+        probe_launches = dict(fa.launches)
+        values["loss"] = TransformerLM.loss(params, tokens, config).item()
+    label = "kv probe: sim_kv_loss, 7b preset (32 layers, bf16), [2, 2049]"
+    expected = {key: 0 for key in probe_launches}
+    expected["bf16"] = 2 * config.n_layers
+    require(probe_launches == expected, f"{label}: flash launches "
+            f"{probe_launches}, expected {expected}")
+    delta = abs(values["quant"] - values["ref"]) / values["ref"]
+    agree = abs(values["ref"] - values["loss"]) / values["loss"]
+    require(all(math.isfinite(v) for v in values.values()),
+            f"{label}: not finite: {values}")
+    require(delta < 0.02, f"{label}: int8 delta {delta:.3e} past 0.02")
+    require(agree < 2e-3, f"{label}: unquantized probe {values['ref']} vs "
+            f"TransformerLM.loss {values['loss']} (rel {agree:.3e})")
+    log(f"{label}, page 16: quantized {values['quant']:.6f}, unquantized "
+        f"{values['ref']:.6f} (|delta| / ref {delta:.3e}, gate 0.02), "
+        f"TransformerLM.loss {values['loss']:.6f} (rel {agree:.3e}, bound "
+        f"2e-3); {timings['quant']:.2f} s and {timings['ref']:.2f} s a "
+        f"call; K1 launches {probe_launches['bf16']} = {config.n_layers} "
+        "layers x 2 calls")
+    del params
+    release_device_memory()
+    return {"launches": {"flash_fwd_bf16": dict(fa.launches)["bf16"]}}
 
 
 def phase_serving(card):
@@ -4076,13 +4158,18 @@ def mesh_key(**axes):
 #: per group size: the sections its ranks run, in order, and the meshes
 #: every rank builds up front
 TRAIN_MESH_GROUPS = {
-    8: (("a", "d"), (mesh_key(dp=2, fsdp=2, tp=2),
-                     mesh_key(sp=2, fsdp=2, tp=2),
-                     mesh_key(pp=2, sp=2, fsdp=2))),
-    4: (("b", "c", "e", "f"), (mesh_key(fsdp=2, tp=2),
-                               mesh_key(dp=2, fsdp=2),
-                               mesh_key(pp=2, sp=2),
-                               mesh_key(sp=2, fsdp=2)))}
+    8: (("a", "d", "g"), (mesh_key(dp=2, fsdp=2, tp=2),
+                          mesh_key(sp=2, fsdp=2, tp=2),
+                          mesh_key(pp=2, sp=2, fsdp=2))),
+    4: (("b", "c", "e", "f", "h"), (mesh_key(fsdp=2, tp=2),
+                                    mesh_key(dp=2, fsdp=2),
+                                    mesh_key(pp=2, sp=2),
+                                    mesh_key(sp=2, fsdp=2)))}
+#: (g) and (h)'s adapters: rank 8 on wq/wv (the LoRA defaults)
+LORA_RANK, LORA_ALPHA = 8, 16.0
+#: (g)'s two meshes: name -> (axes, pipeline microbatches)
+LORA_MESHES = {"dp": (dict(dp=2, fsdp=2, tp=2), 0),
+               "pp": (dict(pp=2, sp=2, fsdp=2), 2)}
 #: (c)'s depth and steps, cut so that the whole script keeps inside its
 #: time limit
 TRAIN_C_LAYERS, TRAIN_C_STEPS = 2, 3
@@ -4160,6 +4247,56 @@ def train_big_setup(section, device="cuda"):
         torch.Generator(device=device).manual_seed(21), tc,
         config.vocab_size, device=device)
     return config, tc, tokens
+
+
+def lora_state(config, device, mesh=None, param_dtype=None):
+    """A frozen base from seed 11 (``param_dtype``, default the config's
+    compute dtype; on a ``mesh`` the rank's shard and its stage's layers,
+    drawn whole as ``init_train_state`` draws them) and rank-8 adapters on
+    wq/wv from seed 17 (whole on every rank): (base, adapters, LoRA
+    config)."""
+    import torch
+
+    from tensorhive_tpu_torch.models import lora
+    from tensorhive_tpu_torch.models.transformer import TransformerLM
+    from tensorhive_tpu_torch.parallel.mesh import shard_train_leaf
+
+    shard = layers = None
+    if mesh is not None:
+        layers = mesh.stage_layers(config.n_layers)
+
+        def shard(leaf, name):
+            return shard_train_leaf(leaf, name, mesh)
+    base = TransformerLM.init(config,
+                              torch.Generator(device=device).manual_seed(11),
+                              device, param_dtype=param_dtype, shard=shard,
+                              layers=layers)
+    lora_config = lora.LoraConfig(rank=LORA_RANK, alpha=LORA_ALPHA)
+    adapters = lora.init_lora(
+        base, lora_config, torch.Generator(device=device).manual_seed(17),
+        mesh=mesh)
+    return base, adapters, lora_config
+
+
+def lora_step(config, tc, base, lora_config, mesh=None):
+    import functools
+
+    from tensorhive_tpu_torch import train
+    from tensorhive_tpu_torch.models import lora
+
+    return train.make_train_step(config, tc, mesh, loss_fn=functools.partial(
+        lora.lora_loss, base_params=base, lora_config=lora_config))
+
+
+def lora_big_setup(device="cuda"):
+    """(h): (c)'s model (7b widths at TRAIN_C_LAYERS layers, GQA 32/8,
+    remat "mlp") and batch (b4 x s2048), learning rate 1e-3 after one
+    warmup step, as the families phase's LoRA run uses."""
+    import dataclasses
+
+    config, tc, tokens = train_big_setup("c", device)
+    return config, dataclasses.replace(tc, warmup_steps=1,
+                                       learning_rate=1e-3), tokens
 
 
 def rank_rows(tokens, mesh):
@@ -4483,9 +4620,104 @@ def train_section_f(meshes, rundir, rank):
     return out
 
 
+def train_section_g(meshes, rundir, rank):
+    """LoRA over (a)'s model and batch as a frozen f32 base, rank 8 on
+    wq/wv, at dp 2 x fsdp 2 x tp 2 and at pp 2 x sp 2 x fsdp 2 (2
+    pipeline microbatches), 3 steps each: metrics, launches, whether the
+    base stayed bitwise, and (rank 0) the adapters after the steps."""
+    import dataclasses
+
+    import torch
+
+    from tensorhive_tpu_torch import train
+    from tensorhive_tpu_torch.parallel.train_parallel import (
+        assemble_train_tree,
+    )
+
+    lm, tc, tokens, *_ = train_parity_setup()
+    out = {}
+    for name, (axes, micro) in LORA_MESHES.items():
+        mesh = meshes[mesh_key(**axes)]
+        config = dataclasses.replace(lm, pp_microbatches=micro)
+        base, adapters, lora_config = lora_state(config, mesh.device, mesh)
+        before = leaf_checksums(base)
+        step = lora_step(config, tc, base, lora_config, mesh)
+        mesh_reset_launches()
+        out[name], out[f"{name}_ms"] = timed_train_steps(
+            step, adapters, train.make_optimizer(tc).init(adapters),
+            rank_rows(tokens, mesh), 3)
+        out[f"{name}_launches"] = mesh_launch_heads()
+        out[f"{name}_sp_rank"] = mesh.sp_rank
+        out[f"{name}_base_same"] = bool(torch.equal(leaf_checksums(base),
+                                                    before))
+        whole = assemble_train_tree(adapters, mesh)   # stepped in place
+        if rank == 0:
+            torch.save(train.tree_map(lambda t: t.cpu(), whole),
+                       Path(rundir) / f"g_{name}_adapters.pt")
+        del base, adapters, step, whole
+    return out
+
+
+def train_section_h(meshes, rundir, rank):
+    """LoRA at (c)'s widths and batch over a frozen bf16 base at fsdp 2 x
+    tp 2, TRAIN_C_STEPS steps: metrics, launches, peak memory, the base's
+    bytes against its specs' share and the adapters' (with mu and nu)
+    against the whole tree's, the base bitwise; then the adapters'
+    checkpoint, which rank 0 restores on one device (bitwise?)."""
+    import torch
+
+    from tensorhive_tpu_torch import train
+    from tensorhive_tpu_torch.models import lora
+    from tensorhive_tpu_torch.models.transformer import TransformerLM
+    from tensorhive_tpu_torch.parallel.mesh import share_bytes
+
+    mesh = meshes[mesh_key(fsdp=2, tp=2)]
+    config, tc, tokens = lora_big_setup(mesh.device)
+    base, adapters, lora_config = lora_state(config, mesh.device, mesh)
+    opt_state = train.make_optimizer(tc).init(adapters)
+    whole_base = TransformerLM.init(config, device="meta")
+    whole_adapters = lora.init_lora(whole_base, lora_config)
+
+    def nbytes(*trees):
+        return sum(leaf.numel() * leaf.element_size() for tree in trees
+                   for leaf in train.tree_leaves(tree))
+
+    out = {"base_bytes": (nbytes(base), share_bytes(whole_base, mesh)),
+           "adapter_bytes": (nbytes(adapters, opt_state["mu"],
+                                    opt_state["nu"]),
+                             3 * nbytes(whole_adapters))}
+    before = leaf_checksums(base)
+    step = lora_step(config, tc, base, lora_config, mesh)
+    mesh_reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out["metrics"], out["ms"] = timed_train_steps(
+        step, adapters, opt_state, rank_rows(tokens, mesh), TRAIN_C_STEPS)
+    out["launches"] = mesh_launch_heads()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["base_same"] = bool(torch.equal(leaf_checksums(base), before))
+    path = str(Path(rundir) / "checkpoint_h")
+    train.save_checkpoint(path, TRAIN_C_STEPS, adapters, opt_state,
+                          mesh=mesh)
+    if rank == 0:
+        like = lora.init_lora(whole_base, lora_config)
+        restored_step, restored, restored_opt = train.restore_checkpoint(
+            path, like, train.make_optimizer(tc).init(like),
+            device=mesh.device)
+        out["restored_bitwise"] = bool(
+            restored_step == TRAIN_C_STEPS
+            and restored_opt["count"] == opt_state["count"]
+            and all(torch.equal(a, b) for tree_a, tree_b in (
+                (adapters, restored), (opt_state["mu"], restored_opt["mu"]),
+                (opt_state["nu"], restored_opt["nu"]))
+                for a, b in zip(train.tree_leaves(tree_a),
+                                train.tree_leaves(tree_b))))
+    return out
+
+
 TRAIN_SECTIONS = {"a": train_section_a, "b": train_section_b,
                   "c": train_section_c, "d": train_section_d,
-                  "e": train_section_e, "f": train_section_f}
+                  "e": train_section_e, "f": train_section_f,
+                  "g": train_section_g, "h": train_section_h}
 
 
 def train_rank_main(rank: int, world: int, rundir: str) -> int:
@@ -4548,6 +4780,12 @@ def train_references(device="cuda"):
         train.make_train_step(enc, enc_tc, loss_fn=encoder.mlm_loss_packed),
         params, opt_state, packed.to(device), 1)
     del params, opt_state
+    base, adapters, lora_config = lora_state(lm, device)
+    out["lora"], out["lora_ms"] = timed_train_steps(
+        lora_step(lm, tc, base, lora_config), adapters,
+        train.make_optimizer(tc).init(adapters), tokens.to(device), 3)
+    out["lora_adapters"] = train.tree_map(lambda t: t.cpu(), adapters)
+    del base, adapters
     config, tc, tokens = train_big_setup("b", device)
     params, _ = train.init_train_state(
         config, tc, torch.Generator(device=device).manual_seed(0), device)
@@ -4825,6 +5063,53 @@ def phase_train_mesh(card):
         f"{refs['mlm'][0]['grad_norm']:.6f}; launches per rank "
         f"{want_mlm(reports[8][0]['sections']['d'])} (every rank)")
 
+    # (g) LoRA over (a)'s model on both meshes against the single card
+    lora_ref = refs["lora_adapters"]
+    for name, (axes, micro) in LORA_MESHES.items():
+        shape = " x ".join(f"{axis}{size}" for axis, size in axes.items())
+        tol = TRAIN_REL_TOL if name == "dp" else RING_TRAIN_REL_TOL
+        label = (f"train-mesh (g) LoRA rank {LORA_RANK} on wq/wv, {shape}, "
+                 "t2t-base widths, 2 layers, f32")
+        sp, pp = axes.get("sp", 1), axes.get("pp", 1)
+        heads = lm.n_heads // axes.get("tp", 1)
+
+        def want_g(section, name=name, micro=micro, heads=heads, sp=sp,
+                   pp=pp):
+            return expected_train_launches(
+                lm, 3, 2 * max(micro, 1), "f32", heads, heads, sp=sp,
+                sp_rank=section[f"{name}_sp_rank"], pp=pp)
+        ours = check_train_ranks(label, reports[8], "g", name,
+                                 f"{name}_launches", want_g)
+        count([want_g(r["sections"]["g"]) for r in reports[8]], 8)
+        worst = 0.0
+        for index, (got, ref) in enumerate(zip(ours, refs["lora"])):
+            for key in ("loss", "grad_norm"):
+                err = relative(got[key], ref[key])
+                worst = max(worst, err)
+                require(math.isfinite(got[key]) and err <= tol,
+                        f"{label} step {index + 1}: {key} {got[key]} vs the "
+                        f"single card's {ref[key]} (rel {err:.2e}, "
+                        f"tolerance {tol})")
+        require(all(r["sections"]["g"][f"{name}_base_same"]
+                    for r in reports[8]),
+                f"{label}: the frozen base changed on a rank")
+        gathered = torch.load(REPO / "build" / "train_mesh_smoke" / "world8"
+                              / f"g_{name}_adapters.pt", weights_only=True)
+        mean_diff = max((got - want).abs().mean().item() for got, want in zip(
+            train.tree_leaves(gathered), train.tree_leaves(lora_ref)))
+        require(mean_diff <= 1e-3 * refs["lm_lr_sum"],
+                f"{label}: adapters differ (worst leaf mean {mean_diff}, "
+                f"summed lr {refs['lm_lr_sum']})")
+        log(f"{label}: 3 steps, loss {ours[-1]['loss']:.6f} vs "
+            f"{refs['lora'][-1]['loss']:.6f}; max rel err of loss/grad_norm "
+            f"{worst:.2e} (tolerance {tol}); adapters worst leaf mean "
+            f"|diff| {mean_diff:.2e}; base bitwise on every rank; launches "
+            "per rank " + ", ".join(str(want_g(r["sections"]["g"]))
+                                    for r in reports[8][:2])
+            + f"; {TRAIN_STEP_LABEL}: rank 0 "
+            f"{[round(t, 1) for t in reports[8][0]['sections']['g'][f'{name}_ms']]}"
+            f" (single card {[round(t, 1) for t in refs['lora_ms']]})")
+
     # (e) pp 2 x sp 2 at t2t-base, and its checkpoint at fsdp 2 x tp 2
     config, _, _ = train_big_setup("e")
     label = "train-mesh (e) pp2 x sp2, t2t-base b64 x s1024, bf16"
@@ -4916,8 +5201,169 @@ def phase_train_mesh(card):
                                              for err in worst["rows"]))
     log(f"  {TRAIN_STEP_LABEL}: median {median(f0['ms'][1:]):.1f} (steps "
         f"{[round(t, 1) for t in f0['ms']]})")
+
+    # (h) LoRA at 7b widths over a frozen bf16 base, fsdp 2 x tp 2
+    config, _, _ = lora_big_setup()
+    label = (f"train-mesh (h) LoRA rank {LORA_RANK} on wq/wv, fsdp2 x tp2, "
+             f"7b widths {config.n_layers} layers, b4 x s2048, bf16 base")
+    expected = expected_train_launches(config, TRAIN_C_STEPS, 1, "bf16",
+                                       config.n_heads // 2,
+                                       config.kv_heads // 2)
+    metrics = check_train_ranks(label, reports[4], "h", "metrics",
+                                "launches", expected)
+    count(expected, 4)
+    losses = falling(label, [torch.tensor(m["loss"]) for m in metrics])
+    for report in reports[4]:
+        h = report["sections"]["h"]
+        require(h["base_same"], f"{label}: rank {report['rank']}'s frozen "
+                "base changed")
+        for what in ("base_bytes", "adapter_bytes"):
+            held, want = h[what]
+            require(held == want, f"{label}: rank {report['rank']} holds "
+                    f"{held} B of {what[:-6]}, expected {want}")
+    h0 = reports[4][0]["sections"]["h"]
+    require(h0["restored_bitwise"], f"{label}: the adapters' checkpoint did "
+            "not restore bitwise on one device")
+    log(f"{label}: {TRAIN_C_STEPS} steps, loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}; per rank {h0['base_bytes'][0] / 1e9:.4f} GB of "
+        f"base (its specs' share exactly) and "
+        f"{h0['adapter_bytes'][0] / 1e6:.3f} MB of adapters, mu and nu "
+        "(whole); base bitwise on every rank; the checkpoint restored "
+        "bitwise on one device; peak memory "
+        + ", ".join(f"{r['sections']['h']['peak_gb']:.2f}"
+                    for r in reports[4])
+        + f" GB; launches per rank {expected}")
+    log(f"  {TRAIN_STEP_LABEL}: median {median(h0['ms'][1:]):.1f} (steps "
+        f"{[round(t, 1) for t in h0['ms']]})")
     log(f"  train-mesh phase {time.perf_counter() - started:.1f} s ({card})")
     return launches
+
+
+class LocalProbeTransports:
+    """A transport manager's fan-out to this one host, run here: each
+    round runs ``argv`` (the native probe) and answers for "localhost"."""
+
+    hostnames = ["localhost"]
+
+    def __init__(self, argv):
+        self.argv = argv
+
+    def run_on_all(self, command, hostnames=None):
+        from types import SimpleNamespace
+
+        proc = subprocess.run(self.argv, capture_output=True, text=True,
+                              timeout=60)
+        return {"localhost": SimpleNamespace(
+            ok=proc.returncode == 0, stdout=proc.stdout, stderr=proc.stderr,
+            exit_code=proc.returncode)}
+
+
+class ProbeInfra:
+    """The infrastructure store's side the monitor writes to."""
+
+    def __init__(self):
+        self.subtrees = {}
+
+    def update_subtree(self, hostname, key, subtree):
+        self.subtrees[(hostname, key)] = subtree
+
+    def record_probe_failure(self, hostname):
+        raise PhaseFailure(f"monitor: the probe failed on {hostname}")
+
+    def host_leases(self):
+        return {}
+
+
+def phase_monitor(card):
+    """The GPU host plane while this process holds the card (a 2 GiB
+    tensor on it): the native probe (built with g++) and the inline Python
+    probe must list card 0 under the name nvidia-smi gives, memory used
+    at least torch.cuda.memory_reserved(), this process among card 0's
+    holders and a utilization in [0, 100]; GpuMonitor.update on the
+    native probe gives the card's subtree; the torchrun template for one
+    placement on card 0, whose env a child process runs under, which must
+    see exactly one card."""
+    import os
+
+    import torch
+
+    from tensorhive_tpu_torch.core.monitors import GpuMonitor
+    from tensorhive_tpu_torch.core.monitors import probe
+    from tensorhive_tpu_torch.core.templates import (
+        Placement,
+        render_template,
+    )
+
+    name = card.split(",")[0].strip()
+    held = torch.empty(2**30, dtype=torch.float16, device="cuda")
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    started = time.perf_counter()
+    binary = probe.build_native_probe()
+    log(f"monitor: native probe built in {time.perf_counter() - started:.2f}"
+        f" s ({binary.name})")
+    pid = os.getpid()
+    runs = {"native": [str(binary)],
+            "inline": [sys.executable, "-c", probe.PYTHON_PROBE_SOURCE]}
+    for kind, argv in runs.items():
+        started = time.perf_counter()
+        proc = subprocess.run(argv, capture_output=True, text=True,
+                              timeout=120)
+        elapsed = time.perf_counter() - started
+        require(proc.returncode == 0, f"monitor: {kind} probe exit "
+                f"{proc.returncode}: {proc.stderr[-2000:]}")
+        sample = probe.parse_probe_output(proc.stdout)
+        require(sample.chips and sample.chips[0].index == 0,
+                f"monitor: {kind} probe lists no card 0: {proc.stdout[:500]}")
+        chip = sample.chips[0]
+        require(chip.name == name, f"monitor: {kind} probe names card 0 "
+                f"{chip.name!r}, nvidia-smi {name!r}")
+        require(sample.sysfs_status == "ok" and chip.metrics_source == "sysfs",
+                f"monitor: {kind} probe read no driver counters")
+        require(chip.hbm_used_bytes is not None
+                and chip.hbm_used_bytes >= reserved,
+                f"monitor: {kind} probe: card 0 memory used "
+                f"{chip.hbm_used_bytes} < this process's reserved {reserved}")
+        require(pid in chip.pids, f"monitor: {kind} probe: this process "
+                f"({pid}) is not among card 0's holders {chip.pids}")
+        require(chip.duty_cycle_pct is not None
+                and 0.0 <= chip.duty_cycle_pct <= 100.0,
+                f"monitor: {kind} probe: utilization {chip.duty_cycle_pct}")
+        log(f"  {kind} probe: {elapsed * 1e3:.1f} ms; card 0 "
+            f"{chip.dev} {chip.name!r}, {chip.hbm_used_bytes / 2**30:.3f} GiB"
+            f" used of {chip.hbm_total_bytes / 2**30:.3f} (this process "
+            f"reserves {reserved / 2**30:.3f}; torch.cuda.mem_get_info total "
+            f"{torch.cuda.mem_get_info()[1] / 2**30:.3f}), utilization "
+            f"{chip.duty_cycle_pct}%, holders {chip.pids} (this process "
+            f"{pid}), {len(sample.chips)} card(s), restricted "
+            f"{sample.restricted}")
+    infra = ProbeInfra()
+    GpuMonitor().update(LocalProbeTransports([str(binary)]), infra)
+    subtree = infra.subtrees[("localhost", "GPU")]
+    card0 = subtree["localhost:gpu:0"]
+    require(pid in [p["pid"] for p in card0["processes"]]
+            and card0["hbm_used_mib"] * 2**20 + 2**20 > reserved
+            and infra.subtrees[("localhost", "WARNINGS")] == [],
+            f"monitor: GpuMonitor's subtree {card0}")
+    log(f"  GpuMonitor: {card0['name']!r} {card0['hbm_used_mib']} MiB used "
+        f"({card0['hbm_util_pct']}%), duty {card0['duty_cycle_pct']}%, "
+        f"processes {[p['pid'] for p in card0['processes']]}")
+    spec = render_template("torchrun", "python3 -c ...",
+                           [Placement("localhost", chips=[0])])[0]
+    # the CUDA driver's own count under the env (no torch import: seconds)
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import ctypes; cuda = ctypes.CDLL('libcuda.so.1'); "
+         "n = ctypes.c_int(0); assert cuda.cuInit(0) == 0; "
+         "assert cuda.cuDeviceGetCount(ctypes.byref(n)) == 0; print(n.value)"],
+        env=dict(os.environ, **spec.env), capture_output=True, text=True,
+        timeout=120)
+    require(proc.returncode == 0 and proc.stdout.split() == ["1"],
+            f"monitor: under torchrun's env {spec.env} a child sees "
+            f"{proc.stdout.strip()!r} cards: {proc.stderr[-1000:]}")
+    log(f"  torchrun env {spec.env}: a child process sees 1 card")
+    del held
+    release_device_memory()
 
 
 def memory_census(label, top=4, depth=6):
@@ -5071,6 +5517,15 @@ def main() -> int:
                                args["--train-dir"])
     started = time.perf_counter()
     phase = "device"
+    #: (phase, seconds into the run at its start)
+    begun = [(phase, 0.0)]
+
+    def begin(name):
+        nonlocal phase
+        phase = name
+        begun.append((name, time.perf_counter() - started))
+        if name != "build":
+            log(f"== {name} (at {begun[-1][1]:.1f} s)")
 
     def memory(after):
         log(f"  device memory after {after}: "
@@ -5078,43 +5533,43 @@ def main() -> int:
 
     try:
         card = phase_device()
-        phase = "build"
+        begin("build")
         phase_build()
-        phase = "kernels"
-        log(f"== kernels (at {time.perf_counter() - started:.1f} s)")
+        begin("kernels")
         kernels = phase_kernels()
-        phase = "model"
-        log(f"== model (at {time.perf_counter() - started:.1f} s)")
+        begin("model")
         phase_model()
-        phase = "training"
-        log(f"== training (at {time.perf_counter() - started:.1f} s)")
+        begin("training")
         training = phase_training()
         memory("training")
-        phase = "families"
-        log(f"== families (at {time.perf_counter() - started:.1f} s)")
+        begin("families")
         families = phase_families()
         memory("families")
-        phase = "serving"
-        log(f"== serving (at {time.perf_counter() - started:.1f} s)")
+        begin("serving")
+        kv_probe = kv_probe_run()
         runs = phase_serving(card)
         memory("serving")
-        phase = "service"
-        log(f"== service (at {time.perf_counter() - started:.1f} s)")
+        begin("service")
         runs["service"] = service_run(card)
         memory("service")
-        phase = "mesh"
-        log(f"== mesh (at {time.perf_counter() - started:.1f} s)")
+        begin("mesh")
         mesh_launches = phase_mesh(card)
-        phase = "train-mesh"
-        log(f"== train-mesh (at {time.perf_counter() - started:.1f} s)")
+        begin("train-mesh")
         train_mesh_launches = phase_train_mesh(card)
+        begin("monitor")
+        phase_monitor(card)
     except Exception:                       # every phase failure is fatal
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} FAILED", file=sys.stderr)
         return 1
-    log(f"total {time.perf_counter() - started:.1f} s")
+    total = time.perf_counter() - started
+    ends = [at for _, at in begun[1:]] + [total]
+    log("phase seconds: " + ", ".join(
+        f"{name} {end - at:.1f}" for (name, at), end in zip(begun, ends)))
+    log(f"total {total:.1f} s")
     launches = dict(training["launches"])
     for name, count in (list(families["launches"].items())
+                        + list(kv_probe["launches"].items())
                         + list(mesh_launches.items())
                         + list(train_mesh_launches.items())):
         launches[name] = launches.get(name, 0) + count

@@ -6,7 +6,7 @@ module names (``models/``, ``ops/``, ``serving/``, ``core/services/``) and
 its public tensor layouts, and imports nothing of it — not even its
 jax-free modules, which are copied here where needed.
 
-What runs so far:
+What it covers:
 
 * serving: ``build_engine`` -> ``SlotEngine`` on the paged cache (bf16/f32
   or int8 pages), whole-prompt prefill through the hand-written
@@ -19,10 +19,16 @@ What runs so far:
 * training on one device: ``TransformerLM.loss`` -> ``train.make_train_step``
   -> ``train.train_loop``, attention differentiated through the
   hand-written flash-backward kernels (``csrc/flash_bwd.cu``);
+* training on a ``pp x dp x fsdp x tp x sp`` mesh (``parallel/``: ring
+  attention over sp, the GPipe pipeline over pp);
 * the MLM encoder (``models/encoder``, attention through the head-blocked
   flash forward of ``csrc/flash_fwd.cu`` when ``flash_bh_block`` > 1) and
-  LoRA fine-tuning (``models/lora``) through the same train step, fed by
-  the token data pipeline (``data``).
+  LoRA fine-tuning (``models/lora``, on one device or a training mesh)
+  through the same train step, fed by the token data pipeline (``data``);
+  the int8 KV quality probe ``ops.kv_quant.sim_kv_loss``;
+* the GPU host plane: the schema-v1 probe (``native/probe.cpp`` and an
+  inline Python probe), ``core.monitors.GpuMonitor`` and the launch
+  templates (``core/templates``, ``CUDA_VISIBLE_DEVICES``, ``torchrun``).
 
 The kernels are built with ``nvcc`` at first use; on CPU tensors every
 kernel wrapper runs its plain PyTorch version instead.

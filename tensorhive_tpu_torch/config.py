@@ -2,7 +2,8 @@
 fields of ``tensorhive_tpu/config.py`` (``[generation_service]``) that the
 ported engine and its daemon read, with the JAX package's defaults, plus a
 small :class:`Config` holding them beside the ``[accounting]`` and
-``[profiling]`` sections and the config directory (crash dumps, profiles).
+``[profiling]`` sections, the managed hosts (``[hosts.<name>]``, which the
+GPU host monitor reads) and the config directory (crash dumps, profiles).
 There is no TOML loader: callers build a :class:`Config` (or take the
 defaults of :func:`get_config`).
 
@@ -25,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 DEFAULT_CONFIG_DIR = "~/.config/tpuhive"
 
@@ -129,9 +130,22 @@ class ProfilingConfig:
 
 
 @dataclasses.dataclass
+class HostConfig:
+    """One managed host (``[hosts.<name>]``): the fields of the JAX
+    package's ``HostConfig`` that the GPU monitor reads (the transport's
+    are the control plane's)."""
+    name: str = ""
+    accelerator_type: str = ""   # e.g. "h100-80gb"; "" = CPU-only
+    topology: str = ""
+    slice_name: str = ""         # label grouping hosts of one job set
+    agent: bool = False          # the host pushes its own telemetry: the
+                                 # monitor's fan-out skips it
+
+
+@dataclasses.dataclass
 class Config:
     """The sections of the JAX package's ``Config`` that the port's serving
-    daemon reads."""
+    daemon and GPU host monitor read."""
     config_dir: Path = Path(os.path.expanduser(DEFAULT_CONFIG_DIR))
     generation: GenerationConfig = dataclasses.field(
         default_factory=GenerationConfig)
@@ -139,6 +153,7 @@ class Config:
         default_factory=AccountingConfig)
     profiling: ProfilingConfig = dataclasses.field(
         default_factory=ProfilingConfig)
+    hosts: Dict[str, HostConfig] = dataclasses.field(default_factory=dict)
 
     @property
     def flightrec_dir(self) -> Path:

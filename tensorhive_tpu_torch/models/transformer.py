@@ -504,8 +504,11 @@ class TransformerLM(nn.Module):
             return x
 
         if pipelined:
+            anchors = [leaf for block in params["blocks"]
+                       for leaf in block.values()
+                       if isinstance(leaf, torch.Tensor)]
             x = pipeline_apply(apply_blocks, par.stage_shared(x), positions,
-                               mesh, config.pp_microbatches)
+                               mesh, config.pp_microbatches, anchors)
         else:
             x = apply_blocks(x, positions)
         return _rmsnorm(x, gather(params["final_norm"]["scale"], "scale"))

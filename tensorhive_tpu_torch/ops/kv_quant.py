@@ -1,6 +1,6 @@
 """Int8 KV-page quantization — the PyTorch counterpart of
-``tensorhive_tpu/ops/kv_quant.py`` (write and read primitives, and the
-host tier's page gather and scatter).
+``tensorhive_tpu/ops/kv_quant.py`` (write and read primitives, the host
+tier's page gather and scatter, and the quality probe ``sim_kv_loss``).
 
 Same scheme, same bytes: symmetric int8 with one f32 scale per (physical
 page, kv_head), scale = max(running max, amax / 127, 1e-8), rescale-on-
@@ -193,3 +193,61 @@ def dequant_gather(pages_i8: torch.Tensor, scales: torch.Tensor,
     num_slots, mp = page_table.shape
     return deq.reshape(num_slots, mp * pages_i8.shape[1],
                        *pages_i8.shape[2:]).to(dtype)
+
+
+# -- quality probe ------------------------------------------------------------
+
+def page_requant(kv: torch.Tensor, page_size: int) -> torch.Tensor:
+    """K or V [B, S, Hkv, Dh] through the int8 round trip of its pages:
+    one symmetric scale per (page of ``page_size`` positions, KV head),
+    ``max(amax / 127, SCALE_FLOOR)`` over the page's final values; the
+    dequantized values in ``kv``'s dtype."""
+    batch, seq, kv_heads, d_head = kv.shape
+    pages = -(-seq // page_size)
+    padded = torch.nn.functional.pad(kv.to(torch.float32),
+                                     (0, 0, 0, 0, 0, pages * page_size - seq))
+    paged = padded.reshape(batch, pages, page_size, kv_heads, d_head)
+    scale = torch.clamp_min(torch.amax(paged.abs(), dim=(2, 4)) / INT8_MAX,
+                            SCALE_FLOOR)[:, :, None, :, None]
+    deq = _requant(paged, scale).to(torch.float32) * scale
+    return deq.reshape(batch, pages * page_size, kv_heads, d_head
+                       )[:, :seq].to(kv.dtype)
+
+
+def sim_kv_loss(params, config, tokens: torch.Tensor, page_size: int,
+                quantized: bool = True) -> torch.Tensor:
+    """Teacher-forced mean next-token CE with K and V routed through
+    :func:`page_requant` before every layer's attention — the probe of
+    what int8 pages cost a model's loss (``quantized=False`` runs the same
+    path without the round trip, so the difference isolates the
+    quantization). Each page is quantized with its final amax, where
+    serving grows a page's scale as it fills; the incremental grids are
+    finer or equal for early positions, so this bounds the steady-state
+    cost. ``tokens`` is [B, L+1] (inputs and shifted targets, as for
+    ``TransformerLM.loss``). Attention is the flash forward (K1 on the
+    card; its plain version on CPU tensors), where JAX's probe calls its
+    plain ``reference_attention``."""
+    from ..models.transformer import (
+        TransformerLM,
+        _lm_head,
+        _lse_minus_target,
+        _rmsnorm,
+    )
+    from .flash_attention import flash_attention
+
+    def attend(q, k, v, layer_index):
+        if quantized:
+            k, v = page_requant(k, page_size), page_requant(v, page_size)
+        return flash_attention(q, k, v, causal=True)
+
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    batch, width = inputs.shape
+    x = params["tok_embed"].to(config.dtype)[inputs.long()]
+    positions = torch.arange(width, dtype=torch.int32,
+                             device=tokens.device).expand(batch, width)
+    for layer_index, block in enumerate(params["blocks"]):
+        x = TransformerLM.block_forward(x, block, config, positions, attend,
+                                        layer_index=layer_index)
+    x = _rmsnorm(x, params["final_norm"]["scale"])
+    logits = _lm_head(x, params["w_lm_head"], config.dtype)
+    return torch.mean(_lse_minus_target(logits, targets))

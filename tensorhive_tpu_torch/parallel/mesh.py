@@ -709,6 +709,14 @@ def train_spec(name: str, ndim: int,
     return rules.spec(*logical)
 
 
+def whole_shape(local: Tuple[int, ...], spec: Spec,
+                mesh: TrainMesh) -> Tuple[int, ...]:
+    """The whole shape of a leaf laid out by ``spec`` whose block on a rank
+    of ``mesh`` has shape ``local``."""
+    return tuple(size * (mesh.axis_sizes[axis] if axis else 1)
+                 for size, axis in zip(local, spec))
+
+
 def block_starts(shape: Tuple[int, ...], spec: Spec,
                  mesh: TrainMesh) -> Tuple[int, ...]:
     """Where this rank's block of a leaf of global ``shape`` starts, per

@@ -26,7 +26,7 @@ same either way.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 
@@ -52,14 +52,17 @@ def pipeline_microbatches(batch: int, mesh: Any, requested: int = 0) -> int:
 
 def pipeline_apply(apply_stage: StageFn, x: torch.Tensor,
                    positions: torch.Tensor, mesh: Any,
-                   num_microbatches: int = 0) -> torch.Tensor:
+                   num_microbatches: int = 0,
+                   anchors: Sequence[torch.Tensor] = ()) -> torch.Tensor:
     """Run this rank's stage (``apply_stage``: its layers in order, each
     checkpointed as the caller's remat asks) as one stage of a ``pp``-stage
     pipeline over ``x`` [rows, L, D] (this rank's rows; under sp its
     sequence block) and its ``positions`` [rows, L]. Returns the last
     stage's output on every stage, [rows, L, D]. Only stage 0 reads ``x``;
     pass it through ``TrainParallel.stage_shared`` so every stage ends
-    with its gradient."""
+    with its gradient. ``anchors``: the stage's own weights, which the
+    hand-offs' chain starts from when ``x`` needs no gradient (a frozen
+    embedding, as under LoRA)."""
     pp, stage = mesh.pp, mesh.pp_rank
     rows = x.shape[0]
     count = pipeline_microbatches(rows, mesh, num_microbatches)
@@ -68,8 +71,16 @@ def pipeline_apply(apply_stage: StageFn, x: torch.Tensor,
     pos_mb = positions.split(size)
     shape = (size,) + tuple(x.shape[1:])
     # one 0-d tensor threads every hand-off into one line (see handoff);
-    # it starts from x so that every stage's backward reaches the input
+    # it starts from x so that every stage's backward reaches the input.
+    # ``torch.autograd.grad`` runs only the nodes on a path to the leaves
+    # it is asked for: with x frozen, a stage's hand-offs would lead to
+    # none of its own, and it would skip the broadcasts another stage
+    # waits in, so the chain then starts from the stage's own weights
     chain = x.sum(dtype=torch.float32) * 0.0
+    if not chain.requires_grad:
+        for leaf in anchors:
+            if leaf.requires_grad:
+                chain = chain + leaf.sum(dtype=torch.float32) * 0.0
     outputs: List[Optional[torch.Tensor]] = [None] * count
     received: Optional[torch.Tensor] = None
     for t in range(count + pp - 1):

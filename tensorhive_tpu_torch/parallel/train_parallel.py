@@ -40,7 +40,7 @@ and NCCL. Each group is its own ``new_group``, never the default group.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -177,6 +177,9 @@ def replicate(partial: torch.Tensor, chain: torch.Tensor,
 
 
 class _CopyToTP(Function):
+    """The identity forward, the sum over ``group`` backward (Megatron's
+    ``copy_to_tp``, over whichever group is given)."""
+
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
@@ -296,6 +299,32 @@ class TrainParallel:
             return shard
         return _FsdpGather.apply(shard, embed_dim(name, shard.dim()),
                                  self.mesh)
+
+    def adapter_blocks(self, a: torch.Tensor, b: torch.Tensor, name: str
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """LoRA's adapters of leaf ``name``, ``a`` [in, rank] and ``b``
+        [rank, out], whole on every rank: this rank's rows of ``a`` and
+        columns of ``b``, whose product is its block of ``a @ b``. Their
+        gradients come from the block's, which the fsdp gather's backward
+        has already summed over the data group (dp x fsdp x sp); the other
+        blocks' parts are on the ranks that differ in the axes the leaf is
+        cut over, so each adapter's gradient is summed over those groups
+        (fsdp and tp for ``wq``), and over no other: dp and sp ranks hold
+        the same block and the same sum."""
+        spec = train_spec(name, 2)
+        groups = {"fsdp": self.mesh.fsdp_group, "tp": self.mesh.tp_group}
+        for axis in spec:
+            if groups.get(axis) is not None:
+                a = _CopyToTP.apply(a, groups[axis])
+                b = _CopyToTP.apply(b, groups[axis])
+
+        def own(tensor: torch.Tensor, dim: int, axis: Optional[str]):
+            if axis is None:
+                return tensor
+            block = tensor.shape[dim] // self.mesh.axis_sizes[axis]
+            return tensor.narrow(dim, self.mesh.coords[axis] * block, block)
+
+        return own(a, 0, spec[0]), own(b, 1, spec[1])
 
     def copy(self, x: torch.Tensor) -> torch.Tensor:
         if self.mesh.tp_group is None:

@@ -56,6 +56,7 @@ from .parallel.mesh import (
     named_leaves,
     shard_train_leaf,
     train_spec,
+    whole_shape,
 )
 from .parallel.train_parallel import sharded_global_norm
 
@@ -445,16 +446,19 @@ def save_checkpoint(path: str, step: int, params: Params, opt_state: OptState,
     """Write ``path/step_<step>.pt`` (atomically: a temporary file, then a
     rename) and delete all but the newest ``max_to_keep`` steps.
 
-    On a ``mesh`` every rank calls this: each rank that owns a block
-    (``TrainMesh.owns``: dp and sp rank 0, tp rank 0 for the norm scales,
-    which are replicated over tp, and pp rank 0 for the embedding, final
-    norm and head) writes ``step_<step>.ranks/fsdp<f>_tp<t>_of_<F>x<T>.pt``
+    On a ``mesh`` every rank calls this: each rank at dp and sp
+    coordinate 0 writes ``step_<step>.ranks/fsdp<f>_tp<t>_of_<F>x<T>.pt``
     (``pp<p>_fsdp<f>_tp<t>_of_<P>x<F>x<T>.pt`` under pp) atomically,
-    holding only its blocks of the params, ``mu`` and ``nu`` (each with its
-    start and the leaf's whole shape; a stage's layers under their global
-    indices), the mesh shape, its coordinates, the step and Adam's count.
-    Other dp and sp ranks hold copies of those blocks and write nothing.
-    Rank 0 prunes after every rank has written."""
+    holding only the blocks of the params, ``mu`` and ``nu`` it owns
+    (``TrainMesh.owns``: tp rank 0 for the norm scales, which are
+    replicated over tp, pp rank 0 for the embedding, final norm and head,
+    fsdp and tp rank 0 for a leaf whole on every rank such as a LoRA
+    adapter; each with its start and the leaf's whole shape; a stage's
+    layers under their global indices), the mesh shape, its coordinates,
+    the step and Adam's count. A file may hold no block: the set is
+    complete when every coordinate's file is there. Other dp and sp ranks
+    hold copies of those blocks and write nothing. Rank 0 prunes after
+    every rank has written."""
     directory = Path(path)
     directory.mkdir(parents=True, exist_ok=True)
     if mesh is None:
@@ -475,6 +479,9 @@ def save_checkpoint(path: str, step: int, params: Params, opt_state: OptState,
 
 def _save_blocks(directory: Path, step: int, params: Params,
                  opt_state: OptState, mesh: TrainMesh) -> None:
+    position = mesh.position
+    if position["dp"] or position["sp"]:
+        return                  # its blocks are copies of dp 0's, sp 0's
     blocks, starts, shapes = {}, {}, {}
     first_layer = _first_layer(params, mesh)
     for prefix, tree in (("params", params), ("mu", opt_state["mu"]),
@@ -484,14 +491,11 @@ def _save_blocks(directory: Path, step: int, params: Params,
             spec = train_spec(name, leaf.dim())
             if not mesh.owns(spec, is_staged(path)):
                 continue
-            whole = tuple(size * (mesh.axis_sizes[axis] if axis else 1)
-                          for size, axis in zip(leaf.shape, spec))
+            whole = whole_shape(leaf.shape, spec, mesh)
             key = f"{prefix}/{_global_path(path, first_layer)}"
             blocks[key] = leaf.detach().cpu()
             starts[key] = block_starts(whole, spec, mesh)
             shapes[key] = whole
-    if not blocks:
-        return
     coords = mesh.coords
     step_dir = directory / f"step_{step:010d}.ranks"
     step_dir.mkdir(exist_ok=True)
@@ -537,11 +541,11 @@ def _restore_leaf(key: str, name: str, like: torch.Tensor,
     every saved block that overlaps it."""
     spec = (train_spec(name, like.dim()) if mesh is not None
             else (None,) * like.dim())
-    sizes = mesh.axis_sizes if mesh is not None else {}
-    whole = tuple(size * (sizes[axis] if axis else 1)
-                  for size, axis in zip(like.shape, spec))
-    start = (block_starts(whole, spec, mesh) if mesh is not None
-             else (0,) * like.dim())
+    if mesh is None:
+        whole, start = tuple(like.shape), (0,) * like.dim()
+    else:
+        whole = whole_shape(like.shape, spec, mesh)
+        start = block_starts(whole, spec, mesh)
     target = like.device
     if target.type == "meta":
         target = mesh.device if mesh is not None else resolve_device(device)

@@ -1,4 +1,5 @@
-"""The port's int8 KV-page quantizer against the JAX one, bytewise.
+"""The port's int8 KV-page quantizer against the JAX one, bytewise, and
+its quality probe ``sim_kv_loss`` against JAX's.
 
 ``step_write``, ``row_merge`` and ``dequant_gather`` get the same pages,
 scales and values (numpy seed) on both sides; the int8 payloads and the
@@ -6,14 +7,30 @@ f32 scales they write must be byte-identical, including offset-0 rebases,
 dropped (out-of-range or invalid) writes, and writes to the trash page.
 The port's ``step_write`` takes in-range page ids only; the JAX function
 drops an out-of-range one, so the port is given the same writes without it.
+
+``sim_kv_loss`` on JAX-made f32 tiny weights (GQA, a last page cut short)
+is held to JAX's within 1e-5 relative unquantized and 1e-4 quantized, and
+its per-page round trip (``page_requant``) is byte-identical to the one
+JAX's probe applies, on the K and V JAX's first layer attends with.
 """
+import dataclasses
+import importlib
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from tensorhive_tpu.models.transformer import PRESETS as JAX_PRESETS
+from tensorhive_tpu.models.transformer import TransformerLM as JaxLM
 from tensorhive_tpu.ops import kv_quant as jax_kvq
+from tensorhive_tpu_torch.convert import params_from_jax
+from tensorhive_tpu_torch.models.transformer import PRESETS
 from tensorhive_tpu_torch.ops import kv_quant as kvq
+
+# the module (``tensorhive_tpu.ops`` exports a function of the same name)
+jax_flash = importlib.import_module("tensorhive_tpu.ops.flash_attention")
 
 P, PS, HKV, DH = 10, 4, 2, 8
 
@@ -109,3 +126,64 @@ def test_knobs_and_byte_accounting():
     for args in [(16, 8, 128), (16, 2, 16)]:
         assert kvq.quant_page_bytes(*args) == jax_kvq.quant_page_bytes(*args)
         assert kvq.page_bytes(*args, 2) == jax_kvq.page_bytes(*args, 2)
+
+
+PAGE = 16
+
+
+@pytest.fixture(scope="module")
+def probe_setup():
+    """JAX's f32 tiny model with GQA (4 heads over 2 KV heads), the port's
+    copy of its weights, and [2, 41] tokens (40 inputs: the last page holds
+    8 positions)."""
+    jax_config = dataclasses.replace(JAX_PRESETS["tiny"], dtype=jnp.float32,
+                                     n_kv_heads=2)
+    config = dataclasses.replace(PRESETS["tiny"], dtype=torch.float32,
+                                 n_kv_heads=2)
+    jax_params = JaxLM.init(jax.random.PRNGKey(3), jax_config)
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jax_params),
+                             config, "cpu", param_dtype=torch.float32)
+    tokens = np.random.default_rng(4).integers(
+        0, config.vocab_size, (2, 41), dtype=np.int32)
+    return jax_config, config, jax_params, params, tokens
+
+
+@pytest.mark.parametrize("quantized,tol", [(False, 1e-5), (True, 1e-4)])
+def test_sim_kv_loss_matches_jax(probe_setup, quantized, tol):
+    jax_config, config, jax_params, params, tokens = probe_setup
+    theirs = float(jax_kvq.sim_kv_loss(jax_params, jax_config,
+                                       jnp.asarray(tokens), PAGE,
+                                       quantized=quantized))
+    with torch.no_grad():
+        ours = kvq.sim_kv_loss(params, config, torch.from_numpy(tokens),
+                               PAGE, quantized=quantized)
+    assert ours.dtype == torch.float32 and ours.dim() == 0
+    np.testing.assert_allclose(float(ours), theirs, rtol=tol, atol=0)
+
+
+def test_page_requant_is_byte_identical(probe_setup, monkeypatch):
+    """The K and V JAX's first layer attends with, unquantized and after
+    its round trip (caught at its ``reference_attention``), against the
+    port's ``page_requant`` of the same unquantized values; the probe's
+    delta stays under JAX's 2% gate."""
+    jax_config, config, jax_params, _, tokens = probe_setup
+    seen = []
+    real = jax_flash.reference_attention
+
+    def spy(q, k, v, **kwargs):
+        seen.append((np.array(k), np.array(v)))
+        return real(q, k, v, **kwargs)
+
+    monkeypatch.setattr(jax_flash, "reference_attention", spy)
+    losses = [float(jax_kvq.sim_kv_loss(jax_params, jax_config,
+                                        jnp.asarray(tokens), PAGE,
+                                        quantized=quantized))
+              for quantized in (False, True)]
+    layers = jax_config.n_layers
+    assert len(seen) == 2 * layers
+    (raw_k, raw_v), (jax_k, jax_v) = seen[0], seen[layers]
+    assert not np.array_equal(raw_k, jax_k)
+    for raw, theirs in ((raw_k, jax_k), (raw_v, jax_v)):
+        ours = kvq.page_requant(torch.from_numpy(raw), PAGE).numpy()
+        assert_bytes_equal(ours, theirs)
+    assert abs(losses[1] - losses[0]) / losses[0] < 0.02

@@ -59,6 +59,9 @@ def test_imports_with_jax_blocked():
             "import tensorhive_tpu_torch.models.encoder\n"
             "import tensorhive_tpu_torch.models.lora\n"
             "import tensorhive_tpu_torch.core.services.base\n"
+            "import tensorhive_tpu_torch.core.monitors\n"
+            "import tensorhive_tpu_torch.core.templates\n"
+            "import tensorhive_tpu_torch.ops.kv_quant\n"
             "import tensorhive_tpu_torch.observability.accounting\n"
             "import tensorhive_tpu_torch.observability.profiling\n"
             "import tensorhive_tpu_torch.observability.requests\n"

@@ -270,11 +270,12 @@ def test_train_loop_on_the_cpu():
 
 
 def test_unported_and_invalid_options_are_refused(monkeypatch):
-    """What the training mesh still refuses: LoRA's adapters under a mesh
-    (A11a-LoRA) and a tp that does not divide the heads; sp and pp now
-    build, each rank where JAX's make_mesh puts its device. The LM loss
-    refuses a bidirectional config and the model an unknown remat policy.
-    (The CUDA default of the entry points is held in
+    """What the training mesh refuses: a tp that does not divide the
+    heads; sp and pp build, each rank where JAX's make_mesh puts its
+    device, and LoRA's loss runs on a TrainMesh (on a one-rank mesh, the
+    loss without one; tests/test_torch_lora_mesh.py holds it to JAX on
+    8 ranks). The LM loss refuses a bidirectional config and the model an
+    unknown remat policy. (The CUDA default of the entry points is held in
     test_torch_package.py.)"""
     config = dataclasses.replace(PRESETS["tiny"], dtype=torch.float32)
     tc = train.TrainConfig(batch_size=2, seq_len=8)
@@ -289,10 +290,15 @@ def test_unported_and_invalid_options_are_refused(monkeypatch):
                                                  map(int, index)))
     params = TransformerLM.init(config, device="cpu")
     tokens = torch.zeros((1, 5), dtype=torch.int32)
-    with pytest.raises(ValueError, match="A11a-LoRA"):
-        lora.lora_loss(lora.init_lora(params, lora.LoraConfig()), tokens,
-                       config, TrainMesh(1, 2, 1), base_params=params,
-                       lora_config=lora.LoraConfig())
+    adapters = lora.init_lora(params, lora.LoraConfig(), mesh=TrainMesh(
+        1, 1, 1))
+    for block in adapters["blocks"]:
+        block["wq"]["B"].normal_(generator=torch.Generator().manual_seed(2))
+    on_mesh, alone = (lora.lora_loss(adapters, tokens, config, mesh,
+                                     base_params=params,
+                                     lora_config=lora.LoraConfig())
+                      for mesh in (TrainMesh(1, 1, 1), None))
+    assert torch.isfinite(on_mesh) and torch.equal(on_mesh, alone)
     for call in (lambda: train.make_train_step(config, tc,
                                                mesh=TrainMesh(1, 1, 3)),
                  lambda: train.init_train_state(config, tc, device="cpu",

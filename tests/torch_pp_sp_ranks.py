@@ -251,8 +251,17 @@ def job_checkpoint(job, inputs, meshes, rank):
     return out
 
 
+#: job kind -> its function; tests/torch_lora_ranks.py adds LoRA's
 JOBS = {"ring": job_ring, "grads": job_grads, "step": job_step,
-        "loop": job_loop}
+        "loop": job_loop, "checkpoint": job_checkpoint}
+
+
+def job_meshes(job):
+    """The mesh shapes a job names: its ``mesh``, else its ``meshes``, else
+    the one it saves on and those it restores on."""
+    if "mesh" in job:
+        return [job["mesh"]]
+    return job.get("meshes") or [job["save"], *job["restore"]]
 
 
 def rank_main(rank, world, store, inputs_path, jobs, results):
@@ -263,18 +272,16 @@ def rank_main(rank, world, store, inputs_path, jobs, results):
             "gloo", init_method=f"file://{store}", rank=rank,
             world_size=world, timeout=datetime.timedelta(seconds=60))
         shapes = sorted({shape_key(shape) for job in jobs
-                         for shape in ([job["mesh"]] if "mesh" in job
-                                       else [job["save"], *job["restore"]])})
+                         for shape in job_meshes(job)})
         meshes = {key: train_mesh(**dict(zip(AXES, key)), device="cpu")
                   for key in shapes}
         with open(inputs_path, "rb") as file:
             inputs = pickle.load(file)
         for job in jobs:
-            if job["kind"] == "checkpoint":
-                outcome = job_checkpoint(job, inputs, meshes, rank)
-            else:
-                outcome = JOBS[job["kind"]](
-                    job, inputs, meshes[shape_key(job["mesh"])], rank)
+            # a job on one mesh gets it; one that saves and restores, all
+            where = (meshes[shape_key(job["mesh"])] if "mesh" in job
+                     else meshes)
+            outcome = JOBS[job["kind"]](job, inputs, where, rank)
             results.put((job["name"], rank, outcome))
     except Exception:
         results.put(("error", rank, traceback.format_exc()))
@@ -326,11 +333,13 @@ def built_mesh(monkeypatch, rank, world=8, **axes):
 
 class Group:
     """A spawned group of ``world`` ranks running ``jobs`` (started at
-    once, so the ranks run beside the parent's JAX work). ``outcomes()``
+    once, so the ranks run beside the parent's JAX work; ``target`` is the
+    rank function, ``rank_main`` by default). ``outcomes()``
     waits for them once — every rank joined under ``timeout_s`` from the
     start, or the test fails — and returns {job name: {rank: outcome}}."""
 
-    def __init__(self, tmp_path, world, jobs, inputs, timeout_s):
+    def __init__(self, tmp_path, world, jobs, inputs, timeout_s,
+                 target=None):
         context = torch.multiprocessing.get_context("spawn")
         self.world, self.jobs, self.timeout_s = world, jobs, timeout_s
         self.results = context.Queue()
@@ -340,7 +349,7 @@ class Group:
         path = tmp_path / "inputs.pkl"
         path.write_bytes(pickle.dumps(inputs))
         self.processes = [
-            context.Process(target=rank_main, args=(
+            context.Process(target=target or rank_main, args=(
                 rank, world, str(tmp_path / "store"), str(path), jobs,
                 self.results))
             for rank in range(world)]
