@@ -13,7 +13,12 @@
 //   dS = P * (dO V^T - delta)
 //   dQ = scale * dS K,  dK = scale * dS^T Q (summed over the GQA group),
 //   dV = P^T dO         (summed over the GQA group)
-// dq comes out in q's layout and type, dk/dv in k's.
+// dq comes out in q's layout and type, dk/dv in k's. D is any multiple of
+// 16 from 16 to 256: each body is built for a padded width of 16, 32, 64,
+// 128 or 256 (widths.cuh's ``padded_width``), its tensor maps declare the
+// real D (TMA fills the columns past it with zeros: they add nothing to
+// the scores and give zero gradient columns) and the stores skip the
+// padding. Grid rows past 65535 b*h (b*hkv) rows launch again.
 //
 // Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): the function
 // needs 5 products of 2*S^2*D per head (Q K^T, dO V^T, dS K, dS^T Q,
@@ -32,16 +37,20 @@
 // input give the same bits. (A fused single pass does the 5 products but
 // sums dQ across CTAs with atomics.)
 //
-// bf16, d_head 64 and 128 (every main path) — the Hopper design, the
-// forward's machinery (hopper.cuh): a CTA of three warpgroups. Warpgroup 2
+// bf16, padded d_head 64, 128 and 256 (every main path) — the Hopper
+// design, the forward's machinery (hopper.cuh): a CTA of three warpgroups. Warpgroup 2
 // is the producer: one thread loads the CTA's 128 resident rows once and
 // streams the other operands, tile by tile, into a ring of 4 shared-memory
 // stages by TMA (cp.async.bulk.tensor; the port's layouts as they are, boxes
 // of 64 columns with the 128-byte swizzle wgmma reads, zeros past S), with
 // full and empty mbarriers per stage. Warpgroups 0 and 1 consume, 64
 // resident rows each; setmaxnreg moves registers from the producer to them.
-// A streamed tile is 128 rows at d 64 and 64 at d 128, so that a consumer's
-// accumulators stay in registers (no spills).
+// A streamed tile is 128 rows at d 64, 64 at d 128 and 32 at d 256, so that
+// a consumer's accumulators stay in registers (no spills). At d 256 the
+// dK and dV accumulators (64 x 256 f32 each, per warpgroup) would take 256
+// registers a thread: the dK/dV kernel's CTAs each own 128 of the columns
+// (grid z), computing the scores over all 256 (4 of their 6 products
+// recompute what the other half's CTA computes).
 // * dQ kernel (flash_dq_bf16_kernel): one CTA per (b*h, 128-row q tile),
 //   reversed tile order so the longest causal CTAs start first. Q and dO
 //   load once; K and V stream up to the diagonal of the CTA's last row.
@@ -205,7 +214,7 @@ flash_dq_mma_bf16_kernel(const bf16* __restrict__ q,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          bf16* __restrict__ dq, int S, int H, int Hkv,
-                         int causal, float scale) {
+                         int causal, float scale, int row_base) {
   static_assert(D == 16 || D == 32, "d_head 64 and 128 run the TMA body");
   constexpr int LD = D + 8;           // 16-byte rows, conflict-free fragments
   constexpr int KSTEPS = D / 16;      // k-steps over d
@@ -217,7 +226,7 @@ flash_dq_mma_bf16_kernel(const bf16* __restrict__ q,
   bf16* k_s = do_s + BLOCK_Q * LD;
   bf16* v_s = k_s + BLOCK_K * LD;
 
-  const int bh = blockIdx.y;
+  const int bh = row_base + blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
   const int kvh = h / (H / Hkv);
@@ -336,7 +345,8 @@ flash_dkv_mma_bf16_kernel(const bf16* __restrict__ q,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          int S, int H, int Hkv, int causal, float scale) {
+                          int S, int H, int Hkv, int causal, float scale,
+                          int row_base) {
   static_assert(D == 16 || D == 32, "d_head 64 and 128 run the TMA body");
   constexpr int LD = D + 8;
   constexpr int KSTEPS = D / 16;
@@ -350,7 +360,7 @@ flash_dkv_mma_bf16_kernel(const bf16* __restrict__ q,
   float* lse_s = reinterpret_cast<float*>(do_s + BLOCK_QB * LD);
   float* delta_s = lse_s + BLOCK_QB;
 
-  const int bkv = blockIdx.y;
+  const int bkv = row_base + blockIdx.y;
   const int b = bkv / Hkv;
   const int kvh = bkv % Hkv;
   const int group = H / Hkv;
@@ -497,10 +507,13 @@ constexpr int BWD_CONSUMER_REGS = 232;       // 2 * 232 + 40 = 3 * 168
 
 template <int D>
 struct BwdTile {
-  static_assert(D == 64 || D == 128, "the TMA body serves d_head 64 and 128");
+  static_assert(D == 64 || D == 128 || D == 256,
+                "the TMA body serves padded d_head 64, 128 and 256");
   static constexpr int BLOCKS = D / 64;      // 64-column swizzle blocks
-  static constexpr int STREAM = D == 128 ? 64 : 128;  // rows a stage
-  static constexpr int STAGES = 4;
+  static constexpr int STREAM = D == 256 ? 32 : D == 128 ? 64 : 128;
+  static constexpr int STAGES = D == 256 ? 3 : 4;
+  // dK/dV columns a CTA owns (its accumulators: OUT / 2 registers each)
+  static constexpr int OUT = D == 256 ? 128 : D;
   static constexpr uint32_t RES_BYTES = RESIDENT * D * 2;
   static constexpr uint32_t STREAM_BYTES = STREAM * D * 2;
   static constexpr uint32_t TILES = 2 * RES_BYTES + 2 * STAGES * STREAM_BYTES;
@@ -510,6 +523,7 @@ struct BwdTile {
   // empty per stage
   static constexpr int DQ_SMEM = 1024 + TILES + 8 * (1 + 4 * STAGES);
   static constexpr int DKV_SMEM = 1024 + TILES + STATS + 8 * (1 + 2 * STAGES);
+  static_assert(DQ_SMEM <= 232448 && DKV_SMEM <= 232448, "shared memory");
 };
 
 template <int STAGES>
@@ -606,8 +620,8 @@ flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap v_map,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dq,
-                     int S, int H, int Hkv, int causal, float scale,
-                     float scale_log2) {
+                     int S, int H, int Hkv, int d, int causal, float scale,
+                     float scale_log2, int row_base) {
   using T = BwdTile<D>;
   constexpr int SB = T::STREAM;                  // keys a stage
   constexpr int STAGES = T::STAGES;
@@ -623,7 +637,7 @@ flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   const uint32_t k_empty = v_full + 8 * STAGES;
   const uint32_t v_empty = k_empty + 8 * STAGES;
 
-  const int bh = blockIdx.y;
+  const int bh = row_base + blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
   const int kvh = h / (H / Hkv);
@@ -742,17 +756,18 @@ flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (qpos[r] >= S) continue;
-      bf16* out = dq + (((long)b * S + qpos[r]) * H + h) * D + 2 * t4;
+      bf16* out = dq + (((long)b * S + qpos[r]) * H + h) * d + 2 * t4;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
-            __floats2bfloat162_rn(scale * acc[4 * n + 2 * r],
-                                  scale * acc[4 * n + 2 * r + 1]);
+        if (n < D / 16 || 8 * n < d)           // the padding is not stored
+          *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
+              __floats2bfloat162_rn(scale * acc[4 * n + 2 * r],
+                                    scale * acc[4 * n + 2 * r + 1]);
     }
   }
 }
 
-// dK/dV: one CTA per (128-key tile, b*hkv row).
+// dK/dV: one CTA per (128-key tile, b*hkv row, OUT-column part).
 template <int D>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -761,10 +776,12 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap v_map,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int S, int H, int Hkv,
-                      int causal, float scale, float scale_log2) {
+                      bf16* __restrict__ dv, int S, int H, int Hkv, int d,
+                      int causal, float scale, float scale_log2,
+                      int row_base) {
   using T = BwdTile<D>;
   constexpr int SB = T::STREAM;                  // q rows a stage
+  constexpr int OUT = T::OUT;
   constexpr int STAGES = T::STAGES;
   extern __shared__ __align__(1024) unsigned char bwd_smem[];
   const uint32_t offset = ((smem_u32(bwd_smem) + 1023u) & ~1023u) -
@@ -780,7 +797,7 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   const uint32_t full = kv_full + 8;             // + 8 * stage
   const uint32_t empty = full + 8 * STAGES;
 
-  const int bkv = blockIdx.y;
+  const int bkv = row_base + blockIdx.y;
   const int b = bkv / Hkv;
   const int kvh = bkv % Hkv;
   const int group = H / Hkv;
@@ -858,9 +875,12 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     const int mine = kw0 >= S ? tiles : (causal ? kw0 / SB : 0);
     const uint64_t k_desc = sw128_desc(k_s + wg * 64 * 128, 16, 1024);
     const uint64_t v_desc = sw128_desc(v_s + wg * 64 * 128, 16, 1024);
-    float dk_acc[D / 2], dv_acc[D / 2];
+    // this CTA's dK/dV columns: the 64-column blocks from col0 of a stage
+    const int col0 = OUT == D ? 0 : blockIdx.z * OUT;
+    const uint32_t col_bytes = col0 / 64 * SB * 128;
+    float dk_acc[OUT / 2], dv_acc[OUT / 2];
 #pragma unroll
-    for (int n = 0; n < D / 2; ++n) dk_acc[n] = dv_acc[n] = 0.f;
+    for (int n = 0; n < OUT / 2; ++n) dk_acc[n] = dv_acc[n] = 0.f;
     int stage = 0;
     uint32_t phase = 0;
     mbar_wait(kv_full, 0);
@@ -884,8 +904,8 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
           uint32_t pt[SB / 16][4], dst[SB / 16][4];
           pack_a(pt, st);
           pack_a(dst, dpt);
-          issue_rs<SB>(dv_acc, pt, dot);
-          issue_rs<SB>(dk_acc, dst, qt);
+          issue_rs<SB>(dv_acc, pt, dot + col_bytes);
+          issue_rs<SB>(dk_acc, dst, qt + col_bytes);
           wgmma_wait<0>();
           fence_registers(dv_acc);
           fence_registers(dk_acc);
@@ -898,9 +918,11 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (kpos[r] >= S) continue;
-      const long at = (((long)b * S + kpos[r]) * Hkv + kvh) * D + 2 * t4;
+      const long at =
+          (((long)b * S + kpos[r]) * Hkv + kvh) * d + col0 + 2 * t4;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
+      for (int n = 0; n < OUT / 8; ++n) {
+        if (col0 + 8 * n >= d) continue;       // the padding is not stored
         *reinterpret_cast<__nv_bfloat162*>(dk + at + n * 8) =
             __floats2bfloat162_rn(scale * dk_acc[4 * n + 2 * r],
                                   scale * dk_acc[4 * n + 2 * r + 1]);
@@ -941,6 +963,14 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 //   through ldmatrix: an 8 x 4 f32 block is an 8 x 8 b16 matrix, and lane
 //   l receives row l / 4, column l % 4 — the A and B fragments as they are.
 //   The swizzle puts the 8 rows of a block in 8 different bank groups.
+// * D is the padded width (the products run over its zero columns too: a
+//   loop bound at the real d_head made the d 128 dK/dV kernel spill). At
+//   d_head 256 two resident tiles of 128 rows would take 256 KiB, so the
+//   CTA is one consumer warpgroup (64 resident rows) and the producer
+//   warpgroup, 256 threads whose registers need no setmaxnreg, with one
+//   stage of 16 streamed rows; and the dK/dV accumulators (16 x 256 f32
+//   each, per warp) would take 256 registers a thread, so its CTAs each own
+//   128 of the columns (grid z), as in the bf16 kernel.
 // * The second products contract over the score columns. The accumulator
 //   holds columns 2t, 2t+1 where the A fragment wants t, t+4, so the
 //   contraction index is permuted instead of the registers: A column t is
@@ -952,13 +982,15 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 
 template <int D>
 struct F32Bwd {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
-                "d_head 16, 32, 64 or 128");
-  static constexpr int WARPS = CONSUMER_WARPS;    // warpgroups 0 and 1
-  static constexpr int SPLITTERS = 3;             // warps 1-3 of warpgroup 2
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
+                "padded d_head 16, 32, 64, 128 or 256");
+  static constexpr int WARPS = D == 256 ? 4 : CONSUMER_WARPS;  // consumers
+  static constexpr int THREADS = 32 * WARPS + WG_THREADS;
+  static constexpr int SPLITTERS = 3;             // warps 1-3 of the last wg
   static constexpr int ROWS = 16 * WARPS;         // resident rows a CTA
-  static constexpr int STREAM = D == 128 ? 16 : 32;  // streamed rows a stage
-  static constexpr int STAGES = D == 128 ? 3 : 4;
+  static constexpr int STREAM = D >= 128 ? 16 : 32;  // streamed rows a stage
+  static constexpr int STAGES = D == 256 ? 1 : D == 128 ? 3 : 4;
+  static constexpr int OUT = D == 256 ? 128 : D;  // dK/dV columns a CTA
   static constexpr int BOX = D < 32 ? D : 32;        // columns a TMA box
   static constexpr uint32_t RES_BYTES = ROWS * D * 4;
   // a stage: the two streamed operands (hi after the split), then their lo
@@ -1078,14 +1110,15 @@ __device__ __forceinline__ float probability(float s, float scale,
 // first. Q and dO load once; K and V stream up to the diagonal of the
 // CTA's last row.
 template <int D>
-__global__ void __launch_bounds__(BWD_THREADS, 1)
+__global__ void __launch_bounds__(F32Bwd<D>::THREADS, 1)
 flash_dq_f32_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap do_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
-                    int S, int H, int Hkv, int causal, float scale) {
+                    int S, int H, int Hkv, int d, int causal, float scale,
+                    int row_base) {
   using T = F32Bwd<D>;
   constexpr int SB = T::STREAM;                  // keys a stage
   constexpr int STAGES = T::STAGES;
@@ -1102,7 +1135,7 @@ flash_dq_f32_kernel(const __grid_constant__ CUtensorMap q_map,
   const uint32_t split = full + 8 * STAGES;
   const uint32_t empty = split + 8 * STAGES;
 
-  const int bh = blockIdx.y;
+  const int bh = row_base + blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
   const int kvh = h / (H / Hkv);
@@ -1124,9 +1157,10 @@ flash_dq_f32_kernel(const __grid_constant__ CUtensorMap q_map,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (warp >= T::WARPS) {
-    // -- warpgroup 2: TMA loads (warp 0, lane 0) and splits (warps 1-3) ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
-                 :: "n"(BWD_PRODUCER_REGS));
+    // -- the last warpgroup: TMA loads (warp 0, lane 0), splits (warps 1-3)
+    if constexpr (T::WARPS == CONSUMER_WARPS)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                   :: "n"(BWD_PRODUCER_REGS));
     int stage = 0;
     uint32_t phase = 0;
     if (threadIdx.x == 32 * T::WARPS) {
@@ -1162,8 +1196,9 @@ flash_dq_f32_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   } else {
     // -- consumers: warp w owns q rows q0 + 16 w .. + 15 --------------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
-                 :: "n"(BWD_CONSUMER_REGS));
+    if constexpr (T::WARPS == CONSUMER_WARPS)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                   :: "n"(BWD_CONSUMER_REGS));
     const int g = lane / 4;
     const int t4 = lane % 4;
     const int row0 = 16 * warp;
@@ -1228,34 +1263,36 @@ flash_dq_f32_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (qpos[r] >= S) continue;
-      float* out = dq + (((long)b * S + qpos[r]) * H + h) * D + 2 * t4;
+      float* out = dq + (((long)b * S + qpos[r]) * H + h) * d + 2 * t4;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<float2*>(out + 8 * n) =
-            make_float2(scale * acc[n][2 * r], scale * acc[n][2 * r + 1]);
+        if (n < D / 16 || 8 * n < d)           // the padding is not stored
+          *reinterpret_cast<float2*>(out + 8 * n) =
+              make_float2(scale * acc[n][2 * r], scale * acc[n][2 * r + 1]);
     }
   }
 }
 
-// dK/dV: one CTA per (ROWS-key tile, b*hkv row). K and V load once; Q and
-// dO stream, q tile by q tile from the key tile's diagonal (causal), for
-// each of the ``group`` query heads in turn, the ring running across the
-// head boundary. The loading warp also writes each tile's LSE (+inf past S)
+// dK/dV: one CTA per (ROWS-key tile, b*hkv row, OUT-column part). K and V
+// load once; Q and dO stream, q tile by q tile from the key tile's
+// diagonal (causal), for each of the ``group`` query heads in turn, the
+// ring running across the head boundary. The loading warp also writes each tile's LSE (+inf past S)
 // and delta into the stage. The scores are computed transposed (rows are
 // keys), so P^T and dS^T are the A operands of dV += P^T dO and dK +=
 // dS^T Q.
 template <int D>
-__global__ void __launch_bounds__(BWD_THREADS, 1)
+__global__ void __launch_bounds__(F32Bwd<D>::THREADS, 1)
 flash_dkv_f32_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap do_map,
                      const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap v_map,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int S, int H, int Hkv,
-                     int causal, float scale) {
+                     float* __restrict__ dv, int S, int H, int Hkv, int d,
+                     int causal, float scale, int row_base) {
   using T = F32Bwd<D>;
   constexpr int SB = T::STREAM;                  // q rows a stage
+  constexpr int OUT = T::OUT;
   constexpr int STAGES = T::STAGES;
   extern __shared__ __align__(1024) unsigned char bwd_smem[];
   unsigned char* const smem =
@@ -1272,7 +1309,7 @@ flash_dkv_f32_kernel(const __grid_constant__ CUtensorMap q_map,
   const uint32_t split = full + 8 * STAGES;
   const uint32_t empty = split + 8 * STAGES;
 
-  const int bkv = blockIdx.y;
+  const int bkv = row_base + blockIdx.y;
   const int b = bkv / Hkv;
   const int kvh = bkv % Hkv;
   const int group = H / Hkv;
@@ -1296,9 +1333,10 @@ flash_dkv_f32_kernel(const __grid_constant__ CUtensorMap q_map,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (warp >= T::WARPS) {
-    // -- warpgroup 2: TMA loads and LSE/delta (warp 0), splits (warps 1-3) -
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
-                 :: "n"(BWD_PRODUCER_REGS));
+    // -- the last warpgroup: TMA loads and LSE/delta (warp 0), splits ------
+    if constexpr (T::WARPS == CONSUMER_WARPS)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                   :: "n"(BWD_PRODUCER_REGS));
     int stage = 0;
     uint32_t phase = 0;
     if (warp == T::WARPS) {
@@ -1349,8 +1387,9 @@ flash_dkv_f32_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   } else {
     // -- consumers: warp w owns keys k0 + 16 w .. + 15 ----------------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
-                 :: "n"(BWD_CONSUMER_REGS));
+    if constexpr (T::WARPS == CONSUMER_WARPS)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                   :: "n"(BWD_CONSUMER_REGS));
     const int g = lane / 4;
     const int t4 = lane % 4;
     const int row0 = 16 * warp;
@@ -1358,9 +1397,12 @@ flash_dkv_f32_kernel(const __grid_constant__ CUtensorMap q_map,
     const int kpos[2] = {first_key + g, first_key + g + 8};
     // the first q tile with a row that sees one of this warp's keys
     const int mine = first_key >= S ? tiles : (causal ? first_key / SB : 0);
-    float dk_acc[D / 8][4], dv_acc[D / 8][4];
+    // this CTA's dK/dV columns: the 32-column blocks from col0 of a stage
+    const int col0 = OUT == D ? 0 : blockIdx.z * OUT;
+    const uint32_t col_bytes = col0 / 32 * SB * 128;
+    float dk_acc[OUT / 8][4], dv_acc[OUT / 8][4];
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < OUT / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
     int stage = 0;
@@ -1398,11 +1440,12 @@ flash_dkv_f32_kernel(const __grid_constant__ CUtensorMap q_map,
                 dst[j][i] = p * __double2float_rn(dpt[j][i] - d);
               }
             }
-          // dV += P^T dO and dK += dS^T Q
+          // dV += P^T dO and dK += dS^T Q over this CTA's columns (a
+          // stage's column blocks from col_bytes on are an OUT-column tile)
           float (*const out[2])[4] = {dv_acc, dk_acc};
           const float (*const in[2])[4] = {st, dst};
-          const uint32_t stages[2] = {dot, qt};
-          accumulate_3xtf32<D, SB, T::LO, 2>(out, in, stages, g, t4);
+          const uint32_t stages[2] = {dot + col_bytes, qt + col_bytes};
+          accumulate_3xtf32<OUT, SB, T::LO, 2>(out, in, stages, g, t4);
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + 8 * stage);
@@ -1413,9 +1456,11 @@ flash_dkv_f32_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (kpos[r] >= S) continue;
-      const long at = (((long)b * S + kpos[r]) * Hkv + kvh) * D + 2 * t4;
+      const long at =
+          (((long)b * S + kpos[r]) * Hkv + kvh) * d + col0 + 2 * t4;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
+      for (int n = 0; n < OUT / 8; ++n) {
+        if (col0 + 8 * n >= d) continue;       // the padding is not stored
         *reinterpret_cast<float2*>(dk + at + 8 * n) = make_float2(
             scale * dk_acc[n][2 * r], scale * dk_acc[n][2 * r + 1]);
         *reinterpret_cast<float2*>(dv + at + 8 * n) =
@@ -1435,7 +1480,7 @@ struct Args {
   void* dq;
   void* dk;
   void* dv;
-  int B, S, H, Hkv, causal;
+  int B, S, H, Hkv, d, causal;
   float scale;
   cudaStream_t stream;
 };
@@ -1451,31 +1496,35 @@ int launch_f32(const Args& a) {
   using T = F32Bwd<D>;
   // dQ: q and dO resident, k and v streamed; dK/dV the other way round
   CUtensorMap q_res, do_res, k_str, v_str, q_str, do_str, k_res, v_res;
-  if (!bshd_map_f32(&q_res, a.q, a.B, a.S, a.H, D, T::ROWS) ||
-      !bshd_map_f32(&do_res, a.dout, a.B, a.S, a.H, D, T::ROWS) ||
-      !bshd_map_f32(&k_str, a.k, a.B, a.S, a.Hkv, D, T::STREAM) ||
-      !bshd_map_f32(&v_str, a.v, a.B, a.S, a.Hkv, D, T::STREAM) ||
-      !bshd_map_f32(&q_str, a.q, a.B, a.S, a.H, D, T::STREAM) ||
-      !bshd_map_f32(&do_str, a.dout, a.B, a.S, a.H, D, T::STREAM) ||
-      !bshd_map_f32(&k_res, a.k, a.B, a.S, a.Hkv, D, T::ROWS) ||
-      !bshd_map_f32(&v_res, a.v, a.B, a.S, a.Hkv, D, T::ROWS))
+  if (!bshd_map_f32(&q_res, a.q, a.B, a.S, a.H, a.d, T::ROWS) ||
+      !bshd_map_f32(&do_res, a.dout, a.B, a.S, a.H, a.d, T::ROWS) ||
+      !bshd_map_f32(&k_str, a.k, a.B, a.S, a.Hkv, a.d, T::STREAM) ||
+      !bshd_map_f32(&v_str, a.v, a.B, a.S, a.Hkv, a.d, T::STREAM) ||
+      !bshd_map_f32(&q_str, a.q, a.B, a.S, a.H, a.d, T::STREAM) ||
+      !bshd_map_f32(&do_str, a.dout, a.B, a.S, a.H, a.d, T::STREAM) ||
+      !bshd_map_f32(&k_res, a.k, a.B, a.S, a.Hkv, a.d, T::ROWS) ||
+      !bshd_map_f32(&v_res, a.v, a.B, a.S, a.Hkv, a.d, T::ROWS))
     return (int)cudaErrorInvalidValue;
   cudaError_t status = allow_smem(flash_dq_f32_kernel<D>, T::DQ_SMEM);
   if (status == cudaSuccess)
     status = allow_smem(flash_dkv_f32_kernel<D>, T::DKV_SMEM);
   if (status != cudaSuccess) return (int)status;
   const int tiles = (a.S + T::ROWS - 1) / T::ROWS;
-  flash_dq_f32_kernel<D><<<dim3(tiles, a.B * a.H), BWD_THREADS, T::DQ_SMEM,
-                           a.stream>>>(
-      q_res, do_res, k_str, v_str, a.lse, a.delta, static_cast<float*>(a.dq),
-      a.S, a.H, a.Hkv, a.causal, a.scale);
-  status = cudaGetLastError();
-  if (status != cudaSuccess) return (int)status;
-  flash_dkv_f32_kernel<D><<<dim3(tiles, a.B * a.Hkv), BWD_THREADS,
-                            T::DKV_SMEM, a.stream>>>(
-      q_str, do_str, k_res, v_res, a.lse, a.delta, static_cast<float*>(a.dk),
-      static_cast<float*>(a.dv), a.S, a.H, a.Hkv, a.causal, a.scale);
-  return (int)cudaGetLastError();
+  const int error = over_rows(a.B * a.H, [&](int row0, int rows) {
+    flash_dq_f32_kernel<D><<<dim3(tiles, rows), T::THREADS, T::DQ_SMEM,
+                             a.stream>>>(
+        q_res, do_res, k_str, v_str, a.lse, a.delta,
+        static_cast<float*>(a.dq), a.S, a.H, a.Hkv, a.d, a.causal, a.scale,
+        row0);
+  });
+  if (error != 0) return error;
+  return over_rows(a.B * a.Hkv, [&](int row0, int rows) {
+    flash_dkv_f32_kernel<D><<<dim3(tiles, rows, D / T::OUT), T::THREADS,
+                              T::DKV_SMEM, a.stream>>>(
+        q_str, do_str, k_res, v_res, a.lse, a.delta,
+        static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.S, a.H,
+        a.Hkv, a.d, a.causal, a.scale, row0);
+  });
 }
 
 template <int D>
@@ -1486,21 +1535,25 @@ int launch_bf16_mma(const Args& a) {
   if (status == cudaSuccess)
     status = allow_smem(flash_dkv_mma_bf16_kernel<D>, dkv_smem);
   if (status != cudaSuccess) return (int)status;
-  const dim3 dq_grid((a.S + BLOCK_Q - 1) / BLOCK_Q, a.B * a.H);
-  flash_dq_mma_bf16_kernel<D><<<dq_grid, MMA_THREADS, dq_smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
-      a.delta, static_cast<bf16*>(a.dq), a.S, a.H, a.Hkv, a.causal, a.scale);
-  status = cudaGetLastError();
-  if (status != cudaSuccess) return (int)status;
-  const dim3 dkv_grid((a.S + BLOCK_K - 1) / BLOCK_K, a.B * a.Hkv);
-  flash_dkv_mma_bf16_kernel<D><<<dkv_grid, MMA_THREADS, dkv_smem,
-                                 a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
-      a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.S, a.H,
-      a.Hkv, a.causal, a.scale);
-  return (int)cudaGetLastError();
+  const int dq_tiles = (a.S + BLOCK_Q - 1) / BLOCK_Q;
+  const int error = over_rows(a.B * a.H, [&](int row0, int rows) {
+    flash_dq_mma_bf16_kernel<D><<<dim3(dq_tiles, rows), MMA_THREADS, dq_smem,
+                                  a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        a.lse, a.delta, static_cast<bf16*>(a.dq), a.S, a.H, a.Hkv, a.causal,
+        a.scale, row0);
+  });
+  if (error != 0) return error;
+  const int dkv_tiles = (a.S + BLOCK_K - 1) / BLOCK_K;
+  return over_rows(a.B * a.Hkv, [&](int row0, int rows) {
+    flash_dkv_mma_bf16_kernel<D><<<dim3(dkv_tiles, rows), MMA_THREADS,
+                                   dkv_smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+        a.S, a.H, a.Hkv, a.causal, a.scale, row0);
+  });
 }
 
 template <int D>
@@ -1509,14 +1562,14 @@ int launch_bf16_tma(const Args& a) {
   constexpr int SB = T::STREAM;
   // dQ: q and dO resident, k and v streamed; dK/dV the other way round
   CUtensorMap q_res, do_res, k_str, v_str, q_str, do_str, k_res, v_res;
-  if (!bshd_map(&q_res, a.q, a.B, a.S, a.H, D, RESIDENT) ||
-      !bshd_map(&do_res, a.dout, a.B, a.S, a.H, D, RESIDENT) ||
-      !bshd_map(&k_str, a.k, a.B, a.S, a.Hkv, D, SB) ||
-      !bshd_map(&v_str, a.v, a.B, a.S, a.Hkv, D, SB) ||
-      !bshd_map(&q_str, a.q, a.B, a.S, a.H, D, SB) ||
-      !bshd_map(&do_str, a.dout, a.B, a.S, a.H, D, SB) ||
-      !bshd_map(&k_res, a.k, a.B, a.S, a.Hkv, D, RESIDENT) ||
-      !bshd_map(&v_res, a.v, a.B, a.S, a.Hkv, D, RESIDENT))
+  if (!bshd_map(&q_res, a.q, a.B, a.S, a.H, a.d, RESIDENT) ||
+      !bshd_map(&do_res, a.dout, a.B, a.S, a.H, a.d, RESIDENT) ||
+      !bshd_map(&k_str, a.k, a.B, a.S, a.Hkv, a.d, SB) ||
+      !bshd_map(&v_str, a.v, a.B, a.S, a.Hkv, a.d, SB) ||
+      !bshd_map(&q_str, a.q, a.B, a.S, a.H, a.d, SB) ||
+      !bshd_map(&do_str, a.dout, a.B, a.S, a.H, a.d, SB) ||
+      !bshd_map(&k_res, a.k, a.B, a.S, a.Hkv, a.d, RESIDENT) ||
+      !bshd_map(&v_res, a.v, a.B, a.S, a.Hkv, a.d, RESIDENT))
     return (int)cudaErrorInvalidValue;
   cudaError_t status = allow_smem(flash_dq_bf16_kernel<D>, T::DQ_SMEM);
   if (status == cudaSuccess)
@@ -1524,18 +1577,20 @@ int launch_bf16_tma(const Args& a) {
   if (status != cudaSuccess) return (int)status;
   const float scale_log2 = a.scale * LOG2E;
   const int tiles = (a.S + RESIDENT - 1) / RESIDENT;
-  flash_dq_bf16_kernel<D><<<dim3(tiles, a.B * a.H), BWD_THREADS, T::DQ_SMEM,
-                            a.stream>>>(
-      q_res, do_res, k_str, v_str, a.lse, a.delta, static_cast<bf16*>(a.dq),
-      a.S, a.H, a.Hkv, a.causal, a.scale, scale_log2);
-  status = cudaGetLastError();
-  if (status != cudaSuccess) return (int)status;
-  flash_dkv_bf16_kernel<D><<<dim3(tiles, a.B * a.Hkv), BWD_THREADS,
-                             T::DKV_SMEM, a.stream>>>(
-      q_str, do_str, k_res, v_res, a.lse, a.delta, static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.S, a.H, a.Hkv, a.causal, a.scale,
-      scale_log2);
-  return (int)cudaGetLastError();
+  const int error = over_rows(a.B * a.H, [&](int row0, int rows) {
+    flash_dq_bf16_kernel<D><<<dim3(tiles, rows), BWD_THREADS, T::DQ_SMEM,
+                              a.stream>>>(
+        q_res, do_res, k_str, v_str, a.lse, a.delta, static_cast<bf16*>(a.dq),
+        a.S, a.H, a.Hkv, a.d, a.causal, a.scale, scale_log2, row0);
+  });
+  if (error != 0) return error;
+  return over_rows(a.B * a.Hkv, [&](int row0, int rows) {
+    flash_dkv_bf16_kernel<D><<<dim3(tiles, rows, D / T::OUT), BWD_THREADS,
+                               T::DKV_SMEM, a.stream>>>(
+        q_str, do_str, k_res, v_res, a.lse, a.delta, static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), a.S, a.H, a.Hkv, a.d, a.causal, a.scale,
+        scale_log2, row0);
+  });
 }
 
 template <int D>
@@ -1555,24 +1610,26 @@ int launch(int dtype, const Args& a) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Launches the dQ kernel, then the dK/dV
-// kernel, on `stream`. Returns cudaGetLastError() after the launches (0 =
-// launched).
+// dtype: 0 = float32, 1 = bfloat16; d_head D a multiple of 16 from 16 to
+// 256, run by the body of its padded width. Launches the dQ kernel, then
+// the dK/dV kernel, on `stream`. Returns cudaGetLastError() after the
+// launches (0 = launched).
 extern "C" int thp_flash_bwd(int dtype, const void* q, const void* k,
                              const void* v, const void* dout, const void* lse,
                              const void* delta, void* dq, void* dk, void* dv,
                              int B, int S, int H, int Hkv, int D, int causal,
                              float scale, void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || B * H > 65535)
+  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
-               static_cast<const float*>(delta), dq, dk, dv, B, S, H, Hkv,
+               static_cast<const float*>(delta), dq, dk, dv, B, S, H, Hkv, D,
                causal, scale, static_cast<cudaStream_t>(stream)};
-  switch (D) {
+  switch (padded_width(D)) {
     case 16: return launch<16>(dtype, a);
     case 32: return launch<32>(dtype, a);
     case 64: return launch<64>(dtype, a);
     case 128: return launch<128>(dtype, a);
+    case 256: return launch<256>(dtype, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

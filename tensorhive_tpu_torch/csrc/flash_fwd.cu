@@ -19,6 +19,11 @@
 // and the row log-sum-exp LSE = m + log(l), for q [B, S, H, D] and k/v
 // [B, S, Hkv, D] (GQA: query head h reads KV head h / (H / Hkv), with no
 // expanded copy). O is [B, S, H, D] in the input type, LSE [B*H, 1, S] f32.
+// D is any multiple of 16 from 16 to 256 (JAX's kernels take any width;
+// wider or unaligned heads raise in the wrapper): each body is built for a
+// padded width of 16, 32, 64, 128 or 256 (widths.cuh), its tensor maps
+// declare the real D, TMA fills the columns past it with zeros, and the
+// stores skip them. B * H has no limit: grid rows past 65535 launch again.
 //
 // Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): one causal
 // layer does 2*S^2*H*D FLOPs on 2*S*(H+Hkv)*D*itemsize bytes — at S=4095,
@@ -32,8 +37,10 @@
 // products: one exponential per score at the 16 per clock of an SM's
 // special-function units also takes ~0.14 ms.
 //
-// bf16, d_head 64 and 128 (every main path: t2t-base/big and the encoder
-// at 64, the 1b/7b presets at 128) — the Hopper design. The mma.sync body
+// bf16, padded d_head 64, 128 and 256 (every main path: t2t-base/big and
+// the encoder at 64, the 1b/7b presets and Qwen2.5-7B's heads at 128,
+// Phi-2's 80 and Phi-3-mini's 96 in the 128 body, Gemma-2B's 256) — the
+// Hopper design. The mma.sync body
 // (kept below for d 16/32) runs Ampere tiles of 64x64 on 4 warps that copy
 // every K/V tile through registers between two __syncthreads, with no load
 // in flight while the tensor cores work: 12% of the bf16 peak at the K1
@@ -42,10 +49,11 @@
 // * A CTA of three warpgroups owns a 128-row q tile. Warpgroup 2 is the
 //   producer: one thread issues TMA loads (cp.async.bulk.tensor) of Q once
 //   per head and of K and V, tile by tile, into a ring of shared-memory
-//   stages (2 at d 128, 3 at d 64; 128 keys each), so loads run ahead of
-//   the math. K and V of a stage each have a full and an empty mbarrier: a
-//   consumer releases K as soon as S is in and V only after P V, so the
-//   next K load does not wait for the last product (with one empty barrier
+//   stages (2 at d 128, 3 at d 64, 128 keys each; 2 of 64 at d 256), so
+//   loads run ahead of the math. K and V of a stage each have a full and an
+//   empty mbarrier: a consumer releases K as soon as S is in and V only
+//   after P V, so the next K load does not wait for the last product (with
+//   one empty barrier
 //   per stage, 2 stages at d 128 starved the pipeline below). Warpgroups 0
 //   and 1 consume, 64 q rows each; setmaxnreg moves registers from the
 //   producer to them. The tensor maps are the port's layouts as they are, q/o
@@ -312,10 +320,10 @@ flash_fwd_mma_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ v,
                           __nv_bfloat16* __restrict__ o,
                           float* __restrict__ lse, int S, int H, int Hkv,
-                          int causal, float scale) {
+                          int causal, float scale, int row_base) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  fwd_bf16_tile<D>(q, k, v, o, lse, S, H, Hkv, causal, scale, blockIdx.y,
-                   blockIdx.x * BLOCK_Q, smem_raw);
+  fwd_bf16_tile<D>(q, k, v, o, lse, S, H, Hkv, causal, scale,
+                   row_base + blockIdx.y, blockIdx.x * BLOCK_Q, smem_raw);
 }
 
 // d 16/32, K3: one CTA per (q tile, block of G consecutive b*h rows), as
@@ -327,12 +335,13 @@ flash_fwd_bh_mma_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ v,
                              __nv_bfloat16* __restrict__ o,
                              float* __restrict__ lse, int S, int H,
-                             int causal, float scale, int G) {
+                             int causal, float scale, int G, int row_base) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   for (int i = 0; i < G; ++i) {
     __syncthreads();  // the previous head is done with every tile
     fwd_bf16_tile<D>(q, k, v, o, lse, S, H, H, causal, scale,
-                     blockIdx.y * G + i, blockIdx.x * BLOCK_Q, smem_raw);
+                     (row_base + blockIdx.y) * G + i, blockIdx.x * BLOCK_Q,
+                     smem_raw);
   }
 }
 
@@ -353,54 +362,66 @@ int launch_bf16_mma(const void* q, const void* k, const void* v, void* o,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem);
     if (status != cudaSuccess) return (int)status;
-    flash_fwd_mma_bf16_kernel<D><<<dim3(tiles, B * H), MMA_THREADS, smem,
-                                   stream>>>(qp, kp, vp, op, lp, S, H, Hkv,
-                                             causal, scale);
-  } else {
-    status = cudaFuncSetAttribute(flash_fwd_bh_mma_bf16_kernel<D>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem);
-    if (status != cudaSuccess) return (int)status;
-    flash_fwd_bh_mma_bf16_kernel<D><<<dim3(tiles, B * H / G), MMA_THREADS,
-                                      smem, stream>>>(qp, kp, vp, op, lp, S,
-                                                      H, causal, scale, G);
+    return over_rows(B * H, [&](int row0, int rows) {
+      flash_fwd_mma_bf16_kernel<D><<<dim3(tiles, rows), MMA_THREADS, smem,
+                                     stream>>>(qp, kp, vp, op, lp, S, H, Hkv,
+                                               causal, scale, row0);
+    });
   }
-  return (int)cudaGetLastError();
+  status = cudaFuncSetAttribute(flash_fwd_bh_mma_bf16_kernel<D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem);
+  if (status != cudaSuccess) return (int)status;
+  return over_rows(B * H / G, [&](int row0, int rows) {
+    flash_fwd_bh_mma_bf16_kernel<D><<<dim3(tiles, rows), MMA_THREADS, smem,
+                                      stream>>>(qp, kp, vp, op, lp, S, H,
+                                                causal, scale, G, row0);
+  });
 }
 
-// -- bf16, d_head 64 and 128: TMA, an mbarrier ring and wgmma ---------------
+// -- bf16, padded d_head 64, 128 and 256: TMA, an mbarrier ring and wgmma ---
 //
 // Shared memory (1024-byte aligned for the 128-byte swizzle): the Q tile,
 // then STAGES K tiles, then STAGES V tiles, each stored as D/64 blocks of
 // (rows x 64 columns), 128 bytes a row, as TMA writes them; then the
 // mbarriers. The fragment layouts, descriptors and products are
-// hopper.cuh's, shared with the backward.
+// hopper.cuh's, shared with the backward. D is the padded width: d_head 48
+// runs the 64 body, 80-112 the 128 body (d 80 wastes 37.5% of its
+// products, 96 25%), 144-240 the 256 body.
+// d_head 256: a stage of 128 keys would hold K and V in 128 KiB, and the
+// consumer's O accumulator (64 x 256 f32) takes 128 registers a thread
+// before S, so stages hold 64 keys (two fit beside the 64 KiB Q tile) and
+// P V is issued as two products of 128 columns.
 constexpr int TMA_Q = 128;                  // q rows per CTA, 64 a consumer
-constexpr int TMA_K = 128;                  // keys per K/V stage
 constexpr int TMA_THREADS = 3 * WG_THREADS; // consumers 0, 1; producer 2
 constexpr int PRODUCER_REGS = 56;
 constexpr int CONSUMER_REGS = 224;          // 2 * 224 + 56 = 3 * 168
 
 template <int D>
 struct TmaTile {
-  static_assert(D == 64 || D == 128, "the TMA body serves d_head 64 and 128");
+  static_assert(D == 64 || D == 128 || D == 256,
+                "the TMA body serves padded d_head 64, 128 and 256");
   static constexpr int BLOCKS = D / 64;     // 64-column swizzle blocks
-  static constexpr int STAGES = D == 128 ? 2 : 3;
+  static constexpr int KEYS = D == 256 ? 64 : 128;   // keys per K/V stage
+  static constexpr int STAGES = D == 64 ? 3 : 2;
   static constexpr uint32_t Q_BYTES = TMA_Q * D * 2;
-  static constexpr uint32_t KV_BYTES = TMA_K * D * 2;
+  static constexpr uint32_t KV_BYTES = KEYS * D * 2;
   static constexpr uint32_t BARRIERS = Q_BYTES + 2 * STAGES * KV_BYTES;
   // q_full, q_empty, then k_full, v_full, k_empty and v_empty per stage;
   // 1024 bytes of slack to align the base
   static constexpr int SMEM = 1024 + BARRIERS + 8 * (2 + 4 * STAGES);
+  static_assert(SMEM <= 232448, "shared memory");
 };
 
 // One online-softmax step over a key tile from k0, in f32: the scores in
-// ``s`` become probabilities (masked ones exactly 0), the row maxima ``m``
-// (in scaled log2 units) and this lane's row sums ``l`` move on, and
-// ``correction`` is the factor the O rows must be rescaled by. ``edge``:
-// the tile holds masked keys (past S, or above the diagonal of a row).
+// ``s`` (N2 / 4 column tiles) become probabilities (masked ones exactly 0),
+// the row maxima ``m`` (in scaled log2 units) and this lane's row sums
+// ``l`` move on, and ``correction`` is the factor the O rows must be
+// rescaled by. ``edge``: the tile holds masked keys (past S, or above the
+// diagonal of a row).
+template <int N2>
 __device__ __forceinline__ void softmax_tile(
-    float (&s)[64], int k0, const int (&qpos)[2], int S, int causal,
+    float (&s)[N2], int k0, const int (&qpos)[2], int S, int causal,
     bool edge, int t4, float scale_log2, float (&m)[2], float (&l)[2],
     float (&correction)[2]) {
 #pragma unroll
@@ -408,7 +429,7 @@ __device__ __forceinline__ void softmax_tile(
     float block_max = NEG_INF;
     if (edge) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < N2 / 4; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int kpos = k0 + 8 * j + 2 * t4 + e;
@@ -419,7 +440,7 @@ __device__ __forceinline__ void softmax_tile(
         }
     } else {
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < N2 / 4; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float& x = s[4 * j + 2 * r + e];
@@ -433,7 +454,7 @@ __device__ __forceinline__ void softmax_tile(
     correction[r] = exp2_approx(m[r] - m_new);
     float row_sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < N2 / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float& x = s[4 * j + 2 * r + e];
@@ -459,15 +480,17 @@ __device__ __forceinline__ void rescale_rows(float (&acc)[N],
 
 // One CTA of the bf16 forward: the 128-row q tile of this block's grid
 // column for ``items`` consecutive b*h rows from ``bh0`` (K1/K2: one;
-// K3: G), in turn. ``scale_log2`` is the score scale times log2(e).
+// K3: G), in turn. ``scale_log2`` is the score scale times log2(e); ``d``
+// the real d_head (<= D), the row length of o.
 template <int D>
 __device__ __forceinline__ void fwd_bf16_cta(
     const CUtensorMap& q_map, const CUtensorMap& k_map,
     const CUtensorMap& v_map, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse, int S, int H, int Hkv, int causal,
+    float* __restrict__ lse, int S, int H, int Hkv, int d, int causal,
     float scale_log2, int bh0, int items) {
   using T = TmaTile<D>;
   constexpr int STAGES = T::STAGES;
+  constexpr int KEYS = T::KEYS;
   extern __shared__ __align__(1024) unsigned char tma_smem[];
   const uint32_t base = (smem_u32(tma_smem) + 1023u) & ~1023u;
   const uint32_t q_s = base;
@@ -484,7 +507,7 @@ __device__ __forceinline__ void fwd_bf16_cta(
   const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int q0 = tile * TMA_Q;
   const int cta_last = min(q0 + TMA_Q, S) - 1;
-  const int kv_tiles = ((causal ? cta_last + 1 : S) + TMA_K - 1) / TMA_K;
+  const int kv_tiles = ((causal ? cta_last + 1 : S) + KEYS - 1) / KEYS;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -525,13 +548,13 @@ __device__ __forceinline__ void fwd_bf16_cta(
           mbar_wait(k_empty + 8 * stage, phase ^ 1);  // both released it
           mbar_expect_tx(kf, T::KV_BYTES);
           for (int blk = 0; blk < T::BLOCKS; ++blk)
-            tma_load(kd + blk * TMA_K * 128, k_map, kf, blk * 64, kvh,
-                     t * TMA_K, b);
+            tma_load(kd + blk * KEYS * 128, k_map, kf, blk * 64, kvh,
+                     t * KEYS, b);
           mbar_wait(v_empty + 8 * stage, phase ^ 1);
           mbar_expect_tx(vf, T::KV_BYTES);
           for (int blk = 0; blk < T::BLOCKS; ++blk)
-            tma_load(vd + blk * TMA_K * 128, v_map, vf, blk * 64, kvh,
-                     t * TMA_K, b);
+            tma_load(vd + blk * KEYS * 128, v_map, vf, blk * 64, kvh,
+                     t * KEYS, b);
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
@@ -552,7 +575,7 @@ __device__ __forceinline__ void fwd_bf16_cta(
     // key tiles this warpgroup reads: causal rows stop at their diagonal
     const int my_tiles =
         row0 >= S ? 1
-                  : (causal ? (min(row0 + 64, S) - 1) / TMA_K + 1 : kv_tiles);
+                  : (causal ? (min(row0 + 64, S) - 1) / KEYS + 1 : kv_tiles);
     const uint64_t q_desc = sw128_desc(q_s + wg * 64 * 128, 16, 1024);
     int stage = 0;
     uint32_t phase = 0;
@@ -563,11 +586,11 @@ __device__ __forceinline__ void fwd_bf16_cta(
       for (int n = 0; n < D / 2; ++n) acc[n] = 0.f;
       float m[2] = {NEG_INF, NEG_INF};  // in scaled log2 units
       float l[2] = {0.f, 0.f};          // this lane's share of the row sums
-      float s[64];
+      float s[KEYS / 2];
       float correction[2];
-      uint32_t p[TMA_K / 16][4];
+      uint32_t p[KEYS / 16][4];
       const auto edge = [&](int k0) {
-        return k0 + TMA_K > S || (causal && k0 + TMA_K - 1 > row0);
+        return k0 + KEYS > S || (causal && k0 + KEYS - 1 > row0);
       };
 
       // Software pipeline over the key tiles: S of tile t is computed
@@ -575,7 +598,7 @@ __device__ __forceinline__ void fwd_bf16_cta(
       // product; O is rescaled once P V is done.
       mbar_wait(q_full, i & 1);
       mbar_wait(k_full + 8 * stage, phase);
-      issue_ss<D, TMA_Q, TMA_K>(s, q_desc, k_s + stage * T::KV_BYTES);
+      issue_ss<D, TMA_Q, KEYS>(s, q_desc, k_s + stage * T::KV_BYTES);
       wgmma_wait<0>();
       fence_registers(s);
       if (tid == 0) {
@@ -593,16 +616,16 @@ __device__ __forceinline__ void fwd_bf16_cta(
       }
       for (int t = 1; t < my_tiles; ++t) {
         mbar_wait(k_full + 8 * stage, phase);
-        issue_ss<D, TMA_Q, TMA_K>(s, q_desc, k_s + stage * T::KV_BYTES);
+        issue_ss<D, TMA_Q, KEYS>(s, q_desc, k_s + stage * T::KV_BYTES);
         mbar_wait(v_full + 8 * prev_stage, prev_phase);
-        issue_rs<TMA_K>(acc, p, v_s + prev_stage * T::KV_BYTES);
+        issue_rs<KEYS>(acc, p, v_s + prev_stage * T::KV_BYTES);
         wgmma_wait<1>();                // S is in, P V still running
         fence_registers(s);
         if (tid == 0) {
           mbar_arrive(k_empty + 8 * stage);
           if (t == my_tiles - 1) mbar_arrive(q_empty);
         }
-        softmax_tile(s, t * TMA_K, qpos, S, causal, edge(t * TMA_K), t4,
+        softmax_tile(s, t * KEYS, qpos, S, causal, edge(t * KEYS), t4,
                      scale_log2, m, l, correction);
         wgmma_wait<0>();
         fence_registers(acc);
@@ -617,7 +640,7 @@ __device__ __forceinline__ void fwd_bf16_cta(
         }
       }
       mbar_wait(v_full + 8 * prev_stage, prev_phase);
-      issue_rs<TMA_K>(acc, p, v_s + prev_stage * T::KV_BYTES);
+      issue_rs<KEYS>(acc, p, v_s + prev_stage * T::KV_BYTES);
       wgmma_wait<0>();
       fence_registers(acc);
       if (tid == 0) mbar_arrive(v_empty + 8 * prev_stage);
@@ -645,12 +668,13 @@ __device__ __forceinline__ void fwd_bf16_cta(
         const float denom = total == 0.f ? 1.f : total;
         if (qpos[r] >= S) continue;
         __nv_bfloat16* out =
-            o + (((long)b * S + qpos[r]) * H + h) * D + 2 * t4;
+            o + (((long)b * S + qpos[r]) * H + h) * d + 2 * t4;
 #pragma unroll
         for (int n = 0; n < D / 8; ++n)
-          *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
-              __floats2bfloat162_rn(acc[4 * n + 2 * r] / denom,
-                                    acc[4 * n + 2 * r + 1] / denom);
+          if (n < D / 16 || 8 * n < d)         // the padding is not stored
+            *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
+                __floats2bfloat162_rn(acc[4 * n + 2 * r] / denom,
+                                      acc[4 * n + 2 * r + 1] / denom);
         if (t4 == 0) lse[(long)bh * S + qpos[r]] = m[r] * LN2 + logf(denom);
       }
     }
@@ -664,9 +688,10 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
                       const __grid_constant__ CUtensorMap v_map,
                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                      int S, int H, int Hkv, int causal, float scale_log2) {
-  fwd_bf16_cta<D>(q_map, k_map, v_map, o, lse, S, H, Hkv, causal, scale_log2,
-                  blockIdx.y, 1);
+                      int S, int H, int Hkv, int d, int causal,
+                      float scale_log2, int row_base) {
+  fwd_bf16_cta<D>(q_map, k_map, v_map, o, lse, S, H, Hkv, d, causal,
+                  scale_log2, row_base + blockIdx.y, 1);
 }
 
 // K3: one CTA per (q tile, block of G consecutive b*h rows), MHA.
@@ -676,20 +701,21 @@ flash_fwd_bh_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                          const __grid_constant__ CUtensorMap k_map,
                          const __grid_constant__ CUtensorMap v_map,
                          __nv_bfloat16* __restrict__ o,
-                         float* __restrict__ lse, int S, int H, int causal,
-                         float scale_log2, int G) {
-  fwd_bf16_cta<D>(q_map, k_map, v_map, o, lse, S, H, H, causal, scale_log2,
-                  blockIdx.y * G, G);
+                         float* __restrict__ lse, int S, int H, int d,
+                         int causal, float scale_log2, int G, int row_base) {
+  fwd_bf16_cta<D>(q_map, k_map, v_map, o, lse, S, H, H, d, causal,
+                  scale_log2, (row_base + blockIdx.y) * G, G);
 }
 
 template <int D>
 int launch_bf16_tma(const void* q, const void* k, const void* v, void* o,
-                    void* lse, int B, int S, int H, int Hkv, int causal,
-                    float scale, int G, cudaStream_t stream) {
+                    void* lse, int B, int S, int H, int Hkv, int d,
+                    int causal, float scale, int G, cudaStream_t stream) {
+  constexpr int KEYS = TmaTile<D>::KEYS;
   CUtensorMap q_map, k_map, v_map;
-  if (!bshd_map(&q_map, q, B, S, H, D, TMA_Q) ||
-      !bshd_map(&k_map, k, B, S, Hkv, D, TMA_K) ||
-      !bshd_map(&v_map, v, B, S, Hkv, D, TMA_K))
+  if (!bshd_map(&q_map, q, B, S, H, d, TMA_Q) ||
+      !bshd_map(&k_map, k, B, S, Hkv, d, KEYS) ||
+      !bshd_map(&v_map, v, B, S, Hkv, d, KEYS))
     return (int)cudaErrorInvalidValue;
   const int smem = TmaTile<D>::SMEM;
   auto* op = static_cast<__nv_bfloat16*>(o);
@@ -702,30 +728,32 @@ int launch_bf16_tma(const void* q, const void* k, const void* v, void* o,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem);
     if (status != cudaSuccess) return (int)status;
-    flash_fwd_bf16_kernel<D><<<dim3(tiles, B * H), TMA_THREADS, smem,
-                               stream>>>(q_map, k_map, v_map, op, lp, S, H,
-                                         Hkv, causal, scale_log2);
-  } else {
-    status = cudaFuncSetAttribute(flash_fwd_bh_bf16_kernel<D>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  smem);
-    if (status != cudaSuccess) return (int)status;
-    flash_fwd_bh_bf16_kernel<D><<<dim3(tiles, B * H / G), TMA_THREADS, smem,
-                                  stream>>>(q_map, k_map, v_map, op, lp, S, H,
-                                            causal, scale_log2, G);
+    return over_rows(B * H, [&](int row0, int rows) {
+      flash_fwd_bf16_kernel<D><<<dim3(tiles, rows), TMA_THREADS, smem,
+                                 stream>>>(q_map, k_map, v_map, op, lp, S, H,
+                                           Hkv, d, causal, scale_log2, row0);
+    });
   }
-  return (int)cudaGetLastError();
+  status = cudaFuncSetAttribute(flash_fwd_bh_bf16_kernel<D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
+  if (status != cudaSuccess) return (int)status;
+  return over_rows(B * H / G, [&](int row0, int rows) {
+    flash_fwd_bh_bf16_kernel<D><<<dim3(tiles, rows), TMA_THREADS, smem,
+                                  stream>>>(q_map, k_map, v_map, op, lp, S, H,
+                                            d, causal, scale_log2, G, row0);
+  });
 }
 
 // G == 0 launches the per-head kernel (K1/K2) over B*H rows; G >= 1 the
 // head-blocked kernel (K3, MHA: Hkv == H) over B*H / G blocks.
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                void* lse, int B, int S, int H, int Hkv, int causal,
+                void* lse, int B, int S, int H, int Hkv, int d, int causal,
                 float scale, int G, cudaStream_t stream) {
   if constexpr (D >= 64)
-    return launch_bf16_tma<D>(q, k, v, o, lse, B, S, H, Hkv, causal, scale, G,
-                              stream);
+    return launch_bf16_tma<D>(q, k, v, o, lse, B, S, H, Hkv, d, causal, scale,
+                              G, stream);
   else
     return launch_bf16_mma<D>(q, k, v, o, lse, B, S, H, Hkv, causal, scale, G,
                               stream);
@@ -773,21 +801,28 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 //   ring across the head boundary and loads the next head's Q once every
 //   warp has read the last tile of this one. A head's O and LSE are bitwise
 //   K1's.
+// * D is the padded width (d_head 48 runs the 64 body, 80-112 the 128 body,
+//   144-240 the 256 body); the score product skips the 32-column blocks
+//   past d_head, whose columns TMA filled with zeros. At d_head 256 a Q
+//   tile of 128 rows would take 128 KiB, so the CTA is one consumer
+//   warpgroup (64 rows) and the producer warpgroup, 256 threads whose
+//   registers need no setmaxnreg, with two stages of 16 keys.
 constexpr int F32_PRODUCER_REGS = 40;
 constexpr int F32_CONSUMER_REGS = 232;       // 2 * 232 + 40 = 3 * 168
 
 template <int D>
 struct F32Fwd {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
-                "d_head 16, 32, 64 or 128");
-  static constexpr int WARPS = 8;                    // warpgroups 0 and 1
-  static constexpr int SPLITTERS = 3;                // warps 1-3 of wg 2
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
+                "padded d_head 16, 32, 64, 128 or 256");
+  static constexpr int WARPS = D == 256 ? 4 : 8;     // consumer warps
+  static constexpr int THREADS = 32 * WARPS + WG_THREADS;
+  static constexpr int SPLITTERS = 3;                // warps 1-3 of the last wg
   static constexpr int ROWS = 16 * WARPS;            // q rows a CTA
   // keys a stage: at d 128, 16 left too few independent score products
   // (a quarter more time) and 64 does not fit twice beside Q; 64 spilled
   // at d 16
-  static constexpr int STREAM = D == 128 || D == 16 ? 32 : 64;
-  static constexpr int STAGES = D == 128 ? 2 : D == 64 ? 3 : 4;
+  static constexpr int STREAM = D == 256 ? 16 : D == 128 || D == 16 ? 32 : 64;
+  static constexpr int STAGES = D >= 128 ? 2 : D == 64 ? 3 : 4;
   static constexpr int BOX = D < 32 ? D : 32;        // columns a TMA box
   static constexpr uint32_t Q_BYTES = ROWS * D * 4;
   // a stage: K hi, K lo, V hi, V lo (a tile's lo plane follows its hi)
@@ -803,13 +838,15 @@ struct F32Fwd {
 
 // s (16 x STREAM) = Q K^T for the 16 rows of a warp from ``row0`` of the Q
 // tile (ROWS rows) and the split K tile at ``k_tile`` (its lo LO bytes
-// on), in three TF32 passes. The 32-column blocks stay a loop, as in the
+// on), in three TF32 passes, over the first ``blocks`` 32-column blocks
+// (the rest hold d_head's zero padding). The blocks stay a loop, as in the
 // backward's score product (unrolled there, ptxas hoisted the loads and
 // spilled); inside one, the offsets are a per-lane table and immediates.
 template <int D, int ROWS, int STREAM, uint32_t LO>
 __device__ __forceinline__ void fwd_scores(float (&s)[STREAM / 8][4],
                                            uint32_t q_tile, int row0,
-                                           uint32_t k_tile, int lane) {
+                                           uint32_t k_tile, int lane,
+                                           int blocks) {
   constexpr int STEPS = D / 8 < 4 ? D / 8 : 4;     // k-steps a block
   // k-steps of one short sum: a block's 4 (twice the backward's
   // SCORE_KSTEPS: faster at d 64, rows far inside the f64 measure either
@@ -830,7 +867,7 @@ __device__ __forceinline__ void fwd_scores(float (&s)[STREAM / 8][4],
   const F32Addr<D, STREAM> b_addr(((m >> 1) << 3) + (lane & 7),
                                   (m & 1) << 2);
 #pragma unroll 1
-  for (int blk = 0; blk < D / 32 + (D < 32); ++blk) {
+  for (int blk = 0; blk < blocks; ++blk) {
     const uint32_t a_blk = q_tile + blk * ROWS * 128;
     const uint32_t b_blk = k_tile + blk * STREAM * 128;
 #pragma unroll
@@ -874,12 +911,12 @@ __device__ __forceinline__ void fwd_scores(float (&s)[STREAM / 8][4],
 
 // One CTA of the f32 forward: the ROWS-row q tile of this block's grid
 // column for ``items`` consecutive b*h rows from ``bh0`` (K1/K2: one; K3:
-// G), in turn.
+// G), in turn; ``d`` is the real d_head (<= D), the row length of o.
 template <int D>
 __device__ __forceinline__ void fwd_f32_cta(
     const CUtensorMap& q_map, const CUtensorMap& k_map,
     const CUtensorMap& v_map, float* __restrict__ o, float* __restrict__ lse,
-    int S, int H, int Hkv, int causal, float scale_log2, int bh0,
+    int S, int H, int Hkv, int d, int causal, float scale_log2, int bh0,
     int items) {
   using T = F32Fwd<D>;
   constexpr int SB = T::STREAM;
@@ -922,9 +959,10 @@ __device__ __forceinline__ void fwd_f32_cta(
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (warp >= T::WARPS) {
-    // -- warpgroup 2: TMA loads (warp 0, lane 0) and splits (warps 1-3) ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
-                 :: "n"(F32_PRODUCER_REGS));
+    // -- the last warpgroup: TMA loads (warp 0, lane 0), splits (warps 1-3)
+    if constexpr (T::WARPS == 8)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                   :: "n"(F32_PRODUCER_REGS));
     int stage = 0;
     uint32_t phase = 0;
     if (threadIdx.x == 32 * T::WARPS) {
@@ -978,12 +1016,14 @@ __device__ __forceinline__ void fwd_f32_cta(
     }
   } else {
     // -- consumers: warp w owns q rows q0 + 16 w .. + 15 --------------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
-                 :: "n"(F32_CONSUMER_REGS));
+    if constexpr (T::WARPS == 8)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                   :: "n"(F32_CONSUMER_REGS));
     const int g = lane / 4;
     const int t4 = lane % 4;
     const int row0 = 16 * warp;
     const int first_row = q0 + row0;
+    const int blocks = D < 32 ? 1 : (d + 31) / 32;
     const int qpos[2] = {first_row + g, first_row + g + 8};
     // key stages this warp reads: causal rows stop at their diagonal
     const int my_tiles =
@@ -1009,7 +1049,8 @@ __device__ __forceinline__ void fwd_f32_cta(
         const bool mine = t < my_tiles;
         float s[SB / 8][4];
         mbar_wait(k_split + 8 * stage, phase);
-        if (mine) fwd_scores<D, T::ROWS, SB, T::LO>(s, q_s, row0, kt, lane);
+        if (mine)
+          fwd_scores<D, T::ROWS, SB, T::LO>(s, q_s, row0, kt, lane, blocks);
         __syncwarp();
         if (lane == 0) {
           mbar_arrive(k_empty + 8 * stage);
@@ -1086,11 +1127,12 @@ __device__ __forceinline__ void fwd_f32_cta(
         const float denom = total == 0.f ? 1.f : total;
         if (qpos[r] >= S) continue;
         float* const out =
-            o + (((long)b * S + qpos[r]) * H + h) * D + 2 * t4;
+            o + (((long)b * S + qpos[r]) * H + h) * d + 2 * t4;
 #pragma unroll
         for (int n = 0; n < D / 8; ++n)
-          *reinterpret_cast<float2*>(out + 8 * n) = make_float2(
-              acc[n][2 * r] / denom, acc[n][2 * r + 1] / denom);
+          if (n < D / 16 || 8 * n < d)         // the padding is not stored
+            *reinterpret_cast<float2*>(out + 8 * n) = make_float2(
+                acc[n][2 * r] / denom, acc[n][2 * r + 1] / denom);
         if (t4 == 0) lse[(long)bh * S + qpos[r]] = m[r] * LN2 + logf(denom);
       }
     }
@@ -1099,39 +1141,41 @@ __device__ __forceinline__ void fwd_f32_cta(
 
 // K1/K2: one CTA per (q tile, b*h row).
 template <int D>
-__global__ void __launch_bounds__(TMA_THREADS, 1)
+__global__ void __launch_bounds__(F32Fwd<D>::THREADS, 1)
 flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap v_map,
                      float* __restrict__ o, float* __restrict__ lse, int S,
-                     int H, int Hkv, int causal, float scale_log2) {
-  fwd_f32_cta<D>(q_map, k_map, v_map, o, lse, S, H, Hkv, causal, scale_log2,
-                 blockIdx.y, 1);
+                     int H, int Hkv, int d, int causal, float scale_log2,
+                     int row_base) {
+  fwd_f32_cta<D>(q_map, k_map, v_map, o, lse, S, H, Hkv, d, causal,
+                 scale_log2, row_base + blockIdx.y, 1);
 }
 
 // K3: one CTA per (q tile, block of G consecutive b*h rows), MHA. Row i of
 // the block is b*h row blockIdx.y * G + i, i.e. batch (row / H) and head
 // (row % H): a block may straddle two batch elements when H % G != 0.
 template <int D>
-__global__ void __launch_bounds__(TMA_THREADS, 1)
+__global__ void __launch_bounds__(F32Fwd<D>::THREADS, 1)
 flash_fwd_bh_f32_kernel(const __grid_constant__ CUtensorMap q_map,
                         const __grid_constant__ CUtensorMap k_map,
                         const __grid_constant__ CUtensorMap v_map,
                         float* __restrict__ o, float* __restrict__ lse, int S,
-                        int H, int causal, float scale_log2, int G) {
-  fwd_f32_cta<D>(q_map, k_map, v_map, o, lse, S, H, H, causal, scale_log2,
-                 blockIdx.y * G, G);
+                        int H, int d, int causal, float scale_log2, int G,
+                        int row_base) {
+  fwd_f32_cta<D>(q_map, k_map, v_map, o, lse, S, H, H, d, causal,
+                 scale_log2, (row_base + blockIdx.y) * G, G);
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               void* lse, int B, int S, int H, int Hkv, int causal,
+               void* lse, int B, int S, int H, int Hkv, int d, int causal,
                float scale, int G, cudaStream_t stream) {
   using T = F32Fwd<D>;
   CUtensorMap q_map, k_map, v_map;
-  if (!bshd_map_f32(&q_map, q, B, S, H, D, T::ROWS) ||
-      !bshd_map_f32(&k_map, k, B, S, Hkv, D, T::STREAM) ||
-      !bshd_map_f32(&v_map, v, B, S, Hkv, D, T::STREAM))
+  if (!bshd_map_f32(&q_map, q, B, S, H, d, T::ROWS) ||
+      !bshd_map_f32(&k_map, k, B, S, Hkv, d, T::STREAM) ||
+      !bshd_map_f32(&v_map, v, B, S, Hkv, d, T::STREAM))
     return (int)cudaErrorInvalidValue;
   auto* op = static_cast<float*>(o);
   auto* lp = static_cast<float*>(lse);
@@ -1143,44 +1187,47 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   T::SMEM);
     if (status != cudaSuccess) return (int)status;
-    flash_fwd_f32_kernel<D><<<dim3(tiles, B * H), TMA_THREADS, T::SMEM,
-                              stream>>>(q_map, k_map, v_map, op, lp, S, H,
-                                        Hkv, causal, scale_log2);
-  } else {
-    status = cudaFuncSetAttribute(flash_fwd_bh_f32_kernel<D>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  T::SMEM);
-    if (status != cudaSuccess) return (int)status;
-    flash_fwd_bh_f32_kernel<D><<<dim3(tiles, B * H / G), TMA_THREADS,
-                                 T::SMEM, stream>>>(q_map, k_map, v_map, op,
-                                                    lp, S, H, causal,
-                                                    scale_log2, G);
+    return over_rows(B * H, [&](int row0, int rows) {
+      flash_fwd_f32_kernel<D><<<dim3(tiles, rows), T::THREADS, T::SMEM,
+                                stream>>>(q_map, k_map, v_map, op, lp, S, H,
+                                          Hkv, d, causal, scale_log2, row0);
+    });
   }
-  return (int)cudaGetLastError();
+  status = cudaFuncSetAttribute(flash_fwd_bh_f32_kernel<D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                T::SMEM);
+  if (status != cudaSuccess) return (int)status;
+  return over_rows(B * H / G, [&](int row0, int rows) {
+    flash_fwd_bh_f32_kernel<D><<<dim3(tiles, rows), T::THREADS, T::SMEM,
+                                 stream>>>(q_map, k_map, v_map, op, lp, S, H,
+                                           d, causal, scale_log2, G, row0);
+  });
 }
 
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           void* lse, int B, int S, int H, int Hkv, int causal, float scale,
-           int G, cudaStream_t stream) {
+           void* lse, int B, int S, int H, int Hkv, int d, int causal,
+           float scale, int G, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_f32<D>(q, k, v, o, lse, B, S, H, Hkv, causal, scale, G,
+    return launch_f32<D>(q, k, v, o, lse, B, S, H, Hkv, d, causal, scale, G,
                          stream);
   if (dtype == 1)
-    return launch_bf16<D>(q, k, v, o, lse, B, S, H, Hkv, causal, scale, G,
+    return launch_bf16<D>(q, k, v, o, lse, B, S, H, Hkv, d, causal, scale, G,
                           stream);
   return (int)cudaErrorInvalidValue;
 }
 
+// d_head ``d`` runs the body of its padded width.
 int dispatch(int dtype, const void* q, const void* k, const void* v, void* o,
-             void* lse, int B, int S, int H, int Hkv, int D, int causal,
+             void* lse, int B, int S, int H, int Hkv, int d, int causal,
              float scale, int G, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(dtype, q, k, v, o, lse, B, S, H, Hkv, causal, scale, G, s);
-    case 32: return launch<32>(dtype, q, k, v, o, lse, B, S, H, Hkv, causal, scale, G, s);
-    case 64: return launch<64>(dtype, q, k, v, o, lse, B, S, H, Hkv, causal, scale, G, s);
-    case 128: return launch<128>(dtype, q, k, v, o, lse, B, S, H, Hkv, causal, scale, G, s);
+  switch (padded_width(d)) {
+    case 16: return launch<16>(dtype, q, k, v, o, lse, B, S, H, Hkv, d, causal, scale, G, s);
+    case 32: return launch<32>(dtype, q, k, v, o, lse, B, S, H, Hkv, d, causal, scale, G, s);
+    case 64: return launch<64>(dtype, q, k, v, o, lse, B, S, H, Hkv, d, causal, scale, G, s);
+    case 128: return launch<128>(dtype, q, k, v, o, lse, B, S, H, Hkv, d, causal, scale, G, s);
+    case 256: return launch<256>(dtype, q, k, v, o, lse, B, S, H, Hkv, d, causal, scale, G, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1188,41 +1235,44 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // Bytes of dynamic shared memory a launch of either kernel (K1/K2 or K3)
-// requests for ``dtype`` (as below) and ``D``; 0 for what they do not take.
-extern "C" int thp_flash_fwd_smem(int dtype, int D) {
-  switch (dtype * 1000 + D) {
+// requests for ``dtype`` (as below) and d_head ``d``; 0 for what they do not
+// take.
+extern "C" int thp_flash_fwd_smem(int dtype, int d) {
+  switch (dtype * 1000 + padded_width(d)) {
     case 16: return F32Fwd<16>::SMEM;
     case 32: return F32Fwd<32>::SMEM;
     case 64: return F32Fwd<64>::SMEM;
     case 128: return F32Fwd<128>::SMEM;
+    case 256: return F32Fwd<256>::SMEM;
     case 1016: return (int)bf16_smem_bytes<16>();
     case 1032: return (int)bf16_smem_bytes<32>();
     case 1064: return TmaTile<64>::SMEM;
     case 1128: return TmaTile<128>::SMEM;
+    case 1256: return TmaTile<256>::SMEM;
     default: return 0;
   }
 }
 
-// K1/K2. dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after
-// the launch (0 = launched).
+// K1/K2. dtype: 0 = float32, 1 = bfloat16; d_head D a multiple of 16 from
+// 16 to 256; any B * H (grid rows past 65535 launch again). Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int thp_flash_fwd(int dtype, const void* q, const void* k,
                              const void* v, void* o, void* lse, int B, int S,
                              int H, int Hkv, int D, int causal, float scale,
                              void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || B * H > 65535)
+  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   return dispatch(dtype, q, k, v, o, lse, B, S, H, Hkv, D, causal, scale, 0,
                   stream);
 }
 
 // K3: MHA (k/v carry H heads), G consecutive b*h rows per CTA; G must
-// divide B*H. Same dtype codes and return value as thp_flash_fwd.
+// divide B*H. Same dtype codes, widths and return value as thp_flash_fwd.
 extern "C" int thp_flash_fwd_bh(int dtype, const void* q, const void* k,
                                 const void* v, void* o, void* lse, int B,
                                 int S, int H, int D, int causal, float scale,
                                 int G, void* stream) {
-  if (B < 1 || S < 1 || H < 1 || G < 1 || (B * H) % G != 0 ||
-      B * H / G > 65535)
+  if (B < 1 || S < 1 || H < 1 || G < 1 || (B * H) % G != 0)
     return (int)cudaErrorInvalidValue;
   return dispatch(dtype, q, k, v, o, lse, B, S, H, H, D, causal, scale, G,
                   stream);

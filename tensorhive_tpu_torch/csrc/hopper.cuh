@@ -25,6 +25,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "widths.cuh"
+
 namespace {
 
 constexpr int WG_THREADS = 128;
@@ -125,10 +127,11 @@ __device__ __forceinline__ void fence_registers(uint32_t (&r)[N][4]) {
 
 #define THP_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define THP_F16(i) THP_F4(i), THP_F4(i + 4), THP_F4(i + 8), THP_F4(i + 12)
+#define THP_R16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define THP_R32                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31"
+  THP_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+  "%28, %29, %30, %31"
 #define THP_R64                                                              \
   THP_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
@@ -157,6 +160,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// D (64 x 32) (+)= A (64 x 16) B^T (B 32 x 16), as above (the d_head 256
+// backward's 32-row stages).
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " THP_R16
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : THP_F16(0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // D (64 x 128) += A (64 x 16, registers) B (16 x 128, MN-major in shared
 // memory).
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
@@ -182,6 +197,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 
 #undef THP_R64
 #undef THP_R32
+#undef THP_R16
 #undef THP_F16
 #undef THP_F4
 
@@ -217,7 +233,9 @@ __device__ __forceinline__ void issue_ss(float (&c)[N2], uint64_t a_desc,
 // C (64 x N) += A (64 x ROWS, registers, ``pack_a``) B, B the MN-major
 // tile of ROWS rows at ``b_tile`` (issued, committed, not waited): 8-row
 // groups 1024 bytes apart, the second 64-column block ROWS rows after the
-// first.
+// first. A C wider than 128 columns (d_head 256) is issued as products of
+// 128 columns, each over the next two 64-column blocks of B; its registers
+// are those of one product of its width.
 template <int ROWS, int N>
 __device__ __forceinline__ void issue_rs(float (&c)[N],
                                          uint32_t (&a)[ROWS / 16][4],
@@ -227,8 +245,16 @@ __device__ __forceinline__ void issue_rs(float (&c)[N],
   fence_registers(a);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < ROWS / 16; ++kk)
-    wgmma_rs(c, a[kk], b_desc + ((kk * 16 * 128) >> 4));
+  for (int kk = 0; kk < ROWS / 16; ++kk) {
+    if constexpr (N <= 64) {
+      wgmma_rs(c, a[kk], b_desc + ((kk * 16 * 128) >> 4));
+    } else {
+#pragma unroll
+      for (int part = 0; part < N / 64; ++part)
+        wgmma_rs(*reinterpret_cast<float(*)[64]>(c + part * 64), a[kk],
+                 b_desc + ((kk * 16 * 128 + part * 2 * ROWS * 128) >> 4));
+    }
+  }
   wgmma_commit();
 }
 
@@ -242,6 +268,21 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[N2 / 8][4],
 #pragma unroll
     for (int x = 0; x < 4; ++x)
       a[kk][x] = pack_bf16(c[8 * kk + 2 * x], c[8 * kk + 2 * x + 1]);
+}
+
+// Grid y's limit: b*h rows past it are launched again from ``row0``.
+constexpr int MAX_GRID_Y = 65535;
+
+// ``launch(row0, n)`` for every piece of at most MAX_GRID_Y of ``rows``
+// grid rows; the first launch error, or 0.
+template <typename Launch>
+int over_rows(int rows, Launch launch) {
+  for (int row0 = 0; row0 < rows; row0 += MAX_GRID_Y) {
+    launch(row0, rows - row0 < MAX_GRID_Y ? rows - row0 : MAX_GRID_Y);
+    const cudaError_t status = cudaGetLastError();
+    if (status != cudaSuccess) return (int)status;
+  }
+  return 0;
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime so that the library
@@ -273,7 +314,8 @@ EncodeTiled encode_tiled() {
 
 // The tensor map of a [B, S, heads, D] tensor of ``bytes``-byte elements:
 // boxes of ``cols`` columns x 1 head x ``rows`` positions x 1 batch under
-// ``swizzle``, zeros past S.
+// ``swizzle``, zeros past S and past D (a box may reach past the last
+// column, to the kernel's padded width: widths.cuh).
 bool bshd_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int bytes,
                      const void* data, int B, int S, int heads, int D,
                      int cols, int rows, CUtensorMapSwizzle swizzle) {

@@ -9,7 +9,16 @@
 // k[j]) v[j] over logical positions j <= positions[s], with q/out [S, H, D],
 // pages [P, page_size, Hkv, D], page_table [S, max_pages] int32, positions
 // [S] int32 and (int8 only) scales [P, Hkv] f32. GQA: query head h reads
-// KV head h / (H / Hkv), with no expanded copy.
+// KV head h / (H / Hkv), with no expanded copy. D is any multiple of 16
+// from 16 to 256 and the group H / Hkv any divisor of H (JAX's kernel takes
+// any width and group): each body is built for a padded width of 16, 32, 64,
+// 128 or 256 and a tile of query heads (CUDA-core body: the group's next
+// power of two up to 8, 4 at width 256; tensor-core body: 8 or 16, its
+// m16 tile holding 16 rows anyway, 8 at width 256), the copies zero-fill the
+// columns past D, the stores skip them, and a CTA runs a group wider than
+// its tile as tiles of query heads in turn (a group of 48 under a bf16
+// query: three of 16) over the same chunk, whose second and later passes
+// find its pages in L2.
 //
 // Bound on an H100 SXM (3.35 TB/s): bytes. A decode step reads every live
 // K/V row of every slot once (plus the scale rows of int8 pages) and does
@@ -42,10 +51,13 @@
 //   conflicts.
 // * Products without per-row shuffle chains.
 //   - bf16 query (bf16 pages; int8 pages under a bf16 query, the serving
-//     default): tensor cores through mma.sync.m16n8k16. Warp w streams the
+//     default, up to width 128: at 256 its registers spilled and it runs
+//     the f32 body below, P in f32): tensor cores through
+//     mma.sync.m16n8k16. Warp w streams the
 //     16-token sub-tiles w, w + 4, ... of the chunk through a ring of its
-//     own (no CTA barrier per tile). The GROUP (<= 8) query rows padded to
-//     16 are the A operand of S = Q K^T, and S's accumulator is, register
+//     own (no CTA barrier per tile). A tile's query rows (up to 8 as rows
+//     g, rows g + 8 zero; 9-16 on both halves) are the A operand of
+//     S = Q K^T, and S's accumulator is, register
 //     for register, the A operand (P) of O += P V; K and V come from shared
 //     memory by ldmatrix (V transposed). int8 rows are read by ldmatrix as
 //     pairs of bytes and widened to bf16 in registers, exactly: the k
@@ -58,8 +70,9 @@
 //     is held to. For bf16 pages, P in bf16 is what JAX does
 //     (probs.astype(v_dtype)). Each warp keeps its own online softmax; the
 //     four merge once at the end of the chunk.
-//   - f32 query (f32 pages; int8 pages under an f32 query), held to 1e-5
-//     absolute, which TF32 cannot meet: CUDA cores in f32, with the same
+//   - f32 query (f32 pages; int8 pages under an f32 query; and int8 pages
+//     under a bf16 query at width 256), held to 1e-5 absolute, which TF32
+//     cannot meet: CUDA cores in f32, with the same
 //     per-warp streaming (32-token sub-tiles, 8 for f32 rows of 512 bytes).
 //     Lane = (token, part of the row) for the scores, q read as a
 //     broadcast; the parts combine in 0-2 shuffles, then one max and one sum
@@ -83,11 +96,13 @@
 
 #include <type_traits>
 
+#include "widths.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;     // 4 warps
 constexpr int CHUNK = 256;       // tokens of one (slot, kv_head) per CTA
-constexpr int MAX_GROUP = 8;     // query heads per kv head
+constexpr int MAX_GROUP = 16;    // query heads a tile
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
@@ -99,10 +114,12 @@ struct Params {
   const int* page_table;
   const int* positions;
   void* out;
-  float* part_acc;   // [S, Hkv, chunks, GROUP, D]
-  float* part_ml;    // [S, Hkv, chunks, GROUP, 2]: m (log2 units), l
+  float* part_acc;   // [S, Hkv, chunks, group, D (padded)]
+  float* part_ml;    // [S, Hkv, chunks, group, 2]: m (log2 units), l
   int* tickets;      // [S, Hkv], zero between calls
   int H, Hkv, P, page_size, max_pages, chunks;
+  int d;             // d_head (<= the padded D), the row length in memory
+  int group;         // H / Hkv
   float scale_log2;  // d_head^-0.5 * log2 e
 };
 
@@ -120,9 +137,19 @@ __device__ __forceinline__ int swizzle(int r, int c) {
   return c ^ ((r / RPL) & XM);
 }
 
+// Whether a (query type, page type, padded width) runs the tensor-core body:
+// a bf16 query, but not over int8 pages at width 256, whose registers
+// spilled there (it runs the f32 body).
+template <typename QT, typename PT, int D>
+constexpr bool tensor_cores() {
+  return std::is_same<QT, __nv_bfloat16>::value &&
+         !(std::is_same<PT, int8_t>::value && D > 128);
+}
+
+// D: the padded width; GROUP: the query heads a tile (rows of the products)
 template <typename QT, typename PT, int D, int GROUP>
 struct Traits {
-  static constexpr bool MMA = std::is_same<QT, __nv_bfloat16>::value;
+  static constexpr bool MMA = tensor_cores<QT, PT, D>();
   static constexpr bool QUANT = std::is_same<PT, int8_t>::value;
   static constexpr int PCH = D * (int)sizeof(PT) / 16;   // 16-B chunks/row
   // Warp w streams the SUB-token sub-tiles w, w + 4, ... of the chunk
@@ -133,7 +160,7 @@ struct Traits {
       MMA ? 16 : cmin(32, cmax(8, 8192 / (2 * D * (int)sizeof(PT))));
   static constexpr int SUB_BYTES = 2 * SUB * D * (int)sizeof(PT);  // K + V
   static constexpr int RS = cmax(2, cmin(CHUNK / SUB / 4, 16384 / SUB_BYTES));
-  // f32 query: lane = 4 output columns (a slice) x every NTGW-th token
+  // f32 query: lane = slices of 4 output columns x every NTGW-th token
   static constexpr int NTGW = MMA ? 1 : cmax(1, 32 / (D / 4));
   // shared memory, bytes
   static constexpr int TABLE_N = CHUNK + 2;         // pages a chunk touches
@@ -141,14 +168,26 @@ struct Traits {
   static constexpr int OFF_KSC = align128(OFF_TABLE + 4 * TABLE_N);
   static constexpr int OFF_VSC = align128(OFF_KSC + 4 * TABLE_N);
   static constexpr int OFF_STAT = align128(OFF_VSC + 4 * TABLE_N);
-  static constexpr int OFF_Q = OFF_STAT + 4 * 8 * MAX_GROUP;  // f32 query
-  static constexpr int OFF_P = OFF_Q + (MMA ? 0 : 4 * GROUP * D);
+  // the query rows in shared memory: f32 query always; bf16 query past
+  // width 64, where Q's fragments in registers (D / 8 a lane) cost the
+  // third CTA an SM at width 128 and spilled at 256
+  static constexpr bool Q_SMEM = !MMA || D > 64;
+  static constexpr int OFF_Q = OFF_STAT + 4 * 8 * MAX_GROUP;
+  static constexpr int OFF_P =
+      OFF_Q + (MMA ? (Q_SMEM ? 2 * GROUP * D : 0) : 4 * GROUP * D);
   static constexpr int OFF_RING = align128(OFF_P + (MMA ? 0 : 4 * 4 * GROUP * SUB));
   // the warps' accumulators at the end of the chunk, [4][NTGW][GROUP][D]
   // f32, over the ring (free by then)
   static constexpr int MERGE = 4 * 4 * NTGW * GROUP * D;
   static constexpr int SMEM = OFF_RING + cmax(4 * RS * SUB_BYTES, MERGE);
-  static_assert(CHUNK % (4 * SUB) == 0 && D % 16 == 0 && D <= 128,
+  // CTAs an SM must hold: 3 (at most 168 registers a thread) where the
+  // kernels of groups up to 8 (tensor cores) or 4 fit them without a spill;
+  // at 2 a CTA, int8 pages under a bf16 query ran a fifth slower at the 7b
+  // serving shape
+  static constexpr int MIN_BLOCKS =
+      D <= 128 && (MMA ? GROUP == 8 : GROUP <= 4) ? 3 : 1;
+  static_assert(CHUNK % (4 * SUB) == 0 && D % 16 == 0 && D <= 256 &&
+                GROUP <= MAX_GROUP && (!MMA || GROUP == 8 || GROUP == 16),
                 "tile shape");
 };
 
@@ -192,18 +231,29 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
 }
 
-// d[0..1] (+)= A B for the query rows g (d[2..3], rows g + 8, are padding
-// and discarded): A 16 x 16 bf16 {a0, 0, a2, 0}, B 16 x 8 bf16 {b0, b1}
-__device__ __forceinline__ void mma_rows8(float (&d)[2], uint32_t a0,
-                                          uint32_t a2, uint32_t b0,
-                                          uint32_t b1) {
-  float pad0 = 0.f, pad1 = 0.f;
-  const uint32_t zero = 0;
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(pad0), "+f"(pad1)
-      : "r"(a0), "r"(zero), "r"(a2), "r"(zero), "r"(b0), "r"(b1));
+// d (+)= A B, A 16 x 16 bf16, B 16 x 8 bf16 {b0, b1}. R = 1: the query rows
+// g only, A {a[0], 0, a[1], 0} (rows g + 8 are zero padding, their sums
+// discarded), d rows g; R = 2: A {a[0], a[1], a[2], a[3]}, d rows g, g + 8
+// (d[2r + e]: row g + 8r, column 2t + e).
+template <int R>
+__device__ __forceinline__ void mma_rows(float (&d)[2 * R],
+                                         const uint32_t (&a)[2 * R],
+                                         uint32_t b0, uint32_t b1) {
+  if constexpr (R == 1) {
+    float pad0 = 0.f, pad1 = 0.f;
+    const uint32_t zero = 0;
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, "
+        "%3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(pad0), "+f"(pad1)
+        : "r"(a[0]), "r"(zero), "r"(a[1]), "r"(zero), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, "
+        "%3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -214,6 +264,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // -inf (nothing visible yet) is measured from 0, so exp2 gives 0, not NaN
 __device__ __forceinline__ float finite_or_zero(float m) {
   return m == -CUDART_INF_F ? 0.f : m;
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 
 __device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
@@ -268,14 +323,16 @@ __device__ __forceinline__ int pool_row(const Params& p, const int* table_s,
 }
 
 // The K and V rows of one SUB-token sub-tile into the ring stage at
-// ``k_dst`` (V SUB * D elements after), 16-byte chunks swizzled; ``row`` is
-// lane l's pool row of sub-tile row l % SUB (one lookup a lane, shared by
-// shuffles). Every row index is taken before the first copy: the copies'
-// memory clobbers would otherwise hold each lookup behind the copy before.
+// ``k_dst`` (V SUB * D elements after), 16-byte chunks swizzled, the chunks
+// past d_head zero-filled; ``row`` is lane l's pool row of sub-tile row
+// l % SUB (one lookup a lane, shared by shuffles). Every row index is taken
+// before the first copy: the copies' memory clobbers would otherwise hold
+// each lookup behind the copy before.
 template <typename PT, int D, int SUB>
 __device__ __forceinline__ void copy_sub(const Params& p, uint32_t k_dst,
                                          int row, int kvh) {
   constexpr int PCH = D * (int)sizeof(PT) / 16;
+  const int live_chunks = p.d * (int)sizeof(PT) / 16;
   constexpr int ITERS = (SUB * PCH + 31) / 32;
   const int lane = threadIdx.x % 32;
   const uint32_t v_dst = k_dst + SUB * D * (int)sizeof(PT);
@@ -291,11 +348,13 @@ __device__ __forceinline__ void copy_sub(const Params& p, uint32_t k_dst,
     const int idx = lane + 32 * it;
     if (idx < SUB * PCH) {
       const int r = idx / PCH, c = idx % PCH;
-      const long off = rows[it] < 0
-          ? 0 : ((long)rows[it] * p.Hkv + kvh) * D + c * (16 / (int)sizeof(PT));
+      const bool valid = rows[it] >= 0 && c < live_chunks;
+      const long off = valid ? ((long)rows[it] * p.Hkv + kvh) * p.d +
+                                   c * (16 / (int)sizeof(PT))
+                             : 0;
       const int at = (r * PCH + swizzle<PCH>(r, c)) * 16;
-      cp_async16(k_dst + at, k_pages + off, rows[it] >= 0);
-      cp_async16(v_dst + at, v_pages + off, rows[it] >= 0);
+      cp_async16(k_dst + at, k_pages + off, valid);
+      cp_async16(v_dst + at, v_pages + off, valid);
     }
   }
 }
@@ -332,15 +391,42 @@ __device__ __forceinline__ void load_sub(const Params& p, unsigned char* smem,
   cp_async_commit();
 }
 
+// Tile row g + 8r's Q fragment of k step kk (R row halves): columns d0.. in
+// a[r] and d1.. in a[R + r], from rows of ``stride`` elements at ``q``;
+// zero past ``rows`` and past ``d``. For int8 pages the 16 columns of a k
+// step are ordered so that each lane's four are contiguous (d = 16 kk +
+// 4 t4 + 0..3), the order in which an ldmatrix of int8 rows hands out K;
+// the product does not depend on it.
+template <bool QUANT, int R>
+__device__ __forceinline__ void q_fragment(uint32_t (&a)[2 * R],
+                                           const __nv_bfloat16* q, int stride,
+                                           int kk, int g, int t4, int rows,
+                                           int d) {
+  const int d0 = QUANT ? 16 * kk + 4 * t4 : 16 * kk + 2 * t4;
+  const int d1 = QUANT ? d0 + 2 : d0 + 8;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = g + 8 * r;
+    const bool ok = row < rows && 16 * kk < d;
+    const __nv_bfloat16* q_row = q + row * stride;
+    a[r] = ok ? *reinterpret_cast<const uint32_t*>(q_row + d0) : 0u;
+    a[R + r] = ok ? *reinterpret_cast<const uint32_t*>(q_row + d1) : 0u;
+  }
+}
+
 // The chunk [start, start + n_tok) of one (slot, kv_head), bf16 query, on
-// the tensor cores. Leaves each warp's (m, l) in the stat area ([2][4]
-// [GROUP]) and its unnormalized accumulator in [4][GROUP][D] at the ring.
+// the tensor cores, for the ``rows`` query heads of a tile from ``head0``
+// (rows past them, and columns past d_head, are zero in Q). Leaves each
+// warp's (m, l) in the stat area ([2][4][GROUP]) and its unnormalized
+// accumulator in [4][GROUP][D] at the ring.
 template <typename QT, typename PT, int D, int GROUP>
 __device__ __forceinline__ void chunk_mma(const Params& p, unsigned char* smem,
                                           int start, int n_tok, int last,
-                                          int page0, int kvh, long head0) {
+                                          int page0, int kvh, long head0,
+                                          int rows) {
   using TR = Traits<QT, PT, D, GROUP>;
   constexpr int PCH = TR::PCH, RS = TR::RS, SUB = TR::SUB;
+  constexpr int R = GROUP / 8;         // m16 row halves the tile uses
   constexpr bool QUANT = TR::QUANT;
   const int* table_s = reinterpret_cast<const int*>(smem + TR::OFF_TABLE);
   const float* ksc_s = reinterpret_cast<const float*>(smem + TR::OFF_KSC);
@@ -352,31 +438,46 @@ __device__ __forceinline__ void chunk_mma(const Params& p, unsigned char* smem,
   for (int i = 0; i < RS - 1; ++i)
     load_sub<TR, PT, D>(p, smem, i, mine, start, last, page0, kvh);
 
-  // Q as the A operand, rows g < GROUP (rows g + 8 are zero padding). For
-  // int8 pages the 16 columns of a k step are ordered so that each lane's
-  // four are contiguous (d = 16 kk + 4 t4 + 0..3), the order in which an
-  // ldmatrix of int8 rows hands out K; the product does not depend on it.
-  uint32_t qa[D / 16][2];
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + head0 * D;
+  // Q as the A operand (R = 1: rows g + 8 are zero padding): its fragments
+  // in registers, or past width 64 the tile's rows in shared memory (zeros
+  // past ``rows`` and d_head) and the fragments read there each k step
+  constexpr bool Q_SMEM = TR::Q_SMEM;
+  uint32_t qa[Q_SMEM ? 1 : D / 16][2 * R];
+  const __nv_bfloat16* q =
+      static_cast<const __nv_bfloat16*>(p.q) + head0 * p.d;
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + TR::OFF_Q);
+  if constexpr (Q_SMEM) {
+    for (int i = tid; i < GROUP * D / 2; i += THREADS) {
+      const int row = 2 * i / D, col = 2 * i % D;
+      reinterpret_cast<uint32_t*>(q_s)[i] =
+          row < rows && col < p.d
+              ? *reinterpret_cast<const uint32_t*>(q + row * p.d + col)
+              : 0u;
+    }
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int d0 = QUANT ? 16 * kk + 4 * t4 : 16 * kk + 2 * t4;
-    const int d1 = QUANT ? d0 + 2 : d0 + 8;
-    qa[kk][0] = g < GROUP ? *reinterpret_cast<const uint32_t*>(q + g * D + d0)
-                          : 0u;
-    qa[kk][1] = g < GROUP ? *reinterpret_cast<const uint32_t*>(q + g * D + d1)
-                          : 0u;
+    for (int kk = 0; kk < D / 16; ++kk)
+      q_fragment<QUANT, R>(qa[kk], q, p.d, kk, g, t4, rows, p.d);
   }
-  if constexpr (QUANT) {
-    // the page scales rode in every thread's first group
-    cp_async_wait<RS - 2>();
-    __syncthreads();
-  }
+  const auto q_operand = [&](int kk) -> const uint32_t (&)[2 * R] {
+    if constexpr (Q_SMEM) {
+      q_fragment<QUANT, R>(qa[0], q_s, D, kk, g, t4, GROUP, D);
+      return qa[0];
+    } else {
+      return qa[kk];
+    }
+  };
+  if constexpr (QUANT) cp_async_wait<RS - 2>();  // the scales, in group 0
+  if constexpr (QUANT || Q_SMEM) __syncthreads();
 
-  float m_run = -CUDART_INF_F, l_run = 0.f;
-  float acc[D / 8][2];
+  float m_run[R], l_run[R];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = 0.f;
+  for (int r = 0; r < R; ++r) m_run[r] = -CUDART_INF_F, l_run[r] = 0.f;
+  float acc[D / 8][2 * R];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2 * R; ++e) acc[j][e] = 0.f;
   for (int i = 0; i < mine; ++i) {
     __syncwarp();                      // the stage refilled here is read
     load_sub<TR, PT, D>(p, smem, i + RS - 1, mine, start, last, page0, kvh);
@@ -386,8 +487,11 @@ __device__ __forceinline__ void chunk_mma(const Params& p, unsigned char* smem,
     const uint32_t v_base = k_base + TR::SUB_BYTES / 2;
     // S = Q K^T for the sub-tile's two blocks of 8 tokens
     // (even and odd k steps into separate sums: two shorter chains)
-    float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    float s_odd[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    float s[2][2 * R], s_odd[2][2 * R];
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2 * R; ++e) s[nb][e] = s_odd[nb][e] = 0.f;
     if constexpr (!QUANT) {
       const int kr = (lane & 7) + ((lane >> 4) << 3);
 #pragma unroll
@@ -395,12 +499,13 @@ __device__ __forceinline__ void chunk_mma(const Params& p, unsigned char* smem,
         uint32_t b[4];
         const int c = 2 * kk + ((lane >> 3) & 1);
         ldsm_x4(b, k_base + (kr * PCH + swizzle<PCH>(kr, c)) * 16);
+        const uint32_t (&a)[2 * R] = q_operand(kk);
         if (kk & 1) {
-          mma_rows8(s_odd[0], qa[kk][0], qa[kk][1], b[0], b[1]);
-          mma_rows8(s_odd[1], qa[kk][0], qa[kk][1], b[2], b[3]);
+          mma_rows<R>(s_odd[0], a, b[0], b[1]);
+          mma_rows<R>(s_odd[1], a, b[2], b[3]);
         } else {
-          mma_rows8(s[0], qa[kk][0], qa[kk][1], b[0], b[1]);
-          mma_rows8(s[1], qa[kk][0], qa[kk][1], b[2], b[3]);
+          mma_rows<R>(s[0], a, b[0], b[1]);
+          mma_rows<R>(s[1], a, b[2], b[3]);
         }
       }
     } else {
@@ -409,10 +514,10 @@ __device__ __forceinline__ void chunk_mma(const Params& p, unsigned char* smem,
       if constexpr (D == 16) {
         uint32_t b[4];
         ldsm_x2(b, k_base + (kr * PCH + swizzle<PCH>(kr, 0)) * 16);
+        const uint32_t (&a)[2 * R] = q_operand(0);
 #pragma unroll
         for (int nb = 0; nb < 2; ++nb)
-          mma_rows8(s[nb], qa[0][0], qa[0][1], i8_pair(b[nb], 0, 1),
-                    i8_pair(b[nb], 2, 3));
+          mma_rows<R>(s[nb], a, i8_pair(b[nb], 0, 1), i8_pair(b[nb], 2, 3));
       } else {
 #pragma unroll
         for (int kk = 0; kk < D / 16; kk += 2) {
@@ -420,22 +525,22 @@ __device__ __forceinline__ void chunk_mma(const Params& p, unsigned char* smem,
           const int c = kk + (lane >> 4);
           ldsm_x4(b, k_base + (kr * PCH + swizzle<PCH>(kr, c)) * 16);
 #pragma unroll
-          for (int nb = 0; nb < 2; ++nb) {
-            mma_rows8(s[nb], qa[kk][0], qa[kk][1], i8_pair(b[nb], 0, 1),
-                      i8_pair(b[nb], 2, 3));
-            mma_rows8(s_odd[nb], qa[kk + 1][0], qa[kk + 1][1],
-                      i8_pair(b[2 + nb], 0, 1), i8_pair(b[2 + nb], 2, 3));
-          }
+          for (int nb = 0; nb < 2; ++nb)
+            mma_rows<R>(s[nb], q_operand(kk), i8_pair(b[nb], 0, 1),
+                        i8_pair(b[nb], 2, 3));
+#pragma unroll
+          for (int nb = 0; nb < 2; ++nb)
+            mma_rows<R>(s_odd[nb], q_operand(kk + 1),
+                        i8_pair(b[2 + nb], 0, 1), i8_pair(b[2 + nb], 2, 3));
         }
       }
     }
 #pragma unroll
-    for (int nb = 0; nb < 2; ++nb) {
-      s[nb][0] += s_odd[nb][0];
-      s[nb][1] += s_odd[nb][1];
-    }
-    // online softmax over the 16 tokens (log2 units); the k scale after
-    // the product, the v scale folded into P
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2 * R; ++e) s[nb][e] += s_odd[nb][e];
+    // online softmax over the 16 tokens (log2 units), per row half; the k
+    // scale after the product, the v scale folded into P
     int page;                          // lane l's row: sub-tile row l % SUB
     const int row = pool_row(p, table_s, start + SUB * (warp + 4 * i) +
                                              lane % SUB, last, page0, page);
@@ -447,49 +552,61 @@ __device__ __forceinline__ void chunk_mma(const Params& p, unsigned char* smem,
       }
     }
     float v_scale[2][2];
-    float tile_max = -CUDART_INF_F;
 #pragma unroll
     for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int r = 8 * nb + 2 * t4 + e;
-        const bool valid = __shfl_sync(0xffffffffu, row, r) >= 0;
+        const int key = 8 * nb + 2 * t4 + e;
+        const bool valid = __shfl_sync(0xffffffffu, row, key) >= 0;
         float k_scale = 1.f;
         v_scale[nb][e] = 1.f;
         if constexpr (QUANT) {
-          k_scale = __shfl_sync(0xffffffffu, k_row, r);
-          v_scale[nb][e] = __shfl_sync(0xffffffffu, v_row, r);
+          k_scale = __shfl_sync(0xffffffffu, k_row, key);
+          v_scale[nb][e] = __shfl_sync(0xffffffffu, v_row, key);
         }
-        s[nb][e] = valid ? s[nb][e] * p.scale_log2 * k_scale
-                         : -CUDART_INF_F;
-        tile_max = fmaxf(tile_max, s[nb][e]);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          s[nb][2 * r + e] = valid ? s[nb][2 * r + e] * p.scale_log2 * k_scale
+                                   : -CUDART_INF_F;
       }
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-    const float m_new = fmaxf(m_run, tile_max);
-    const float m_use = finite_or_zero(m_new);
-    const float corr = exp2f(m_run - m_use);
-    float pr[2][2];
-    float sum = 0.f;
+    float pr[2][2 * R];
 #pragma unroll
-    for (int nb = 0; nb < 2; ++nb)
+    for (int r = 0; r < R; ++r) {
+      float tile_max = -CUDART_INF_F;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        pr[nb][e] = exp2f(s[nb][e] - m_use);
-        sum += pr[nb][e];
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) tile_max = fmaxf(tile_max, s[nb][2 * r + e]);
+      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
+      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
+      const float m_new = fmaxf(m_run[r], tile_max);
+      const float m_use = finite_or_zero(m_new);
+      const float corr = exp2f(m_run[r] - m_use);
+      float sum = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          pr[nb][2 * r + e] = exp2f(s[nb][2 * r + e] - m_use);
+          sum += pr[nb][2 * r + e];
+        }
+      l_run[r] = l_run[r] * corr + sum;
+      m_run[r] = m_new;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[j][2 * r] *= corr;
+        acc[j][2 * r + 1] *= corr;
       }
-    l_run = l_run * corr + sum;
-    m_run = m_new;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= corr;
-      acc[j][1] *= corr;
     }
     // O += P V: S's accumulator is P's A operand, register for register
-    const uint32_t a0 = pack_bf16(pr[0][0] * v_scale[0][0],
-                                  pr[0][1] * v_scale[0][1]);
-    const uint32_t a2 = pack_bf16(pr[1][0] * v_scale[1][0],
-                                  pr[1][1] * v_scale[1][1]);
+    uint32_t pa[2 * R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      pa[r] = pack_bf16(pr[0][2 * r] * v_scale[0][0],
+                        pr[0][2 * r + 1] * v_scale[0][1]);
+      pa[R + r] = pack_bf16(pr[1][2 * r] * v_scale[1][0],
+                            pr[1][2 * r + 1] * v_scale[1][1]);
+    }
     const int vr = (lane & 7) + ((lane >> 3) & 1) * 8;
     if constexpr (!QUANT) {
 #pragma unroll
@@ -497,8 +614,8 @@ __device__ __forceinline__ void chunk_mma(const Params& p, unsigned char* smem,
         uint32_t b[4];
         const int c = 2 * j + (lane >> 4);
         ldsm_x4_trans(b, v_base + (vr * PCH + swizzle<PCH>(vr, c)) * 16);
-        mma_rows8(acc[2 * j], a0, a2, b[0], b[1]);
-        mma_rows8(acc[2 * j + 1], a0, a2, b[2], b[3]);
+        mma_rows<R>(acc[2 * j], pa, b[0], b[1]);
+        mma_rows<R>(acc[2 * j + 1], pa, b[2], b[3]);
       }
     } else {
       // transposed int8 rows as b16 pairs: a lane gets tokens 2 t4, 2 t4 + 1
@@ -507,8 +624,8 @@ __device__ __forceinline__ void chunk_mma(const Params& p, unsigned char* smem,
       if constexpr (D == 16) {
         uint32_t b[4];
         ldsm_x2_trans(b, v_base + (vr * PCH + swizzle<PCH>(vr, 0)) * 16);
-        mma_rows8(acc[0], a0, a2, i8_pair(b[0], 0, 2), i8_pair(b[1], 0, 2));
-        mma_rows8(acc[1], a0, a2, i8_pair(b[0], 1, 3), i8_pair(b[1], 1, 3));
+        mma_rows<R>(acc[0], pa, i8_pair(b[0], 0, 2), i8_pair(b[1], 0, 2));
+        mma_rows<R>(acc[1], pa, i8_pair(b[0], 1, 3), i8_pair(b[1], 1, 3));
       } else {
 #pragma unroll
         for (int c2 = 0; c2 < PCH; c2 += 2) {
@@ -517,26 +634,32 @@ __device__ __forceinline__ void chunk_mma(const Params& p, unsigned char* smem,
           ldsm_x4_trans(b, v_base + (vr * PCH + swizzle<PCH>(vr, c)) * 16);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            mma_rows8(acc[2 * (c2 + h)], a0, a2, i8_pair(b[2 * h], 0, 2),
-                      i8_pair(b[2 * h + 1], 0, 2));
-            mma_rows8(acc[2 * (c2 + h) + 1], a0, a2, i8_pair(b[2 * h], 1, 3),
-                      i8_pair(b[2 * h + 1], 1, 3));
+            mma_rows<R>(acc[2 * (c2 + h)], pa, i8_pair(b[2 * h], 0, 2),
+                        i8_pair(b[2 * h + 1], 0, 2));
+            mma_rows<R>(acc[2 * (c2 + h) + 1], pa, i8_pair(b[2 * h], 1, 3),
+                        i8_pair(b[2 * h + 1], 1, 3));
           }
         }
       }
     }
   }
 
-  l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
-  l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
   __syncthreads();                     // every warp is done with its ring
   float* acc_w = reinterpret_cast<float*>(smem + TR::OFF_RING);
   float* m_w = reinterpret_cast<float*>(smem + TR::OFF_STAT);
   float* l_w = m_w + 4 * MAX_GROUP;
-  if (g < GROUP) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = g + 8 * r;         // < GROUP = 8 R
+    if (row >= rows) continue;         // the tile's padding rows
     if (t4 == 0) {
-      m_w[warp * GROUP + g] = m_run;
-      l_w[warp * GROUP + g] = l_run;
+      m_w[warp * GROUP + row] = m_run[r];
+      l_w[warp * GROUP + row] = l_run[r];
     }
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -544,27 +667,31 @@ __device__ __forceinline__ void chunk_mma(const Params& p, unsigned char* smem,
       for (int e = 0; e < 2; ++e) {
         const int d = QUANT ? 16 * (j / 2) + 4 * t4 + 2 * e + (j & 1)
                             : 8 * j + 2 * t4 + e;
-        acc_w[(warp * GROUP + g) * D + d] = acc[j][e];
+        acc_w[(warp * GROUP + row) * D + d] = acc[j][2 * r + e];
       }
   }
   __syncthreads();
 }
 
 // The same chunk, f32 query, on the CUDA cores in f32, with the same
-// per-warp streaming. Scores: lane = (token r = lane % SUB, part = lane /
-// SUB), a part summing every (32 / SUB)-th 16-byte chunk of the row against
-// q read as a broadcast; the parts combine in 0-2 shuffles, then one max
-// and one sum of log2(SUB) shuffles per query head and sub-tile. P goes
-// through shared memory; then lane = 4 output columns x every NTGW-th
-// token. int8 rows are widened in registers. Leaves the warps' (m, l) in
-// the stat area and their accumulators in [4][NTGW][GROUP][D] at the ring.
+// per-warp streaming, for the ``rows`` query heads of a tile from
+// ``head0``. Scores: lane = (token r = lane % SUB, part = lane / SUB), a
+// part summing every (32 / SUB)-th 16-byte chunk of the row against q read
+// as a broadcast; the parts combine in 0-2 shuffles, then one max and one
+// sum of log2(SUB) shuffles per query head and sub-tile. P goes through
+// shared memory; then lane = SPL slices of 4 output columns x every
+// NTGW-th token. int8 rows are widened in registers. Leaves the warps'
+// (m, l) in the stat area and their accumulators in [4][NTGW][GROUP][D] at
+// the ring.
 template <typename QT, typename PT, int D, int GROUP>
 __device__ __forceinline__ void chunk_f32(const Params& p, unsigned char* smem,
                                           int start, int n_tok, int last,
-                                          int page0, int kvh, long head0) {
+                                          int page0, int kvh, long head0,
+                                          int rows) {
   using TR = Traits<QT, PT, D, GROUP>;
   constexpr int PCH = TR::PCH, RS = TR::RS, SUB = TR::SUB, NTGW = TR::NTGW;
-  constexpr int LPT = 32 / SUB, NSL = D / 4;
+  constexpr int SPL = D > 128 ? D / 128 : 1;   // slices of 4 columns a lane
+  constexpr int LPT = 32 / SUB, NSL = D / 4 / SPL;
   constexpr bool QUANT = TR::QUANT;
   const int* table_s = reinterpret_cast<const int*>(smem + TR::OFF_TABLE);
   const float* ksc_s = reinterpret_cast<const float*>(smem + TR::OFF_KSC);
@@ -576,20 +703,25 @@ __device__ __forceinline__ void chunk_f32(const Params& p, unsigned char* smem,
 #pragma unroll
   for (int i = 0; i < RS - 1; ++i)
     load_sub<TR, PT, D>(p, smem, i, mine, start, last, page0, kvh);
-  const float* q = static_cast<const float*>(p.q) + head0 * D;
-  for (int i = tid; i < GROUP * D; i += THREADS) q_s[i] = q[i];
+  const QT* q = static_cast<const QT*>(p.q) + head0 * p.d;
+  for (int i = tid; i < GROUP * D; i += THREADS) {
+    const int row = i / D, col = i % D;
+    q_s[i] = row < rows && col < p.d ? to_f32(q[row * p.d + col]) : 0.f;
+  }
   if constexpr (QUANT) cp_async_wait<RS - 2>();  // the scales, in group 0
   __syncthreads();
 
   const int r = lane % SUB, part = lane / SUB;
   const int slice = lane % NSL, tg = lane / NSL;
-  float m_run[GROUP], l_run[GROUP], acc[GROUP][4];
+  float m_run[GROUP], l_run[GROUP], acc[GROUP][SPL][4];
 #pragma unroll
   for (int g = 0; g < GROUP; ++g) {
     m_run[g] = -CUDART_INF_F;
     l_run[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
+    for (int k = 0; k < SPL; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[g][k][e] = 0.f;
   }
   for (int i = 0; i < mine; ++i) {
     __syncwarp();                      // the stage and p_w are read
@@ -669,33 +801,40 @@ __device__ __forceinline__ void chunk_f32(const Params& p, unsigned char* smem,
       l_run[g] = l_run[g] * corr + sum;
       m_run[g] = m_new;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[g][e] *= corr;
+      for (int k = 0; k < SPL; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[g][k][e] *= corr;
       if (part == 0) p_w[g * SUB + r] = pr * v_scale;
     }
     __syncwarp();
     // O += P V
 #pragma unroll
     for (int t = tg; t < SUB; t += NTGW) {
-      float v[4];
-      if constexpr (QUANT) {
-        const uint32_t word = *reinterpret_cast<const uint32_t*>(
-            v_sub + (t * PCH + swizzle<PCH>(t, slice / 4)) * 16 +
-            (slice % 4) * 4);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) v[e] = i8_f32(word, e);
-      } else {
-        const float4 vv = *reinterpret_cast<const float4*>(
-            v_sub + (t * PCH + swizzle<PCH>(t, slice)) * 16);
-        v[0] = vv.x;
-        v[1] = vv.y;
-        v[2] = vv.z;
-        v[3] = vv.w;
-      }
+      for (int k = 0; k < SPL; ++k) {
+        const int sl = slice + k * NSL;
+        float v[4];
+        if constexpr (QUANT) {
+          const uint32_t word = *reinterpret_cast<const uint32_t*>(
+              v_sub + (t * PCH + swizzle<PCH>(t, sl / 4)) * 16 +
+              (sl % 4) * 4);
 #pragma unroll
-      for (int g = 0; g < GROUP; ++g) {
-        const float pr = p_w[g * SUB + t];
+          for (int e = 0; e < 4; ++e) v[e] = i8_f32(word, e);
+        } else {
+          const float4 vv = *reinterpret_cast<const float4*>(
+              v_sub + (t * PCH + swizzle<PCH>(t, sl)) * 16);
+          v[0] = vv.x;
+          v[1] = vv.y;
+          v[2] = vv.z;
+          v[3] = vv.w;
+        }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[g][e] = fmaf(pr, v[e], acc[g][e]);
+        for (int g = 0; g < GROUP; ++g) {
+          const float pr = p_w[g * SUB + t];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[g][k][e] = fmaf(pr, v[e], acc[g][k][e]);
+        }
       }
     }
   }
@@ -706,11 +845,16 @@ __device__ __forceinline__ void chunk_f32(const Params& p, unsigned char* smem,
   float* l_w = m_w + 4 * MAX_GROUP;
 #pragma unroll
   for (int g = 0; g < GROUP; ++g) {
+    if (g >= rows) continue;           // the tile's padding rows
     if (lane == 0) {
       m_w[warp * GROUP + g] = m_run[g];
       l_w[warp * GROUP + g] = l_run[g];
     }
-    store4(acc_w + ((warp * NTGW + tg) * GROUP + g) * D + 4 * slice, acc[g]);
+#pragma unroll
+    for (int k = 0; k < SPL; ++k)
+      store4(acc_w + ((warp * NTGW + tg) * GROUP + g) * D +
+                 4 * (slice + k * NSL),
+             acc[g][k]);
   }
   __syncthreads();
 }
@@ -720,8 +864,13 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-template <typename QT, typename PT, int D, int GROUP>
-__global__ void __launch_bounds__(THREADS, 1)
+// TILED: the group is wider than GROUP and runs as tiles in turn. The
+// kernel for a group that fits one tile has no tile loop: around it the
+// loop held ~40 more registers a thread, and 3 CTAs no longer fit an SM
+// (a fifth slower at the 7b serving shape).
+template <typename QT, typename PT, int D, int GROUP, bool TILED>
+__global__ void __launch_bounds__(THREADS,
+                                  Traits<QT, PT, D, GROUP>::MIN_BLOCKS)
 paged_decode_split_kernel(const Params p) {
   using TR = Traits<QT, PT, D, GROUP>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -732,9 +881,11 @@ paged_decode_split_kernel(const Params p) {
   const int page_size = p.page_size;
   const int start = chunk * CHUNK;
   const int page0 = start / page_size;
+  const int d = p.d, group = p.group;
   const long pair = (long)slot * p.Hkv + kvh;
-  const long head0 = (long)slot * p.H + (long)kvh * GROUP;
-  QT* out = static_cast<QT*>(p.out) + head0 * D;
+  // this (slot, kv_head)'s query heads, [group][d]: head kvh * group + g of
+  // the slot's H = Hkv * group
+  QT* out = static_cast<QT*>(p.out) + pair * group * d;
 
   // the chunk's page-table entries, fetched beside the position (a CTA
   // past its slot's position leaves without waiting for them)
@@ -751,7 +902,7 @@ paged_decode_split_kernel(const Params p) {
   const int last = min(p.positions[slot], p.max_pages * page_size - 1);
   if (start > last) {
     if (chunk == 0)                    // nothing visible: a zero output
-      for (int i = tid; i < GROUP * D; i += THREADS) store(out + i, 0.f);
+      for (int i = tid; i < group * d; i += THREADS) store(out + i, 0.f);
     return;
   }
   const int n_tok = min(CHUNK, last + 1 - start);
@@ -772,49 +923,56 @@ paged_decode_split_kernel(const Params p) {
       cp_async4(smem_u32(vsc_s + i), p.v_scales + at, ok);
     }
   }
-  if constexpr (TR::MMA)
-    chunk_mma<QT, PT, D, GROUP>(p, smem, start, n_tok, last, page0, kvh,
-                                head0);
-  else
-    chunk_f32<QT, PT, D, GROUP>(p, smem, start, n_tok, last, page0, kvh,
-                                head0);
 
-  // this chunk's (m, l, unnormalized acc): the output itself when it is
-  // the slot's only chunk with a visible token, else a partial
+  // each tile of GROUP query heads in turn: this chunk's (m, l,
+  // unnormalized acc) of its heads, the output itself when the chunk is
+  // the slot's only one with a visible token, else a partial
   const float* scratch = reinterpret_cast<const float*>(smem + TR::OFF_RING);
   const float* stat = reinterpret_cast<const float*>(smem + TR::OFF_STAT);
   const int live = last / CHUNK + 1;
   const long part = pair * p.chunks + chunk;
-  float* part_acc = p.part_acc + part * GROUP * D;
-  float* part_ml = p.part_ml + part * GROUP * 2;
-  for (int i = tid; i < GROUP * D; i += THREADS) {
-    const int gg = i / D;
-    float m, l, a = 0.f;
-    // the 4 warps' states, merged (and, f32 query, their token groups)
-    m = -CUDART_INF_F;
+  float* part_acc = p.part_acc + part * group * D;
+  float* part_ml = p.part_ml + part * group * 2;
+  for (int h0 = 0; h0 < group; h0 += GROUP) {
+    const int rows = TILED ? min(GROUP, group - h0) : group;
+    if (h0 > 0) __syncthreads();       // the last tile's state is read
+    if constexpr (TR::MMA)
+      chunk_mma<QT, PT, D, GROUP>(p, smem, start, n_tok, last, page0, kvh,
+                                  pair * group + h0, rows);
+    else
+      chunk_f32<QT, PT, D, GROUP>(p, smem, start, n_tok, last, page0, kvh,
+                                  pair * group + h0, rows);
+    for (int i = tid; i < rows * D; i += THREADS) {
+      const int gg = i / D, col = i % D, head = h0 + gg;
+      float m, l, a = 0.f;
+      // the 4 warps' states, merged (and, f32 query, their token groups)
+      m = -CUDART_INF_F;
 #pragma unroll
-    for (int w = 0; w < 4; ++w) m = fmaxf(m, stat[w * GROUP + gg]);
-    const float m_use = finite_or_zero(m);
-    l = 0.f;
+      for (int w = 0; w < 4; ++w) m = fmaxf(m, stat[w * GROUP + gg]);
+      const float m_use = finite_or_zero(m);
+      l = 0.f;
 #pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const float weight = exp2f(stat[w * GROUP + gg] - m_use);
-      l = fmaf(stat[4 * MAX_GROUP + w * GROUP + gg], weight, l);
-      float sum = 0.f;
+      for (int w = 0; w < 4; ++w) {
+        const float weight = exp2f(stat[w * GROUP + gg] - m_use);
+        l = fmaf(stat[4 * MAX_GROUP + w * GROUP + gg], weight, l);
+        float sum = 0.f;
 #pragma unroll
-      for (int t = 0; t < TR::NTGW; ++t)
-        sum += scratch[(w * TR::NTGW + t) * GROUP * D + i];
-      a = fmaf(sum, weight, a);
-    }
-    if (live == 1) {
-      store(out + i, a / (l == 0.f ? 1.f : l));
-    } else {
-      part_acc[i] = a;
-      if (i % D == 0) {
-        part_ml[2 * gg] = m;
-        part_ml[2 * gg + 1] = l;
+        for (int t = 0; t < TR::NTGW; ++t)
+          sum += scratch[(w * TR::NTGW + t) * GROUP * D + i];
+        a = fmaf(sum, weight, a);
+      }
+      if (col >= d) continue;          // d_head's padding
+      if (live == 1) {
+        store(out + head * d + col, a / (l == 0.f ? 1.f : l));
+      } else {
+        part_acc[head * D + col] = a;
+        if (col == 0) {
+          part_ml[2 * head] = m;
+          part_ml[2 * head + 1] = l;
+        }
       }
     }
+    if (!TILED) break;
   }
   if (live == 1) return;
 
@@ -826,18 +984,19 @@ paged_decode_split_kernel(const Params p) {
   __syncthreads();
   if (!merges) return;
   __threadfence();
-  const float* acc_in = p.part_acc + pair * p.chunks * GROUP * D;
-  const float* ml_in = p.part_ml + pair * p.chunks * GROUP * 2;
-  for (int i = tid; i < GROUP * D / 4; i += THREADS) {
-    const int gg = 4 * i / D;
+  const float* acc_in = p.part_acc + pair * p.chunks * group * D;
+  const float* ml_in = p.part_ml + pair * p.chunks * group * 2;
+  const int quads = d / 4;
+  for (int i = tid; i < group * quads; i += THREADS) {
+    const int head = i / quads, c4 = i % quads;
     float m = -CUDART_INF_F, l = 0.f;
     float o[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
     for (int c = 0; c < live; ++c) {
-      const float2 ml = __ldcg(reinterpret_cast<const float2*>(
-          ml_in + (c * GROUP + gg) * 2));
+      const long row = (long)c * group + head;
+      const float2 ml = __ldcg(reinterpret_cast<const float2*>(ml_in + row * 2));
       const float4 a = __ldcg(reinterpret_cast<const float4*>(
-          acc_in + (long)c * GROUP * D + 4 * i));
+          acc_in + row * D + 4 * c4));
       const float m_new = fmaxf(m, ml.x);
       const float m_use = finite_or_zero(m_new);
       const float keep = exp2f(m - m_use), weight = exp2f(ml.x - m_use);
@@ -851,12 +1010,12 @@ paged_decode_split_kernel(const Params p) {
     const float inv = 1.f / (l == 0.f ? 1.f : l);
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[e] *= inv;
-    store4(out + 4 * i, o);
+    store4(out + head * d + 4 * c4, o);
   }
   if (tid == 0) p.tickets[pair] = 0;
 }
 
-template <typename QT, typename PT, int D, int GROUP>
+template <typename QT, typename PT, int D, int GROUP, bool TILED = false>
 int launch(const Params& p, int S, cudaStream_t stream) {
   using TR = Traits<QT, PT, D, GROUP>;
   static unsigned long long sized = 0;   // devices given the attribute
@@ -866,36 +1025,56 @@ int launch(const Params& p, int S, cudaStream_t stream) {
     if (status != cudaSuccess) return (int)status;
     if (device >= 64 || !(sized >> device & 1)) {
       status = cudaFuncSetAttribute(
-          paged_decode_split_kernel<QT, PT, D, GROUP>,
+          paged_decode_split_kernel<QT, PT, D, GROUP, TILED>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, TR::SMEM);
       if (status != cudaSuccess) return (int)status;
       if (device < 64) sized |= 1ull << device;
     }
   }
   const dim3 grid(p.chunks, p.Hkv, S);
-  paged_decode_split_kernel<QT, PT, D, GROUP>
+  paged_decode_split_kernel<QT, PT, D, GROUP, TILED>
       <<<grid, THREADS, TR::SMEM, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
+// The tile of query heads a pass: a bf16 query's tensor-core tile holds 16
+// rows, 8 of them used below 9 heads (and at width 256, where 16 rows of
+// accumulators would not fit); an f32 query's lanes keep every head of the
+// tile in registers, a tile the group's next power of two up to 8 (4 at
+// width 256: wider tiles spilled). A wider group runs as tiles in turn.
 template <typename QT, typename PT, int D>
 int dispatch_group(const Params& p, int S, cudaStream_t stream) {
-  switch (p.H / p.Hkv) {
-    case 1: return launch<QT, PT, D, 1>(p, S, stream);
-    case 2: return launch<QT, PT, D, 2>(p, S, stream);
-    case 4: return launch<QT, PT, D, 4>(p, S, stream);
-    case 8: return launch<QT, PT, D, 8>(p, S, stream);
-    default: return (int)cudaErrorInvalidValue;
+  const int group = p.group;
+  if constexpr (tensor_cores<QT, PT, D>()) {
+    if (group <= 8) return launch<QT, PT, D, 8>(p, S, stream);
+    if constexpr (D == 256) {
+      return launch<QT, PT, D, 8, true>(p, S, stream);
+    } else {
+      if (group <= 16) return launch<QT, PT, D, 16>(p, S, stream);
+      return launch<QT, PT, D, 16, true>(p, S, stream);
+    }
+  } else {
+    if (group == 1) return launch<QT, PT, D, 1>(p, S, stream);
+    if (group == 2) return launch<QT, PT, D, 2>(p, S, stream);
+    if (group <= 4) return launch<QT, PT, D, 4>(p, S, stream);
+    if constexpr (D == 256) {
+      return launch<QT, PT, D, 4, true>(p, S, stream);
+    } else {
+      if (group <= 8) return launch<QT, PT, D, 8>(p, S, stream);
+      return launch<QT, PT, D, 8, true>(p, S, stream);
+    }
   }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename QT, typename PT>
 int dispatch_d(int D, const Params& p, int S, cudaStream_t stream) {
-  switch (D) {
+  switch (padded_width(D)) {
     case 16: return dispatch_group<QT, PT, 16>(p, S, stream);
     case 32: return dispatch_group<QT, PT, 32>(p, S, stream);
     case 64: return dispatch_group<QT, PT, 64>(p, S, stream);
     case 128: return dispatch_group<QT, PT, 128>(p, S, stream);
+    case 256: return dispatch_group<QT, PT, 256>(p, S, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -905,14 +1084,18 @@ int dispatch_d(int D, const Params& p, int S, cudaStream_t stream) {
 // Tokens of one slot per CTA; the wrapper sizes the partials by it.
 extern "C" int thp_paged_decode_chunk_tokens() { return CHUNK; }
 
+// The padded width of d_head ``D`` (the row length of the partials), 0 for
+// a width the kernel does not take.
+extern "C" int thp_paged_decode_width(int D) { return padded_width(D); }
+
 // q_dtype: 0 = float32, 1 = bfloat16 (also the output type).
 // page_dtype: 0 = float32, 1 = bfloat16 (both == q_dtype), 2 = int8 (then
-// k_scales/v_scales are required). D in {16, 32, 64, 128}; H / Hkv in
-// {1, 2, 4, 8}; pages 16-byte aligned, P * page_size < 2^31. ``chunks`` must be
-// ceil(max_pages * page_size / CHUNK); part_acc holds S * H * chunks * D
-// f32, part_ml S * H * chunks * 2 f32, tickets S * Hkv int32, all zero
-// before the first call (the kernel leaves them zero).
-// Returns cudaGetLastError() after the launch (0 = launched).
+// k_scales/v_scales are required). D a multiple of 16 from 16 to 256; H a
+// multiple of Hkv; pages 16-byte aligned, P * page_size < 2^31. ``chunks``
+// must be ceil(max_pages * page_size / CHUNK); part_acc holds S * H *
+// chunks * thp_paged_decode_width(D) f32, part_ml S * H * chunks * 2 f32,
+// tickets S * Hkv int32, all zero before the first call (the kernel leaves
+// them zero). Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int thp_paged_decode(int q_dtype, int page_dtype, const void* q,
                                 const void* k_pages, const void* v_pages,
                                 const void* k_scales, const void* v_scales,
@@ -922,7 +1105,7 @@ extern "C" int thp_paged_decode(int q_dtype, int page_dtype, const void* q,
                                 int P, int page_size, int max_pages,
                                 int chunks, float scale, void* stream) {
   if (S < 1 || S > 65535 || Hkv < 1 || Hkv > 65535 || H % Hkv != 0 ||
-      H / Hkv > MAX_GROUP || P < 1 || page_size < 1 || max_pages < 1 ||
+      padded_width(D) == 0 || P < 1 || page_size < 1 || max_pages < 1 ||
       (long)max_pages * page_size > (1L << 30) ||
       (long)P * page_size >= (1L << 31) ||
       chunks != (max_pages * page_size + CHUNK - 1) / CHUNK)
@@ -948,6 +1131,8 @@ extern "C" int thp_paged_decode(int q_dtype, int page_dtype, const void* q,
   p.page_size = page_size;
   p.max_pages = max_pages;
   p.chunks = chunks;
+  p.d = D;
+  p.group = H / Hkv;
   p.scale_log2 = scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && page_dtype == 0) return dispatch_d<float, float>(D, p, S, s);

@@ -24,6 +24,12 @@ any other the per-head one. Both compute K1's function, so on CPU tensors
 every G runs ``reference_attention``, and the backward reads either one's
 LSE.
 
+The kernels take every d_head that is a multiple of 16 from 16 to 256
+(``HEAD_DIMS``; a width between the ones a body is built for runs the next
+wider body with zero padding), any GQA group and any B·H. A CUDA call at
+another width raises, naming that set: JAX's kernels take any width, so
+those widths are the one shape the port refuses where JAX runs.
+
 ``launches`` counts wrapper launches per direction and input type (one
 backward launch runs both backward kernels); the kernel-vs-plain checks
 call the plain versions directly and do not count.
@@ -60,7 +66,17 @@ def _count(key: str, heads: int, kv_heads: int) -> None:
 RESIDENT_KV_MAX_BYTES = 4 * 1024 * 1024
 
 _DTYPES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16")}
-_HEAD_DIMS = (16, 32, 64, 128)
+#: the d_head widths the CUDA kernels take (flash forward and backward, and
+#: paged decode): every multiple of 16 from 16 to 256
+HEAD_DIMS = tuple(range(16, 257, 16))
+
+
+def check_head_dim(d: int) -> None:
+    """Raise unless the CUDA kernels take d_head ``d`` (``HEAD_DIMS``)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernels take d_head a multiple of 16 "
+                         f"from 16 to 256 ({', '.join(map(str, HEAD_DIMS))}),"
+                         f" got {d}")
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -164,9 +180,7 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"the CUDA kernel takes bf16 or f32 q/k/v of one "
                          f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes d_head in {_HEAD_DIMS}, "
-                         f"got {d}")
+    check_head_dim(d)
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -174,8 +188,6 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the CUDA kernel loads 16-byte vectors: q/k/v must "
                          "start 16-byte aligned")
-    if batch * heads > 65535:
-        raise ValueError("batch * heads must be <= 65535")
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -14,9 +14,11 @@ runs its plain version, ``paged_attention_reference`` (the JAX package's
 page gather: gather, dequantize, masked grouped softmax) — there is no
 fallback for CUDA tensors.
 
-The CUDA kernel takes d_head 16, 32, 64 or 128 and 1, 2, 4 or 8 query
-heads per kv head, at any page size and page-table width; on the card the
-wrapper raises for other shapes (the JAX package falls back to its gather).
+The CUDA kernel takes every d_head that is a multiple of 16 from 16 to 256
+(``flash_attention.HEAD_DIMS``) and any number of query heads per kv head
+(GQA groups up to MQA's H), at any page size and page-table width; on the
+card the wrapper raises for other widths, naming the set (JAX's kernel
+takes any width).
 
 ``launches`` counts kernel launches per page type; the kernel-vs-plain
 checks call ``paged_attention_reference`` directly and do not count.
@@ -30,6 +32,7 @@ import torch
 
 from . import cuda_build
 from . import kv_quant as kvq
+from .flash_attention import check_head_dim
 
 NEG_INF = -1e30
 
@@ -42,8 +45,6 @@ launch_heads: Dict[Tuple[str, int, int], int] = {}
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAGE_DTYPES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"),
                 torch.int8: (2, "int8")}
-_HEAD_DIMS = (16, 32, 64, 128)
-_GROUPS = (1, 2, 4, 8)
 
 #: merge tickets per device, [slots * kv_heads] int32: zero between calls
 #: (the kernel's merging CTA resets its own); one call at a time a device
@@ -119,6 +120,8 @@ def _library() -> ctypes.CDLL:
                              + [ctypes.c_int] * 8
                              + [ctypes.c_float, ctypes.c_void_p])
         function.restype = ctypes.c_int
+        library.thp_paged_decode_width.argtypes = [ctypes.c_int]
+        library.thp_paged_decode_width.restype = ctypes.c_int
     return library
 
 
@@ -142,9 +145,7 @@ def _check_inputs(q, k_pages, v_pages, page_table, positions, k_scales,
     kv_heads = k_pages.shape[2]
     if k_pages.shape[3] != d_head or heads % kv_heads:
         raise ValueError("pages must share q's d_head and divide its heads")
-    if d_head not in _HEAD_DIMS or heads // kv_heads not in _GROUPS:
-        raise ValueError(f"the CUDA kernel takes d_head in {_HEAD_DIMS} and "
-                         f"{_GROUPS} query heads per kv head")
+    check_head_dim(d_head)
     if page_table.dim() != 2 or page_table.shape[0] != slots:
         raise ValueError("page_table must be [S, max_pages]")
     if positions.shape != (slots,):
@@ -206,7 +207,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     max_pages = page_table.shape[1]
     chunks = -(-max_pages * page_size // chunk)
     out = torch.empty_like(q)
-    part_acc = torch.empty(slots * heads * chunks * d_head,
+    # partial rows at the padded width the kernel runs d_head at
+    width = library.thp_paged_decode_width(d_head)
+    part_acc = torch.empty(slots * heads * chunks * width,
                            dtype=torch.float32, device=q.device)
     part_ml = torch.empty(slots * heads * chunks * 2, dtype=torch.float32,
                           device=q.device)

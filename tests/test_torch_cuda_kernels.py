@@ -136,8 +136,13 @@ FLASH_SEQS = [(True, 1), (True, 70), (True, 128), (False, 100), (True, 129),
 BH_SEQS = FLASH_SEQS[:6] + [(True, 500)]
 
 
+# widths between the bodies' padded widths (48 in the 64 body, 80 and 96
+# in the 128 body) and the 256 body
+WIDE_HEADS = [48, 80, 96, 256]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128] + WIDE_HEADS)
 @pytest.mark.parametrize("heads,kv_heads", [(4, 4), (4, 1), (8, 2)])
 @pytest.mark.parametrize("causal,seq", FLASH_SEQS)
 def test_flash_kernel_matches_plain(device, dtype, d, heads, kv_heads,
@@ -220,7 +225,7 @@ def test_flash_forward_f32_measure_rejects_single_pass_tf32(device):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 48, 80, 96])
 @pytest.mark.parametrize("batch,heads,g", [(2, 4, 2), (2, 4, 4), (2, 6, 4),
                                            (3, 8, 8), (1, 3, 3)])
 @pytest.mark.parametrize("causal,seq", BH_SEQS)
@@ -324,7 +329,7 @@ BACKWARD_SEQS = [(True, 1), (True, 70), (True, 128), (False, 100),
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128] + WIDE_HEADS)
 @pytest.mark.parametrize("heads,kv_heads", [(4, 4), (4, 2), (8, 2), (8, 1)])
 @pytest.mark.parametrize("causal,seq", BACKWARD_SEQS)
 def test_flash_backward_kernel_matches_plain(device, dtype, d, heads,
@@ -428,7 +433,7 @@ def check_flash_backward(device, dtype, d, batch, heads, kv_heads, causal,
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
 @pytest.mark.parametrize("causal,seq", [(True, 1000), (False, 255)])
 def test_flash_backward_kernel_is_bitwise_reproducible(device, dtype, d,
                                                        causal, seq):
@@ -491,7 +496,9 @@ def test_flash_autograd_on_the_card_matches_the_cpu(device):
 
 
 PAGED_VARIANTS = ["bf16", "f32", "int8", "int8/bf16q"]
-PAGED_GROUPS = [(4, 4), (4, 2), (8, 2), (8, 1)]       # group 1, 2, 4, 8
+# groups 1, 2, 4, 8; then 3, 16 (one tile of the tensor-core body, two of
+# the CUDA-core body) and 48 (StarCoder's multi-query heads: three tiles)
+PAGED_GROUPS = [(4, 4), (4, 2), (8, 2), (8, 1), (6, 2), (16, 1), (48, 1)]
 
 
 def paged_inputs(device, generator, rng, variant, d, heads, kv_heads,
@@ -565,7 +572,7 @@ def check_paged(variant, q, k_pages, v_pages, page_table, pos, scales,
 
 
 @pytest.mark.parametrize("variant", PAGED_VARIANTS)
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 80, 256])
 @pytest.mark.parametrize("heads,kv_heads", PAGED_GROUPS)
 @pytest.mark.parametrize("page_size", [8, 16])
 def test_paged_kernel_matches_plain(device, variant, d, heads, kv_heads,
@@ -583,7 +590,7 @@ def test_paged_kernel_matches_plain(device, variant, d, heads, kv_heads,
 
 
 @pytest.mark.parametrize("variant", PAGED_VARIANTS)
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 80, 256])
 @pytest.mark.parametrize("heads,kv_heads", PAGED_GROUPS)
 @pytest.mark.parametrize("page_size,max_pages", [(8, 64), (16, 64),
                                                  (8, 256), (16, 256)])
@@ -659,11 +666,41 @@ def test_paged_kernel_replays_in_a_cuda_graph(device, variant):
         assert_close_to_plain(out[:3], ref[:3])
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_take_more_than_65535_rows(device, dtype):
+    """B * H 65,600 b*h rows, past grid y's 65,535: the forward and both
+    backward kernels launch again for the rows past it; the last rows
+    against the plain version."""
+    generator = torch.Generator(device=device).manual_seed(65)
+    batch, seq, heads = 8200, 16, 8
+    q, k, v, do = (normal(generator, (batch, seq, heads, 64), dtype)
+                   for _ in range(4))
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    grads = fa.flash_attention_backward(q, k, v, out, lse, do, causal=True)
+    tail = slice(batch - 2, batch)
+    ref = fa.reference_attention(q[tail].float(), k[tail].float(),
+                                 v[tail].float(), causal=True)
+    delta = fa.flash_bwd_delta(do[tail], out[tail])
+    refs = fa.flash_attention_backward_reference(
+        q[tail], k[tail], v[tail], out[tail],
+        lse.reshape(batch, heads, 1, seq)[tail].reshape(2 * heads, 1, seq),
+        do[tail], causal=True, delta=delta)
+    torch.cuda.synchronize()
+    assert_close_to_plain(out[tail], ref)
+    for grad, want, name in zip(grads, refs, "qkv"):
+        assert grad_row_error(grad[tail], want, first_row_zero=name == "q") \
+            <= GRAD_ROW_TOL[torch.bfloat16], name
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(device):
+    """Widths that are not a multiple of 16, or past 256, are refused with
+    the supported set named (any GQA group is taken: paged decode's
+    group 3 below is no refusal)."""
     generator = torch.Generator(device=device).manual_seed(0)
-    q = normal(generator, (1, 8, 4, 48), torch.float32)
-    with pytest.raises(ValueError, match="d_head"):
-        fa.flash_attention(q, q, q)
+    for d in (72, 272):
+        q = normal(generator, (1, 8, 4, d), torch.float32)
+        with pytest.raises(ValueError, match="multiple of 16 from 16 to 256"):
+            fa.flash_attention(q, q, q)
     q = normal(generator, (1, 8, 4, 16), torch.float32)
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_attention(q, q.to(torch.bfloat16), q)
@@ -674,8 +711,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
     table = torch.zeros((2, 2), dtype=torch.int32, device=device)
     pos = torch.zeros(2, dtype=torch.int32, device=device)
     q = normal(generator, (2, 1, 3, 16), torch.float32)      # group 3
-    with pytest.raises(ValueError, match="query heads per kv head"):
-        pa.paged_attention(q, pages, pages, table, pos)
+    assert pa.paged_attention(q, pages, pages, table, pos).shape == q.shape
+    wide = normal(generator, (3, 8, 1, 72), torch.float32)
+    with pytest.raises(ValueError, match="multiple of 16 from 16 to 256"):
+        pa.paged_attention(normal(generator, (2, 1, 3, 72), torch.float32),
+                           wide, wide, table, pos)
     q = normal(generator, (2, 1, 4, 16), torch.float32)
     with pytest.raises(ValueError, match="int32"):
         pa.paged_attention(q, pages, pages, table.long(), pos)

@@ -6,7 +6,8 @@ tests run it) and through the port's ``flash_attention_backward`` on CPU
 tensors — the plain version the CUDA kernels are held to on the card.
 f32 dq/dk/dv agree within 2e-4 abs and rel (the JAX package's own bound
 for its backward, ``tests/unit/test_compute.py``), causal and not, GQA
-groups 1/2/4, d_head 32/64, with an explicit scale and delta. Autograd
+groups 1/2/4, d_head 32/64, and d_head 80/96/256 at groups 1/3/7, with
+an explicit scale and delta. Autograd
 through ``flash_attention`` agrees with ``jax.grad`` through the JAX
 ``flash_attention``. The CUDA kernels themselves run only on the card
 (``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``).
@@ -79,11 +80,21 @@ def jax_backward(q, k, v, do, causal, scale=None, with_delta=False):
     return shaped, from_bhsd(out, batch, heads), np.asarray(lse)
 
 
+#: d_head 80 (Phi-2), 96 (Phi-3-mini) and 256 (Gemma-2B) at GQA groups 1, 3
+#: and 7 (Qwen2.5-7B's 28 / 4): the widths the kernels run padded
+WIDE_SHAPES = [(causal, group * kv_heads, kv_heads, d)
+               for (d, causal), (group, kv_heads) in zip(
+                   [(80, False), (80, True), (80, True), (96, True),
+                    (96, False), (96, True), (256, True), (256, True),
+                    (256, False)],
+                   [(1, 2), (3, 1), (7, 1)] * 3)]
+
+
 @pytest.mark.parametrize("causal,heads,kv_heads,d", [
     (True, 4, 4, 32), (True, 4, 2, 64), (True, 8, 2, 32),
-    (False, 4, 4, 64), (False, 4, 1, 32), (False, 8, 2, 64)])
+    (False, 4, 4, 64), (False, 4, 1, 32), (False, 8, 2, 64)] + WIDE_SHAPES)
 def test_backward_matches_jax_kernels(causal, heads, kv_heads, d):
-    batch, seq = 2, 128
+    batch, seq = 2 if d <= 64 else 1, 128
     q, k, v, do = draw(d + heads * 3 + kv_heads, batch, seq, heads,
                        kv_heads, d)
     expected, _, _ = jax_backward(q, k, v, do, causal)

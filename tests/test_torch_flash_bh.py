@@ -7,7 +7,7 @@ package's ``_fwd_kernel_resident_bh``.
 * ``flash_attention(..., bh_block=4)`` on CPU tensors — the plain version,
   which the CUDA kernel is held to on the card — against the JAX
   ``flash_attention`` in interpret mode under ``TPUHIVE_FLASH_BH_BLOCK=4``,
-  causal and not: the forward within 2e-5 and the q/k/v gradients (the
+  causal and not, at d_head 32, 80, 96 and 256: the forward within 2e-5 and the q/k/v gradients (the
   standard backward reading the head-blocked forward's LSE) within 2e-4,
   the JAX package's own bounds for this kernel
   (``tests/unit/test_compute.py``). The env knob is read at trace time, so
@@ -56,7 +56,17 @@ def jax_bh_block(monkeypatch):
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_bh_block_forward_and_grads_match_jax(jax_bh_block, causal):
-    batch, seq, heads, d = 2, 128, 4, 32
+    bh_case(causal, 32)
+
+
+@pytest.mark.parametrize("causal,d", [(False, 80), (True, 96), (False, 256)])
+def test_bh_block_wide_heads_match_jax(jax_bh_block, causal, d):
+    """d_head 80, 96 and 256, which the kernels run in padded bodies."""
+    bh_case(causal, d)
+
+
+def bh_case(causal, d):
+    batch, seq, heads = 2, 128, 4
     assert jax_fa._fwd_bh_block(batch * heads, 1, seq, d, jnp.float32) == 4
     rng = np.random.default_rng(17 + causal)
     q, k, v, weight = (rng.standard_normal((batch, seq, heads, d),
