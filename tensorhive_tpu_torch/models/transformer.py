@@ -38,10 +38,12 @@ pp its stage's layers run as a stage of ``parallel/pipeline.py``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
-from typing import Any, Callable, Dict, Optional
+import threading
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -233,6 +235,31 @@ def _chunked_ce(x_flat: torch.Tensor, targets_flat: torch.Tensor,
                                            targets_flat.split(chunk_tokens),
                                            weights_flat.split(chunk_tokens))]
     return torch.stack(sums).sum()
+
+
+#: the mark a train step hands ``loss`` on this thread (``marking_head``)
+_head_marks = threading.local()
+
+
+@contextlib.contextmanager
+def marking_head(mark: Callable[[torch.Tensor], None]) -> Iterator[None]:
+    """Within: ``TransformerLM.loss`` calls ``mark(x)`` with the trunk's
+    output as it enters the head, on each of its paths (the train step's
+    trunk/head phase boundary, ``train.StepPhases``). ``mark`` must leave
+    ``x`` as it is."""
+    _head_marks.mark = mark
+    try:
+        yield
+    finally:
+        _head_marks.mark = None
+
+
+def _enter_head(x: torch.Tensor) -> torch.Tensor:
+    """``x``, handed to the mark of ``marking_head`` if one is set."""
+    mark = getattr(_head_marks, "mark", None)
+    if mark is not None:
+        mark(x)
+    return x
 
 
 Attend = Callable[..., torch.Tensor]
@@ -539,7 +566,8 @@ class TransformerLM(nn.Module):
         global batch (the whole sequence: under sp each rank takes its
         block of the inputs and of the targets, cut after the shift, so
         target ``p`` is still token ``p + 1``); the loss is the global
-        mean, the same on every rank."""
+        mean, the same on every rank. On every path the trunk's output
+        enters the head through ``_enter_head``."""
         if not config.causal:
             # bidirectional attention lets position p see token p+1, its
             # own target: the next-token loss would train a copy-through
@@ -551,7 +579,8 @@ class TransformerLM(nn.Module):
             par = TrainParallel(mesh)
             targets = par.seq_block(targets)
             n_tokens = targets.numel()
-            x = TransformerLM.apply_trunk(params, inputs, config, mesh=mesh)
+            x = _enter_head(TransformerLM.apply_trunk(params, inputs, config,
+                                                      mesh=mesh))
             total = _chunked_ce(
                 x.reshape(n_tokens, -1), targets.reshape(n_tokens),
                 params["w_lm_head"], config.dtype,
@@ -561,13 +590,13 @@ class TransformerLM(nn.Module):
                                           * mesh.sp)
         n_tokens = targets.shape[0] * targets.shape[1]
         chunk = _loss_chunk(n_tokens, config, tokens.device)
+        x = _enter_head(TransformerLM.apply_trunk(params, inputs, config))
         if chunk:
-            x = TransformerLM.apply_trunk(params, inputs, config)
             total = _chunked_ce(x.reshape(n_tokens, -1),
                                 targets.reshape(n_tokens),
                                 params["w_lm_head"], config.dtype, chunk)
             return total / n_tokens
-        logits = TransformerLM.apply(params, inputs, config)
+        logits = _lm_head(x, params["w_lm_head"], config.dtype)
         return torch.mean(_lse_minus_target(logits, targets))
 
 

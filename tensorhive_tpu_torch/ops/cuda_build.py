@@ -6,7 +6,9 @@ build takes seconds, not minutes. Libraries land in
 ``build/tensorhive_tpu_torch/`` at the root of the checkout, named by a
 hash of the sources and flags: a changed source builds anew, an unchanged
 one is reused. Nothing is compiled when a module is imported; the first
-launch (or ``build``) compiles.
+launch (or ``build``) compiles. ``load_count`` counts the libraries this
+process has built or loaded: the serving engine's flight recorder diffs it
+per tick (its ``compiles`` column).
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libraries: Dict[str, ctypes.CDLL] = {}
+#: libraries built or loaded by ``load`` in this process
+_loads = 0
 
 
 def _nvcc() -> str:
@@ -90,12 +94,19 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``name`` (built first when missing)."""
+    global _loads
     library = _libraries.get(name)
     if library is None:
         build([name])
         library = ctypes.CDLL(str(library_path(name)))
         _libraries[name] = library
+        _loads += 1
     return library
+
+
+def load_count() -> int:
+    """Libraries ``load`` has built or loaded in this process so far."""
+    return _loads
 
 
 def check(status: int, what: str) -> None:

@@ -135,6 +135,7 @@ from ..models.transformer import (
     _lm_head,
     _rmsnorm,
 )
+from ..ops import cuda_build
 from ..ops import kv_quant as kvq
 from ..ops.flash_attention import NEG_INF, flash_attention
 from ..ops.paged_attention import (
@@ -151,6 +152,7 @@ from ..observability import (
 from ..observability.accounting import ANONYMOUS_TENANT
 from . import EngineDrainingError, QueueFullError, RateLimitError
 from .faults import ServingFaultPlan
+from .flight_recorder import TickMarks
 from .mesh_worker import (
     OP_BUILD,
     OP_CHUNK,
@@ -885,6 +887,10 @@ class SlotEngine:
         #: per-tick black box (serving/flight_recorder.py); None leaves
         #: step() unrecorded
         self.flight_recorder = flight_recorder
+        #: (engine clock, wall clock) at the first recorded tick: a tick's
+        #: start on the wall clock is read from it, as ``_Request.wall``
+        #: reads a request's, so fake clocks stay exact
+        self._wall_anchor: Optional[Tuple[float, float]] = None
         #: per-tenant resource-time attribution (observability/
         #: accounting.py), stamped from the pump thread; None keeps every
         #: hook a single attribute check
@@ -1607,7 +1613,10 @@ class SlotEngine:
 
         With a tenant meter the tick is charged first; with a flight
         recorder it is stamped into the ring in a ``finally``, so the tick
-        that raises is recorded too. Both are host bookkeeping only."""
+        that raises is recorded too, with the tick's start on the wall
+        clock and its phases (``flight_recorder.TickMarks``: one clock
+        sample per boundary). Both are host bookkeeping only: without a
+        recorder no boundary is sampled."""
         self._check_driven()
         if self.tenant_meter is not None:
             self._meter_tick()
@@ -1619,21 +1628,30 @@ class SlotEngine:
             self._advance_prefills()
             return self._decode_step()
         started = self.clock()
+        if self._wall_anchor is None:
+            self._wall_anchor = (started, time.time())
         faults_before = self._faults_injected()
+        loads_before = cuda_build.load_count()
         demotions_before = self.host_kv_demotions
         promotions_before = self.host_kv_promotions
         admitted = chunks = stepped = 0
+        marks = TickMarks(started)
         try:
             if self._host_store is not None:
                 self._pump_host_lane()
+                marks.admit = self.clock()
             admitted = self._admit()
+            marks.prefill = self.clock()
             chunks = self._advance_prefills()
-            stepped = self._decode_step()
+            stepped = self._decode_step(marks)
+            if marks.dispatch is None:
+                marks.dispatch = self.clock()   # no step: the prefills end
             return stepped
         finally:
             with self._lock:
                 busy = self._busy_locked()
                 depth = len(self._pending)
+            anchor_clock, anchor_wall = self._wall_anchor
             recorder.record(
                 duration_s=self.clock() - started,
                 admitted=admitted,
@@ -1642,10 +1660,12 @@ class SlotEngine:
                 slots_busy=busy,
                 queue_depth=depth,
                 pages_free=self._pool.free_pages if self.paged else 0,
-                compiles=0,
+                compiles=cuda_build.load_count() - loads_before,
                 faults=self._faults_injected() - faults_before,
                 host_demotions=self.host_kv_demotions - demotions_before,
                 host_promotions=self.host_kv_promotions - promotions_before,
+                start_ts=anchor_wall + (started - anchor_clock),
+                **marks.phases(),
             )
 
     def _faults_injected(self) -> int:
@@ -2708,7 +2728,7 @@ class SlotEngine:
                                  self._generator, self.config, self.top_k,
                                  self._tp)
 
-    def _spec_decode_step(self) -> int:
+    def _spec_decode_step(self, marks: Optional[TickMarks] = None) -> int:
         """One speculative tick: draft catch-up + k proposals, ONE batched
         verify over all k+1 positions, then longest-matching-prefix
         acceptance (on a serving mesh: on rank 0 alone; the next tick's
@@ -2725,6 +2745,10 @@ class SlotEngine:
             if not stepped:
                 return 0
             window, lens, limits, page_table = self._spec_operands_locked()
+        if marks is not None:
+            # propose, read, verify, read: no one dispatch and one wait,
+            # so those two phases stay 0 (the prefills end here)
+            marks.dispatch = self.clock()
         # the "step" point covers the propose half of the tick (the verify
         # has its own), outside the lock like every dispatch
         self._fault_point("step")
@@ -2786,11 +2810,17 @@ class SlotEngine:
                     # next tick's catch-up window = what was accepted
                     self._spec_windows[index] = consumed
             _SLOTS_BUSY.set(self._busy_locked())
+        if marks is not None:
+            marks.apply, marks.applied = now, self.clock()
         return len(stepped)
 
-    def _decode_step(self) -> int:
+    def _decode_step(self, marks: Optional[TickMarks] = None) -> int:
+        """The decode step of a tick; with ``marks`` (a recorded tick) it
+        samples the boundaries of the dispatch (``_run_step`` until every
+        launch is enqueued), the wait (reading the emitted tokens) and the
+        apply (every slot's token under the lock)."""
         if self._spec is not None:
-            return self._spec_decode_step()
+            return self._spec_decode_step(marks)
         with self._lock:
             # slots still chunk-prefilling are parked (active False): they
             # join the batch only once armed
@@ -2799,7 +2829,13 @@ class SlotEngine:
                        if slot is not None and bool(self._active[index])]
         if not stepped:
             return 0
-        emitted = self._run_step().cpu().numpy()
+        if marks is None:
+            emitted = self._run_step().cpu().numpy()
+        else:
+            marks.dispatch = self.clock()
+            launched = self._run_step()
+            marks.wait = self.clock()
+            emitted = launched.cpu().numpy()
         now = self.clock()
         with self._lock:
             self.steps += 1
@@ -2813,6 +2849,8 @@ class SlotEngine:
                 self._positions[index] += 1
                 self._apply_token_locked(index, request, token, now)
             _SLOTS_BUSY.set(self._busy_locked())
+        if marks is not None:
+            marks.apply, marks.applied = now, self.clock()
         return len(stepped)
 
     def _apply_token_locked(self, index: int, request: _Request,

@@ -3,10 +3,15 @@ copy of ``tensorhive_tpu/serving/flight_recorder.py`` (numpy only).
 
 * :class:`FlightRecorder` — a bounded ring the SlotEngine stamps once per
   ``step()``: tick duration, per-phase work counts (admitted / prefill
-  chunks / decode slots), slots busy, free KV pages, queue depth, compile
-  events, fault-plan injections and host-tier copies. Preallocated numpy
-  columns, one writer (the pump thread), no locks beyond an index bump;
-  pure host bookkeeping.
+  chunks / decode slots), slots busy, free KV pages, queue depth, kernel
+  libraries built or loaded, fault-plan injections and host-tier copies.
+  The port adds the tick's start on the wall clock (``start_ts``, the clock
+  of ``torch.profiler``'s records) and the seconds of its phases on the
+  engine's clock (``PHASES``: admission, the prefill chunks, the decode
+  step's dispatch, its wait for the emitted tokens and the applying of
+  them), which tile the tick in that order after the host tier's lane.
+  Preallocated numpy columns, one writer (the pump thread), no locks
+  beyond an index bump; pure host bookkeeping.
 * :func:`write_crash_dump` — on a fatal classification the supervisor
   snapshots the last ticks, the in-flight ledger rows and the firing alerts
   into a JSON file under ``{config_dir}/flightrec/`` *before* failing the
@@ -45,6 +50,9 @@ FIELDS = (
     "host_promotions",
 )
 
+#: the tick's phases, in the order they tile it (float columns, seconds)
+PHASES = ("admit_s", "prefill_s", "dispatch_s", "wait_s", "apply_s")
+
 _CAMEL = {
     "duration_s": "durationS",
     "prefill_chunks": "prefillChunks",
@@ -54,6 +62,12 @@ _CAMEL = {
     "pages_free": "pagesFree",
     "host_demotions": "hostDemotions",
     "host_promotions": "hostPromotions",
+    "start_ts": "startTs",
+    "admit_s": "admitS",
+    "prefill_s": "prefillS",
+    "dispatch_s": "dispatchS",
+    "wait_s": "waitS",
+    "apply_s": "applyS",
 }
 
 _DUMP_NAME_RE = re.compile(r"^crash-\d{8}T\d{6}-\d+(-\d{3})?\.json$")
@@ -61,6 +75,32 @@ _DUMP_NAME_RE = re.compile(r"^crash-\d{8}T\d{6}-\d+(-\d{3})?\.json$")
 #: per-process dump sequence: two fatals inside the same wall-clock second
 #: (a crash loop chewing its restart budget) must not overwrite each other
 _dump_seq = itertools.count()
+
+
+class TickMarks:
+    """The phase boundaries of one recorded tick, each one sample of the
+    engine's clock: the sample that ends a phase begins the next, so the
+    phases tile the tick. ``admit`` is the tick's start unless the host
+    tier's lane ran first; a boundary left None (its phase did not run, as
+    the speculative lane's dispatch and wait) makes that phase 0."""
+
+    __slots__ = ("admit", "prefill", "dispatch", "wait", "apply", "applied")
+
+    def __init__(self, started: float) -> None:
+        self.admit: Optional[float] = started
+        self.prefill: Optional[float] = None
+        self.dispatch: Optional[float] = None
+        self.wait: Optional[float] = None
+        self.apply: Optional[float] = None
+        self.applied: Optional[float] = None
+
+    def phases(self) -> Dict[str, float]:
+        """``FlightRecorder.record``'s phase keywords."""
+        marks = (self.admit, self.prefill, self.dispatch, self.wait,
+                 self.apply, self.applied)
+        return {name: (end - begin if begin is not None and end is not None
+                       else 0.0)
+                for name, begin, end in zip(PHASES, marks, marks[1:])}
 
 
 class FlightRecorder:
@@ -77,6 +117,9 @@ class FlightRecorder:
         self._duration = np.zeros(self.capacity, dtype=np.float64)
         self._counts = np.zeros((len(FIELDS) - 1, self.capacity),
                                 dtype=np.int64)
+        self._start = np.zeros(self.capacity, dtype=np.float64)
+        self._phases = np.zeros((len(PHASES), self.capacity),
+                                dtype=np.float64)
         self._idx = 0       # monotone tick counter; ring slot = idx % cap
 
     def record(self, *, duration_s: float, admitted: int = 0,
@@ -85,11 +128,24 @@ class FlightRecorder:
                pages_free: int = 0, compiles: int = 0,
                faults: int = 0, host_demotions: int = 0,
                host_promotions: int = 0,
-               ts: Optional[float] = None) -> None:
-        """Stamp one tick. Hot path: column writes + one index bump."""
+               ts: Optional[float] = None,
+               start_ts: Optional[float] = None, admit_s: float = 0.0,
+               prefill_s: float = 0.0, dispatch_s: float = 0.0,
+               wait_s: float = 0.0, apply_s: float = 0.0) -> None:
+        """Stamp one tick. Hot path: column writes + one index bump.
+        ``start_ts`` defaults to ``ts`` less the duration."""
         slot = self._idx % self.capacity
-        self._ts[slot] = time.time() if ts is None else ts
+        stamp = time.time() if ts is None else ts
+        self._ts[slot] = stamp
         self._duration[slot] = duration_s
+        self._start[slot] = (stamp - duration_s if start_ts is None
+                             else start_ts)
+        phases = self._phases
+        phases[0, slot] = admit_s
+        phases[1, slot] = prefill_s
+        phases[2, slot] = dispatch_s
+        phases[3, slot] = wait_s
+        phases[4, slot] = apply_s
         col = self._counts
         col[0, slot] = admitted
         col[1, slot] = prefill_chunks
@@ -128,6 +184,10 @@ class FlightRecorder:
             }
             for offset, name in enumerate(FIELDS[1:]):
                 row[_CAMEL.get(name, name)] = int(self._counts[offset, slot])
+            row["startTs"] = round(float(self._start[slot]), 6)
+            for offset, name in enumerate(PHASES):
+                row[_CAMEL[name]] = round(float(self._phases[offset, slot]),
+                                          6)
             rows.append(row)
         return rows
 
@@ -136,6 +196,8 @@ class FlightRecorder:
         self._ts.fill(0.0)
         self._duration.fill(0.0)
         self._counts.fill(0)
+        self._start.fill(0.0)
+        self._phases.fill(0.0)
 
 
 # -- crash dumps --------------------------------------------------------------

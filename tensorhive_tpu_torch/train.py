@@ -16,6 +16,9 @@ PyTorch counterpart of ``tensorhive_tpu/train.py``, on one device or on a
   before clipping. Params and optimizer state are f32 and are updated in
   place (the JAX step donates its buffers instead), so a step holds no
   second copy of either.
+* Each step records its device phases into the process tracer
+  (``observability.get_tracer()``): a ``train.step`` span and one child per
+  phase of ``STEP_PHASES``, one step late (``StepPhases``).
 * Checkpoints are ``torch.save`` files, one per step, keeping the newest
   ``max_to_keep``; on a mesh, a directory per step with one file per
   owning rank (a pp stage's layers under their global indices), restored
@@ -47,7 +50,13 @@ import torch
 import torch.distributed as dist
 
 from .device import DeviceLike, resolve_device
-from .models.transformer import Params, TransformerConfig, TransformerLM
+from .models.transformer import (
+    Params,
+    TransformerConfig,
+    TransformerLM,
+    marking_head,
+)
+from .observability import get_tracer
 from .parallel.mesh import (
     TrainMesh,
     block_starts,
@@ -207,6 +216,151 @@ def make_optimizer(config: TrainConfig) -> AdamW:
     return AdamW(config)
 
 
+# -- the step's phases ---------------------------------------------------------
+
+#: the train step's device phases: a micro-batch's four in the order they
+#: tile it, then the optimizer's (the global norm, the clip and the update)
+STEP_PHASES = ("trunk_fwd", "head_fwd", "head_bwd", "trunk_bwd", "optimizer")
+
+
+def _profiler_active() -> bool:
+    """Whether a ``torch.profiler`` session is recording in this process."""
+    return (bool(getattr(torch.autograd.profiler, "_is_profiler_enabled",
+                         False))
+            or torch._C._autograd._profiler_enabled())
+
+
+class StepPhases:
+    """The phase record of one train step function: per step, a
+    ``train.step`` span (``kind="train"``) and a child span per phase
+    (``train.trunk_fwd`` .. ``train.optimizer``) in the process tracer.
+
+    Boundaries are marks: on a card ``torch.cuda.Event`` records on the
+    step's stream (made once, reused by every step), on the CPU, where the
+    work is synchronous, ``time.perf_counter()`` stamps. A step marks its
+    entry and, per micro-batch, the trunk's output entering the head (the
+    mark ``TransformerLM.loss`` hands on through ``marking_head``), the
+    forward's end, the gradient hook on that output (it fires when the
+    head's backward has made the trunk's gradient) and the next
+    micro-batch's start; then the optimizer's start and the step's end.
+    Micro-batches add into one step's phases (the accumulation's adds
+    count to the trunk's backward). A forward that never reaches that
+    mark (a loss other than the LM's) gives its head 0 and its trunk the
+    whole pass.
+
+    No host synchronisation is added: a step's spans are recorded when the
+    next step begins, and only if its last mark has completed (an event's
+    ``query()``); a step whose marks have not is dropped. So the last step
+    of a process goes unrecorded. The parent span starts at the host's
+    wall clock at the step's entry (the clock of ``torch.profiler``'s
+    records) and lasts from the first mark to the last; each child lasts
+    its phase's device time and starts at the phase's first offset from
+    the first mark. Attributes: ``tokens`` (the step's trained tokens) and
+    ``profiled`` (1 when a ``torch.profiler`` session was recording at
+    the step's entry or end)."""
+
+    def __init__(self, micro_batches: int, tokens: int) -> None:
+        self.micro_batches = micro_batches
+        self.tokens = tokens
+        #: per micro-batch: start, head, forward's end, head's gradient;
+        #: then the optimizer's start and the step's end
+        self.count = 4 * micro_batches + 2
+        self._stamps = [0.0] * self.count
+        self._events: Optional[List[torch.cuda.Event]] = None
+        self._stream = None
+        self._marked = [False] * self.count
+        self._micro = 0
+        #: (wall start, profiled) of the running step, and of the step
+        #: whose marks are held until the next one begins
+        self._started: Tuple[float, bool] = (0.0, False)
+        self._held: Optional[Tuple[float, bool]] = None
+
+    def _mark(self, index: int) -> None:
+        if self._stream is None:
+            self._stamps[index] = time.perf_counter()
+        else:
+            self._events[index].record(self._stream)
+        self._marked[index] = True
+
+    def _seconds(self, first: int, last: int) -> float:
+        if self._stream is None:
+            return self._stamps[last] - self._stamps[first]
+        return self._events[first].elapsed_time(self._events[last]) / 1e3
+
+    def begin(self, device: torch.device) -> None:
+        """The step's entry: records the held step, then marks."""
+        self.flush()
+        self._stream = None
+        if device.type == "cuda":
+            self._stream = torch.cuda.current_stream(device)
+            if self._events is None:
+                self._events = [torch.cuda.Event(enable_timing=True)
+                                for _ in range(self.count)]
+        self._marked = [False] * self.count
+        self._micro = 0
+        self._started = (time.time(), _profiler_active())
+        self._mark(0)
+
+    def micro_begin(self) -> None:
+        if self._micro:
+            self._mark(4 * self._micro)
+
+    def head(self, x: torch.Tensor) -> None:
+        """``marking_head``'s mark: the trunk's output enters the head."""
+        base = 4 * self._micro
+        self._mark(base + 1)
+        if x.requires_grad:
+            x.register_hook(lambda grad: self._mark(base + 3))
+
+    def backward_begin(self) -> None:
+        base = 4 * self._micro
+        headless = not self._marked[base + 1]
+        if headless:
+            self._mark(base + 1)
+        self._mark(base + 2)
+        if headless:
+            self._mark(base + 3)
+
+    def backward_end(self) -> None:
+        base = 4 * self._micro
+        if not self._marked[base + 3]:
+            self._mark(base + 3)
+        self._micro += 1
+
+    def optimizer_begin(self) -> None:
+        self._mark(4 * self.micro_batches)
+
+    def end(self) -> None:
+        wall, profiled = self._started
+        self._mark(self.count - 1)
+        self._held = (wall, profiled or _profiler_active())
+
+    def flush(self) -> None:
+        """Record the held step's spans if its last mark has completed."""
+        held, self._held = self._held, None
+        if held is None or (self._stream is not None
+                            and not self._events[-1].query()):
+            return
+        wall, profiled = held
+        seconds = self._seconds
+        tracer = get_tracer()
+        parent = tracer.record_span(
+            "train.step", kind="train", start_ts=wall,
+            duration_s=seconds(0, self.count - 1), tokens=self.tokens,
+            profiled=int(profiled))
+        spans = [(4 * micro + phase, 4 * micro + phase + 1)
+                 for micro in range(self.micro_batches)
+                 for phase in range(4)]
+        for phase, name in enumerate(STEP_PHASES):
+            bounds = (spans[phase::4] if phase < 4
+                      else [(self.count - 2, self.count - 1)])
+            tracer.record_span(
+                f"train.{name}", kind="train",
+                start_ts=wall + seconds(0, bounds[0][0]),
+                duration_s=sum(seconds(a, b) for a, b in bounds),
+                parent_id=parent.span_id)
+
+
 # -- state and step ------------------------------------------------------------
 
 def init_train_state(model_config: TransformerConfig,
@@ -284,7 +438,10 @@ def make_train_step(model_config: TransformerConfig,
     (which returns the global loss), clips by the global gradient norm
     (``metrics["grad_norm"]``, the same on every rank) and updates the
     rank's blocks. Accumulation splits the rank's rows: the mean of equal
-    micro means is the global mean, as in JAX."""
+    micro means is the global mean, as in JAX.
+
+    The step records its phases into the process tracer (``StepPhases``),
+    one step late: the last step it takes goes unrecorded."""
     optimizer = make_optimizer(train_config)
     accum = train_config.grad_accum_steps
     if accum < 1:
@@ -298,14 +455,20 @@ def make_train_step(model_config: TransformerConfig,
         check_train_mesh(model_config, mesh, train_config.batch_size, accum,
                          train_config.seq_len)
         rows //= mesh.data_size
+    phases = StepPhases(accum, train_config.batch_size
+                        * train_config.seq_len)
 
     def value_and_grad(params: Params, tokens: torch.Tensor
                        ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        phases.micro_begin()
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
-        loss = (loss_fn(live, tokens, model_config) if mesh is None
-                else loss_fn(live, tokens, model_config, mesh))
-        return loss.detach(), list(torch.autograd.grad(loss,
-                                                       tree_leaves(live)))
+        with marking_head(phases.head):
+            loss = (loss_fn(live, tokens, model_config) if mesh is None
+                    else loss_fn(live, tokens, model_config, mesh))
+        phases.backward_begin()
+        grads = list(torch.autograd.grad(loss, tree_leaves(live)))
+        phases.backward_end()
+        return loss.detach(), grads
 
     def loss_and_grads(params: Params, tokens: torch.Tensor
                        ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -331,7 +494,9 @@ def make_train_step(model_config: TransformerConfig,
                 f"a rank of a {mesh.data_size}-way data mesh steps on its "
                 f"{rows} rows of the global batch of "
                 f"{train_config.batch_size}, got {tokens.shape[0]}")
+        phases.begin(tokens.device)
         loss, grad_leaves = loss_and_grads(params, tokens)
+        phases.optimizer_begin()
         if mesh is None:
             grad_norm = global_norm(grad_leaves)
         else:
@@ -339,6 +504,7 @@ def make_train_step(model_config: TransformerConfig,
                                             mesh)
         grads = _unflatten(params, grad_leaves)
         opt_state = optimizer.update(grads, opt_state, params, grad_norm)
+        phases.end()
         return params, opt_state, {"loss": loss, "grad_norm": grad_norm}
 
     return step

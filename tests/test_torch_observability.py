@@ -32,6 +32,7 @@ import dataclasses
 import json
 import logging
 import threading
+import time
 import types
 
 import jax
@@ -75,6 +76,8 @@ PKGS = {
         accounting=accounting, flight=flight_recorder),
 }
 both_packages = pytest.mark.parametrize("pkg", sorted(PKGS))
+#: the port recorder's phase columns, in the order they tile a tick
+PHASE_COLUMNS = ("admitS", "prefillS", "dispatchS", "waitS", "applyS")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -340,11 +343,16 @@ def test_snapshot_limit_and_field_names(pkg):
     recorder.record(duration_s=0.25, ts=2.0)
     rows = recorder.snapshot(last_n=1)
     assert len(rows) == 1 and rows[0]["tick"] == 1
-    assert recorder.snapshot()[0] == {
+    expected = {
         "tick": 0, "ts": 1.0, "durationS": 0.5, "admitted": 1,
         "prefillChunks": 2, "decodeSlots": 3, "slotsBusy": 4,
         "queueDepth": 5, "pagesFree": 6, "compiles": 7, "faults": 8,
         "hostDemotions": 9, "hostPromotions": 10}
+    if pkg == "port":
+        # the port's columns: the start defaults to the stamp less the
+        # duration, the phases to 0
+        expected.update(startTs=0.5, **dict.fromkeys(PHASE_COLUMNS, 0.0))
+    assert recorder.snapshot()[0] == expected
     recorder.clear()
     assert recorder.recorded == 0 and recorder.snapshot() == []
     with pytest.raises(ValueError):
@@ -687,7 +695,10 @@ def observed(package, kv_quant):
     clock = FakeClock()
     engine = build(package, kv_quant, clock)
     out = schedule(engine, clock, package)
-    ticks = [{k: v for k, v in row.items() if k != "ts"}
+    # the columns both recorders have, less the wall stamp; the port's
+    # own (its start and phases) are held in the tests below
+    ticks = [{k: v for k, v in row.items()
+              if k not in ("ts", "startTs") + PHASE_COLUMNS}
              for row in engine.flight_recorder.snapshot()]
     totals = {tenant: usage.to_dict()
               for tenant, usage in engine.tenant_meter.totals().items()}
@@ -781,6 +792,140 @@ def test_engine_without_recorder_or_meter_serves_the_same(kv_quant):
     jax_out = schedule(build("jax", kv_quant, clock, hooks=False), clock,
                        "jax")
     assert jax_out["tokens"] == runs[1][0]
+
+
+def decode_until_running(engine, clock, prompt=PROMPT_A, new_tokens=8):
+    """Submit ``prompt`` and tick until its decode steps have begun."""
+    handle = engine.submit(prompt, max_new_tokens=new_tokens, user_key="u")
+    while engine.steps == 0:
+        clock.advance(0.25)
+        engine.step()
+    return handle
+
+
+def test_phase_columns_tile_a_paged_tick(monkeypatch):
+    """On a fake clock moved only inside each phase, every recorded tick's
+    phase columns read exactly what its phases spent, and they tile the
+    tick: their sum plus the recorder's own bookkeeping (here the busy
+    count read in its ``finally``) is ``durationS``."""
+    clock = FakeClock()
+    engine = build("port", "off", clock)
+    costs = dict(admit=0.125, prefill=0.25, dispatch=0.5, wait=1.0,
+                 token=0.0625, busy=0.03125)
+
+    def costing(name, fn):
+        def wrapped(*args, **kwargs):
+            clock.advance(costs[name])
+            return fn(*args, **kwargs)
+        return wrapped
+
+    class Launched:
+        """The step's output, read back only through ``.cpu()``."""
+
+        def __init__(self, tensor):
+            self.tensor = tensor
+
+        def cpu(self):
+            clock.advance(costs["wait"])
+            return self.tensor.cpu()
+
+    run_step = engine._run_step
+    monkeypatch.setattr(engine, "_admit", costing("admit", engine._admit))
+    monkeypatch.setattr(engine, "_advance_prefills",
+                        costing("prefill", engine._advance_prefills))
+    monkeypatch.setattr(engine, "_run_step", costing(
+        "dispatch", lambda: Launched(run_step())))
+    monkeypatch.setattr(engine, "_apply_token_locked", costing(
+        "token", engine._apply_token_locked))
+    monkeypatch.setattr(engine, "_busy_locked",
+                        costing("busy", engine._busy_locked))
+    handle = decode_until_running(engine, clock, new_tokens=3)
+    while engine.has_work():
+        clock.advance(0.25)
+        engine.step()
+    assert handle.result(timeout_s=5)["outcome"] == "completed"
+    rows = engine.flight_recorder.snapshot()
+    decoding = [row for row in rows if row["decodeSlots"]]
+    # three chunks, the last one's tick decoding the first token
+    assert len(rows) == 5 and len(decoding) == 3
+    for row in rows:
+        stepped = row["decodeSlots"]
+        # the admission counts the busy slots once more for each join
+        assert row["admitS"] == pytest.approx(
+            costs["admit"] + costs["busy"] * row["admitted"])
+        assert row["prefillS"] == pytest.approx(costs["prefill"])
+        assert row["dispatchS"] == pytest.approx(costs["dispatch"]
+                                                 * (stepped > 0))
+        assert row["waitS"] == pytest.approx(costs["wait"] * (stepped > 0))
+        assert row["applyS"] == pytest.approx(
+            (costs["token"] + costs["busy"]) * stepped)
+        residual = costs["busy"]                    # the recorder's count
+        assert row["durationS"] == pytest.approx(
+            sum(row[name] for name in PHASE_COLUMNS) + residual)
+
+
+def test_tick_start_follows_the_wall_anchor():
+    """``startTs`` is the tick's start on the wall clock, read from one
+    anchor as a request's wall stamps are: on a fake clock the starts lie
+    exactly as far apart as the clock moved between the ticks."""
+    clock = FakeClock()
+    engine = build("port", "off", clock)
+    before = time.time()
+    handle = decode_until_running(engine, clock, new_tokens=2)
+    after = time.time()
+    while engine.has_work():
+        clock.advance(0.75)
+        engine.step()
+    handle.result(timeout_s=5)
+    starts = [row["startTs"] for row in engine.flight_recorder.snapshot()]
+    assert before <= starts[0] <= after
+    steps = [round(b - a, 6) for a, b in zip(starts, starts[1:])]
+    assert steps[:2] == [0.25, 0.25] and steps[-1] == 0.75
+
+
+def test_tick_without_a_recorder_samples_no_boundary(monkeypatch):
+    """No recorder, no phase boundary: a decode-only tick calls the clock
+    twice, as it did before the recorder had phases (the admission's check
+    of the queue for cancels and the stamp of the emitted tokens); with a
+    recorder, the same tick samples its start, its end and the four
+    boundaries between its phases besides."""
+    counts = {}
+    for hooks in (False, True):
+        calls = []
+        clock = FakeClock()
+        engine = build("port", "off", clock, hooks=hooks)
+        if hooks:
+            engine.tenant_meter = None
+        decode_until_running(engine, clock)
+        monkeypatch.setattr(engine, "clock",
+                            lambda: calls.append(1) or clock())
+        engine.step()
+        counts[hooks] = len(calls)
+    assert counts == {False: 2, True: 2 + 6}
+
+
+def test_compiles_counts_a_cold_library_load_inside_a_tick(monkeypatch):
+    """The ``compiles`` column is the kernel libraries ``cuda_build.load``
+    built or loaded during the tick: a cold load is counted once, the same
+    library loaded again is not."""
+    from tensorhive_tpu_torch.ops import cuda_build
+
+    monkeypatch.setattr(cuda_build, "_libraries", {})
+    monkeypatch.setattr(cuda_build, "build", lambda names: {})
+    monkeypatch.setattr(cuda_build.ctypes, "CDLL", lambda path: object())
+    clock = FakeClock()
+    engine = build("port", "off", clock)
+    admit = engine._admit
+
+    def admit_and_load():
+        cuda_build.load("paged_decode")
+        return admit()
+
+    monkeypatch.setattr(engine, "_admit", admit_and_load)
+    for _ in range(2):
+        engine.step()
+    assert [row["compiles"]
+            for row in engine.flight_recorder.snapshot()] == [1, 0]
 
 
 def test_dominance_signal_reads_the_port_engine(port_meter_state):

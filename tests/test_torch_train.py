@@ -18,12 +18,18 @@ On the same tokens:
   rates (a wrong optimizer moves the mean by a good fraction of them) —
   and no element may be off by more than 2 x the summed learning rates.
 
+* The step's phase record (``train.StepPhases``): one ``train.step`` span
+  with its five phases as children, one step late, tiling the step,
+  marked when a profiler ran, and changing no number — the step's losses
+  and params are bitwise those of the same step written out by hand.
+
 The JAX side runs its plain attention (``use_flash=False``); its own tests
 pin the flash kernels to it, and ``test_torch_flash_backward.py`` pins the
 port's backward to the kernels.
 """
 import dataclasses
 import functools
+import time
 
 import jax
 import jax.numpy as jnp
@@ -37,7 +43,7 @@ from tensorhive_tpu.models import transformer as jax_transformer
 from tensorhive_tpu.models.transformer import PRESETS as JAX_PRESETS
 from tensorhive_tpu.models.transformer import TransformerLM as JaxLM
 from tensorhive_tpu.parallel.mesh import make_mesh
-from tensorhive_tpu_torch import train
+from tensorhive_tpu_torch import observability, train
 from tensorhive_tpu_torch.convert import params_from_jax, params_to_numpy
 from tensorhive_tpu_torch.models import lora, transformer
 from tensorhive_tpu_torch.models.transformer import (
@@ -173,6 +179,116 @@ def test_train_steps_match_jax(accum, max_norm, kv_heads):
         lr_sum += train.make_optimizer(tc).learning_rate(index)
         assert_params_close(params, j_params, lr_sum)
     assert opt_state["count"] == 3
+
+
+def phase_setup(accum=1, chunked=False, **loss):
+    """A tiny f32 model's params, optimizer state, step and batches."""
+    config = dataclasses.replace(
+        PRESETS["tiny"], dtype=torch.float32, n_layers=2, max_seq_len=64,
+        loss_chunk_tokens=16 if chunked else 0)
+    tc = train.TrainConfig(batch_size=4, seq_len=32, warmup_steps=1,
+                           total_steps=10, learning_rate=1e-2,
+                           grad_accum_steps=accum)
+    params, state = train.init_train_state(
+        config, tc, torch.Generator().manual_seed(3), device="cpu")
+    batches = [torch.from_numpy(tokens_for(config, 4, 32, seed=seed))
+               for seed in range(4)]
+    return config, tc, params, state, train.make_train_step(config, tc,
+                                                            **loss), batches
+
+
+def train_spans():
+    """The tracer's train spans: [(step span, {phase: child span})]."""
+    spans = observability.get_tracer().recent(kind="train")
+    steps = [span for span in spans if span["name"] == "train.step"]
+    return [(step, {span["name"].split(".", 1)[1]: span for span in spans
+                    if span["parentId"] == step["spanId"]})
+            for step in steps]
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_step_records_its_phases_one_step_late(accum):
+    """Each step's ``train.step`` span has the five phases as children; it
+    is recorded when the next step begins; on the CPU the phases tile the
+    step, so they sum to its host time within 5%; micro-batches add into
+    one step's phases."""
+    observability.get_tracer().clear()
+    _, tc, params, state, step, batches = phase_setup(accum)
+    hosts = []
+    for index, tokens in enumerate(batches[:3]):
+        started = time.perf_counter()
+        params, state, _ = step(params, state, tokens)
+        hosts.append(time.perf_counter() - started)
+        assert len(train_spans()) == index      # the last one is held
+    recorded = train_spans()
+    for (span, children), host in zip(recorded, hosts):
+        assert span["kind"] == "train" and span["attrs"] == {
+            "tokens": str(tc.batch_size * tc.seq_len), "profiled": "0"}
+        assert list(children) == list(train.STEP_PHASES)
+        phases = [children[name]["durationMs"] for name in train.STEP_PHASES]
+        assert all(ms > 0 for ms in phases), phases
+        assert sum(phases) == pytest.approx(span["durationMs"], rel=1e-3)
+        assert sum(phases) == pytest.approx(1e3 * host, rel=0.05)
+        starts = [children[name]["startTs"] for name in train.STEP_PHASES]
+        assert starts[0] == pytest.approx(span["startTs"], abs=1e-5)
+        assert starts == sorted(starts)
+
+
+def test_step_without_the_lm_head_gives_its_trunk_the_whole_pass():
+    """A loss that never hands the trunk's output to the head's mark (the
+    logits' mean here) leaves both head phases at about 0."""
+    observability.get_tracer().clear()
+    *_, params, state, step, batches = phase_setup(
+        loss_fn=lambda p, tokens, config: TransformerLM.apply(
+            p, tokens[:, :-1], config).mean())
+    for tokens in batches[:2]:
+        params, state, _ = step(params, state, tokens)
+    [(span, children)] = train_spans()
+    for name in ("head_fwd", "head_bwd"):
+        assert children[name]["durationMs"] < 1e-3 * span["durationMs"]
+    assert children["trunk_bwd"]["durationMs"] > 0
+
+
+def test_profiled_step_is_marked():
+    """A step taken while ``torch.profiler`` records carries
+    ``profiled=1``; the steps around it 0."""
+    observability.get_tracer().clear()
+    *_, params, state, step, batches = phase_setup()
+    params, state, _ = step(params, state, batches[0])
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        params, state, _ = step(params, state, batches[1])
+    for tokens in batches[2:]:
+        params, state, _ = step(params, state, tokens)
+    assert [span["attrs"]["profiled"] for span, _ in train_spans()] == [
+        "0", "1", "0"]
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_phase_marks_change_no_number(chunked):
+    """3 steps of ``make_train_step`` give bitwise the losses and params
+    of the same step written out by hand (``TransformerLM.loss``,
+    ``torch.autograd.grad``, ``AdamW.update``): the head's mark and the
+    gradient hook change nothing, on the full and the chunked loss."""
+    config, tc, params, state, step, batches = phase_setup(chunked=chunked)
+    by_hand = {key: value.clone() for key, value in zip(
+        train.leaf_paths(params), train.tree_leaves(params))}
+    hand_params = train._unflatten(params, list(by_hand.values()))
+    hand_state = train.make_optimizer(tc).init(hand_params)
+    optimizer = train.make_optimizer(tc)
+    for tokens in batches[:3]:
+        params, state, metrics = step(params, state, tokens)
+        live = train.tree_map(lambda p: p.detach().requires_grad_(),
+                              hand_params)
+        loss = TransformerLM.loss(live, tokens, config)
+        grads = list(torch.autograd.grad(loss, train.tree_leaves(live)))
+        hand_state = optimizer.update(
+            train._unflatten(hand_params, grads), hand_state, hand_params,
+            train.global_norm(grads))
+        assert torch.equal(metrics["loss"], loss.detach())
+    for ours, theirs in zip(train.tree_leaves(params),
+                            train.tree_leaves(hand_params)):
+        assert torch.equal(ours, theirs)
 
 
 def test_schedule_matches_optax():
