@@ -3771,6 +3771,10 @@ def install_logits_spy(engine):
         return capture["logits"]
 
     engine_module._lm_head = spy
+    if engine._step_graph is not None:
+        # a replay runs no Python: capture the step again, through the spy,
+        # which then holds the graph's logits that each replay refills
+        engine._step_graph.reset()
     return capture, lambda: setattr(engine_module, "_lm_head", head)
 
 

@@ -163,16 +163,24 @@ def _lse_minus_target(logits: torch.Tensor,
     return lse - target_logit
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(d: int, theta: float, device: torch.device) -> torch.Tensor:
+    """RoPE's [d / 2] f32 frequencies ``theta ** (-2i / d)``, made once per
+    (d, theta, device): ``torch.tensor(theta, device=...)`` is a host copy
+    that waits for the device, which a step captured in a CUDA graph
+    cannot hold. Shared read-only by every caller."""
+    exponent = -torch.arange(0, d, 2, dtype=torch.float32,
+                             device=device) / d
+    return torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                  device=device), exponent)
+
+
 def _rope(x: torch.Tensor, positions: torch.Tensor,
           theta: float) -> torch.Tensor:
     """Rotary embedding over the last dim of [B, L, H, D], INTERLEAVED: the
     pairs are ``(x[..., 0::2], x[..., 1::2])`` and the rotated halves are
     re-interleaved — not the half-split layout of common Llama ports."""
-    d = x.shape[-1]
-    exponent = -torch.arange(0, d, 2, dtype=torch.float32,
-                             device=x.device) / d
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=x.device), exponent)
+    freqs = _rope_freqs(x.shape[-1], float(theta), x.device)
     angles = positions[:, :, None, None].to(torch.float32) * freqs
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x[..., 0::2], x[..., 1::2]

@@ -175,11 +175,10 @@ def capture_trace(artifact_dir: str, duration_s: float,
 
 
 def capture_in_flight() -> bool:
-    """Whether a trace capture currently holds the single-flight lock."""
-    if _capture_lock.acquire(blocking=False):
-        _capture_lock.release()
-        return False
-    return True
+    """Whether a trace capture currently holds the single-flight lock (read
+    without taking it: the serving engine asks every tick, and a capture
+    that began at that instant would otherwise be refused)."""
+    return _capture_lock.locked()
 
 
 def capture_from_config(config, duration_s: Optional[float] = None,

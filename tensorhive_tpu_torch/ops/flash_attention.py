@@ -42,7 +42,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, launch_counts
 
 NEG_INF = -1e30
 
@@ -54,6 +54,7 @@ launches: Dict[str, int] = {"bf16": 0, "f32": 0, "bh_bf16": 0, "bh_f32": 0,
 #: launches by (counter of ``launches``, heads, kv_heads): the head counts
 #: a mesh rank launches at
 launch_heads: Dict[Tuple[str, int, int], int] = {}
+launch_counts.register(launches, launch_heads)
 
 
 def _count(key: str, heads: int, kv_heads: int) -> None:

@@ -26,11 +26,11 @@ checks call ``paged_attention_reference`` directly and do not count.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, launch_counts
 from . import kv_quant as kvq
 from .flash_attention import check_head_dim
 
@@ -41,6 +41,7 @@ launches: Dict[str, int] = {"bf16": 0, "f32": 0, "int8": 0}
 #: launches by (page type, heads, kv_heads): the head counts a
 #: serving-mesh rank launches at
 launch_heads: Dict[Tuple[str, int, int], int] = {}
+launch_counts.register(launches, launch_heads)
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAGE_DTYPES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"),
@@ -49,6 +50,9 @@ _PAGE_DTYPES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"),
 #: merge tickets per device, [slots * kv_heads] int32: zero between calls
 #: (the kernel's merging CTA resets its own); one call at a time a device
 _tickets: Dict[int, torch.Tensor] = {}
+#: ticket buffers a larger call replaced: a CUDA graph that captured a call
+#: still launches on its buffer, so none is ever freed
+_retired: List[torch.Tensor] = []
 
 
 def resolve_paged_kernel(mode: str) -> str:
@@ -128,6 +132,8 @@ def _library() -> ctypes.CDLL:
 def _merge_tickets(device: torch.device, count: int) -> torch.Tensor:
     tickets = _tickets.get(device.index)
     if tickets is None or tickets.numel() < count:
+        if tickets is not None:
+            _retired.append(tickets)
         tickets = torch.zeros(max(count, 256), dtype=torch.int32,
                               device=device)
         _tickets[device.index] = tickets

@@ -33,6 +33,18 @@ device side is eager PyTorch:
   and its page-table row points at the trash page; a slot mid-prefill has
   its row sent to the trash page in the step's operand; a freed
   contiguous slot writes its own row at its frozen position.
+* **The step graph** (``step_graph.py``): on the card, without a serving
+  mesh and with the speculative lane off, the decode step is captured once
+  as a CUDA graph (at warmup's step, or the first step of an engine that
+  never warmed up) and replayed every tick over static device operands,
+  each filled by a non-blocking copy from pinned memory. The graph holds
+  the same body and draws from the same registered generator, so its
+  tokens are the eager step's bit for bit; the host then waits on the card
+  instead of enqueueing its launches one by one. Prefills and chunks stay
+  eager, and so does an engine left at ``speculative="auto"``, which turns
+  the lane on on the card, and every step while a device profile is
+  captured (``observability/profiling.py``), so that the trace holds the
+  step's kernels.
 * **Speculative decoding** (``speculative``; ``auto`` = on where the
   engine runs on the card, off on the CPU): a draft model
   (``speculative.py``) proposes ``spec_tokens`` tokens per slot, one
@@ -150,6 +162,7 @@ from ..observability import (
     get_tracer,
 )
 from ..observability.accounting import ANONYMOUS_TENANT
+from ..observability.profiling import capture_in_flight
 from . import EngineDrainingError, QueueFullError, RateLimitError
 from .faults import ServingFaultPlan
 from .flight_recorder import TickMarks
@@ -190,6 +203,7 @@ from .speculative import (
     build_draft,
     resolve_speculative,
 )
+from .step_graph import StepGraph, graphs_the_step
 
 # -- metrics (registered once at import; one exposition surface) -------------
 _REQUESTS = get_registry().counter(
@@ -1139,6 +1153,18 @@ class SlotEngine:
         #: per-slot last legal write position (prompt + max_new - 1); -1
         #: for free slots, so speculative writes to them never land
         self._pos_limits = np.full(self.capacity, -1, np.int32)
+        #: the decode step as a CUDA graph (``step_graph.py``), captured at
+        #: the first step (warmup's) and replayed by every later one
+        self._step_graph: Optional[StepGraph] = None
+        if graphs_the_step(self.device, mesh, self._spec is not None):
+            operands = [(torch.int32, (self.capacity,)),
+                        (torch.int32, (self.capacity,)),
+                        (torch.bool, (self.capacity,)),
+                        (torch.float32, (self.capacity,))]
+            if self.paged:
+                operands.append((torch.int32, self._pool.page_table.shape))
+            self._step_graph = StepGraph(operands, self._generator,
+                                         self.device)
 
         _QUEUE_CAPACITY.set(self.queue_depth)
         _SLOTS_TOTAL.set(self.capacity)
@@ -1851,19 +1877,31 @@ class SlotEngine:
                      page_table: Optional[np.ndarray]
                      ) -> Optional[torch.Tensor]:
         """The decode step's device body; a worker passes no ``active``/
-        ``temps`` (it does not sample) and gets None back."""
+        ``temps`` (it does not sample) and gets None back. An engine with a
+        step graph stages the arrays and replays it, except while a device
+        profile is captured (``step_graph.py``)."""
         if active is None:
             active = np.zeros(self.capacity, bool)
             temps = np.zeros(self.capacity, np.float32)
-        operands = (self._operand(tokens), self._operand(positions),
-                    self._operand(active), self._operand(temps))
+        arrays = [tokens, positions, active, temps]
+        if self.paged:
+            arrays.append(page_table)
+        if self._step_graph is not None and not capture_in_flight():
+            return self._step_graph.run(self._step_on, arrays)
+        return self._step_on(*(self._operand(array) for array in arrays))
+
+    def _step_on(self, tokens: torch.Tensor, positions: torch.Tensor,
+                 active: torch.Tensor, temps: torch.Tensor,
+                 page_table: Optional[torch.Tensor] = None
+                 ) -> Optional[torch.Tensor]:
+        """The decode step's body on device operands."""
         if not self.paged:
-            return _step_body(self.params, *operands, self._cache,
-                              self._generator, self.config, self.top_k,
-                              self._tp)
+            return _step_body(self.params, tokens, positions, active, temps,
+                              self._cache, self._generator, self.config,
+                              self.top_k, self._tp)
         return _paged_step_body(
-            self.params, *operands, self._operand(page_table), self._cache,
-            self._generator, self.config, self.top_k, self._tp)
+            self.params, tokens, positions, active, temps, page_table,
+            self._cache, self._generator, self.config, self.top_k, self._tp)
 
     # -- KV-page tiering internals ------------------------------------------
     #
@@ -3001,15 +3039,15 @@ class SlotEngine:
 
     def release(self) -> None:
         """Drop the device state (weights, KV cache, the draft lane, the
-        copy stream and its pinned staging) of an engine that will not run
-        again — what a supervisor calls after failing it fast — and the
-        host tier's payloads, and end its copy lane's thread. Handles that
-        clients still hold, and the fault's traceback, keep the engine
-        object alive, but no longer its memory. Host bookkeeping (stats'
-        counters, the ledger rows) stays readable. The controller of a
-        serving mesh has its workers release theirs too (``RELEASE``: their
-        draft lanes, staging, shards and lane threads), and a rebuilt
-        engine's ``BUILD`` brings them back."""
+        step graph, the copy stream and its pinned staging) of an engine
+        that will not run again — what a supervisor calls after failing it
+        fast — and the host tier's payloads, and end its copy lane's
+        thread. Handles that clients still hold, and the fault's traceback,
+        keep the engine object alive, but no longer its memory. Host
+        bookkeeping (stats' counters, the ledger rows) stays readable. The
+        controller of a serving mesh has its workers release theirs too
+        (``RELEASE``: their draft lanes, staging, shards and lane threads),
+        and a rebuilt engine's ``BUILD`` brings them back."""
         if (self.mesh is not None and self.mesh.is_controller
                 and self.params is not None and not self.mesh.broken
                 and self._mesh_build == self.mesh.builds):
@@ -3018,6 +3056,8 @@ class SlotEngine:
             self.params = None
             self._cache = None
             self._spec = None
+            if self._step_graph is not None:
+                self._step_graph.close()
             self._copy_stream = None
             self._staging = ()
             self._host_shards = {}
@@ -3036,8 +3076,8 @@ class SlotEngine:
         """Engine snapshot: the JAX engine's ``stats`` under the same key
         names (``meshShape`` "dp x tp" and ``numDevices`` dp·tp;
         ``busySlotSeconds`` null without a tenant meter).
-        ``device``, ``stepDispatches`` and ``prefills`` are the port's
-        own."""
+        ``device``, ``stepDispatches``, ``stepGraphCaptures``,
+        ``stepGraphReplays`` and ``prefills`` are the port's own."""
         def ms(value: Optional[float]) -> Optional[float]:
             return None if value is None else round(value * 1e3, 3)
 
@@ -3100,6 +3140,12 @@ class SlotEngine:
                                     if self.tenant_meter is not None
                                     else None),
                 "stepDispatches": self.step_dispatches,
+                "stepGraphCaptures": (self._step_graph.captures
+                                      if self._step_graph is not None
+                                      else 0),
+                "stepGraphReplays": (self._step_graph.replays
+                                     if self._step_graph is not None
+                                     else 0),
                 "prefills": self.prefills,
                 "ttftP50Ms": ms(self._ttft_hist.quantile(0.5)),
                 "ttftP95Ms": ms(self._ttft_hist.quantile(0.95)),

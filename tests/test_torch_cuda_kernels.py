@@ -954,3 +954,184 @@ def test_tiered_engine_under_the_daemon_thread(device, tmp_path):
     rows = ledger.recent()
     assert [row["outcome"] for row in rows] == ["completed"] * 5
     assert rows[0]["hostHitPages"] == 5
+
+
+def graph_engines(device, layout, dtype=torch.bfloat16, **kwargs):
+    """The tiny GQA model on the card and a factory of its engines on
+    ``layout`` (``test_torch_step_graph.LAYOUTS``)."""
+    from tensorhive_tpu_torch.models.transformer import PRESETS, TransformerLM
+    from tests.test_torch_step_graph import tiny_engine
+
+    config = dataclasses.replace(PRESETS["tiny"], dtype=dtype,
+                                 max_seq_len=128, n_kv_heads=2)
+    params = TransformerLM.init(
+        config, torch.Generator(device=device).manual_seed(24), device=device)
+    return config, lambda: tiny_engine(params, config, layout, device=device,
+                                       **kwargs)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("layout", ["int8", "pages", "contiguous"])
+def test_step_graph_emits_the_eager_tokens(device, layout, temperature):
+    """The decode step replayed as a CUDA graph emits the eager step's
+    tokens bit for bit, over 40 and more ticks of joins, frees, fresh pages
+    and parked slots; with every other request sampled, the Gumbel draws
+    of the registered generator are the eager draws. The capture is
+    warmup's step, every later step a replay, and the kernel counters count
+    the kernels that ran: the paged kernel once a layer a step."""
+    from tests.test_torch_step_graph import kernel_counters, serve_mixed
+
+    counters = kernel_counters()
+
+    def counts():
+        return {name: {key: count for key, count in counter.items() if count}
+                for name, counter in counters.items()}
+
+    def zero():
+        for counter in counters.values():
+            for key in counter:
+                counter[key] = 0
+
+    config, make = graph_engines(device, layout, speculative="off")
+    zero()
+    eager = make()
+    eager._step_graph = None
+    _, want, _ = serve_mixed(eager, temperature)
+    eager_counts = counts()
+    zero()
+    engine = make()
+    _, got, ticks = serve_mixed(engine, temperature)
+    assert got == want
+    # every kernel counter of the ops modules counts what the eager step
+    # counts: one that a replay does not add to would fall short here
+    assert counts() == eager_counts
+    assert ticks >= 40
+    stats = engine.stats()
+    assert stats["stepGraphCaptures"] == 1
+    assert stats["stepGraphReplays"] == engine.steps
+    assert stats["stepDispatches"] == engine.steps + 1
+    paged = 0 if layout == "contiguous" else engine.step_dispatches
+    assert sum(pa.launches.values()) == config.n_layers * paged
+    assert sum(fa.launches.values()) == config.n_layers * engine.prefills
+
+
+def test_step_graph_reset_captures_again_through_a_spy(device):
+    """``reset`` drops the capture: the next step captures the body again,
+    through what Python it calls (here a spy on the LM head, as
+    ``chip_smoke.py`` installs after warmup), and replays at once. The spy
+    then holds the graph's logits, which every replay refills: after each
+    tick they are the eager step's, bit for bit, and so are the tokens."""
+    from tensorhive_tpu_torch.serving import engine as engine_module
+    from tests.test_torch_step_graph import NEW_TOKENS, PROMPT_LENS
+
+    config, make = graph_engines(device, "int8", speculative="off")
+    rng = np.random.default_rng(24)
+    prompts = [rng.integers(1, config.vocab_size, n).tolist()
+               for n in PROMPT_LENS[:4]]
+    head = engine_module._lm_head
+    logits, tokens, engines = {}, {}, {}
+    for graphed in (False, True):
+        engine = engines[graphed] = make()
+        if not graphed:
+            engine._step_graph = None
+        engine.warmup(prompt_lens=(16, 64))
+        capture = {}
+
+        def spy(*args, **kwargs):
+            capture["logits"] = head(*args, **kwargs)
+            return capture["logits"]
+
+        engine_module._lm_head = spy
+        if graphed:
+            engine._step_graph.reset()
+        rows = logits[graphed] = []
+        try:
+            handles = [engine.submit(p, max_new_tokens=n)
+                       for p, n in zip(prompts, NEW_TOKENS)]
+            while engine.has_work():
+                engine.step()
+                if "logits" in capture:
+                    rows.append(capture["logits"].float().cpu())
+        finally:
+            engine_module._lm_head = head
+        tokens[graphed] = [h.result(timeout_s=30)["tokens"] for h in handles]
+    assert tokens[True] == tokens[False]
+    assert len(logits[True]) == len(logits[False]) > 10
+    for got, want in zip(logits[True], logits[False]):
+        assert torch.equal(got, want)
+    stats = engines[True].stats()
+    assert stats["stepGraphCaptures"] == 2
+    assert stats["stepGraphReplays"] == engines[True].steps
+
+
+def test_step_graph_steps_eagerly_while_a_profile_is_captured(device):
+    """While a device-profile capture holds its lock the engine steps
+    eagerly, so that the trace holds the step's kernels, and the graph
+    takes over again after it: the tokens, sampled ones included, are the
+    eager engine's throughout, and every step outside the capture is a
+    replay."""
+    from tensorhive_tpu_torch.observability import profiling
+    from tests.test_torch_step_graph import serve_mixed
+
+    _, make = graph_engines(device, "int8", speculative="off")
+    eager = make()
+    eager._step_graph = None
+    _, want, _ = serve_mixed(eager, 0.8)
+    engine = make()
+    plain = engine.step
+    ticks, profiled = [0], [0]
+
+    def step():
+        ticks[0] += 1
+        if not 5 <= ticks[0] < 15:
+            return plain()
+        before = engine.step_dispatches
+        with profiling._capture_lock:
+            assert profiling.capture_in_flight()
+            stepped = plain()
+        profiled[0] += engine.step_dispatches - before
+        return stepped
+
+    engine.step = step
+    _, got, _ = serve_mixed(engine, 0.8)
+    assert got == want
+    stats = engine.stats()
+    assert profiled[0] >= 5
+    assert stats["stepGraphCaptures"] == 1
+    assert stats["stepGraphReplays"] == engine.steps - profiled[0]
+
+
+def test_step_graph_captures_at_first_use(device):
+    """An engine that never warmed up captures its first step, which runs
+    eagerly, and replays every later one: the same tokens."""
+    from tests.test_torch_step_graph import serve_mixed
+
+    _, make = graph_engines(device, "int8", speculative="off")
+    eager = make()
+    eager._step_graph = None
+    _, want, _ = serve_mixed(eager, warm=False)
+    engine = make()
+    _, got, _ = serve_mixed(engine, warm=False)
+    assert got == want
+    stats = engine.stats()
+    assert stats["stepGraphCaptures"] == 1
+    assert stats["stepGraphReplays"] == engine.steps - 1
+
+
+def test_speculative_engine_steps_eagerly_on_the_card(device):
+    """The speculative lane's propose and verify replace the step and stay
+    eager: no capture, no replay, and its greedy tokens are the graphed
+    plain step's (in f32, as the tiny engine's test above runs the
+    lane)."""
+    from tests.test_torch_step_graph import serve_mixed
+
+    _, make = graph_engines(device, "pages", torch.float32,
+                            speculative="off")
+    _, plain, _ = serve_mixed(make())
+    _, make = graph_engines(device, "pages", torch.float32,
+                            speculative="on")
+    engine = make()
+    _, got, _ = serve_mixed(engine)
+    assert got == plain
+    stats = engine.stats()
+    assert stats["stepGraphCaptures"] == stats["stepGraphReplays"] == 0
